@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # the whole check, about two minutes
+    python3 chip_smoke.py --profile  # also a host/device time split and a
+                                     # torch.profiler table of main-path batches
+
+Phases, in order; any failure exits non-zero:
+
+  1. card      nvidia-smi's name and power limit, torch and CUDA versions
+  2. build     nvcc both kernels from foundationdb_tpu_torch/conflict/csrc
+  3. kernels   each kernel at the bench shape (history h_cap = 3,145,728
+               rows, 65,536-transaction batches, key_words=2) against its
+               plain PyTorch twin on the same CUDA tensors, bit for bit;
+               CUDA-event medians of kernel, plain twin and (where one
+               exists) a single library call, beside the kernel's bound
+  4. main      TorchConflictSet(key_words=2, h_cap=3,145,728) on the bench
+               stream (keys uniform in [0, 2e7), range width 1+U[0,10),
+               1 read + 1 write range per txn, detect at now=i+50 evicting
+               below i): 52 warm-up batches fill the MVCC window, then 8
+               timed batches; both kernels must launch once per batch, with
+               no CPU fallback and a sorted exported history
+  5. vs cpu    the same engine on a reduced stream on the GPU and on the
+               CPU (plain twins): verdicts, witnesses and exported state
+               identical
+  6. result    one JSON line per kernel table, then {"ok": true, ...}
+
+Imports nothing of JAX and nothing of the foundationdb_tpu package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 peak)
+KEYSPACE = 20_000_000
+KEY_BYTES = 4
+KEY_WORDS = 2
+WINDOW = 50
+H_CAP = 3_145_728
+PER_BATCH = 65_536
+WARM = WINDOW + 2
+TIMED = 8
+LIVE = 2_870_000  # steady-state history boundaries of the bench window
+NEW_ROWS = 120_000  # valid new boundaries of one bench batch (of 131,072)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+def cuda_ms(fn, reps: int, flush) -> float:
+    """Median CUDA-event time of fn() over reps runs, the L2 cache flushed
+    before each (the main path finds the history cold)."""
+    import torch
+
+    fn()  # warm
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound(nbytes: int, nops: int):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# the bench stream
+# ---------------------------------------------------------------------------
+
+
+def gen_packed(et, rng, n_txn, batch_index, keyspace=KEYSPACE):
+    """One bench batch: 1 read + 1 write range per txn, int keys uniform in
+    [0, keyspace), width 1 + U[0, 10), snapshot = batch index."""
+    cap = et._next_pow2(n_txn, 8)
+    pb = et.PackedBatch(cap, cap, cap, KEY_WORDS)
+    for begin, end, txn in ((pb.r_begin, pb.r_end, pb.r_txn),
+                            (pb.w_begin, pb.w_end, pb.w_txn)):
+        a = rng.integers(0, keyspace, n_txn, dtype=np.int64)
+        b = a + 1 + rng.integers(0, 10, n_txn, dtype=np.int64)
+        begin[:n_txn] = et.keylib.encode_int_keys(a, KEY_WORDS, KEY_BYTES)
+        end[:n_txn] = et.keylib.encode_int_keys(b, KEY_WORDS, KEY_BYTES)
+        txn[:n_txn] = np.arange(n_txn, dtype=np.int32)
+    pb.r_snap[:n_txn] = batch_index
+    pb.t_snap[:n_txn] = batch_index
+    pb.t_has_reads[:n_txn] = True
+    pb.t_valid[:n_txn] = True
+    pb.n_txn = pb.n_r = pb.n_w = n_txn
+    return pb
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels at the bench shape
+# ---------------------------------------------------------------------------
+
+
+def check_phase1(torch, tk, keylib, rq, flush, gen):
+    dev = torch.device("cuda")
+    kw1 = KEY_WORDS + 1
+    live = LIVE
+    # History: the floor row b"" then `live` distinct sorted 4-byte keys,
+    # INF-padded to h_cap — the carried layout, in the device encoding.
+    keys = torch.randperm(KEYSPACE, device=dev, generator=gen)[: live - 1]
+    keys = torch.sort(keys).values.to(torch.int64)
+    h = torch.full((kw1, H_CAP), keylib.INF_DEV, dtype=torch.int32, device=dev)
+    h[:, 0] = keylib.ZERO_DEV
+    h[0, 1:live] = (keys - 2**31).to(torch.int32)
+    h[1, 1:live] = keylib.ZERO_DEV
+    h[2, 1:live] = KEY_BYTES - 2**31
+    # Queries: one batch's read ranges, sorted with side as the last key.
+    a = torch.randint(0, KEYSPACE, (PER_BATCH,), device=dev, generator=gen)
+    b = a + 1 + torch.randint(0, 10, (PER_BATCH,), device=dev, generator=gen)
+
+    def enc(x):
+        q = torch.empty((kw1, PER_BATCH), dtype=torch.int32, device=dev)
+        q[0] = (x - 2**31).to(torch.int32)
+        q[1] = keylib.ZERO_DEV
+        q[2] = KEY_BYTES - 2**31
+        return q
+
+    q = torch.cat([enc(b), enc(a)], dim=1)
+    side = torch.cat([torch.zeros(PER_BATCH, dtype=torch.int32, device=dev),
+                      torch.ones(PER_BATCH, dtype=torch.int32, device=dev)])
+    perm = rq.lex_argsort([q[w] for w in range(kw1)] + [side])
+    q_s, side_s = q[:, perm].contiguous(), side[perm].contiguous()
+    m = q_s.shape[1]
+
+    got = tk.phase1_ranks(h, q_s, side_s)
+    want = tk.phase1_ranks_reference(h, q_s, side_s)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        raise AssertionError(f"phase1_ranks disagrees with its plain twin (max |diff| {err})")
+    # Library yardstick: torch.searchsorted over an int64 packing of the
+    # words.  Exact here because word 1 is constant across every live row
+    # and query at 4-byte keys: pack (word 0, length word); a right rank
+    # of p is the left rank of p + 1.
+    if not (bool((h[1, :live] == keylib.ZERO_DEV).all())
+            and bool((q_s[1] == keylib.ZERO_DEV).all())):
+        raise AssertionError("word 1 is not constant; the int64 packing is inexact")
+    packed_h = (h[0].to(torch.int64) << 32) | (h[2].to(torch.int64) + 2**31)
+    packed_q = (q_s[0].to(torch.int64) << 32) | (q_s[2].to(torch.int64) + 2**31)
+    values = packed_q + side_s.to(torch.int64)
+
+    def library():
+        return torch.searchsorted(packed_h, values, out_int32=True)
+
+    lib_err = int((library() - got).abs().max())
+    if lib_err != 0:
+        raise AssertionError(f"library yardstick disagrees (max |diff| {lib_err})")
+
+    ms = cuda_ms(lambda: tk.phase1_ranks(h, q_s, side_s), 20, flush)
+    plain_ms = cuda_ms(lambda: tk.phase1_ranks_reference(h, q_s, side_s), 5, flush)
+    library_ms = cuda_ms(library, 20, flush)
+    # Bytes the search needs: word 0 of every history row and query; the
+    # higher words only where word 0 ties (this run's data: a history row
+    # whose word 0 some query holds, a query whose word 0 some row holds);
+    # the sides in, the ranks out.
+    h_ties = int(torch.isin(h[0], q_s[0]).sum())
+    q_ties = int(torch.isin(q_s[0], h[0]).sum())
+    nbytes = 4 * (H_CAP + (kw1 - 1) * h_ties + m + (kw1 - 1) * q_ties + m + m)
+    steps = int(np.ceil(np.log2(H_CAP))) + 1
+    bound_ms, bound_by = bound(nbytes, m * steps * 2 * kw1)
+    return dict(
+        name="phase1_ranks", route="cuda",
+        source="foundationdb_tpu_torch/conflict/csrc/phase1_search.cu",
+        replaces="foundationdb_tpu/conflict/kernels.py:553",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms, bytes=nbytes,
+        detail=f"history word-0 ties {h_ties}, query word-0 ties {q_ties}",
+    )
+
+
+def check_merge(torch, tk, flush, gen):
+    dev = torch.device("cuda")
+    kw1 = KEY_WORDS + 1
+    width = NA = H_CAP
+    NB = 2 * PER_BATCH
+    live_a = LIVE
+    # A: the history's live rows, ~1% of them overwritten by the batch's
+    # segments (keep = 0); B: the batch's sorted new boundaries, ~92%
+    # valid.  Positions partition [0, merged_count): B's are a random
+    # sorted subset, A's the rest in order.  Versions uniform in [0, 50)
+    # against window 10 evict ~4% of the merged rows, about one batch's
+    # share of a 50-batch window.
+    keep_a = torch.zeros(NA, dtype=torch.int32, device=dev)
+    keep_a[:live_a] = (torch.rand(live_a, device=dev, generator=gen) > 0.01).to(torch.int32)
+    n_keep_a = int(keep_a.sum())
+    n_b = NEW_ROWS
+    keep_b = torch.zeros(NB, dtype=torch.int32, device=dev)
+    keep_b[:n_b] = 1
+    mc = n_keep_a + n_b
+    slots = torch.randperm(mc, device=dev, generator=gen)
+    b_slots = torch.sort(slots[:n_b]).values
+    in_b = torch.zeros(mc, dtype=torch.bool, device=dev)
+    in_b[b_slots] = True
+    a_slots = torch.nonzero(~in_b).flatten()
+    pos_a = torch.full((NA,), 2**31 - 1, dtype=torch.int32, device=dev)
+    pos_a[keep_a != 0] = a_slots.to(torch.int32)
+    pos_b = torch.full((NB,), 2**31 - 1, dtype=torch.int32, device=dev)
+    pos_b[:n_b] = b_slots.to(torch.int32)
+
+    def words(n):
+        return torch.randint(-(2**31), 2**31 - 1, (kw1, n), dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def vers(n):
+        return torch.randint(0, 50, (n,), dtype=torch.int32, device=dev, generator=gen)
+
+    args = (words(NA), vers(NA), keep_a, pos_a, words(NB), vers(NB), keep_b, pos_b,
+            torch.tensor(mc, dtype=torch.int32, device=dev),
+            torch.tensor(10, dtype=torch.int32, device=dev))
+    ok, ov, oc = tk.fused_merge_evict(*args, width=width)
+    rk, rv, rc = tk.fused_merge_evict_reference(*args, width=width)
+    n = int(rc)
+    if int(oc) != n:
+        raise AssertionError(f"fused_merge_evict count {int(oc)} != plain {n}")
+    err = max(int((ok[:, :n].to(torch.int64) - rk[:, :n].to(torch.int64)).abs().max()),
+              int((ov[:n].to(torch.int64) - rv[:n].to(torch.int64)).abs().max()))
+    if err != 0:
+        raise AssertionError(f"fused_merge_evict disagrees with its plain twin (max |diff| {err})")
+    ms = cuda_ms(lambda: tk.fused_merge_evict(*args, width=width), 20, flush)
+    plain_ms = cuda_ms(lambda: tk.fused_merge_evict_reference(*args, width=width), 5, flush)
+    # Bytes the merge needs: every row's keep flag; key words, version and
+    # position of the kept rows only; the two scalars; the survivors and
+    # the count out.
+    nbytes = 4 * (NA + NB + (kw1 + 2) * mc + 2 + (kw1 + 1) * n + 1)
+    bound_ms, bound_by = bound(nbytes, 8 * mc)
+    return dict(
+        name="fused_merge_evict", route="cuda",
+        source="foundationdb_tpu_torch/conflict/csrc/merge_evict.cu",
+        replaces="foundationdb_tpu/conflict/kernels.py:394",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, bytes=nbytes,
+        detail=f"merged rows {mc}, surviving rows {n}",
+    )
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the engine
+# ---------------------------------------------------------------------------
+
+
+def history_sorted(torch, rq, cs) -> int:
+    keys_u32, _vers, n, _oldest, _base = cs.export_state()
+    if not 1 <= n <= cs.h_cap:
+        raise AssertionError(f"history count {n} outside [1, {cs.h_cap}]")
+    from foundationdb_tpu_torch.conflict.keys import INF_WORD, to_device_words
+
+    k = torch.from_numpy(to_device_words(keys_u32[:, :n]).copy())
+    if n > 1 and not bool(rq.lex_less(k[:, :-1], k[:, 1:]).all()):
+        raise AssertionError("exported history keys are not strictly sorted")
+    if not (keys_u32[:, n:] == INF_WORD).all():
+        raise AssertionError("history rows past the count are not INF")
+    return n
+
+
+def main_path(torch, et, tk, rq, profile: bool):
+    rng = np.random.default_rng(2026)
+    batches = [gen_packed(et, rng, PER_BATCH, i)
+               for i in range(WARM + TIMED + (4 if profile else 0))]
+    cs = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=H_CAP)
+    t0 = time.perf_counter()
+    for i in range(WARM):
+        cs.detect_packed(batches[i], now=i + WINDOW, new_oldest_version=i)
+    torch.cuda.synchronize()
+    log(f"main: {WARM} warm-up batches in {time.perf_counter() - t0:.3f} s, "
+        f"boundaries {cs.boundary_count}")
+    fallbacks0, syncs0, rounds0 = cs.cpu_fallbacks, cs.host_syncs, cs.fixpoint_rounds
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    per_batch = []
+    t0 = time.perf_counter()
+    for i in range(WARM, WARM + TIMED):
+        tb = time.perf_counter()
+        statuses = cs.detect_packed(batches[i], now=i + WINDOW, new_oldest_version=i)
+        per_batch.append((time.perf_counter() - tb) * 1e3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    for name, n in launches.items():
+        if n != TIMED:
+            raise AssertionError(f"{name} launched {n} times in {TIMED} main-path batches")
+    if cs.cpu_fallbacks != fallbacks0 or cs.cpu_fallbacks != 0:
+        raise AssertionError(f"cpu_fallbacks = {cs.cpu_fallbacks}")
+    if cs.h_cap != H_CAP:
+        raise AssertionError(f"history grew to {cs.h_cap}")
+    s = statuses[:PER_BATCH]
+    if not ((s >= 0) & (s <= 2)).all() or not (s == 2).any():
+        raise AssertionError("verdicts out of range or none committed")
+    n = history_sorted(torch, rq, cs)
+    tps = TIMED * PER_BATCH / dt
+    log(f"main: {TIMED} timed batches x {PER_BATCH} txns in {dt:.6f} s: "
+        f"{tps:.1f} txn/s, {dt / TIMED * 1e3:.3f} ms/batch "
+        f"(per batch ms {[round(x, 3) for x in per_batch]}), "
+        f"conflicts {int((s == 0).sum())}/{PER_BATCH} in the last batch, "
+        f"boundaries {n}, host syncs/batch {(cs.host_syncs - syncs0) / TIMED}, "
+        f"fixpoint rounds/batch {(cs.fixpoint_rounds - rounds0) / TIMED}, "
+        f"card {torch.cuda.get_device_name(0)}")
+    if profile:
+        profile_batches(torch, cs, batches[WARM + TIMED:], WARM + TIMED)
+    return launches, tps
+
+
+def profile_batches(torch, cs, batches, first):
+    """Where a main-path batch's time goes: a host-clock split of two
+    batches (pack alone; dispatch = pack + upload + step enqueue + the
+    fixpoint's host checks; device drain; readback = verdicts + witness
+    decode), then torch.profiler over two more for device time by kernel
+    and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    half = len(batches) // 2
+    for j, pb in enumerate(batches[:half]):
+        i = first + j
+        t0 = time.perf_counter()
+        cs._pack_blob(pb, i + WINDOW, i)
+        t1 = time.perf_counter()
+        statuses, undecided = cs.dispatch_packed(pb, now=i + WINDOW, new_oldest_version=i)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        cs.readback_packed(pb, statuses, undecided, i + WINDOW, i)
+        t4 = time.perf_counter()
+        log(f"split batch {i}: pack {1e3 * (t1 - t0):.3f} ms, dispatch "
+            f"{1e3 * (t2 - t1):.3f} ms, device drain {1e3 * (t3 - t2):.3f} ms, "
+            f"readback+witness decode {1e3 * (t4 - t3):.3f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j, pb in enumerate(batches[half:]):
+            i = first + half + j
+            cs.detect_packed(pb, now=i + WINDOW, new_oldest_version=i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # Device-side events only: an aten op's own row repeats its kernels' time.
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA)
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    log(f"profile: {len(batches) - half} batches, wall {wall_ms:.3f} ms under the "
+        f"profiler, device busy {busy_us / 1e3:.3f} ms, idle share "
+        f"{1 - busy_us / 1e3 / wall_ms:.4f}")
+    log(table)
+
+
+def versus_cpu(torch, et):
+    n_txn, h_cap, batches, window = 4096, 1 << 16, 12, 4
+    rng = np.random.default_rng(7)
+    stream = [gen_packed(et, rng, n_txn, i, keyspace=200_000) for i in range(batches)]
+    gpu = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=h_cap)
+    cpu = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=h_cap, device="cpu")
+    conflicts = 0
+    for i, pb in enumerate(stream):
+        g = gpu.detect_packed(pb, now=i + window, new_oldest_version=i)
+        c = cpu.detect_packed(pb, now=i + window, new_oldest_version=i)
+        if not (g == c).all():
+            raise AssertionError(f"batch {i}: GPU and CPU verdicts differ")
+        if gpu.last_witness != cpu.last_witness or gpu.last_iters != cpu.last_iters:
+            raise AssertionError(f"batch {i}: GPU and CPU witness/iters differ")
+        for a, b in zip(gpu.export_state(), cpu.export_state()):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"batch {i}: GPU and CPU exported state differ")
+        conflicts += int((g[:n_txn] == 0).sum())
+    if conflicts == 0:
+        raise AssertionError("reduced stream produced no conflicts")
+    log(f"vs cpu: {batches} batches x {n_txn} txns identical on GPU and CPU "
+        f"(verdicts, witnesses, iters, keys/vers/count/oldest/base); "
+        f"{conflicts} conflicts, boundaries {gpu.boundary_count}, "
+        f"grows {gpu.grows}, cpu_fallbacks {gpu.cpu_fallbacks}")
+
+
+# ---------------------------------------------------------------------------
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from foundationdb_tpu_torch.conflict import _build
+    from foundationdb_tpu_torch.conflict import engine_torch as et
+    from foundationdb_tpu_torch.conflict import keys as keylib
+    from foundationdb_tpu_torch.conflict import kernels as tk
+    from foundationdb_tpu_torch.ops import rangequery as rq
+
+    profile = "--profile" in argv
+    # 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+
+    # 2. build
+    secs, logs = _build.timed_build()
+    for name, text in logs.items():
+        log(f"build {name}:\n{text.strip()}")
+    log(f"build: {secs:.3f} s")
+
+    # 3. kernels
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device="cuda")
+    rows = [check_phase1(torch, tk, keylib, rq, flush, gen),
+            check_merge(torch, tk, flush, gen)]
+    del flush
+    for r in rows:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.6f}"
+        log(f"kernel {r['name']}: kernel_ms {r['ms']:.6f} plain_ms {r['plain_ms']:.6f} "
+            f"bound_us {r['bound_ms'] * 1e3:.3f} ({r['bound_by']}, {r['bytes']} B) "
+            f"library_ms {lib} max_abs_err {r['max_abs_err']} ({r['detail']}) "
+            f"[{kind}, {smi}]")
+
+    # 4. main path
+    launches, _tps = main_path(torch, et, tk, rq, profile)
+    # 5. held against the CPU
+    versus_cpu(torch, et)
+
+    # 6. result
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

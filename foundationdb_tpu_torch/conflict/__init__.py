@@ -1,0 +1,7 @@
+"""MVCC conflict detection on the GPU (the port of ``foundationdb_tpu.conflict``).
+
+Same semantics as the reference package: a step function key ->
+last-committed-write version, too-old / history / intra-batch conflicts in
+batch order, committed writes merged at ``now``, and the removeBefore
+eviction rule.  Only the flat single-device engine is ported so far.
+"""

@@ -1,0 +1,206 @@
+"""The port's CUDA kernels and engine on the card (``cuda`` marker).
+
+Each test needs an NVIDIA GPU and nvcc and skips without one.  This file
+imports neither jax nor the reference package, so it also runs where only
+PyTorch is installed; the repository's conftest imports jax, so there run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Shapes are chosen to hit the kernels' edges: widths that are not a
+multiple of the merge tile, empty streams, five key words, INF queries.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from foundationdb_tpu_torch.conflict import engine_torch as et
+from foundationdb_tpu_torch.conflict import kernels as tk
+from foundationdb_tpu_torch.conflict.keys import to_device_words
+from foundationdb_tpu_torch.conflict.state import state_from_jax
+from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as TT
+
+pytestmark = pytest.mark.cuda
+
+INF = 0xFFFFFFFF
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+def _words(a, dev):
+    return torch.from_numpy(to_device_words(a).copy()).to(dev)
+
+
+@pytest.mark.parametrize("kw1,N,live,M", [
+    (3, 1000, 700, 300), (5, 4096, 4096, 1024), (1, 7, 3, 9), (3, 100_000, 90_000, 4099),
+])
+def test_phase1_ranks_kernel_matches_plain(dev, kw1, N, live, M):
+    r = np.random.default_rng(N + M)
+    h = np.full((kw1, N), INF, np.uint32)
+    rows = r.integers(0, 64, size=(live, kw1)).astype(np.uint32)
+    rows = rows[np.lexsort(rows.T[::-1])]
+    h[:, :live] = rows.T
+    q = r.integers(0, 64, size=(kw1, M)).astype(np.uint32)
+    q[:, : M // 3] = h[:, r.integers(0, N, size=M // 3)]  # hits, INF rows too
+    side = r.integers(0, 2, size=M).astype(np.int32)
+    order = np.lexsort((side,) + tuple(q[w] for w in range(kw1 - 1, -1, -1)))
+    hq = _words(h, dev)
+    qq = _words(np.ascontiguousarray(q[:, order]), dev)
+    ss = torch.from_numpy(side[order].copy()).to(dev)
+    before = tk.LAUNCHES["phase1_ranks"]
+    got = tk.phase1_ranks(hq, qq, ss)
+    assert tk.LAUNCHES["phase1_ranks"] == before + 1
+    want = tk.phase1_ranks_reference(hq, qq, ss)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kw1,width,NA,NB,liveA,liveB,window", [
+    (3, 1000, 1000, 64, 600, 40, 0),
+    (3, 257, 257, 16, 0, 0, 0),            # empty, ragged tile
+    (5, 5000, 4000, 512, 3500, 500, -(2**30)),  # floor window keeps all
+    (3, 300_000, 300_000, 8192, 250_000, 8000, 10),
+])
+def test_fused_merge_evict_kernel_matches_plain(dev, kw1, width, NA, NB, liveA, liveB, window):
+    r = np.random.default_rng(width + NB)
+    keepA = np.zeros(NA, np.int32)
+    keepA[r.choice(NA, size=liveA, replace=False)] = 1
+    keepB = np.zeros(NB, np.int32)
+    keepB[r.choice(NB, size=liveB, replace=False)] = 1
+    mc = liveA + liveB
+    a_slots = np.sort(r.choice(mc, size=liveA, replace=False))
+    b_slots = np.setdiff1d(np.arange(mc), a_slots)
+    posA = np.full(NA, 2**31 - 1, np.int32)
+    posA[keepA != 0] = a_slots
+    posB = np.full(NB, 2**31 - 1, np.int32)
+    posB[keepB != 0] = b_slots
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    args = (
+        t(r.integers(-(2**31), 2**31 - 1, (kw1, NA))), t(r.integers(0, 50, NA)),
+        t(keepA), t(posA),
+        t(r.integers(-(2**31), 2**31 - 1, (kw1, NB))), t(r.integers(0, 50, NB)),
+        t(keepB), t(posB),
+        torch.tensor(mc, dtype=torch.int32, device=dev),
+        torch.tensor(window, dtype=torch.int32, device=dev),
+    )
+    before = tk.LAUNCHES["fused_merge_evict"]
+    ok, ov, oc = tk.fused_merge_evict(*args, width=width)
+    assert tk.LAUNCHES["fused_merge_evict"] == before + 1
+    rk, rv, rc = tk.fused_merge_evict_reference(*args, width=width)
+    n = int(rc)
+    assert int(oc) == n
+    assert torch.equal(ok[:, :n], rk[:, :n]) and torch.equal(ov[:n], rv[:n])
+
+
+def test_engine_on_the_card_matches_the_cpu(dev):
+    """A reduced bench-shaped stream through TorchConflictSet on the GPU
+    and on the CPU: identical verdicts, witnesses and exported state."""
+    rng = np.random.default_rng(3)
+    n = 2000
+    gpu = et.TorchConflictSet(key_words=2, h_cap=1 << 13)
+    cpu = et.TorchConflictSet(key_words=2, h_cap=1 << 13, device="cpu")
+    for i in range(10):
+        cap = et._next_pow2(n, 8)
+        pb = et.PackedBatch(cap, cap, cap, 2)
+        for begin, end, txn in ((pb.r_begin, pb.r_end, pb.r_txn),
+                                (pb.w_begin, pb.w_end, pb.w_txn)):
+            a = rng.integers(0, 100_000, n)
+            begin[:n] = et.keylib.encode_int_keys(a, 2, 4)
+            end[:n] = et.keylib.encode_int_keys(a + 1 + rng.integers(0, 10, n), 2, 4)
+            txn[:n] = np.arange(n, dtype=np.int32)
+        pb.r_snap[:n] = pb.t_snap[:n] = i
+        pb.t_has_reads[:n] = pb.t_valid[:n] = True
+        pb.n_txn = pb.n_r = pb.n_w = n
+        g = gpu.detect_packed(pb, now=i + 3, new_oldest_version=i)
+        c = cpu.detect_packed(pb, now=i + 3, new_oldest_version=i)
+        assert (g == c).all()
+        assert gpu.last_witness == cpu.last_witness
+        assert gpu.last_iters == cpu.last_iters
+        for x, y in zip(gpu.export_state(), cpu.export_state()):
+            assert np.array_equal(x, y)
+    assert gpu.grows >= 1 and gpu.cpu_fallbacks == 0
+
+
+BUCKETS = (32, 128, 64)
+
+
+def _k(i: int) -> bytes:
+    return b"%08d" % i
+
+
+def _stream(seed, keyspace, batches, txns_per_batch, snap_lag=25):
+    r = np.random.default_rng(seed)
+    version, out = 10, []
+    for _ in range(batches):
+        txns = []
+        for _ in range(int(r.integers(1, txns_per_batch + 1))):
+            t = TT(read_snapshot=max(0, version - int(r.integers(0, snap_lag))))
+            for _ in range(int(r.integers(0, 4))):
+                a = int(r.integers(0, keyspace))
+                t.read_ranges.append((_k(a), _k(a + 1 + int(r.integers(0, keyspace // 8)))))
+            for _ in range(int(r.integers(0, 3))):
+                a = int(r.integers(0, keyspace))
+                t.write_ranges.append((_k(a), _k(a + 1 + int(r.integers(0, keyspace // 10)))))
+            txns.append(t)
+        now = version + int(r.integers(1, 10))
+        out.append((txns, now, max(0, version - snap_lag)))
+        version = now
+    return out
+
+
+def _run_both(stream, gpu, cpu):
+    for txns, now, nov in stream:
+        assert gpu.detect(txns, now, nov) == cpu.detect(txns, now, nov)
+        assert gpu.last_witness == cpu.last_witness
+        assert gpu.last_iters == cpu.last_iters
+        for x, y in zip(gpu.export_state(), cpu.export_state()):
+            assert np.array_equal(x, y)
+
+
+def test_divergence_on_the_card_matches_the_cpu(dev):
+    """A dependency chain overflows the residual domain mid-stream: on the
+    card the step leaves the history unchanged, the batch is re-decided on
+    the flat CPU engine and adopted back (load_from), and the kernels go
+    on from that state exactly as the CPU run's plain twins do."""
+    stream = _stream(7, 50, batches=8, txns_per_batch=20)
+    chain = [TT(read_snapshot=stream[2][1], read_ranges=[(_k(t), _k(t) + b"\x00")],
+                write_ranges=[(_k(t + 1), _k(t + 1) + b"\x00")]) for t in range(70)]
+    stream.insert(3, (chain, stream[2][1] + 1, 0))
+    for i in range(4, len(stream)):
+        txns, now, nov = stream[i]
+        stream[i] = (txns, now + 1, nov)
+    gpu = et.TorchConflictSet(key_words=3, h_cap=64, bucket_mins=BUCKETS)
+    cpu = et.TorchConflictSet(key_words=3, h_cap=64, bucket_mins=BUCKETS, device="cpu")
+    before = dict(tk.LAUNCHES)
+    _run_both(stream, gpu, cpu)
+    assert gpu.cpu_fallbacks == cpu.cpu_fallbacks == 1
+    assert gpu.grows >= 1 and gpu.h_cap == cpu.h_cap
+    for name in tk.LAUNCHES:
+        assert tk.LAUNCHES[name] - before[name] == len(stream)
+
+
+def test_carried_state_on_the_card_matches_the_cpu(dev):
+    """A state exported mid-stream from one engine (an h_cap that is neither
+    a power of two nor a multiple of the merge tile) is loaded into a GPU
+    and a CPU engine; both continue identically."""
+    stream = _stream(19, 60, batches=12, txns_per_batch=30)
+    src = et.TorchConflictSet(key_words=3, h_cap=1000, bucket_mins=BUCKETS, device="cpu")
+    for txns, now, nov in stream[:6]:
+        src.detect(txns, now, nov)
+    exported = src.export_state()
+    gpu = et.TorchConflictSet(key_words=3, h_cap=64, bucket_mins=BUCKETS)
+    cpu = et.TorchConflictSet(key_words=3, h_cap=64, bucket_mins=BUCKETS, device="cpu")
+    gpu.load_state(state_from_jax(*exported))
+    cpu.load_state(state_from_jax(*exported, device="cpu"))
+    for x, y in zip(gpu.export_state(), exported):
+        assert np.array_equal(x, y)
+    before = dict(tk.LAUNCHES)
+    _run_both(stream[6:], gpu, cpu)
+    assert gpu.cpu_fallbacks == 0 and gpu.h_cap == cpu.h_cap
+    for name in tk.LAUNCHES:
+        assert tk.LAUNCHES[name] - before[name] == len(stream) - 6

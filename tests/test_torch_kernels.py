@@ -1,0 +1,168 @@
+"""The port's two kernel wrappers against the reference's Pallas kernels.
+
+On the CPU a wrapper takes its kernel's plain PyTorch twin; these tests
+hold that path bit for bit against the JAX kernels run in interpret mode
+(as tests/test_kernels.py runs them) and against the reference's
+searchsorted_words.  The compiled CUDA kernels are held against the same
+plain twins on the card by tests/test_torch_cuda.py (skipped without a
+GPU) and by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from foundationdb_tpu.conflict import kernels as jk
+from foundationdb_tpu.ops.rangequery import searchsorted_words as j_search
+from foundationdb_tpu_torch.conflict import kernels as tk
+from foundationdb_tpu_torch.conflict.keys import from_device_words, to_device_words
+
+FLOOR = -(2**30)
+INF = 0xFFFFFFFF
+
+
+def _tw(words_u32):
+    return torch.from_numpy(to_device_words(words_u32).copy())
+
+
+def _history_and_queries(seed, N, live, R):
+    r = np.random.default_rng(seed)
+    hk = np.full((3, N), INF, np.uint32)
+    vals = np.sort(r.choice(2**20, size=live, replace=False)).astype(np.uint32)
+    hk[0, :live] = vals >> 10
+    hk[1, :live] = vals & 1023
+    hk[2, :live] = 7
+
+    def enc(q):
+        out = np.zeros((3, R), np.uint32)
+        out[0], out[1], out[2] = q >> 10, q & 1023, 7
+        return out
+
+    rb = enc(r.choice(2**20, size=R).astype(np.uint32))
+    re_ = enc(r.choice(2**20, size=R).astype(np.uint32))
+    rb[:, : R // 4] = hk[:, r.integers(0, live, size=R // 4)]  # exact hits
+    rb[:, -2:] = INF  # padding-row queries rank too
+    re_[:, -1:] = INF
+    return hk, rb, re_
+
+
+SEARCH_CASES = [(1024, 700, 64), (512, 1, 16), (2048, 2048, 256), (4096, 3000, 512)]
+
+
+@pytest.mark.parametrize("N,live,R", SEARCH_CASES)
+def test_phase1_ranks_plain_vs_pallas_interpret(N, live, R):
+    """Sorted queries in, ranks in sorted order out — the kernel contract,
+    against the JAX phase1_ranks in interpret mode."""
+    hk, rb, re_ = _history_and_queries(N + R, N, live, R)
+    q = np.concatenate([re_, rb], axis=1)
+    side = np.concatenate([np.zeros(R, np.int32), np.ones(R, np.int32)])
+    order = np.lexsort((side, q[2], q[1], q[0]))
+    q_s, side_s = np.ascontiguousarray(q[:, order]), side[order]
+    want = np.asarray(jk.phase1_ranks(
+        jnp.asarray(hk), jnp.asarray(q_s), jnp.asarray(side_s), interpret=True))
+    got = tk.phase1_ranks(_tw(hk), _tw(q_s), torch.from_numpy(side_s))
+    assert got.dtype == torch.int32
+    assert (got.numpy() == want).all()
+    # ... and against searchsorted_words per side over the full width.
+    left = np.asarray(j_search(jnp.asarray(hk), jnp.asarray(q_s), "left"))
+    right = np.asarray(j_search(jnp.asarray(hk), jnp.asarray(q_s), "right"))
+    assert (got.numpy() == np.where(side_s != 0, right, left)).all()
+
+
+@pytest.mark.parametrize("N,live,R", SEARCH_CASES)
+def test_phase1_search_vs_pallas_interpret(N, live, R):
+    hk, rb, re_ = _history_and_queries(N * 3 + R, N, live, R)
+    wi0, wj1 = jk.phase1_search(jnp.asarray(hk), jnp.asarray(rb),
+                                jnp.asarray(re_), interpret=True)
+    i0, j1 = tk.phase1_search(_tw(hk), _tw(rb), _tw(re_))
+    assert (i0.numpy() == np.asarray(wi0)).all()
+    assert (j1.numpy() == np.asarray(wj1)).all()
+    ((ti0, tj1),) = tk.phase1_search_tiers((_tw(hk),), _tw(rb), _tw(re_))
+    assert (ti0 == i0).all() and (tj1 == j1).all()
+
+
+def _merge_inputs(width, NA, NB, liveA, liveB, seed):
+    r = np.random.default_rng(seed)
+    keepA = np.zeros(NA, bool)
+    keepA[r.choice(NA, size=liveA, replace=False)] = True
+    keepB = np.zeros(NB, bool)
+    keepB[r.choice(NB, size=liveB, replace=False)] = True
+    mc = liveA + liveB
+    assert mc <= width
+    a_slots = np.sort(r.choice(mc, size=liveA, replace=False))
+    b_slots = np.setdiff1d(np.arange(mc), a_slots)
+    posA = np.full(NA, 123456789, np.int32)
+    posA[np.where(keepA)[0]] = a_slots
+    posB = np.full(NB, 987654321, np.int32)
+    posB[np.where(keepB)[0]] = b_slots
+    versA = r.integers(-100, 100, NA).astype(np.int32)
+    versB = r.integers(-100, 100, NB).astype(np.int32)
+    kA = r.integers(0, 2**32, (3, NA), dtype=np.uint32)
+    kB = r.integers(0, 2**32, (3, NB), dtype=np.uint32)
+    return (kA, versA, keepA, posA, kB, versB, keepB, posB, mc)
+
+
+MERGE_CASES = [
+    (512, 512, 64, 300, 40),
+    (256, 256, 16, 100, 10),
+    (1024, 1024, 128, 777, 100),
+    (256, 256, 16, 0, 0),       # empty
+    (256, 256, 16, 1, 16),      # singleton A, full B
+    (2048, 2048, 256, 1792, 256),  # full width
+]
+
+
+@pytest.mark.parametrize("window", [0, 37, FLOOR], ids=["evict0", "evict37", "floor"])
+@pytest.mark.parametrize("case", MERGE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_fused_merge_evict_plain_vs_pallas_interpret(case, window):
+    width, NA, NB, la, lb = case
+    kA, vA, keepA, pA, kB, vB, keepB, pB, mc = _merge_inputs(
+        width, NA, NB, la, lb, seed=width + la)
+    jok, jov, joc = jk.fused_merge_evict(
+        jnp.asarray(kA), jnp.asarray(vA), jnp.asarray(keepA), jnp.asarray(pA),
+        jnp.asarray(kB), jnp.asarray(vB), jnp.asarray(keepB), jnp.asarray(pB),
+        jnp.asarray(mc, jnp.int32), jnp.asarray(window, jnp.int32),
+        width=width, kw1=3, interpret=True,
+    )
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    ok, ov, oc = tk.fused_merge_evict(
+        _tw(kA), i32(vA), i32(keepA), i32(pA),
+        _tw(kB), i32(vB), i32(keepB), i32(pB),
+        torch.tensor(mc, dtype=torch.int32), torch.tensor(window, dtype=torch.int32),
+        width=width,
+    )
+    n = int(joc)
+    assert int(oc) == n
+    # Rows at and past the count are undefined on both sides.
+    assert (from_device_words(ok.numpy()[:, :n]) == np.asarray(jok)[:, :n]).all()
+    assert (ov.numpy()[:n] == np.asarray(jov)[:n]).all()
+    if window == FLOOR:
+        assert n == mc
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    hk, rb, re_ = _history_and_queries(3, 256, 100, 16)
+    before = dict(tk.LAUNCHES)
+    i0, j1 = tk.phase1_search(_tw(hk), _tw(rb), _tw(re_))
+    kA, vA, keepA, pA, kB, vB, keepB, pB, mc = _merge_inputs(256, 256, 16, 50, 8, 1)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    tk.fused_merge_evict(
+        _tw(kA), i32(vA), i32(keepA), i32(pA), _tw(kB), i32(vB), i32(keepB),
+        i32(pB), torch.tensor(mc, dtype=torch.int32),
+        torch.tensor(0, dtype=torch.int32), width=256)
+    assert tk.LAUNCHES == before
+
+
+def test_wrappers_check_their_arguments():
+    hk, rb, re_ = _history_and_queries(4, 256, 100, 16)
+    side = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tk.phase1_ranks(_tw(hk).to(torch.int64), _tw(rb), side)
+    with pytest.raises(ValueError):
+        tk.phase1_ranks(_tw(hk), _tw(rb)[:2].contiguous(), side)
+    with pytest.raises(ValueError):
+        tk.phase1_ranks(_tw(hk), _tw(rb).t().contiguous().t(), side)
+    with pytest.raises(ValueError):
+        tk.phase1_ranks(_tw(hk).to("meta"), _tw(rb).to("meta"), side.to("meta"))
