@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # the whole check, about two minutes
     python3 chip_smoke.py --profile  # also a host/device time split and a
                                      # torch.profiler table of main-path batches
+    python3 chip_smoke.py --stamps   # also the search kernel's time by phase,
+                                     # block by block (a -DPHASE1_STAMPS build)
 
 Phases, in order; any failure exits non-zero:
 
@@ -13,7 +15,10 @@ Phases, in order; any failure exits non-zero:
                rows, 65,536-transaction batches, key_words=2) against its
                plain PyTorch twin on the same CUDA tensors, bit for bit;
                CUDA-event medians of kernel, plain twin and (where one
-               exists) a single library call, beside the kernel's bound
+               exists) a single library call, beside the kernel's bound;
+               the search also with a warm L2, and bit for bit on a second
+               full-width input: 64 distinct word-0 values (the key in
+               word 1, so every compare ties on word 0) and Zipf queries
   4. main      TorchConflictSet(key_words=2, h_cap=3,145,728) on the bench
                stream (keys uniform in [0, 2e7), range width 1+U[0,10),
                1 read + 1 write range per txn, detect at now=i+50 evicting
@@ -80,6 +85,24 @@ def cuda_ms(fn, reps: int, flush) -> float:
     return float(np.median(times))
 
 
+def cuda_ms_warm(fn, reps: int) -> float:
+    """CUDA-event time of fn() averaged over reps back-to-back runs on the
+    same inputs, so the L2 holds what the last run read.  A GPU-side sleep
+    first keeps the host's launch cost out of the window."""
+    import torch
+
+    fn()  # warm
+    torch.cuda._sleep(10_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def bound(nbytes: int, nops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / INT32_OPS_PER_S * 1e3
@@ -116,20 +139,57 @@ def gen_packed(et, rng, n_txn, batch_index, keyspace=KEYSPACE):
 # ---------------------------------------------------------------------------
 
 
-def check_phase1(torch, tk, keylib, rq, flush, gen):
+def sorted_queries(torch, rq, kw1, enc, a, b):
+    """One batch's read ranges [a, b) as phase-1 queries: the ends on side 0,
+    the begins on side 1, sorted with side as the last key."""
+    dev = a.device
+    n = a.shape[0]
+    q = torch.cat([enc(b), enc(a)], dim=1)
+    side = torch.cat([torch.zeros(n, dtype=torch.int32, device=dev),
+                      torch.ones(n, dtype=torch.int32, device=dev)])
+    perm = rq.lex_argsort([q[w] for w in range(kw1)] + [side])
+    return q[:, perm].contiguous(), side[perm].contiguous()
+
+
+def phase1_against_plain(torch, tk, h, q_s, side_s, what):
+    got = tk.phase1_ranks(h, q_s, side_s)
+    want = tk.phase1_ranks_reference(h, q_s, side_s)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        raise AssertionError(f"phase1_ranks disagrees with its plain twin on {what} "
+                             f"(max |diff| {err})")
+    return got, err
+
+
+def phase1_bound(torch, h, q_s):
+    """Bytes the search needs: word 0 of every history row and query; the
+    higher words only where word 0 ties (this run's data: a history row
+    whose word 0 some query holds, a query whose word 0 some row holds); the
+    sides in, the ranks out.  Returns (bound_ms, bound_by, bytes, detail)."""
+    kw1, n = h.shape
+    m = q_s.shape[1]
+    h_ties = int(torch.isin(h[0], q_s[0]).sum())
+    q_ties = int(torch.isin(q_s[0], h[0]).sum())
+    nbytes = 4 * (n + (kw1 - 1) * h_ties + m + (kw1 - 1) * q_ties + m + m)
+    steps = int(np.ceil(np.log2(n))) + 1
+    bound_ms, bound_by = bound(nbytes, m * steps * 2 * kw1)
+    return bound_ms, bound_by, nbytes, f"history word-0 ties {h_ties}, query word-0 ties {q_ties}"
+
+
+def bench_search_input(torch, keylib, rq, gen):
+    """The search at the bench shape: the floor row b"" then LIVE - 1
+    distinct sorted 4-byte keys, INF-padded to h_cap (the carried layout, in
+    the device encoding), and one batch's read ranges as queries."""
     dev = torch.device("cuda")
     kw1 = KEY_WORDS + 1
-    live = LIVE
-    # History: the floor row b"" then `live` distinct sorted 4-byte keys,
-    # INF-padded to h_cap — the carried layout, in the device encoding.
-    keys = torch.randperm(KEYSPACE, device=dev, generator=gen)[: live - 1]
+    keys = torch.randperm(KEYSPACE, device=dev, generator=gen)[: LIVE - 1]
     keys = torch.sort(keys).values.to(torch.int64)
     h = torch.full((kw1, H_CAP), keylib.INF_DEV, dtype=torch.int32, device=dev)
     h[:, 0] = keylib.ZERO_DEV
-    h[0, 1:live] = (keys - 2**31).to(torch.int32)
-    h[1, 1:live] = keylib.ZERO_DEV
-    h[2, 1:live] = KEY_BYTES - 2**31
-    # Queries: one batch's read ranges, sorted with side as the last key.
+    h[0, 1:LIVE] = (keys - 2**31).to(torch.int32)
+    h[1, 1:LIVE] = keylib.ZERO_DEV
+    h[2, 1:LIVE] = KEY_BYTES - 2**31
     a = torch.randint(0, KEYSPACE, (PER_BATCH,), device=dev, generator=gen)
     b = a + 1 + torch.randint(0, 10, (PER_BATCH,), device=dev, generator=gen)
 
@@ -140,24 +200,46 @@ def check_phase1(torch, tk, keylib, rq, flush, gen):
         q[2] = KEY_BYTES - 2**31
         return q
 
-    q = torch.cat([enc(b), enc(a)], dim=1)
-    side = torch.cat([torch.zeros(PER_BATCH, dtype=torch.int32, device=dev),
-                      torch.ones(PER_BATCH, dtype=torch.int32, device=dev)])
-    perm = rq.lex_argsort([q[w] for w in range(kw1)] + [side])
-    q_s, side_s = q[:, perm].contiguous(), side[perm].contiguous()
-    m = q_s.shape[1]
+    return (h,) + sorted_queries(torch, rq, kw1, enc, a, b)
 
-    got = tk.phase1_ranks(h, q_s, side_s)
-    want = tk.phase1_ranks_reference(h, q_s, side_s)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if err != 0:
-        raise AssertionError(f"phase1_ranks disagrees with its plain twin (max |diff| {err})")
+
+def skewed_search_input(torch, keylib, rq, gen):
+    """The search on a second full-width input: word 0 takes only 64 values
+    and word 1 carries the key, so nearly every compare ties on word 0, and
+    the queries are Zipf-skewed (theta 0.9, the soak workload's default)
+    over the history's keys.  Returns (h, q, side, hottest key's count)."""
+    dev = torch.device("cuda")
+    kw1 = KEY_WORDS + 1
+    keys = torch.randperm(KEYSPACE, device=dev, generator=gen)[: LIVE - 1]
+    keys = torch.sort(keys).values.to(torch.int64)
+
+    def enc(x):
+        q = torch.empty((kw1, x.shape[0]), dtype=torch.int32, device=dev)
+        q[0] = (x * 64 // KEYSPACE - 2**31).to(torch.int32)
+        q[1] = (x - 2**31).to(torch.int32)
+        q[2] = KEY_BYTES - 2**31
+        return q
+
+    h = torch.full((kw1, H_CAP), keylib.INF_DEV, dtype=torch.int32, device=dev)
+    h[:, 0] = keylib.ZERO_DEV
+    h[:, 1:LIVE] = enc(keys)
+    weights = torch.arange(1, LIVE, device=dev, dtype=torch.float64) ** -0.9
+    hot = torch.randperm(LIVE - 1, device=dev, generator=gen)
+    zipf_rank = torch.multinomial(weights, PER_BATCH, replacement=True, generator=gen)
+    a = keys[hot[zipf_rank]]
+    b = a + 1 + torch.randint(0, 10, (PER_BATCH,), device=dev, generator=gen)
+    top = int(torch.bincount(zipf_rank).max())
+    return (h,) + sorted_queries(torch, rq, kw1, enc, a, b) + (top,)
+
+
+def check_phase1(torch, tk, keylib, rq, flush, gen):
+    h, q_s, side_s = bench_search_input(torch, keylib, rq, gen)
+    got, err = phase1_against_plain(torch, tk, h, q_s, side_s, "the bench shape")
     # Library yardstick: torch.searchsorted over an int64 packing of the
     # words.  Exact here because word 1 is constant across every live row
     # and query at 4-byte keys: pack (word 0, length word); a right rank
     # of p is the left rank of p + 1.
-    if not (bool((h[1, :live] == keylib.ZERO_DEV).all())
+    if not (bool((h[1, :LIVE] == keylib.ZERO_DEV).all())
             and bool((q_s[1] == keylib.ZERO_DEV).all())):
         raise AssertionError("word 1 is not constant; the int64 packing is inexact")
     packed_h = (h[0].to(torch.int64) << 32) | (h[2].to(torch.int64) + 2**31)
@@ -172,25 +254,106 @@ def check_phase1(torch, tk, keylib, rq, flush, gen):
         raise AssertionError(f"library yardstick disagrees (max |diff| {lib_err})")
 
     ms = cuda_ms(lambda: tk.phase1_ranks(h, q_s, side_s), 20, flush)
+    warm_ms = cuda_ms_warm(lambda: tk.phase1_ranks(h, q_s, side_s), 50)
     plain_ms = cuda_ms(lambda: tk.phase1_ranks_reference(h, q_s, side_s), 5, flush)
     library_ms = cuda_ms(library, 20, flush)
-    # Bytes the search needs: word 0 of every history row and query; the
-    # higher words only where word 0 ties (this run's data: a history row
-    # whose word 0 some query holds, a query whose word 0 some row holds);
-    # the sides in, the ranks out.
-    h_ties = int(torch.isin(h[0], q_s[0]).sum())
-    q_ties = int(torch.isin(q_s[0], h[0]).sum())
-    nbytes = 4 * (H_CAP + (kw1 - 1) * h_ties + m + (kw1 - 1) * q_ties + m + m)
-    steps = int(np.ceil(np.log2(H_CAP))) + 1
-    bound_ms, bound_by = bound(nbytes, m * steps * 2 * kw1)
+    library_warm_ms = cuda_ms_warm(library, 50)
+    bound_ms, bound_by, nbytes, detail = phase1_bound(torch, h, q_s)
     return dict(
         name="phase1_ranks", route="cuda",
         source="foundationdb_tpu_torch/conflict/csrc/phase1_search.cu",
         replaces="foundationdb_tpu/conflict/kernels.py:553",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms, bytes=nbytes,
-        detail=f"history word-0 ties {h_ties}, query word-0 ties {q_ties}",
+        detail=f"{detail}; warm L2: kernel_ms {warm_ms:.6f} library_ms {library_warm_ms:.6f}",
     )
+
+
+def check_phase1_skewed(torch, tk, keylib, rq, flush, gen):
+    """The search on the skewed, tie-heavy input, bit for bit against its
+    plain twin, and its time and a library call's with the L2 flushed."""
+    h, q_s, side_s, top = skewed_search_input(torch, keylib, rq, gen)
+    got, err = phase1_against_plain(torch, tk, h, q_s, side_s, "the skewed input")
+    # Library yardstick, exact here because word 0 is a function of word 1
+    # (the key's bucket) on every row and query: pack (word 1, length word).
+    packed_h = (h[1].to(torch.int64) << 32) | (h[2].to(torch.int64) + 2**31)
+    packed_q = (q_s[1].to(torch.int64) << 32) | (q_s[2].to(torch.int64) + 2**31)
+    values = packed_q + side_s.to(torch.int64)
+
+    def library():
+        return torch.searchsorted(packed_h, values, out_int32=True)
+
+    lib_err = int((library() - got).abs().max())
+    if lib_err != 0:
+        raise AssertionError(f"skewed library yardstick disagrees (max |diff| {lib_err})")
+    ms = cuda_ms(lambda: tk.phase1_ranks(h, q_s, side_s), 20, flush)
+    library_ms = cuda_ms(library, 20, flush)
+    bound_ms, bound_by, nbytes, detail = phase1_bound(torch, h, q_s)
+    log(f"kernel phase1_ranks skewed input (64 word-0 values, Zipf 0.9 queries, "
+        f"hottest key {top} of {PER_BATCH} begins): kernel_ms {ms:.6f} library_ms "
+        f"{library_ms:.6f} bound_us {bound_ms * 1e3:.3f} ({bound_by}, {nbytes} B) "
+        f"max_abs_err {err} ({detail})")
+
+
+def search_stamps(torch, keylib, rq, flush, gen):
+    """--stamps: where the search kernel's time goes, block by block.  Builds
+    phase1_search.cu with -DPHASE1_STAMPS (a %globaltimer stamp per block,
+    after a barrier, at the start of each numbered phase and at the end),
+    runs it on both inputs with the L2 flushed and warm, and prints each
+    phase's median, 90th percentile and largest duration over the blocks.
+    The stamps add barriers, so this build is not the timed kernel."""
+    import ctypes
+
+    from foundationdb_tpu_torch.conflict import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / "libphase1_search_stamps.so"
+    out = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DPHASE1_STAMPS", "-o", str(so),
+                          str(_build.CSRC / "phase1_search.cu")],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"stamped search build failed:\n{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(str(so))
+    for fn, args in _build.SIGNATURES["phase1_search"].items():
+        getattr(lib, fn).argtypes = list(args)
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.phase1_stamps_set.argtypes = [ctypes.c_void_p]
+    lib.phase1_stamps_blocks.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+    lib.phase1_stamps_blocks.restype = ctypes.c_longlong
+    phases = 5  # stamp k opens phase k; stamp 6 ends the kernel
+    inputs = (("bench shape", bench_search_input(torch, keylib, rq, gen)),
+              ("skewed input", skewed_search_input(torch, keylib, rq, gen)[:3]))
+    for label, (h, q_s, side_s) in inputs:
+        kw1, n = h.shape
+        m = q_s.shape[1]
+        blocks = lib.phase1_stamps_blocks(n, m)
+        ranks = torch.empty(m, dtype=torch.int32, device="cuda")
+        stamps = torch.zeros((blocks, phases + 1), dtype=torch.int64, device="cuda")
+        if lib.phase1_stamps_set(stamps.data_ptr()) != 0:
+            raise RuntimeError("phase1_stamps_set failed")
+
+        def run():
+            err = lib.phase1_ranks_launch(h.data_ptr(), n, q_s.data_ptr(), side_s.data_ptr(),
+                                          ranks.data_ptr(), m, kw1,
+                                          torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"stamped search: CUDA error {err} at launch")
+
+        for temp in ("cold", "warm"):
+            run()
+            if temp == "cold":
+                flush.zero_()
+            run()
+            torch.cuda.synchronize()
+            t = stamps.cpu().numpy()
+            t0 = t[:, 0].min()
+            cells = []
+            for k in range(phases):
+                p50, p90, top = np.percentile(t[:, k + 1] - t[:, k], [50, 90, 100])
+                cells.append(f"{k + 1}. {p50:.0f}/{p90:.0f}/{top:.0f}")
+            log(f"stamps {label}, L2 {temp}: blocks {blocks}, span {t[:, phases].max() - t0} ns, "
+                f"block start p50/max {np.percentile(t[:, 0] - t0, 50):.0f}/"
+                f"{(t[:, 0] - t0).max()} ns; per phase p50/p90/max ns: " + "; ".join(cells))
 
 
 def check_merge(torch, tk, flush, gen):
@@ -363,6 +526,14 @@ def profile_batches(torch, cs, batches, first):
     log(f"profile: {len(batches) - half} batches, wall {wall_ms:.3f} ms under the "
         f"profiler, device busy {busy_us / 1e3:.3f} ms, idle share "
         f"{1 - busy_us / 1e3 / wall_ms:.4f}")
+    # The hand-written kernels as the main path runs them, beside phase 3's
+    # cold and warm times (whether the main path finds the history in L2).
+    ours = ("phase1_ranks_kernel", "scatter_rows", "tile_counts_kernel",
+            "scan_counts_kernel", "write_survivors_kernel")
+    for e in events:
+        if e.device_type == DeviceType.CUDA and any(k in e.key for k in ours):
+            log(f"profile kernel {e.key}: {e.count} launches, "
+                f"{e.self_device_time_total / max(e.count, 1) / 1e3:.6f} ms each")
     log(table)
 
 
@@ -410,6 +581,7 @@ def main(argv) -> int:
     from foundationdb_tpu_torch.ops import rangequery as rq
 
     profile = "--profile" in argv
+    stamps = "--stamps" in argv
     # 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -432,6 +604,9 @@ def main(argv) -> int:
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device="cuda")
     rows = [check_phase1(torch, tk, keylib, rq, flush, gen),
             check_merge(torch, tk, flush, gen)]
+    check_phase1_skewed(torch, tk, keylib, rq, flush, gen)
+    if stamps:
+        search_stamps(torch, keylib, rq, flush, gen)
     del flush
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.6f}"

@@ -36,20 +36,69 @@ def _words(a, dev):
     return torch.from_numpy(to_device_words(a).copy()).to(dev)
 
 
-@pytest.mark.parametrize("kw1,N,live,M", [
-    (3, 1000, 700, 300), (5, 4096, 4096, 1024), (1, 7, 3, 9), (3, 100_000, 90_000, 4099),
+def _p(kw1, N, live, M, mode="random"):
+    name = f"{kw1}-{N}-{live}-{M}" + ("" if mode == "random" else f"-{mode}")
+    return pytest.param(kw1, N, live, M, mode, id=name)
+
+
+# The kernel cuts the merged sequence of rows and queries into diagonals of
+# 6,656 items, streams a later word where a block's rows share a prefix, and
+# settles ties on the spot only in blocks of at most 512 queries; these
+# shapes put the partition, the streamed word and both tie paths at their
+# edges.
+@pytest.mark.parametrize("kw1,N,live,M,mode", [
+    _p(3, 1000, 700, 300), _p(5, 4096, 4096, 1024), _p(1, 7, 3, 9), _p(3, 100_000, 90_000, 4099),
+    _p(3, 1, 1, 50),                   # N = 1
+    _p(3, 100_000, 99_000, 1),         # M = 1
+    _p(3, 500, 400, 40_000),           # N << M: diagonals of queries only
+    _p(1, 30_001, 30_001, 7_777),      # N + M not a multiple of the diagonal
+    _p(3, 20_000, 15_000, 20_000, "equal"),  # every query one history key
+    _p(2, 20_000, 15_000, 9000, "inf"),      # every query INF
+    _p(3, 20_000, 15_000, 3000, "below"),    # every query below row 0
+    _p(5, 20_000, 20_000, 1000, "tie"),      # word 0 constant: every compare ties
+    _p(8, 20_000, 20_000, 3000, "tie"),      # ... in blocks of over 512 queries
+    _p(3, 50_001, 40_000, 20_000, "hot"),    # 90% of queries on 10 keys
+    _p(4, 40_000, 40_000, 6000, "prefix"),   # long runs of a two-word prefix
+    _p(3, 30_001, 25_000, 5000, "unaligned"),  # history not 16-byte aligned
 ])
-def test_phase1_ranks_kernel_matches_plain(dev, kw1, N, live, M):
+def test_phase1_ranks_kernel_matches_plain(dev, kw1, N, live, M, mode):
     r = np.random.default_rng(N + M)
     h = np.full((kw1, N), INF, np.uint32)
     rows = r.integers(0, 64, size=(live, kw1)).astype(np.uint32)
+    if mode == "tie":
+        rows[:, 0] = 7
+    if mode == "below":
+        rows[:, 0] += 1
+    if mode == "prefix":
+        rows[:, 0] = r.integers(0, 3, size=live)
+        rows[:, 1] = 5
     rows = rows[np.lexsort(rows.T[::-1])]
     h[:, :live] = rows.T
     q = r.integers(0, 64, size=(kw1, M)).astype(np.uint32)
-    q[:, : M // 3] = h[:, r.integers(0, N, size=M // 3)]  # hits, INF rows too
+    if mode in ("random", "unaligned"):
+        q[:, : M // 3] = h[:, r.integers(0, N, size=M // 3)]  # hits, INF rows too
+    elif mode == "equal":
+        q[:] = h[:, [live // 2]]
+    elif mode == "inf":
+        q[:] = INF
+    elif mode == "below":
+        q[0] = 0
+    elif mode == "tie":
+        q[0] = 7
+    elif mode == "prefix":
+        q[0] = r.integers(0, 3, size=M)
+        q[1, r.random(M) < 0.9] = 5
+    elif mode == "hot":
+        hot = h[:, r.integers(0, live, size=10)]
+        pick = r.random(M) < 0.9
+        q[:, pick] = hot[:, r.integers(0, 10, size=int(pick.sum()))]
     side = r.integers(0, 2, size=M).astype(np.int32)
     order = np.lexsort((side,) + tuple(q[w] for w in range(kw1 - 1, -1, -1)))
     hq = _words(h, dev)
+    if mode == "unaligned":  # a contiguous view 4 bytes past a 16-byte boundary
+        buf = torch.empty(kw1 * N + 1, dtype=torch.int32, device=dev)
+        buf[1:] = hq.flatten()
+        hq = buf[1:].view(kw1, N)
     qq = _words(np.ascontiguousarray(q[:, order]), dev)
     ss = torch.from_numpy(side[order].copy()).to(dev)
     before = tk.LAUNCHES["phase1_ranks"]
