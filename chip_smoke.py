@@ -18,7 +18,10 @@ Phases, in order; any failure exits non-zero:
                exists) a single library call, beside the kernel's bound;
                the search also with a warm L2, and bit for bit on a second
                full-width input: 64 distinct word-0 values (the key in
-               word 1, so every compare ties on word 0) and Zipf queries
+               word 1, so every compare ties on word 0) and Zipf queries;
+               the merge also with a warm L2, and bit for bit and timed on
+               a second full-width input with heavy eviction (window above
+               90% of the versions, runs of up to 1,000 dropped rows)
   4. main      TorchConflictSet(key_words=2, h_cap=3,145,728) on the bench
                stream (keys uniform in [0, 2e7), range width 1+U[0,10),
                1 read + 1 write range per txn, detect at now=i+50 evicting
@@ -68,13 +71,15 @@ def log(msg: str) -> None:
 
 def cuda_ms(fn, reps: int, flush) -> float:
     """Median CUDA-event time of fn() over reps runs, the L2 cache flushed
-    before each (the main path finds the history cold)."""
+    before each (the main path finds the history cold).  A GPU-side sleep
+    after the flush keeps the host's launch cost out of the window."""
     import torch
 
     fn()  # warm
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -356,20 +361,28 @@ def search_stamps(torch, keylib, rq, flush, gen):
                 f"{(t[:, 0] - t0).max()} ns; per phase p50/p90/max ns: " + "; ".join(cells))
 
 
-def check_merge(torch, tk, flush, gen):
+def merge_input(torch, gen, window, drop_run=0):
+    """One full-width merge input.  A: the history's live rows, ~1% of them
+    overwritten by the batch's segments (keep = 0), and with drop_run also
+    runs of 1 to drop_run dropped rows (one run start in 5,000 rows, ~10%
+    of the rows), as after a wide write segment.  B: the batch's sorted new
+    boundaries, ~92% valid.  Positions partition [0, merged_count): B's are
+    a random sorted subset, A's the rest in order.  Versions uniform in
+    [0, 50): window 10 evicts ~4% of the merged rows, about one batch's
+    share of a 50-batch window; window 45 puts 90% of the versions below
+    it, as after a large removeBefore jump.  Returns (args, merged_count)."""
     dev = torch.device("cuda")
     kw1 = KEY_WORDS + 1
-    width = NA = H_CAP
-    NB = 2 * PER_BATCH
-    live_a = LIVE
-    # A: the history's live rows, ~1% of them overwritten by the batch's
-    # segments (keep = 0); B: the batch's sorted new boundaries, ~92%
-    # valid.  Positions partition [0, merged_count): B's are a random
-    # sorted subset, A's the rest in order.  Versions uniform in [0, 50)
-    # against window 10 evict ~4% of the merged rows, about one batch's
-    # share of a 50-batch window.
+    NA, NB = H_CAP, 2 * PER_BATCH
     keep_a = torch.zeros(NA, dtype=torch.int32, device=dev)
-    keep_a[:live_a] = (torch.rand(live_a, device=dev, generator=gen) > 0.01).to(torch.int32)
+    keep_a[:LIVE] = (torch.rand(LIVE, device=dev, generator=gen) > 0.01).to(torch.int32)
+    if drop_run:
+        starts = torch.nonzero(torch.rand(LIVE, device=dev, generator=gen) < 2e-4).flatten()
+        ends = starts + torch.randint(1, drop_run + 1, starts.shape, device=dev, generator=gen)
+        edge = torch.zeros(LIVE + 1, dtype=torch.int32, device=dev)
+        edge.index_add_(0, starts, torch.ones_like(starts, dtype=torch.int32))
+        edge.index_add_(0, ends.clamp(max=LIVE), -torch.ones_like(ends, dtype=torch.int32))
+        keep_a[:LIVE][torch.cumsum(edge[:LIVE], 0) > 0] = 0
     n_keep_a = int(keep_a.sum())
     n_b = NEW_ROWS
     keep_b = torch.zeros(NB, dtype=torch.int32, device=dev)
@@ -394,30 +407,75 @@ def check_merge(torch, tk, flush, gen):
 
     args = (words(NA), vers(NA), keep_a, pos_a, words(NB), vers(NB), keep_b, pos_b,
             torch.tensor(mc, dtype=torch.int32, device=dev),
-            torch.tensor(10, dtype=torch.int32, device=dev))
+            torch.tensor(window, dtype=torch.int32, device=dev))
+    return args, mc
+
+
+def merge_against_plain(torch, tk, args, width, what):
+    """The kernel against its plain twin, bit for bit over the first count
+    rows; returns (count, max |diff|)."""
     ok, ov, oc = tk.fused_merge_evict(*args, width=width)
     rk, rv, rc = tk.fused_merge_evict_reference(*args, width=width)
     n = int(rc)
+    faults = tk.merge_contract_faults(ok.device)
+    if faults:
+        raise AssertionError(f"fused_merge_evict found {faults} order faults on {what}")
     if int(oc) != n:
-        raise AssertionError(f"fused_merge_evict count {int(oc)} != plain {n}")
+        raise AssertionError(f"fused_merge_evict count {int(oc)} != plain {n} on {what}")
     err = max(int((ok[:, :n].to(torch.int64) - rk[:, :n].to(torch.int64)).abs().max()),
               int((ov[:n].to(torch.int64) - rv[:n].to(torch.int64)).abs().max()))
     if err != 0:
-        raise AssertionError(f"fused_merge_evict disagrees with its plain twin (max |diff| {err})")
-    ms = cuda_ms(lambda: tk.fused_merge_evict(*args, width=width), 20, flush)
+        raise AssertionError(f"fused_merge_evict disagrees with its plain twin on {what} "
+                             f"(max |diff| {err})")
+    return n, err
+
+
+def merge_bound(args, mc, n, width):
+    """Bytes the merge needs under its order contract: every row's keep
+    flag; the merged rows' versions; B's kept positions (A's follow from
+    them); the survivors' key words; the two scalars; the survivors' key
+    words and versions and the count out.  Returns (bound_ms, bound_by,
+    bytes)."""
+    kw1, na = args[0].shape
+    nb = args[4].shape[1]
+    merged = min(mc, width)
+    kept_b = int((args[6] != 0).sum())
+    nbytes = 4 * (na + nb + merged + kept_b + kw1 * n + 2 + (kw1 + 1) * n + 1)
+    return bound(nbytes, 8 * merged) + (nbytes,)
+
+
+def check_merge(torch, tk, flush, gen):
+    width = H_CAP
+    args, mc = merge_input(torch, gen, 10)
+    n, err = merge_against_plain(torch, tk, args, width, "the bench shape")
+
+    def run():
+        return tk.fused_merge_evict(*args, width=width)
+
+    ms = cuda_ms(run, 20, flush)
+    warm_ms = cuda_ms_warm(run, 50)
     plain_ms = cuda_ms(lambda: tk.fused_merge_evict_reference(*args, width=width), 5, flush)
-    # Bytes the merge needs: every row's keep flag; key words, version and
-    # position of the kept rows only; the two scalars; the survivors and
-    # the count out.
-    nbytes = 4 * (NA + NB + (kw1 + 2) * mc + 2 + (kw1 + 1) * n + 1)
-    bound_ms, bound_by = bound(nbytes, 8 * mc)
+    bound_ms, bound_by, nbytes = merge_bound(args, mc, n, width)
+    log(f"kernel fused_merge_evict bench shape, warm L2 (50 back-to-back): "
+        f"kernel_ms {warm_ms:.6f}")
+    # Heavy eviction, bit for bit and timed with the L2 flushed.
+    h_args, h_mc = merge_input(torch, gen, 45, drop_run=1000)
+    h_n, h_err = merge_against_plain(torch, tk, h_args, width, "the heavy-eviction input")
+    h_ms = cuda_ms(lambda: tk.fused_merge_evict(*h_args, width=width), 20, flush)
+    h_bound_ms, h_bound_by, h_bytes = merge_bound(h_args, h_mc, h_n, width)
+    kept_a = int((h_args[2] != 0).sum())
+    log(f"kernel fused_merge_evict heavy-eviction input (window 45 over versions in "
+        f"[0, 50), runs of 1-1000 dropped A rows; kept A rows {kept_a}, merged rows "
+        f"{h_mc}, surviving rows {h_n}): kernel_ms {h_ms:.6f} bound_us "
+        f"{h_bound_ms * 1e3:.3f} ({h_bound_by}, {h_bytes} B) max_abs_err {h_err}")
+    del h_args
     return dict(
         name="fused_merge_evict", route="cuda",
         source="foundationdb_tpu_torch/conflict/csrc/merge_evict.cu",
         replaces="foundationdb_tpu/conflict/kernels.py:394",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None, bytes=nbytes,
-        detail=f"merged rows {mc}, surviving rows {n}",
+        detail=f"merged rows {mc}, surviving rows {n}; warm L2: kernel_ms {warm_ms:.6f}",
     )
 
 
@@ -468,6 +526,9 @@ def main_path(torch, et, tk, rq, profile: bool):
             raise AssertionError(f"{name} launched {n} times in {TIMED} main-path batches")
     if cs.cpu_fallbacks != fallbacks0 or cs.cpu_fallbacks != 0:
         raise AssertionError(f"cpu_fallbacks = {cs.cpu_fallbacks}")
+    faults = tk.merge_contract_faults("cuda")
+    if faults:
+        raise AssertionError(f"the merge found {faults} order faults on the main path")
     if cs.h_cap != H_CAP:
         raise AssertionError(f"history grew to {cs.h_cap}")
     s = statuses[:PER_BATCH]
@@ -528,8 +589,7 @@ def profile_batches(torch, cs, batches, first):
         f"{1 - busy_us / 1e3 / wall_ms:.4f}")
     # The hand-written kernels as the main path runs them, beside phase 3's
     # cold and warm times (whether the main path finds the history in L2).
-    ours = ("phase1_ranks_kernel", "scatter_rows", "tile_counts_kernel",
-            "scan_counts_kernel", "write_survivors_kernel")
+    ours = ("phase1_ranks_kernel", "merge_index_kernel", "merge_tiles_kernel")
     for e in events:
         if e.device_type == DeviceType.CUDA and any(k in e.key for k in ours):
             log(f"profile kernel {e.key}: {e.count} launches, "

@@ -41,19 +41,21 @@ SIGNATURES = {
         ),
     },
     "merge_evict": {
-        # a_keys, a_vers, a_keep, a_pos, na, b_keys, b_vers, b_keep,
-        # b_pos, nb, merged_count, window, kw1, width, s_keys, s_vers,
-        # tile_counts, tile_offsets, out_keys, out_vers, out_count, stream
+        # a_keys, a_vers, a_keep, na, b_keys, b_vers, b_keep, b_pos, nb,
+        # merged_count, window, kw1, width, scratch, out_keys, out_vers,
+        # out_count, faults, stream
         "fused_merge_evict_launch": (
-            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64,
+            _c_ptr, _c_ptr, _c_ptr, _c_i64,
             _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64,
             _c_ptr, _c_ptr, _c_int, _c_i64,
-            _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-            _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
         ),
-        "merge_tile_rows": (),
+        # na, nb, kw1, width -> bytes of scratch the launch needs
+        "merge_scratch_bytes": (_c_i64, _c_i64, _c_int, _c_i64),
     },
 }
+# Entry points that return something other than a cudaError_t.
+RESTYPES = {"merge_scratch_bytes": _c_i64}
 
 _loaded: dict = {}
 
@@ -113,7 +115,7 @@ def load(name: str) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
+        f.restype = RESTYPES.get(fn, ctypes.c_int)
     _loaded[name] = lib
     return lib
 

@@ -11,18 +11,25 @@ buffer, and launches on PyTorch's current stream:
 The rule that picks the path is fixed: a CUDA tensor launches the kernel,
 a CPU tensor takes the plain PyTorch twin (``*_reference``, same
 signature, same results).  There is no fallback: a kernel that fails to
-build or launch raises.  ``LAUNCHES`` counts kernel launches only.
+build or launch raises.  ``LAUNCHES`` counts kernel launches only;
+``merge_contract_faults`` reads the merge kernel's count of inputs that
+broke the order it relies on.
 
 Key words are int32 in the device encoding of conflict/keys.py.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ops.rangequery import lex_argsort, searchsorted_words
 
 LAUNCHES = {"phase1_ranks": 0, "fused_merge_evict": 0}
+# Per CUDA device, the merge kernel's count of order-contract faults
+# (read by merge_contract_faults).
+_MERGE_FAULTS: dict = {}
 
 
 def _on_cuda(*tensors) -> bool:
@@ -173,12 +180,20 @@ def fused_merge_evict(
     rule against ``window``, and compact.
 
     a_*: the history (NA rows): keys (kw1, NA) int32, vers/keep/pos (NA,)
-    int32 (pos only read where keep != 0).  b_*: the batch's new rows
-    likewise.  Kept positions partition [0, merged_count).  merged_count
-    and window are 0-dim int32 tensors on the same device (read there, no
-    host sync); window = FLOOR_REL keeps every row.  Returns (out_keys
-    (kw1, width), out_vers (width,), out_count 0-dim int32); rows at and
-    past out_count are UNDEFINED — the caller masks them.
+    int32 (pos only read where keep != 0; the kernel does not read A's
+    pos, which the order below determines).  b_*: the batch's new rows
+    likewise.  The kernel relies on the order of the positions: in each
+    stream the kept rows' positions strictly increase with the row index,
+    and the two streams' kept positions together partition
+    [0, merged_count).  Positions at and past ``width`` are dropped.
+    On inputs that break the order the kernel's output is undefined; it
+    stays in bounds, and each merged slot it found unfilled (or B row off
+    its place) adds one to ``merge_contract_faults``.
+    merged_count and window are 0-dim int32 tensors on the same device
+    (read there, no host sync); window = FLOOR_REL keeps every row.
+    Returns (out_keys (kw1, width), out_vers (width,), out_count 0-dim
+    int32); rows at and past out_count are UNDEFINED — the caller masks
+    them.
     """
     kw1, na = a_keys.shape
     nb = b_keys.shape[1]
@@ -198,22 +213,46 @@ def fused_merge_evict(
 
     lib = _build.load("merge_evict")
     dev = a_keys.device
-    tiles = -(-width // lib.merge_tile_rows())
-    s_keys = torch.empty((kw1, width), dtype=torch.int32, device=dev)
-    s_vers = torch.empty((width,), dtype=torch.int32, device=dev)
-    tile_counts = torch.empty((tiles,), dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty((tiles,), dtype=torch.int32, device=dev)
+    # Counters, look-back status words, A's chunk prefix and the dense copy
+    # of B's kept rows; the launch clears what needs clearing.
+    scratch = torch.empty((_merge_scratch_bytes(na, nb, kw1, width),),
+                          dtype=torch.uint8, device=dev)
     out_keys = torch.empty((kw1, width), dtype=torch.int32, device=dev)
     out_vers = torch.empty((width,), dtype=torch.int32, device=dev)
     out_count = torch.empty((), dtype=torch.int32, device=dev)
+    faults = _MERGE_FAULTS.get(dev)
+    if faults is None:
+        faults = _MERGE_FAULTS[dev] = torch.zeros((), dtype=torch.int32, device=dev)
     err = lib.fused_merge_evict_launch(
-        *(t.data_ptr() for t in (a_keys, a_vers, a_keep, a_pos)), na,
+        *(t.data_ptr() for t in (a_keys, a_vers, a_keep)), na,
         *(t.data_ptr() for t in (b_keys, b_vers, b_keep, b_pos)), nb,
         merged_count.data_ptr(), window.data_ptr(), kw1, width,
-        s_keys.data_ptr(), s_vers.data_ptr(), tile_counts.data_ptr(),
-        tile_offsets.data_ptr(), out_keys.data_ptr(), out_vers.data_ptr(),
-        out_count.data_ptr(), _stream(dev),
+        scratch.data_ptr(), out_keys.data_ptr(), out_vers.data_ptr(),
+        out_count.data_ptr(), faults.data_ptr(), _stream(dev),
     )
     _raise_on(err, "fused_merge_evict")
     LAUNCHES["fused_merge_evict"] += 1
     return out_keys, out_vers, out_count
+
+
+@functools.lru_cache(maxsize=64)
+def _merge_scratch_bytes(na: int, nb: int, kw1: int, width: int) -> int:
+    from . import _build
+
+    return _build.load("merge_evict").merge_scratch_bytes(na, nb, kw1, width)
+
+
+def merge_contract_faults(device) -> int:
+    """Merged slots that fused_merge_evict's kernel found unfilled, and B
+    rows it found off their place, on ``device`` since the last call:
+    nonzero only if some call's inputs broke the order contract.  Reading
+    waits for the device; the count restarts at 0."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    faults = _MERGE_FAULTS.get(dev)
+    if faults is None:
+        return 0
+    n = int(faults)
+    faults.zero_()
+    return n

@@ -7,7 +7,8 @@ PyTorch is installed; the repository's conftest imports jax, so there run
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Shapes are chosen to hit the kernels' edges: widths that are not a
-multiple of the merge tile, empty streams, five key words, INF queries.
+multiple of the merge tile, empty streams, one to eight key words, INF
+queries, long runs of dropped rows.
 """
 
 import numpy as np
@@ -109,20 +110,53 @@ def test_phase1_ranks_kernel_matches_plain(dev, kw1, N, live, M, mode):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("kw1,width,NA,NB,liveA,liveB,window", [
-    (3, 1000, 1000, 64, 600, 40, 0),
-    (3, 257, 257, 16, 0, 0, 0),            # empty, ragged tile
-    (5, 5000, 4000, 512, 3500, 500, -(2**30)),  # floor window keeps all
-    (3, 300_000, 300_000, 8192, 250_000, 8000, 10),
+def _m(kw1, width, NA, NB, liveA, liveB, window, mode="random"):
+    name = "-".join(str(x) for x in (kw1, width, NA, NB, liveA, liveB, window))
+    name += "" if mode == "random" else f"-{mode}"
+    return pytest.param(kw1, width, NA, NB, liveA, liveB, window, mode, id=name)
+
+
+# The kernel gathers each tile of 2,048 merged rows from A's kept rows
+# (found through a prefix count per 256 rows) and B's, and chains the
+# tiles' output offsets by a decoupled look-back; these shapes put the
+# tile, chunk and stream edges where they break.  "gap" breaks the order
+# the kernel relies on: one kept A row loses its keep flag but
+# merged_count still counts it, so one merged slot has no row.
+@pytest.mark.parametrize("kw1,width,NA,NB,liveA,liveB,window,mode", [
+    _m(3, 1000, 1000, 64, 600, 40, 0),
+    _m(3, 257, 257, 16, 0, 0, 0),            # empty, ragged tile
+    _m(5, 5000, 4000, 512, 3500, 500, -(2**30)),  # floor window keeps all
+    _m(3, 300_000, 300_000, 8192, 250_000, 8000, 10),
+    _m(1, 20_000, 20_000, 1000, 18_000, 900, 10),    # one key word
+    _m(8, 20_000, 20_000, 1000, 18_000, 900, 10),    # kMaxWords
+    _m(3, 20_000, 20_000, 0, 19_000, 0, 10),         # NB = 0
+    _m(3, 1000, 1, 64, 1, 40, 10),                   # NA = 1
+    _m(3, 50_000, 10_000, 1000, 9000, 900, 10),      # width > NA + NB
+    _m(3, 10_000, 10_000, 2000, 9900, 1500, 10),     # merged_count > width
+    _m(3, 20_000, 20_000, 1000, 18_000, 900, 50),    # window above every version
+    _m(3, 30_000, 30_000, 8000, 25_000, 7000, 10, "b_first"),  # every B row first
+    _m(3, 30_000, 30_000, 8000, 25_000, 7000, 10, "b_last"),   # every B row last
+    _m(3, 60_000, 60_000, 2000, 55_000, 1800, 10, "run"),  # 10,000 dropped A rows in a row
+    _m(3, 3_145_728, 3_145_728, 131_072, 3_000_000, 120_000, 10),  # 1,536 tiles
+    _m(3, 40_000, 40_000, 8000, 25_000, 7000, 10, "gap"),  # A's positions miss a slot
 ])
-def test_fused_merge_evict_kernel_matches_plain(dev, kw1, width, NA, NB, liveA, liveB, window):
+def test_fused_merge_evict_kernel_matches_plain(dev, kw1, width, NA, NB, liveA, liveB,
+                                                window, mode):
     r = np.random.default_rng(width + NB)
     keepA = np.zeros(NA, np.int32)
     keepA[r.choice(NA, size=liveA, replace=False)] = 1
+    if mode == "run":
+        keepA[NA // 3 : NA // 3 + 10_000] = 0
+        liveA = int(keepA.sum())
     keepB = np.zeros(NB, np.int32)
     keepB[r.choice(NB, size=liveB, replace=False)] = 1
     mc = liveA + liveB
-    a_slots = np.sort(r.choice(mc, size=liveA, replace=False))
+    if mode == "b_first":
+        a_slots = np.arange(liveB, mc)
+    elif mode == "b_last":
+        a_slots = np.arange(liveA)
+    else:
+        a_slots = np.sort(r.choice(mc, size=liveA, replace=False))
     b_slots = np.setdiff1d(np.arange(mc), a_slots)
     posA = np.full(NA, 2**31 - 1, np.int32)
     posA[keepA != 0] = a_slots
@@ -137,12 +171,22 @@ def test_fused_merge_evict_kernel_matches_plain(dev, kw1, width, NA, NB, liveA, 
         torch.tensor(mc, dtype=torch.int32, device=dev),
         torch.tensor(window, dtype=torch.int32, device=dev),
     )
+    if mode == "gap":
+        args[2][int(np.flatnonzero(keepA)[liveA // 2])] = 0
+    assert tk.merge_contract_faults(dev) == 0
     before = tk.LAUNCHES["fused_merge_evict"]
     ok, ov, oc = tk.fused_merge_evict(*args, width=width)
     assert tk.LAUNCHES["fused_merge_evict"] == before + 1
+    faults = tk.merge_contract_faults(dev)
+    if mode == "gap":  # output undefined, the reads stay in bounds, the one empty slot shows
+        assert faults == 1 and 0 <= int(oc) <= width
+        return
+    assert faults == 0
     rk, rv, rc = tk.fused_merge_evict_reference(*args, width=width)
     n = int(rc)
     assert int(oc) == n
+    if window >= 50:
+        assert n == 1
     assert torch.equal(ok[:, :n], rk[:, :n]) and torch.equal(ov[:n], rv[:n])
 
 
@@ -173,6 +217,7 @@ def test_engine_on_the_card_matches_the_cpu(dev):
         for x, y in zip(gpu.export_state(), cpu.export_state()):
             assert np.array_equal(x, y)
     assert gpu.grows >= 1 and gpu.cpu_fallbacks == 0
+    assert tk.merge_contract_faults(dev) == 0
 
 
 BUCKETS = (32, 128, 64)

@@ -318,6 +318,36 @@ def test_ticket_api_matches_detect():
     assert b2.cpu_fallbacks == 1
 
 
+def test_merge_inputs_hold_the_position_order(monkeypatch):
+    """The merge kernel gathers each merged tile from a contiguous run of
+    each stream's kept rows.  That holds only if, in each stream the engine
+    hands to fused_merge_evict, the kept rows' positions strictly increase
+    with the row index, and the two streams' kept positions together
+    partition [0, merged_count).  Checked on every merge of a few seeded
+    streams, with growth and eviction."""
+    seen = []
+    merge = et.fused_merge_evict
+
+    def recording(*args, **kwargs):
+        seen.append([args[i].numpy().copy() for i in (2, 3, 6, 7, 8)])
+        return merge(*args, **kwargs)
+
+    monkeypatch.setattr(et, "fused_merge_evict", recording)
+    batches = 0
+    for seed, h_cap in ((3, 64), (37, 256), (53, 256)):
+        stream = _random_stream(seed, 60, batches=10, txns_per_batch=30)
+        tcs = TorchConflictSet(key_words=3, h_cap=h_cap, bucket_mins=BUCKETS, device="cpu")
+        for txns, now, nov in stream:
+            tcs.detect(_port_txns(txns), now, nov)
+        batches += len(stream)
+    assert len(seen) >= batches
+    for a_keep, a_pos, b_keep, b_pos, merged_count in seen:
+        pa, pb = a_pos[a_keep != 0], b_pos[b_keep != 0]
+        assert (np.diff(pa) > 0).all() and (np.diff(pb) > 0).all()
+        both = np.sort(np.concatenate([pa, pb]))
+        assert np.array_equal(both, np.arange(int(merged_count)))
+
+
 def test_blob_is_byte_identical_to_reference():
     txns, now, nov = _random_stream(31, 60, 1, 30)[0]
     jcs = JaxConflictSet(key_words=3, h_cap=256, bucket_mins=BUCKETS, oldest_version=3)
