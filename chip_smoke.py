@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole check, about two minutes
+    python3 chip_smoke.py            # the whole check, about six minutes
     python3 chip_smoke.py --profile  # also a host/device time split and a
                                      # torch.profiler table of main-path batches
     python3 chip_smoke.py --stamps   # also the search kernel's time by phase,
@@ -22,16 +22,35 @@ Phases, in order; any failure exits non-zero:
                the merge also with a warm L2, and bit for bit and timed on
                a second full-width input with heavy eviction (window above
                90% of the versions, runs of up to 1,000 dropped rows)
-  4. main      TorchConflictSet(key_words=2, h_cap=3,145,728) on the bench
-               stream (keys uniform in [0, 2e7), range width 1+U[0,10),
-               1 read + 1 write range per txn, detect at now=i+50 evicting
-               below i): 52 warm-up batches fill the MVCC window, then 8
-               timed batches; both kernels must launch once per batch, with
-               no CPU fallback and a sorted exported history
-  5. vs cpu    the same engine on a reduced stream on the GPU and on the
+  4. main      ConflictSet(key_words=2, h_cap=3,145,728) at pipeline depth 2
+               — the resolver's entry point: CPU mirror, circuit breaker,
+               TorchConflictSet behind — on the bench stream (4-byte keys
+               uniform in [0, 2e7), range width 1+U[0,10), 1 read + 1 write
+               range per txn, detect at now=i+50 evicting below i), driven
+               as the Resolver drives it (submit, complete the oldest while
+               more than depth - 1 are in flight, drain): 52 warm-up
+               batches fill the MVCC window, then 8 timed batches.  Both
+               kernels must launch once per timed batch, with no CPU
+               fallback, no merge order fault, no growth and a sorted
+               history; mirror_check() must read "ok" (device history ==
+               mirror at full width); device faults, breaker opens,
+               degraded batches and fallback txns must be 0; pipeline
+               dispatches must equal the batches submitted.  Prints txn/s
+               and the mirror apply and note_synced ms a batch.
+  5. vs cpu    TorchConflictSet on a reduced stream on the GPU and on the
                CPU (plain twins): verdicts, witnesses and exported state
                identical
-  6. result    one JSON line per kernel table, then {"ok": true, ...}
+  6. set vs cpu  ConflictSet on the GPU on the same reduced stream at
+               depths 1, 2 and 3: verdicts and witnesses identical to a
+               ConflictSet(backend="cpu") run; then under a scripted
+               injector (dispatch faults 1-3 open the breaker, the first
+               probe takes a grow fault, the second rehydrates from a
+               MirrorSnapshot and grows): verdicts still identical, the
+               breaker walks
+               ok -> degraded -> probing -> degraded -> probing -> ok, and
+               the injected log and transitions equal the same script's run
+               with device="cpu"
+  7. result    one JSON line per kernel table, then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
 """
@@ -137,6 +156,39 @@ def gen_packed(et, rng, n_txn, batch_index, keyspace=KEYSPACE):
     pb.t_valid[:n_txn] = True
     pb.n_txn = pb.n_r = pb.n_w = n_txn
     return pb
+
+
+def gen_txns(T, rng, n_txn, batch_index, keyspace=KEYSPACE):
+    """gen_packed's batch (the same draws) as TransactionConflictInfo
+    objects with 4-byte big-endian keys, the form a Resolver hands to
+    ConflictSet."""
+    cols = []
+    for _ in range(2):
+        a = rng.integers(0, keyspace, n_txn, dtype=np.int64)
+        b = a + 1 + rng.integers(0, 10, n_txn, dtype=np.int64)
+        for x in (a, b):
+            raw = x.astype(">u4").tobytes()
+            cols.append([raw[i : i + KEY_BYTES] for i in range(0, len(raw), KEY_BYTES)])
+    rb, re_, wb, we = cols
+    return [T(batch_index, [(rb[j], re_[j])], [(wb[j], we[j])]) for j in range(n_txn)]
+
+
+def drive(cs, stream, depth):
+    """The Resolver's discipline over (txns, now, new_oldest) batches:
+    submit, complete the oldest while more than depth - 1 are in flight,
+    drain.  Returns each batch's (statuses, witness); a finished batch's
+    transactions are dropped at once."""
+    out, parked = [], []
+    for txns, now, nov in stream:
+        parked.append(cs.pipeline_submit(txns, now, nov))
+        while cs.pipeline_inflight > depth - 1:
+            cs.pipeline_complete_oldest()
+        while parked and parked[0].done:
+            e = parked.pop(0)
+            out.append((e.statuses, e.witness))
+    cs.pipeline_drain()
+    out.extend((e.statuses, e.witness) for e in parked)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -498,53 +550,81 @@ def history_sorted(torch, rq, cs) -> int:
     return n
 
 
-def main_path(torch, et, tk, rq, profile: bool):
+def main_path(torch, api, T, tk, rq, profile: bool):
+    """The bench stream through ConflictSet at depth 2, as a Resolver
+    serves it.  Returns (launches of the timed batches, txn/s)."""
+    depth = 2
     rng = np.random.default_rng(2026)
-    batches = [gen_packed(et, rng, PER_BATCH, i)
-               for i in range(WARM + TIMED + (4 if profile else 0))]
-    cs = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=H_CAP)
+    cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth)
+    eng, m = cs._dev, cs._dev.metrics
     t0 = time.perf_counter()
-    for i in range(WARM):
-        cs.detect_packed(batches[i], now=i + WINDOW, new_oldest_version=i)
+    drive(cs, ((gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i) for i in range(WARM)), depth)
     torch.cuda.synchronize()
-    log(f"main: {WARM} warm-up batches in {time.perf_counter() - t0:.3f} s, "
-        f"boundaries {cs.boundary_count}")
-    fallbacks0, syncs0, rounds0 = cs.cpu_fallbacks, cs.host_syncs, cs.fixpoint_rounds
+    log(f"main: {WARM} warm-up batches through ConflictSet in "
+        f"{time.perf_counter() - t0:.3f} s, boundaries {eng.boundary_count}")
+    timed = [(gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i)
+             for i in range(WARM, WARM + TIMED)]
+    extra = [(gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i)
+             for i in range(WARM + TIMED, WARM + TIMED + (4 if profile else 0))]
+    syncs0, rounds0 = eng.host_syncs, eng.fixpoint_rounds
+    wall0 = m.snapshot(include_wall=True)["wall"]
     for name in tk.LAUNCHES:
         tk.LAUNCHES[name] = 0
-    per_batch = []
     t0 = time.perf_counter()
-    for i in range(WARM, WARM + TIMED):
-        tb = time.perf_counter()
-        statuses = cs.detect_packed(batches[i], now=i + WINDOW, new_oldest_version=i)
-        per_batch.append((time.perf_counter() - tb) * 1e3)
+    out = drive(cs, timed, depth)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(tk.LAUNCHES)
     for name, n in launches.items():
         if n != TIMED:
             raise AssertionError(f"{name} launched {n} times in {TIMED} main-path batches")
-    if cs.cpu_fallbacks != fallbacks0 or cs.cpu_fallbacks != 0:
-        raise AssertionError(f"cpu_fallbacks = {cs.cpu_fallbacks}")
+    if eng.cpu_fallbacks != 0:
+        raise AssertionError(f"cpu_fallbacks = {eng.cpu_fallbacks}")
     faults = tk.merge_contract_faults("cuda")
     if faults:
         raise AssertionError(f"the merge found {faults} order faults on the main path")
-    if cs.h_cap != H_CAP:
-        raise AssertionError(f"history grew to {cs.h_cap}")
-    s = statuses[:PER_BATCH]
+    if eng.h_cap != H_CAP:
+        raise AssertionError(f"history grew to {eng.h_cap}")
+    s = np.asarray(out[-1][0])
     if not ((s >= 0) & (s <= 2)).all() or not (s == 2).any():
         raise AssertionError("verdicts out of range or none committed")
-    n = history_sorted(torch, rq, cs)
+    if len(out[-1][1]) != PER_BATCH:
+        raise AssertionError("no witness for the last batch")
+    counters = m.snapshot()["counters"]
+    for name in ("device_faults", "breaker_opens", "degraded_batches", "cpu_fallback_txns",
+                 "pipeline_replayed_batches"):
+        if counters[name] != 0:
+            raise AssertionError(f"{name} = {counters[name]} on the main path")
+    if counters["pipeline_dispatches"] != WARM + TIMED:
+        raise AssertionError(f"pipeline_dispatches {counters['pipeline_dispatches']} != "
+                             f"{WARM + TIMED} batches submitted")
+    wall = m.snapshot(include_wall=True)["wall"]
+
+    def per_batch_ms(name):
+        n = wall[name]["count"] - wall0[name]["count"]
+        if n != TIMED:
+            raise AssertionError(f"{name}: {n} samples in {TIMED} timed batches")
+        return (wall[name]["seconds"] - wall0[name]["seconds"]) / n * 1e3
+
+    apply_ms = per_batch_ms("mirror_apply_seconds")
+    synced_ms = per_batch_ms("note_synced_seconds")
+    t1 = time.perf_counter()
+    report = cs.mirror_check()
+    check_s = time.perf_counter() - t1
+    if report["status"] != "ok":
+        raise AssertionError(f"mirror_check on the main path: {report}")
+    n = history_sorted(torch, rq, eng)
     tps = TIMED * PER_BATCH / dt
-    log(f"main: {TIMED} timed batches x {PER_BATCH} txns in {dt:.6f} s: "
-        f"{tps:.1f} txn/s, {dt / TIMED * 1e3:.3f} ms/batch "
-        f"(per batch ms {[round(x, 3) for x in per_batch]}), "
+    log(f"main: {TIMED} timed batches x {PER_BATCH} txns through ConflictSet "
+        f"(depth {depth}) in {dt:.6f} s: {tps:.1f} txn/s, {dt / TIMED * 1e3:.3f} ms/batch; "
+        f"mirror apply {apply_ms:.3f} ms/batch, note_synced {synced_ms:.3f} ms/batch; "
         f"conflicts {int((s == 0).sum())}/{PER_BATCH} in the last batch, "
-        f"boundaries {n}, host syncs/batch {(cs.host_syncs - syncs0) / TIMED}, "
-        f"fixpoint rounds/batch {(cs.fixpoint_rounds - rounds0) / TIMED}, "
+        f"boundaries {n}, host syncs/batch {(eng.host_syncs - syncs0) / TIMED}, "
+        f"fixpoint rounds/batch {(eng.fixpoint_rounds - rounds0) / TIMED}, "
+        f"mirror_check ok ({report['boundaries']} boundaries, {check_s:.3f} s), "
         f"card {torch.cuda.get_device_name(0)}")
     if profile:
-        profile_batches(torch, cs, batches[WARM + TIMED:], WARM + TIMED)
+        profile_batches(torch, eng, [eng._pack(t) for t, _now, _nov in extra], WARM + TIMED)
     return launches, tps
 
 
@@ -623,6 +703,62 @@ def versus_cpu(torch, et):
         f"grows {gpu.grows}, cpu_fallbacks {gpu.cpu_fallbacks}")
 
 
+def conflictset_vs_cpu(torch, api, T, faults):
+    """ConflictSet on the GPU against ConflictSet(backend="cpu") on the
+    reduced stream, at depths 1-3 and under a scripted fault plan."""
+    n_txn, batches, window = 4096, 12, 4
+    rng = np.random.default_rng(7)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=200_000), i + window, i)
+              for i in range(batches)]
+    want = drive(api.ConflictSet(backend="cpu", key_words=KEY_WORDS), stream, 1)
+    conflicts = sum(int((np.asarray(st) == 0).sum()) for st, _w in want)
+    if conflicts == 0:
+        raise AssertionError("reduced stream produced no conflicts")
+    for depth in (1, 2, 3):
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 16, pipeline_depth=depth)
+        if drive(cs, stream, depth) != want:
+            raise AssertionError(f"ConflictSet depth {depth}: GPU verdicts/witnesses differ from CPU")
+        if cs.mirror_check()["status"] != "ok":
+            raise AssertionError(f"ConflictSet depth {depth}: mirror_check failed")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        inj = faults.DeviceFaultInjector()
+        for at in (1, 2, 3):
+            inj.script("dispatch", at=at)
+        inj.script("grow", at=1)
+        # 16,384 rows are too few for the mirror the first probe loads, so
+        # its rehydration must grow them: the scripted `grow` fault and the
+        # breaker walk below check that it did.
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 14, device=device,
+                             fault_injector=inj)
+        if drive(cs, stream, 2) != want:
+            raise AssertionError(f"fault run on {device}: verdicts/witnesses differ from CPU")
+        dm = cs.device_metrics()
+        walk = [(f, t, r.split(":")[0]) for _s, f, t, r in dm["breaker"]["transitions"]]
+        if walk != [("ok", "degraded", "threshold"), ("degraded", "probing", "backoff_elapsed"),
+                    ("probing", "degraded", "probe_failed"),
+                    ("degraded", "probing", "backoff_elapsed"),
+                    ("probing", "ok", "probe_success")]:
+            raise AssertionError(f"fault run on {device}: breaker walk {walk}")
+        if [site for _seq, site, _kind in inj.injected] != ["dispatch"] * 3 + ["grow"]:
+            raise AssertionError(f"fault run on {device}: injected {inj.injected}")
+        c = dm["counters"]
+        if c["rehydrates"] < 1 or c["rehydrate_keys_total"] <= 1 or c["faults_grow"] != 1:
+            raise AssertionError(f"fault run on {device}: counters {c}")
+        if cs.mirror_check()["status"] != "ok":
+            raise AssertionError(f"fault run on {device}: mirror_check failed")
+        runs[device] = (inj.injected, dm["breaker"]["transitions"], c)
+    if runs["cuda"][:2] != runs["cpu"][:2]:
+        raise AssertionError(f"fault logs differ: cuda {runs['cuda'][:2]} cpu {runs['cpu'][:2]}")
+    c = runs["cuda"][2]
+    log(f"set vs cpu: {batches} batches x {n_txn} txns through ConflictSet on the GPU at "
+        f"depths 1, 2, 3 identical to ConflictSet(backend='cpu') ({conflicts} conflicts); "
+        f"fault script: injected {runs['cuda'][0]}, transitions "
+        f"{[t[1:] for t in runs['cuda'][1]]}, equal on cuda and cpu; rehydrates "
+        f"{c['rehydrates']}, rehydrate keys {c['rehydrate_keys_encoded']} encoded of "
+        f"{c['rehydrate_keys_total']}, grows {c['grows']}")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -634,10 +770,12 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from foundationdb_tpu_torch.conflict import _build
+    from foundationdb_tpu_torch.conflict import _build, api
+    from foundationdb_tpu_torch.conflict import device_faults as faults
     from foundationdb_tpu_torch.conflict import engine_torch as et
     from foundationdb_tpu_torch.conflict import keys as keylib
     from foundationdb_tpu_torch.conflict import kernels as tk
+    from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
     from foundationdb_tpu_torch.ops import rangequery as rq
 
     profile = "--profile" in argv
@@ -676,11 +814,12 @@ def main(argv) -> int:
             f"[{kind}, {smi}]")
 
     # 4. main path
-    launches, _tps = main_path(torch, et, tk, rq, profile)
-    # 5. held against the CPU
+    launches, _tps = main_path(torch, api, T, tk, rq, profile)
+    # 5-6. held against the CPU
     versus_cpu(torch, et)
+    conflictset_vs_cpu(torch, api, T, faults)
 
-    # 6. result
+    # 7. result
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in rows:

@@ -3,5 +3,6 @@
 Same semantics as the reference package: a step function key ->
 last-committed-write version, too-old / history / intra-batch conflicts in
 batch order, committed writes merged at ``now``, and the removeBefore
-eviction rule.  Only the flat single-device engine is ported so far.
+eviction rule.  Ported so far: ``ConflictSet`` (api.py) with its CPU
+mirror, circuit breaker and pipeline around the flat single-device engine.
 """

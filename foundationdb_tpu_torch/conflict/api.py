@@ -1,0 +1,633 @@
+"""ConflictSet: the resolver's conflict-engine entry point, on the GPU.
+
+A copy of the reference package's ``conflict/api.py`` (itself modelled on
+fdbserver/ConflictSet.h: newConflictSet / ConflictBatch::addTransaction /
+detectConflicts) with the device engine ``TorchConflictSet`` behind it.
+
+Backends:
+  "cpu"    - engine_cpu.CpuConflictSet (host, exact, low latency)
+  "torch"  - engine_torch.TorchConflictSet (device, whole-batch vectorized)
+  "hybrid" - torch for batches of at least ``device_min_batch``
+             transactions, cpu for smaller ones and for oversized keys
+
+Device resilience: whenever a device engine exists, the chunked CPU mirror
+stays AUTHORITATIVE.  Every device-served batch's committed writes are
+applied to it (``apply_batch``: merge and evict only, no detection), and a
+DeviceCircuitBreaker gates every device attempt.  A batch interrupted by a
+DeviceFault is re-run on the mirror inside the same call with identical
+verdicts; consecutive faults open the circuit and route everything to the
+host; a half-open probe with deterministic exponential backoff re-attempts
+the device and, before it serves, rehydrates the device from an immutable
+mirror snapshot.  No DeviceFault escapes.  ``mirror_check`` diffs the
+mirror against the device's exported state and treats a divergence as a
+device fault that opens the breaker.
+
+Double-buffered pipeline (``pipeline_depth`` > 1): ``pipeline_submit``
+dispatches a batch without reading it back; ``pipeline_complete_oldest``
+reads the oldest one back, applies it to the mirror and records the synced
+snapshot.  The breaker is credited at that sync, never at dispatch.
+
+Settings the reference reads from environment knobs are constructor
+arguments here, with the reference's defaults.  Two knobs have no
+counterpart yet: the mirror applies every batch at once (no coalescing),
+and the device takes every key that fits its width (``key_words * 4``
+bytes).  Only injected faults and out-of-memory errors reach the breaker;
+any other error, CUDA errors included, propagates.
+
+Usage mirrors the reference ABI:
+    cs = ConflictSet(backend="hybrid")
+    batch = cs.new_batch()
+    for tr in txns: batch.add_transaction(tr)
+    statuses = batch.detect_conflicts(now, new_oldest_version)
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import List, Optional
+
+from .device_faults import DeviceCircuitBreaker, DeviceFault
+from .engine_cpu import CpuConflictSet
+from .types import TransactionConflictInfo
+
+
+class ConflictBatch:
+    """Ref: ConflictBatch in fdbserver/ConflictSet.h:32."""
+
+    def __init__(self, cs: "ConflictSet"):
+        self._cs = cs
+        self._txns: list[TransactionConflictInfo] = []
+
+    def add_transaction(self, tr: TransactionConflictInfo):
+        self._txns.append(tr)
+
+    @property
+    def transaction_count(self) -> int:
+        return len(self._txns)
+
+    def detect_conflicts(self, now: int, new_oldest_version: int) -> List[int]:
+        return self._cs._detect(self._txns, now, new_oldest_version)
+
+
+class InflightBatch:
+    """One batch in the double-buffered pipeline.
+
+    Created by ConflictSet.pipeline_submit and completed, always in submit
+    order, by pipeline_complete_oldest / pipeline_drain or by the breaker's
+    mirror replay.  CPU-served batches come back already completed."""
+
+    __slots__ = ("txns", "ticket", "now", "new_oldest_version",
+                 "statuses", "degraded", "witness")
+
+    def __init__(self, txns, ticket, now, new_oldest_version):
+        self.txns = txns
+        self.ticket = ticket
+        self.now = now
+        self.new_oldest_version = new_oldest_version
+        self.statuses: Optional[List[int]] = None
+        self.degraded = False
+        # Per-txn abort witness, (version, read-range ordinal) or None per
+        # txn; [] when witness emission is off.
+        self.witness: list = []
+
+    @classmethod
+    def completed(cls, statuses: List[int], degraded: bool = False,
+                  witness: Optional[list] = None):
+        e = cls(None, None, 0, 0)
+        e._resolve(statuses, degraded, witness)
+        return e
+
+    @property
+    def done(self) -> bool:
+        return self.statuses is not None
+
+    def _resolve(self, statuses: List[int], degraded: bool,
+                 witness: Optional[list] = None) -> None:
+        self.statuses = statuses
+        self.degraded = degraded
+        self.witness = witness if witness is not None else []
+
+
+class ConflictSet:
+    """The resolver's conflict set (see the module docstring).
+
+    ``backend="torch"`` with ``device=None`` runs on the GPU and raises
+    without one; ``device="cpu"`` runs the same engine with the kernels'
+    plain twins."""
+
+    AUTHORITY_HYSTERESIS = 8
+
+    def __init__(
+        self,
+        backend: str = "torch",
+        oldest_version: int = 0,
+        key_words: int = 4,
+        device=None,
+        bucket_mins: tuple = (8, 8, 8),
+        fault_injector=None,
+        h_cap: int = 1 << 16,
+        pipeline_depth: int = 2,
+        witness: bool = True,
+        device_min_batch: int = 256,
+    ):
+        if backend not in ("cpu", "torch", "hybrid"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = backend
+        self._key_words = key_words
+        self.device_min_batch = device_min_batch
+        # Every backend keeps the CPU engine: for a device backend it is
+        # the authoritative mirror faulted batches fall back to.  Its key
+        # width is the device's, so syncing re-encodes nothing.
+        self._cpu = CpuConflictSet(oldest_version, key_words=key_words)
+        self._dev = None
+        self._breaker: Optional[DeviceCircuitBreaker] = None
+        # Batches dispatched to the device and not yet synced, oldest
+        # first.  Depth 1 keeps the synchronous path.
+        self.pipeline_depth = max(1, pipeline_depth)
+        self._pipe: "deque[InflightBatch]" = deque()
+        if backend in ("torch", "hybrid"):
+            from .engine_torch import TorchConflictSet
+
+            self._dev = TorchConflictSet(
+                oldest_version=oldest_version,
+                key_words=key_words,
+                device=device,
+                bucket_mins=bucket_mins,
+                h_cap=h_cap,
+            )
+            for name in ("device_faults", "breaker_opens", "breaker_probes",
+                         "breaker_closes", "degraded_batches", "rehydrates",
+                         "cpu_fallback_txns", "mirror_checks",
+                         "mirror_divergence", "mirror_mismatch_keys",
+                         "pipeline_dispatches", "pipeline_replayed_batches"):
+                self._dev.metrics.counter(name)  # pre-create: stable snapshots
+            self._breaker = DeviceCircuitBreaker(metrics=self._dev.metrics)
+            self._dev.fault_injector = fault_injector
+        # hybrid: which side served the last device-eligible batch
+        self._authority = "cpu" if backend == "hybrid" else backend
+        # True once a long-key write range may have entered the mirror; the
+        # device cannot represent it, so authority stays on the CPU until
+        # the last long-key write ages out of the window (_device_eligible).
+        self._history_long_keys = False
+        self._long_key_version = -1  # version of the last long-key write
+        # The device is stale whenever the mirror absorbed a batch the
+        # device did not run; the next device attempt rehydrates first.
+        self._device_stale = True
+        # The last batch was device-eligible but served by the CPU because
+        # of a fault or an open circuit (consume_degraded).
+        self._degraded_last = False
+        # Consecutive sub-threshold batches while device authority is held.
+        self._small_streak = 0
+        # Transactions the mirror decided because the device path was
+        # degraded, and a window of (txns, wall seconds) of those detects
+        # for backend_signal's throughput estimate (wall-derived).
+        self._cpu_fallback_txns = 0
+        self._cpu_fallback_recent = deque(maxlen=32)
+        self._last_mirror_check: Optional[dict] = None
+        # Whichever engine serves a batch, its per-txn witness lands here.
+        self._witness = witness
+        self.last_witness: list = []
+
+    @property
+    def _jax(self):
+        """Read-only alias of the device engine under the reference's
+        attribute name: the reference's Resolver turns its pipeline on, and
+        samples the engine's registry, only when ``conflicts._jax`` exists
+        (server/resolver.py:206-210, :247)."""
+        return self._dev
+
+    def install_fault_injector(self, injector) -> None:
+        """Attach a DeviceFaultInjector to the device engine; no-op for the
+        host-only backend."""
+        if self._dev is not None:
+            self._dev.fault_injector = injector
+
+    def consume_degraded(self) -> bool:
+        """True iff the most recent batch was served by the CPU because of
+        a device fault or an open breaker; reading resets the flag."""
+        was, self._degraded_last = self._degraded_last, False
+        return was
+
+    def new_batch(self) -> ConflictBatch:
+        return ConflictBatch(self)
+
+    @property
+    def oldest_version(self) -> int:
+        return self._cpu.oldest_version  # the authoritative mirror
+
+    def _detect(self, txns, now, new_oldest_version) -> List[int]:
+        if self._pipe:
+            # A synchronous detect with batches still parked: the mirror
+            # must be current before it can decide or absorb this batch.
+            self.pipeline_drain()
+        if self.backend == "hybrid":
+            return self._detect_hybrid(txns, now, new_oldest_version)
+        if self.backend == "torch":
+            return self._detect_device(txns, now, new_oldest_version)
+        statuses = self._cpu.detect(txns, now, new_oldest_version)
+        self.last_witness = self._witness_of(self._cpu)
+        return statuses
+
+    def _witness_of(self, engine) -> list:
+        """The serving engine's per-txn witness for the batch it just
+        decided."""
+        return list(engine.last_witness) if self._witness else []
+
+    def _device_eligible(self, txns, now: int = 0) -> bool:
+        """Every key in the batch fits the device width and no long-key
+        write has pinned history host-side."""
+        max_key = self._key_words * 4
+        if self._history_long_keys and self._long_key_version < self._cpu.oldest_version:
+            # The last long-key write aged out of the window; it may still
+            # survive as a boundary, so check the mirror before lifting
+            # the pin (one O(keys) scan per window passage at most).
+            if all(len(k) <= max_key for k in self._cpu.keys):
+                self._history_long_keys = False
+            else:
+                self._long_key_version = now  # re-check next window
+        batch_fits = all(
+            len(b) <= max_key and len(e) <= max_key
+            for tr in txns
+            for (b, e) in tr.read_ranges + tr.write_ranges
+        )
+        if not batch_fits and any(
+            len(b) > max_key or len(e) > max_key
+            for tr in txns
+            for (b, e) in tr.write_ranges
+        ):
+            # A long-key write may enter history; until the window flushes
+            # it the device cannot represent the step function exactly.
+            self._history_long_keys = True
+            self._long_key_version = now
+        return batch_fits and not self._history_long_keys
+
+    def _apply_to_mirror(self, txns, statuses, now, new_oldest_version) -> None:
+        """Apply a device-decided batch to the mirror, then record the
+        post-batch snapshot as the device's synced point (pre-encoding the
+        chunks the batch created, so a later rehydration is a cheap diff).
+        Both steps' wall seconds go to the engine registry's wall
+        namespace."""
+        m = self._dev.metrics
+        t0 = time.perf_counter()
+        self._cpu.apply_batch(txns, statuses, now, new_oldest_version)
+        t1 = time.perf_counter()
+        m.record_wall("mirror_apply_seconds", t1 - t0)
+        self._dev.note_synced(self._cpu.snapshot(), self._cpu.take_fresh_chunks())
+        m.record_wall("note_synced_seconds", time.perf_counter() - t1)
+
+    def _device_serve(self, txns, now, new_oldest_version):
+        """One device attempt under the breaker.  Returns the statuses, or
+        None when the circuit is open or the attempt faulted — the caller
+        then serves the batch from the mirror, which decides identically.
+        A successful attempt is applied to the mirror and is the breaker's
+        half-open probe when one is due."""
+        if not self._breaker.allows_device():
+            self._degraded_last = True
+            return None
+        try:
+            if self._device_stale:
+                self._rehydrate_from_mirror()
+            statuses = self._dev.detect(txns, now, new_oldest_version)
+        except DeviceFault as e:
+            self._breaker.on_failure(e)
+            self._device_stale = True
+            self._degraded_last = True
+            return None
+        self._breaker.on_success()
+        self._apply_to_mirror(txns, statuses, now, new_oldest_version)
+        return statuses
+
+    def _rehydrate_from_mirror(self) -> None:
+        """Rebuild the device history from a mirror snapshot, for both
+        serve paths.  load_from can itself fault (grow); the caller's
+        except block then fails the attempt."""
+        self._dev.load_from(self._cpu.snapshot())
+        # load_from encoded every live chunk: the fresh backlog is moot.
+        self._cpu.take_fresh_chunks()
+        self._breaker.note_rehydrate()
+        self._device_stale = False
+
+    def _cpu_detect_fallback(self, txns, now, new_oldest_version):
+        """Mirror detect for a DEGRADED device-eligible batch, timed on the
+        wall clock for backend_signal's throughput estimate."""
+        t0 = time.perf_counter()
+        statuses = self._cpu.detect(txns, now, new_oldest_version)
+        self._cpu_fallback_txns += len(txns)
+        self._cpu_fallback_recent.append((len(txns), time.perf_counter() - t0))
+        if self._dev is not None:
+            self._dev.metrics.counter("cpu_fallback_txns").add(len(txns))
+        return statuses
+
+    def _detect_device(self, txns, now, new_oldest_version) -> List[int]:
+        """backend="torch": every batch with keys that fit goes to the
+        device; the mirror absorbs faults and open-circuit windows."""
+        if self._device_eligible(txns, now):
+            statuses = self._device_serve(txns, now, new_oldest_version)
+            if statuses is not None:
+                self.last_witness = self._witness_of(self._dev)
+                return statuses
+            self._device_stale = True
+            statuses = self._cpu_detect_fallback(txns, now, new_oldest_version)
+            self.last_witness = self._witness_of(self._cpu)
+            return statuses
+        self._device_stale = True
+        statuses = self._cpu.detect(txns, now, new_oldest_version)
+        self.last_witness = self._witness_of(self._cpu)
+        return statuses
+
+    def _hybrid_wants_device(self, txns, now) -> bool:
+        """Hybrid routing (and its hysteresis updates), shared by the
+        synchronous and the pipelined path: True iff a device serve is due
+        for this batch.  While device authority is held, small batches
+        still run on the device; only a sustained small streak flips
+        authority back."""
+        big = len(txns) >= self.device_min_batch
+        if not self._device_eligible(txns, now):
+            return False
+        if self._authority == "torch":
+            self._small_streak = 0 if big else self._small_streak + 1
+            return self._small_streak < self.AUTHORITY_HYSTERESIS
+        if big:
+            self._authority = "torch"
+            self._small_streak = 0
+            return True
+        return False
+
+    def _detect_hybrid(self, txns, now, new_oldest_version) -> List[int]:
+        attempted = self._hybrid_wants_device(txns, now)
+        if attempted:
+            statuses = self._device_serve(txns, now, new_oldest_version)
+            if statuses is not None:
+                self.last_witness = self._witness_of(self._dev)
+                return statuses
+        if self._authority == "torch":
+            # Flip back host-side: the mirror already holds the state.
+            self._authority = "cpu"
+            self._small_streak = 0
+        self._device_stale = True
+        if attempted:
+            statuses = self._cpu_detect_fallback(txns, now, new_oldest_version)
+        else:
+            statuses = self._cpu.detect(txns, now, new_oldest_version)
+        self.last_witness = self._witness_of(self._cpu)
+        return statuses
+
+    # -- double-buffered pipeline ------------------------------------------
+    @property
+    def pipeline_inflight(self) -> int:
+        """Batches dispatched to the device and not yet synced."""
+        return len(self._pipe)
+
+    def pipeline_submit(self, txns, now, new_oldest_version) -> InflightBatch:
+        """Admit one batch into the pipeline.
+
+        Device-routed batches are packed and dispatched without a sync and
+        come back parked; the caller completes oldest entries until
+        pipeline_inflight is under its depth bound, and drains the tail.
+        CPU-routed batches (host-only backend, hybrid small batches,
+        ineligible keys, open circuit, a dispatch fault) first drain the
+        pipeline and come back completed.  Routing is the synchronous
+        path's, so verdict streams are identical across depths."""
+        wants_device = False
+        if self._dev is not None and self.pipeline_depth > 1:
+            if self.backend == "torch":
+                wants_device = self._device_eligible(txns, now)
+            else:
+                wants_device = self._hybrid_wants_device(txns, now)
+        if wants_device:
+            entry = self._pipeline_dispatch(txns, now, new_oldest_version)
+            if entry is not None:
+                return entry
+            # A device serve was due but the circuit is open or the
+            # dispatch faulted (the parked tail is already replayed):
+            # the synchronous path's degraded fallback.
+            if self.backend == "hybrid" and self._authority == "torch":
+                self._authority = "cpu"
+                self._small_streak = 0
+            self._device_stale = True
+            statuses = self._cpu_detect_fallback(txns, now, new_oldest_version)
+            self.last_witness = self._witness_of(self._cpu)
+            self.consume_degraded()  # folded into the entry's flag
+            return InflightBatch.completed(statuses, degraded=True, witness=self.last_witness)
+        if self._dev is not None and self.pipeline_depth > 1:
+            # Routing chose the CPU: the synchronous path's post-routing
+            # bookkeeping, against a drained (current) mirror.
+            self.pipeline_drain()
+            if self.backend == "hybrid" and self._authority == "torch":
+                self._authority = "cpu"
+                self._small_streak = 0
+            self._device_stale = True
+            statuses = self._cpu.detect(txns, now, new_oldest_version)
+            self.last_witness = self._witness_of(self._cpu)
+            return InflightBatch.completed(
+                statuses, degraded=self.consume_degraded(), witness=self.last_witness,
+            )
+        # Depth 1 or host-only backend: the synchronous path decides.
+        statuses = self._detect(txns, now, new_oldest_version)
+        return InflightBatch.completed(
+            statuses, degraded=self.consume_degraded(), witness=self.last_witness,
+        )
+
+    def _pipeline_dispatch(self, txns, now, new_oldest_version) -> Optional[InflightBatch]:
+        """One device dispatch under the breaker without a sync — the
+        pipelined twin of _device_serve.  Returns the parked entry, or None
+        when the circuit is open or the dispatch faulted (the parked tail
+        is then already replayed on the mirror).  Injected faults raise
+        before any state changes, so the replay decides every parked batch
+        against exactly its history."""
+        if not self._breaker.allows_device():
+            # An open circuit implies the opening fault drained the pipe.
+            self._degraded_last = True
+            return None
+        try:
+            if self._device_stale:
+                # A stale device means the mirror served the preceding
+                # batches, so nothing is parked.
+                assert not self._pipe, "rehydrating around parked batches"
+                self._rehydrate_from_mirror()
+            ticket = self._dev.dispatch_txns(txns, now, new_oldest_version)
+        except DeviceFault as e:
+            self._breaker.on_failure(e)
+            self._device_stale = True
+            self._degraded_last = True
+            self._pipeline_replay_on_mirror()
+            return None
+        # The breaker is credited at the sync (pipeline_complete_oldest):
+        # a device failure surfaces at the readback, and a success credited
+        # at dispatch would keep the circuit from ever opening.
+        self._dev.metrics.counter("pipeline_dispatches").add()
+        entry = InflightBatch(txns, ticket, now, new_oldest_version)
+        self._pipe.append(entry)
+        return entry
+
+    def pipeline_complete_oldest(self) -> None:
+        """Sync and retire the OLDEST in-flight batch: read its verdicts
+        back, apply its committed writes to the mirror, record the synced
+        snapshot.  A fault at the sync or a fixpoint divergence drains the
+        whole pipeline onto the mirror instead — identical verdicts either
+        way, device marked stale for the next submit."""
+        entry = self._pipe[0]
+        try:
+            statuses, diverged = self._dev.sync_ticket(entry.ticket)
+        except DeviceFault as e:
+            self._breaker.on_failure(e)
+            self._device_stale = True
+            self._degraded_last = True
+            self._pipeline_replay_on_mirror()
+            return
+        if diverged:
+            # The fixpoint left this batch undecided and the device history
+            # unchanged for it, so every later dispatch decided against
+            # stale history.  The mirror re-decides this batch and the
+            # parked tail; not a breaker event and not a degraded serve
+            # (depth 1 serves the same batch as a normal success).
+            self._device_stale = True
+            self._pipeline_replay_on_mirror(degraded=False)
+            return
+        # The verdicts are real only now: credit the breaker here.
+        self._breaker.on_success()
+        self._pipe.popleft()
+        statuses_list = [int(s) for s in statuses[: len(entry.txns)]]
+        self._apply_to_mirror(entry.txns, statuses_list, entry.now, entry.new_oldest_version)
+        self.last_witness = self._witness_of(self._dev)
+        entry._resolve(statuses_list, degraded=False, witness=self.last_witness)
+
+    def _pipeline_replay_on_mirror(self, degraded: bool = True) -> None:
+        """Drain every in-flight batch onto the mirror, in order.  The
+        mirror is current through the last completed batch and decides
+        identically, so the replay is exact.  `degraded` tags the replies:
+        True for fault-driven replays, False for a fixpoint divergence
+        (whose reply tag must not depend on depth)."""
+        while self._pipe:
+            entry = self._pipe.popleft()
+            self._dev.metrics.counter("pipeline_replayed_batches").add()
+            if degraded:
+                statuses = self._cpu_detect_fallback(entry.txns, entry.now, entry.new_oldest_version)
+            else:
+                # A by-design re-decide, kept out of the fallback window.
+                statuses = self._cpu.detect(entry.txns, entry.now, entry.new_oldest_version)
+            self.last_witness = self._witness_of(self._cpu)
+            entry._resolve(statuses, degraded=degraded, witness=self.last_witness)
+        self._degraded_last = False  # per-entry flags carry it instead
+
+    def pipeline_drain(self) -> None:
+        """Complete every in-flight batch (idle flush, the barrier before a
+        CPU serve, teardown)."""
+        while self._pipe:
+            self.pipeline_complete_oldest()
+
+    def backend_signal(self) -> dict:
+        """O(1) admission-control probe: the breaker's state plus the
+        mirror's measured fallback throughput (wall-derived; 0.0 = nothing
+        measured yet)."""
+        state = self._breaker.state if self._breaker is not None else "ok"
+        tps = 0.0
+        wall = sum(w for _n, w in self._cpu_fallback_recent)
+        if wall > 0.0:
+            tps = sum(n for n, _w in self._cpu_fallback_recent) / wall
+        return {
+            "backend_state": state,
+            "cpu_mirror_tps": tps,
+            "cpu_fallback_txns": self._cpu_fallback_txns,
+            "mirror_divergence": (
+                int(self._dev.metrics.counter("mirror_divergence").value)
+                if self._dev is not None else 0
+            ),
+        }
+
+    def mirror_check(self) -> Optional[dict]:
+        """Diff a mirror snapshot against the device's exported state.
+        Returns None for the host-only backend, else a report
+        ({status: ok|diverged|skipped, ...}).  A confirmed divergence is a
+        device fault: counted, and the breaker opens (the mirror stays
+        authoritative; the device is marked stale).  O(H) host decode, so
+        callers run it on a period, never per batch."""
+        if self._dev is None:
+            return None
+        m = self._dev.metrics
+        if self._pipe:
+            # The mirror is legitimately behind by the parked batches.
+            report = {"status": "skipped", "reason": "pipeline_inflight"}
+            self._last_mirror_check = report
+            return report
+        if self._device_stale or self._breaker.state != "ok":
+            report = {
+                "status": "skipped",
+                "reason": (
+                    "device_stale" if self._device_stale
+                    else f"breaker_{self._breaker.state}"
+                ),
+            }
+            self._last_mirror_check = report
+            return report
+        m.counter("mirror_checks").add()
+        s = self._cpu.snapshot()
+        mk, mv = s.to_flat()
+        dk, dv = self._dev._merged_host_state()
+        d_oldest = self._dev.oldest_version
+        mismatch = 0
+        if s.oldest_version != d_oldest:
+            mismatch += 1
+        if mk != dk or mv != dv:
+            mirror = dict(zip(mk, mv))
+            device = dict(zip(dk, dv))
+            for key in mirror.keys() | device.keys():
+                if mirror.get(key) != device.get(key):
+                    mismatch += 1
+        report = {
+            "status": "ok" if mismatch == 0 else "diverged",
+            "boundaries": len(mk),
+            "device_boundaries": len(dk),
+            "mismatch_keys": mismatch,
+            "stamp": s.stamp,
+        }
+        if mismatch:
+            m.counter("mirror_divergence").add()
+            m.counter("mirror_mismatch_keys").add(mismatch)
+            self._breaker.on_divergence(f"mismatch_keys={mismatch}")
+            # The device state is suspect: rehydrate from a snapshot before
+            # it serves again (after the breaker's backoff).
+            self._device_stale = True
+            self._degraded_last = True
+        self._last_mirror_check = report
+        return report
+
+    def device_metrics(self, now=None) -> Optional[dict]:
+        """The device engine's registry snapshot plus the breaker state
+        (backend_state, transitions), the pipeline's depth and occupancy
+        and the mirror's maintenance facts; None for the host-only
+        backend."""
+        if self._dev is None:
+            return None
+        snap = self._dev.metrics.snapshot(now=now)
+        snap["last_occupancy"] = dict(self._dev.last_occupancy)
+        snap["distinct_shapes"] = len(self._dev._bucket_dispatches)
+        snap["h_cap"] = self._dev.h_cap
+        snap["backend_state"] = self._breaker.state
+        snap["breaker"] = self._breaker.snapshot()
+        snap["pipeline"] = {"depth": self.pipeline_depth, "inflight": len(self._pipe)}
+        snap["mirror"] = {
+            "engine": type(self._cpu).__name__,
+            "last_check": self._last_mirror_check,
+            "chunks": self._cpu.chunk_count,
+            "boundary_count": self._cpu.boundary_count,
+            "stamp": self._cpu.stamp,
+            "chunks_rebuilt": self._cpu.chunks_rebuilt,
+            "evict_scans": self._cpu.evict_scans,
+            "evict_skips": self._cpu.evict_skips,
+        }
+        return snap
+
+    def clear(self, version: int):
+        self.pipeline_drain()  # parked verdicts must land before the wipe
+        for eng in (self._cpu, self._dev):
+            if eng is not None:
+                eng.clear(version)
+        if self.backend == "hybrid":
+            self._authority = "cpu"
+        self._history_long_keys = False
+        self._long_key_version = -1
+        # The breaker is not reset: clearing data says nothing about the
+        # device's health.
+        self._device_stale = True

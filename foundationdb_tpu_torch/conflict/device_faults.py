@@ -1,0 +1,231 @@
+"""Device-fault injection and the degraded-mode circuit breaker.
+
+A copy of the reference package's ``conflict/device_faults.py`` without its
+trace, span, flight-recorder and buggify hooks.  Two pieces:
+
+``DeviceFaultInjector``
+    makes ``TorchConflictSet`` raise the failures a GPU can produce at its
+    choke points — dispatch (``DeviceUnavailable``), the first dispatch of
+    a shape (``CompileFailed``), ``_grow``/rebase (``DeviceOOM``) — from a
+    scripted plan or an open-ended outage.  Transient faults fire once;
+    persistent ones hold a site down for a number of checks.  ``injected``
+    logs every raised fault as ``[seq, site, kind]``, numbered exactly as
+    the reference numbers them, so one script gives one log in both
+    packages.
+
+``DeviceCircuitBreaker``
+    the state machine ``ConflictSet`` consults around every device
+    attempt::
+
+        ok ──(threshold consecutive faults)──> degraded
+        degraded ──(backoff device-eligible batches elapse)──> probing
+        probing ──(attempt succeeds)──> ok        (backoff resets)
+        probing ──(attempt faults)──> degraded    (backoff doubles)
+
+    While not ``ok``, batches are served by the CPU mirror, which stays
+    authoritative at all times, so verdicts never depend on device health.
+    Transitions are counted in the engine's registry and appended to
+    ``transitions``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+
+class DeviceFault(Exception):
+    """Base of every device failure the breaker handles; `site` names the
+    choke point that raised (dispatch/compile/grow/rebase/sync)."""
+
+    def __init__(self, message: str = "", site: str = ""):
+        super().__init__(message or site)
+        self.site = site
+
+
+class DeviceUnavailable(DeviceFault):
+    """A kernel launch or a readback failed (device lost or reset)."""
+
+
+class CompileFailed(DeviceFault):
+    """The first dispatch of a new static shape failed."""
+
+
+class DeviceOOM(DeviceFault):
+    """Device allocation failed growing, rebasing or running the history."""
+
+
+SITES = ("dispatch", "compile", "grow", "rebase")
+
+_SITE_FAULT = {
+    "dispatch": DeviceUnavailable,
+    "compile": CompileFailed,
+    "grow": DeviceOOM,
+    "rebase": DeviceOOM,
+}
+
+
+class DeviceFaultInjector:
+    """Deterministic fault source for the engine's choke points.
+
+    ``script(site, at=n, persist=k)`` faults the n-th check of a site
+    (1-based) and holds it down for k checks; ``begin_outage`` /
+    ``end_outage`` model an open-ended device loss.  The reference's
+    random (buggify) mode is not ported."""
+
+    def __init__(self):
+        self.checks: Dict[str, int] = {s: 0 for s in SITES}
+        self.injected: List[list] = []  # [seq, site, kind]
+        self._seq = 0
+        self._outage: Dict[str, Optional[int]] = {}  # site -> remaining (None = open-ended)
+        self._scripted: Dict[str, Dict[int, int]] = {}  # site -> {at: persist}
+
+    # -- plans --
+    def script(self, site: str, at: int, persist: int = 1) -> None:
+        """Fault the `at`-th check of `site` and keep the site down for
+        `persist` consecutive checks."""
+        assert site in SITES, site
+        assert at > self.checks[site], "cannot script the past"
+        self._scripted.setdefault(site, {})[at] = persist
+
+    def begin_outage(self, site: str) -> None:
+        """Hold `site` down until end_outage."""
+        assert site in SITES, site
+        self._outage[site] = None
+
+    def end_outage(self, site: str) -> None:
+        self._outage.pop(site, None)
+
+    # -- the choke-point hook --
+    def check(self, site: str) -> None:
+        """Called by the engine before mutating state at `site`; raises the
+        site's fault type when the plan says so."""
+        assert site in SITES, site
+        self._seq += 1
+        n = self.checks[site] = self.checks[site] + 1
+        kind = None
+        # Scripted entries are consumed at their check number even inside
+        # an outage or persistence window: overlapping plans extend the
+        # window (max-merge), they never vanish.
+        persist = self._scripted.get(site, {}).pop(n, None)
+        remaining = self._outage.get(site, 0)
+        if site in self._outage:
+            if remaining is None:
+                kind = "outage"
+            else:
+                self._outage[site] = remaining - 1
+                if self._outage[site] == 0:
+                    del self._outage[site]
+                kind = "persistent"
+        if persist is not None:
+            if persist > 1:
+                tail = self._outage.get(site, 0)
+                if not (site in self._outage and tail is None):
+                    self._outage[site] = max(tail, persist - 1)
+            if kind is None:
+                kind = "persistent" if persist > 1 else "transient"
+        if kind is not None:
+            self.injected.append([self._seq, site, kind])
+            raise _SITE_FAULT[site](f"injected {kind} fault", site=site)
+
+
+# Breaker states (the status doc's backend_state values).
+STATE_OK = "ok"
+STATE_DEGRADED = "degraded"
+STATE_PROBING = "probing"
+
+_STATE_GAUGE = {STATE_OK: 0, STATE_DEGRADED: 1, STATE_PROBING: 2}
+
+
+class DeviceCircuitBreaker:
+    """Consecutive-failure circuit breaker with deterministic exponential
+    backoff, counted in device-eligible batches."""
+
+    def __init__(
+        self,
+        metrics=None,
+        threshold: int = 3,
+        backoff_batches: int = 2,
+        backoff_cap: int = 64,
+    ):
+        self.metrics = metrics
+        self.threshold = threshold
+        self.initial_backoff = backoff_batches
+        self.backoff_cap = backoff_cap
+        self.state = STATE_OK
+        self.consecutive_failures = 0
+        self.backoff = backoff_batches
+        self._cooldown = 0  # device-eligible batches until the next probe
+        self.seq = 0  # device-eligible batches observed
+        self.transitions: List[list] = []  # [seq, from, to, reason]
+        if metrics is not None:
+            metrics.gauge("backend_state").set(_STATE_GAUGE[self.state])
+
+    # -- queries --
+    def allows_device(self) -> bool:
+        """Gate one device-eligible batch; advances the backoff clock and
+        enters `probing` when it elapses.  Call at most once per batch."""
+        self.seq += 1
+        if self.state == STATE_DEGRADED:
+            self._cooldown -= 1
+            if self._cooldown > 0:
+                self._count("degraded_batches")
+                return False
+            self._transition(STATE_PROBING, "backoff_elapsed")
+            self._count("breaker_probes")
+        return True
+
+    # -- outcomes --
+    def on_success(self) -> None:
+        self.consecutive_failures = 0
+        if self.state != STATE_OK:
+            self._transition(STATE_OK, "probe_success")
+            self._count("breaker_closes")
+            self.backoff = self.initial_backoff
+
+    def on_failure(self, fault: DeviceFault) -> None:
+        self.consecutive_failures += 1
+        self._count("device_faults")
+        self._count(f"faults_{fault.site or 'unknown'}")
+        reason = f"{type(fault).__name__}:{fault.site or 'unknown'}"
+        if self.state == STATE_PROBING:
+            self.backoff = min(self.backoff * 2, self.backoff_cap)
+            self._cooldown = self.backoff
+            self._transition(STATE_DEGRADED, f"probe_failed:{reason}")
+        elif self.state == STATE_OK and self.consecutive_failures >= self.threshold:
+            self._cooldown = self.backoff
+            self._transition(STATE_DEGRADED, f"threshold:{reason}")
+            self._count("breaker_opens")
+
+    def on_divergence(self, detail: str) -> None:
+        """Confirmed mirror/device divergence (mirror_check's verdict): a
+        device fault that opens the circuit at once — divergence is corrupt
+        state, never a transient blip."""
+        self._count("device_faults")
+        self._count("faults_mirror")
+        if self.state == STATE_OK:
+            self._cooldown = self.backoff
+            self._transition(STATE_DEGRADED, f"mirror_divergence:{detail}")
+            self._count("breaker_opens")
+
+    def note_rehydrate(self) -> None:
+        self._count("rehydrates")
+
+    # -- plumbing --
+    def _count(self, name: str) -> None:
+        if self.metrics is not None:
+            self.metrics.counter(name).add()
+
+    def _transition(self, to: str, reason: str) -> None:
+        frm, self.state = self.state, to
+        self.transitions.append([self.seq, frm, to, reason])
+        if self.metrics is not None:
+            self.metrics.gauge("backend_state").set(_STATE_GAUGE[to])
+
+    def snapshot(self) -> dict:
+        """Replayable view for device_metrics()."""
+        return {
+            "state": self.state,
+            "consecutive_failures": self.consecutive_failures,
+            "backoff": self.backoff,
+            "transitions": [list(t) for t in self.transitions],
+        }

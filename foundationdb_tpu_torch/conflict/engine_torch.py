@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..metrics import MetricsRegistry
 from ..ops.rangequery import (
     build_max_table,
     build_min_table,
@@ -50,6 +51,8 @@ from ..ops.rangequery import (
 )
 from ..ops.stabbing import INF32, stabbing_min
 from . import keys as keylib
+from .device_faults import DeviceOOM
+from .engine_cpu import chunk_encoding
 from .engine_cpu_flat import FLOOR_VERSION, FlatCpuConflictSet
 from .kernels import fused_merge_evict, phase1_search
 from .types import COMMITTED, CONFLICT, TOO_OLD, TransactionConflictInfo
@@ -685,13 +688,39 @@ def _blob_core(hkeys, hvers, hcount, oldest, blob, *, txn_cap, rr_cap,
 # ---------------------------------------------------------------------------
 
 
+def _counter(name: str):
+    """Read-only attribute for one counter of the engine's registry."""
+    return property(lambda self: self.metrics.counter(name).value)
+
+
 class TorchConflictSet:
     """Host wrapper owning the device-resident history state.
 
     ``device=None`` means the GPU (construction raises without one);
     ``device="cpu"`` runs the same step with the kernels' plain twins.
-    The counters are plain integers: batches, fixpoint_rounds,
-    cpu_fallbacks, host_syncs, grows, rebases."""
+
+    Counters live in ``metrics``, a registry named ``TorchConflict`` with
+    the reference engine's counter names; ``batches``, ``fixpoint_rounds``,
+    ``cpu_fallbacks``, ``host_syncs``, ``grows`` and ``rebases`` read them.
+
+    Device faults.  ``fault_injector`` (device_faults.DeviceFaultInjector)
+    is consulted at the reference's choke points, in its order, before any
+    state changes: ``dispatch`` first in dispatch_packed, ``rebase`` when a
+    rebase shifts the versions, ``grow`` first in _grow (load_from's grow
+    included), ``compile`` at the first dispatch of a shape.  Real device
+    failures map into the same taxonomy: an out-of-memory error at grow,
+    rebase or dispatch is ``DeviceOOM``.  Any other exception propagates
+    unchanged: a failed kernel build, a kernel launch error (no image for
+    this card, a launch configuration it refuses) and a CUDA error raised
+    at a readback are faults of the code or the build, and the breaker
+    would hide them behind the CPU mirror."""
+
+    batches = _counter("batches")
+    fixpoint_rounds = _counter("fixpoint_rounds")
+    cpu_fallbacks = _counter("cpu_fallbacks")
+    host_syncs = _counter("host_syncs")
+    grows = _counter("grows")
+    rebases = _counter("rebases")
 
     def __init__(
         self,
@@ -710,12 +739,20 @@ class TorchConflictSet:
         self.last_iters = 0
         self._last_witness_dev = None
         self._last_iters_dev = None
-        self.batches = 0
-        self.fixpoint_rounds = 0
-        self.cpu_fallbacks = 0
-        self.host_syncs = 0
-        self.grows = 0
-        self.rebases = 0
+        self.metrics = MetricsRegistry("TorchConflict")
+        for name in ("retraces", "batches", "transactions", "fixpoint_rounds",
+                     "grows", "rebases", "cpu_fallbacks", "rehydrate_keys_total",
+                     "rehydrate_keys_encoded", "mirror_sync_keys_encoded",
+                     "host_syncs"):
+            self.metrics.counter(name)  # pre-create: snapshots list them all
+        # Static shape key -> dispatch count; a key's first dispatch is the
+        # `compile` fault site.
+        self._bucket_dispatches: dict = {}
+        self.fault_injector = None
+        # Padding occupancy of the last dispatch (live rows / capacity).
+        self.last_occupancy: dict = {}
+        # Stamp of the MirrorSnapshot this device state equals.
+        self._synced_stamp = None
         self._init_state(oldest_rel=0)
 
     # -- state management --
@@ -779,15 +816,27 @@ class TorchConflictSet:
 
     def _sync(self):
         """Count one blocking device->host readback."""
-        self.host_syncs += 1
+        self.metrics.counter("host_syncs").add()
+
+    def _check_fault(self, site: str):
+        if self.fault_injector is not None:
+            self.fault_injector.check(site)
+
+    def clear(self, version: int):
+        self._base = version
+        self._init_state(oldest_rel=0)
 
     def _maybe_grow_or_rebase(self, now: int, wr_cap: int):
         if now - self._base > REBASE_THRESHOLD:
             self._sync()
             d = int(self._oldest)
             if d > 0:
-                self.rebases += 1
-                self._hvers = torch.clamp(self._hvers - d, min=FLOOR_REL)
+                self._check_fault("rebase")
+                self.metrics.counter("rebases").add()
+                try:
+                    self._hvers = torch.clamp(self._hvers - d, min=FLOOR_REL)
+                except torch.OutOfMemoryError as e:
+                    raise DeviceOOM(f"cuda: {e}", site="rebase") from e
                 self._oldest = self._oldest - d
                 self._base += d
         # Must-fit guard: this batch's merge adds at most 2*wr_cap rows.
@@ -798,17 +847,22 @@ class TorchConflictSet:
                 self._grow(max(self.h_cap * 2, self.h_cap + 4 * wr_cap))
 
     def _grow(self, new_cap: int):
-        self.grows += 1
+        self._check_fault("grow")
+        self.metrics.counter("grows").add()
         pad = new_cap - self.h_cap
         kw1 = self.key_words + 1
-        self._hkeys = torch.cat([
-            self._hkeys,
-            torch.full((kw1, pad), keylib.INF_DEV, dtype=I32, device=self.device),
-        ], dim=1)
-        self._hvers = torch.cat([
-            self._hvers,
-            torch.full((pad,), FLOOR_REL, dtype=I32, device=self.device),
-        ])
+        try:
+            hkeys = torch.cat([
+                self._hkeys,
+                torch.full((kw1, pad), keylib.INF_DEV, dtype=I32, device=self.device),
+            ], dim=1)
+            hvers = torch.cat([
+                self._hvers,
+                torch.full((pad,), FLOOR_REL, dtype=I32, device=self.device),
+            ])
+        except torch.OutOfMemoryError as e:
+            raise DeviceOOM(f"cuda: {e}", site="grow") from e
+        self._hkeys, self._hvers = hkeys, hvers
         self.h_cap = new_cap
 
     # -- detection --
@@ -866,17 +920,38 @@ class TorchConflictSet:
         """Run one batch's step on the device; returns (statuses,
         undecided) tensors without reading them back.  The fixpoint makes
         its own small host checks (one per chunk of rounds)."""
+        self._check_fault("dispatch")
         self._maybe_grow_or_rebase(now, pb.wr_cap)
-        self.batches += 1
+        shape_key = (pb.bucket(), self.h_cap, self.key_words + 1)
+        first_dispatch = shape_key not in self._bucket_dispatches
+        if first_dispatch:
+            # Registered only after the dispatch succeeds, so the retry of
+            # a faulted first dispatch is a first dispatch again.
+            self._check_fault("compile")
+        m = self.metrics
+        m.counter("batches").add()
+        m.counter("transactions").add(pb.n_txn)
+        self.last_occupancy = {
+            "txn": pb.n_txn / pb.txn_cap,
+            "read": pb.n_r / pb.rr_cap,
+            "write": pb.n_w / pb.wr_cap,
+        }
         blob = self._pack_blob(pb, now, new_oldest_version)
-        blob_dev = torch.from_numpy(blob.view(np.int32)).to(self.device)
-        out = _blob_core(
-            self._hkeys, self._hvers, self._hcount, self._oldest, blob_dev,
-            txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
-            h_cap=self.h_cap, kw1=self.key_words + 1, on_sync=self._sync,
-        )
+        try:
+            blob_dev = torch.from_numpy(blob.view(np.int32)).to(self.device)
+            out = _blob_core(
+                self._hkeys, self._hvers, self._hcount, self._oldest, blob_dev,
+                txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
+                h_cap=self.h_cap, kw1=self.key_words + 1, on_sync=self._sync,
+            )
+        except torch.OutOfMemoryError as e:
+            raise DeviceOOM(f"cuda: {e}", site="dispatch") from e
         (self._hkeys, self._hvers, self._hcount, self._oldest,
          statuses, undecided, iters, w_ver, w_rng) = out
+        if first_dispatch:
+            self._bucket_dispatches[shape_key] = 0
+            m.counter("retraces").add()
+        self._bucket_dispatches[shape_key] += 1
         self._last_iters_dev = iters
         # Witness tensors travel with the dispatch-time base: a later
         # dispatch may rebase before this batch is read back.
@@ -898,7 +973,7 @@ class TorchConflictSet:
         self._sync()
         undecided_n, iters = torch.stack([undecided, self._last_iters_dev]).tolist()
         self.last_iters = iters
-        self.fixpoint_rounds += iters
+        self.metrics.counter("fixpoint_rounds").add(iters)
         if undecided_n != 0:
             # The step left the history untouched: re-decide the batch on
             # the CPU engine against that state and adopt its result.
@@ -940,16 +1015,16 @@ class TorchConflictSet:
         self._sync()
         undecided_n, iters = torch.stack([ticket.undecided, ticket.iters]).tolist()
         self.last_iters = iters
-        self.fixpoint_rounds += iters
+        self.metrics.counter("fixpoint_rounds").add(iters)
         if undecided_n != 0:
-            self.cpu_fallbacks += 1
+            self.metrics.counter("cpu_fallbacks").add()
             return None, True
         statuses_np = ticket.statuses.cpu().numpy()
         self.last_witness = self._witness_host(ticket.pb, statuses_np, *ticket.witness)
         return statuses_np, False
 
     def _fallback_cpu(self, pb: PackedBatch, now: int, new_oldest_version: int):
-        self.cpu_fallbacks += 1
+        self.metrics.counter("cpu_fallbacks").add()
         cpu = FlatCpuConflictSet()
         self.store_to(cpu)
         statuses = cpu.detect(
@@ -967,13 +1042,61 @@ class TorchConflictSet:
         self._sync()
         return decode_witness(pb, statuses, w_ver.cpu().numpy(), w_rng.cpu().numpy(), base)
 
-    # -- state exchange with a flat CPU engine --
+    # -- state exchange with the CPU mirror --
+    def note_synced(self, snap, fresh=None) -> None:
+        """Record that this device state now equals MirrorSnapshot `snap`
+        (ConflictSet calls it after every device-served batch), encoding
+        any chunk not yet in the encode cache so that a later rehydration
+        pays only for chunks created after it.  `fresh` is the mirror's
+        take_fresh_chunks() hint (chunks, complete): with it the walk
+        covers the chunks created since the last sync (dead ones are
+        skipped if unencodable); without it, or when it overflowed, every
+        chunk of `snap`.  An unchanged mirror is one stamp compare."""
+        if snap.stamp == self._synced_stamp:
+            return
+        candidates = snap.chunks
+        if fresh is not None:
+            chunks, complete = fresh
+            if complete:
+                candidates = chunks
+        encoded = 0
+        for ch in candidates:
+            cache = ch.enc
+            if cache is None or self.key_words not in cache:
+                try:
+                    _ent, n = chunk_encoding(ch, self.key_words)
+                except ValueError:
+                    continue  # a dead long-key chunk from the hint
+                encoded += n
+        if encoded:
+            self.metrics.counter("mirror_sync_keys_encoded").add(encoded)
+        self._synced_stamp = snap.stamp
+
     def load_from(self, src) -> None:
-        """Adopt a flat CPU engine's state (keys / vers / oldest_version)
-        as device state."""
-        n = len(src.keys)
-        keys_enc = keylib.encode_keys(src.keys, self.key_words)
-        vers_abs = np.asarray(src.vers, dtype=np.int64)
+        """Adopt a CPU-mirror state as device state.  `src` is a
+        MirrorSnapshot (immutable, and its chunks' cached encodings make
+        the host work proportional to the chunks changed since the last
+        note_synced) or any flat engine exposing keys / vers /
+        oldest_version (every key encoded)."""
+        chunks = getattr(src, "chunks", None)
+        if chunks is not None:
+            n = src.boundary_count
+            encoded = 0
+            ents = []
+            for ch in chunks:
+                ent, enc_n = chunk_encoding(ch, self.key_words)
+                ents.append(ent)
+                encoded += enc_n
+            keys_enc = np.concatenate([e[0] for e in ents], axis=0)
+            vers_abs = np.concatenate([e[1] for e in ents])
+            synced_stamp = src.stamp
+        else:
+            n = encoded = len(src.keys)
+            keys_enc = keylib.encode_keys(src.keys, self.key_words)
+            vers_abs = np.asarray(src.vers, dtype=np.int64)
+            synced_stamp = None
+        self.metrics.counter("rehydrate_keys_total").add(n)
+        self.metrics.counter("rehydrate_keys_encoded").add(encoded)
         if n + 8 > self.h_cap:
             self._grow(_next_pow2(n + 8, self.h_cap * 2))
         self._base = src.oldest_version
@@ -985,13 +1108,22 @@ class TorchConflictSet:
         rel[vers_abs == FLOOR_VERSION] = FLOOR_REL
         hvers[:n] = rel.astype(np.int32)
         self._adopt(hkeys, hvers, n, 0)
+        self._synced_stamp = synced_stamp
+
+    def _host_state(self):
+        """(keys, absolute versions, absolute oldest): the device history
+        decoded to host lists, from one readback."""
+        keys_u32, vers, n, oldest, base = self.export_state()
+        keys = keylib.decode_keys(np.ascontiguousarray(keys_u32[:, :n].T), self.key_words)
+        vers_abs = [FLOOR_VERSION if int(v) == FLOOR_REL else int(v) + base for v in vers[:n]]
+        return keys, vers_abs, oldest + base
+
+    def _merged_host_state(self):
+        """The device history as host (keys, absolute versions) lists —
+        what mirror_check compares with the mirror."""
+        return self._host_state()[:2]
 
     def store_to(self, cpu) -> None:
         """Write the device state into a flat CPU engine (keys as bytes,
         absolute versions)."""
-        keys_u32, vers, n, oldest, base = self.export_state()
-        cpu.keys = [keylib.decode_key(keys_u32[:, i], self.key_words) for i in range(n)]
-        cpu.vers = [
-            FLOOR_VERSION if int(v) == FLOOR_REL else int(v) + base for v in vers[:n]
-        ]
-        cpu.oldest_version = oldest + base
+        cpu.keys, cpu.vers, cpu.oldest_version = self._host_state()

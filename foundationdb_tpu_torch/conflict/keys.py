@@ -91,6 +91,19 @@ def decode_key(row: np.ndarray, key_words: int) -> bytes:
     return words.tobytes()[:length]
 
 
+def decode_keys(rows: np.ndarray, key_words: int) -> list:
+    """Bulk inverse of encode_keys for real keys (no INF sentinels): one
+    byte round-trip of the word block plus a per-row length slice."""
+    n = len(rows)
+    if n == 0:
+        return []
+    width = key_words * 4
+    raw = np.ascontiguousarray(rows[:, :key_words]).astype(">u4").tobytes()
+    lens = rows[:, key_words].tolist()
+    mv = memoryview(raw)
+    return [bytes(mv[i * width : i * width + lens[i]]) for i in range(n)]
+
+
 def to_device_words(words_u32: np.ndarray) -> np.ndarray:
     """uint32 key words -> the device encoding (int32, sign bit flipped)."""
     return (np.asarray(words_u32, np.uint32) ^ np.uint32(0x80000000)).view(np.int32)

@@ -298,3 +298,50 @@ def test_carried_state_on_the_card_matches_the_cpu(dev):
     assert gpu.cpu_fallbacks == 0 and gpu.h_cap == cpu.h_cap
     for name in tk.LAUNCHES:
         assert tk.LAUNCHES[name] - before[name] == len(stream) - 6
+
+
+def test_conflict_set_fault_script_on_the_card_matches_the_cpu(dev):
+    """ConflictSet at pipeline depth 2 under a scripted injector (dispatch
+    checks 1-3 open the breaker; the first probe must grow the 64-row
+    history and takes a grow fault; the second rehydrates from a
+    MirrorSnapshot) on the GPU and on the CPU: identical verdicts,
+    witnesses, injected log, breaker transitions, mirror and device export,
+    and both equal to the CPU-only backend."""
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.conflict.device_faults import DeviceFaultInjector
+    from foundationdb_tpu_torch.conflict.engine_cpu_flat import FlatCpuConflictSet
+
+    stream = _stream(13, 400, batches=16, txns_per_batch=8)
+
+    def run(device, backend="torch"):
+        inj = DeviceFaultInjector()
+        for at in (1, 2, 3):
+            inj.script("dispatch", at=at)
+        inj.script("grow", at=1)
+        cs = ConflictSet(backend=backend, key_words=3, bucket_mins=BUCKETS, h_cap=64,
+                         device=device, fault_injector=inj)
+        out = []
+        for txns, now, nov in stream:
+            out.append(cs.pipeline_submit(txns, now, nov))
+            while cs.pipeline_inflight > 1:
+                cs.pipeline_complete_oldest()
+        cs.pipeline_drain()
+        return cs, inj, [(e.statuses, e.witness) for e in out]
+
+    gpu, ginj, got = run(dev)
+    cpu, cinj, want = run("cpu")
+    assert got == want == run("cpu", backend="cpu")[2]
+    assert ginj.injected == cinj.injected
+    assert [site for _s, site, _k in ginj.injected] == ["dispatch"] * 3 + ["grow"]
+    gm, cm = gpu.device_metrics(), cpu.device_metrics()
+    assert gm["breaker"] == cm["breaker"] and gm["backend_state"] == "ok"
+    assert gm["counters"]["rehydrates"] >= 1 and gm["counters"]["faults_grow"] == 1
+    assert list(gpu._cpu.keys) == list(cpu._cpu.keys)
+    exports = []
+    for cs in (gpu, cpu):
+        flat = FlatCpuConflictSet()
+        cs._dev.store_to(flat)
+        exports.append((flat.keys, flat.vers, flat.oldest_version))
+        assert cs.mirror_check()["status"] == "ok"
+    assert exports[0] == exports[1]
+    assert tk.merge_contract_faults(dev) == 0

@@ -430,6 +430,18 @@ def test_port_runs_without_loading_jax_or_the_reference():
         "v = cs.detect([T(0, [(b'a', b'b')], [(b'a', b'c')]),\n"
         "               T(0, [(b'b', b'c')], [])], 5, 0)\n"
         "assert v == [2, 0], v\n"
+        "from foundationdb_tpu_torch import ConflictSet\n"
+        "from foundationdb_tpu_torch.conflict.device_faults import DeviceFaultInjector\n"
+        "inj = DeviceFaultInjector()\n"
+        "inj.script('dispatch', at=2)\n"
+        "cs = ConflictSet(key_words=2, h_cap=64, device='cpu', fault_injector=inj)\n"
+        "e = [cs.pipeline_submit([T(0, [(b'a', b'b')], [(b'a', b'c')]),\n"
+        "                         T(0, [(b'b', b'c')], [])], 5 + i, 0)\n"
+        "     for i in range(3)]\n"
+        "cs.pipeline_drain()\n"
+        "assert [x.statuses for x in e] == [[2, 0], [0, 0], [0, 0]], e\n"
+        "assert cs.mirror_check()['status'] == 'ok'\n"
+        "assert inj.injected == [[3, 'dispatch', 'transient']]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'foundationdb_tpu')]\n"
         "print(sorted(bad))\n"
