@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole check, about six minutes
+    python3 chip_smoke.py            # the whole check, about five minutes
     python3 chip_smoke.py --profile  # also a host/device time split and a
-                                     # torch.profiler table of main-path batches
+                                     # torch.profiler table of batches of
+                                     # both main paths (flat and tiered)
     python3 chip_smoke.py --stamps   # also the search kernel's time by phase,
                                      # block by block (a -DPHASE1_STAMPS build)
 
@@ -21,7 +22,15 @@ Phases, in order; any failure exits non-zero:
                word 1, so every compare ties on word 0) and Zipf queries;
                the merge also with a warm L2, and bit for bit and timed on
                a second full-width input with heavy eviction (window above
-               90% of the versions, runs of up to 1,000 dropped rows)
+               90% of the versions, runs of up to 1,000 dropped rows);
+               then the tiered history's three forms at the tiered4
+               shape, bit for bit, cold and warm, beside their bounds: the
+               two-tier search (base 3,538,944 rows, delta 655,360, one
+               sort of 131,072 queries), the delta merge (A the delta at
+               width 655,360, B 131,072 rows) and the major compaction (A
+               the base at width 3,538,944, B a 655,360-row delta with
+               sparse keep flags, built by the engine's own
+               _major_compact_inputs)
   4. main      ConflictSet(key_words=2, h_cap=3,145,728) at pipeline depth 2
                — the resolver's entry point: CPU mirror, circuit breaker,
                TorchConflictSet behind — on the bench stream (4-byte keys
@@ -35,8 +44,24 @@ Phases, in order; any failure exits non-zero:
                history; mirror_check() must read "ok" (device history ==
                mirror at full width); device faults, breaker opens,
                degraded batches and fallback txns must be 0; pipeline
-               dispatches must equal the batches submitted.  Prints txn/s
-               and the mirror apply and note_synced ms a batch.
+               dispatches must equal the batches submitted.  Prints txn/s,
+               the mirror apply and note_synced ms a batch, the host syncs
+               and allocations a batch and the device span of a batch
+               (CUDA events around each dispatch).  Then the fixpoint's
+               first chunk (rounds before its first host check: 1, 2 or
+               FIXPOINT_CHUNK) on four more batches from one carried
+               state: host checks and device span a batch for each, and
+               equal outputs.
+  4t. tiered   the same stream and seed through ConflictSet(history=
+               "tiered", evict_every=4, delta_cap=655,360, h_cap=3,538,944)
+               at depth 2 (the bench's tiered4 settings): every batch's
+               verdicts and witnesses equal phase 4's; compactions on
+               batches 4, 8, ... 60, so in the 8 timed batches the search
+               launches 16 times and the merge 10 (8 delta merges, 2
+               compactions); mirror_check "ok", no merge order fault, no
+               CPU fallback, no growth.  Prints txn/s, the device span of
+               compaction and minor batches apart, host syncs and
+               allocations a batch.
   5. vs cpu    TorchConflictSet on a reduced stream on the GPU and on the
                CPU (plain twins): verdicts, witnesses and exported state
                identical
@@ -50,13 +75,23 @@ Phases, in order; any failure exits non-zero:
                ok -> degraded -> probing -> degraded -> probing -> ok, and
                the injected log and transitions equal the same script's run
                with device="cpu"
-  7. result    one JSON line per kernel table, then {"ok": true, ...}
+  6t. tiered set vs cpu  the same at depths 1-3 with history="tiered",
+               evict_every=3 and an 8,192-row delta (it grows at the first
+               batch and compacts every third); under dispatch faults 3-6
+               (batch 3 a compaction batch, held down through the first
+               probe) verdicts identical and the injected log and breaker
+               walk equal on cuda and cpu
+  7. result    one JSON line per kernel table (launches: the flat main
+               path's; launches_tiered: the tiered one's; tiered: the
+               tiered shapes' times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
 """
 
 from __future__ import annotations
 
+import gc
+import hashlib
 import json
 import os
 import subprocess
@@ -77,6 +112,12 @@ WARM = WINDOW + 2
 TIMED = 8
 LIVE = 2_870_000  # steady-state history boundaries of the bench window
 NEW_ROWS = 120_000  # valid new boundaries of one bench batch (of 131,072)
+# The bench's tiered4 arm (bench.py:1092-1108): the base sized for three
+# uncompacted batches, a delta of 655,360 rows, a compaction every 4th batch.
+TIERED_H_CAP = H_CAP + 3 * 2 * PER_BATCH
+D_CAP = 655_360
+EVICT_EVERY = 4
+DELTA_LIVE = 3 * NEW_ROWS  # delta rows just before a compaction
 
 
 def log(msg: str) -> None:
@@ -173,22 +214,33 @@ def gen_txns(T, rng, n_txn, batch_index, keyspace=KEYSPACE):
     return [T(batch_index, [(rb[j], re_[j])], [(wb[j], we[j])]) for j in range(n_txn)]
 
 
-def drive(cs, stream, depth):
+def drive(cs, stream, depth, sink=None):
     """The Resolver's discipline over (txns, now, new_oldest) batches:
     submit, complete the oldest while more than depth - 1 are in flight,
-    drain.  Returns each batch's (statuses, witness); a finished batch's
-    transactions are dropped at once."""
+    drain.  Returns each batch's (statuses, witness), or hands each to
+    sink(statuses, witness) instead; a finished batch's transactions are
+    dropped at once."""
     out, parked = [], []
+    sink = sink or (lambda st, w: out.append((st, w)))
     for txns, now, nov in stream:
         parked.append(cs.pipeline_submit(txns, now, nov))
         while cs.pipeline_inflight > depth - 1:
             cs.pipeline_complete_oldest()
         while parked and parked[0].done:
             e = parked.pop(0)
-            out.append((e.statuses, e.witness))
+            sink(e.statuses, e.witness)
     cs.pipeline_drain()
-    out.extend((e.statuses, e.witness) for e in parked)
+    for e in parked:
+        sink(e.statuses, e.witness)
     return out
+
+
+def digest(statuses, witness) -> str:
+    """One batch's verdicts and witnesses as a hash, so that two paths'
+    60 batches compare without keeping them."""
+    h = hashlib.sha256(np.asarray(statuses, np.int8).tobytes())
+    h.update(repr(witness).encode())
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -219,34 +271,49 @@ def phase1_against_plain(torch, tk, h, q_s, side_s, what):
     return got, err
 
 
-def phase1_bound(torch, h, q_s):
-    """Bytes the search needs: word 0 of every history row and query; the
-    higher words only where word 0 ties (this run's data: a history row
-    whose word 0 some query holds, a query whose word 0 some row holds); the
-    sides in, the ranks out.  Returns (bound_ms, bound_by, bytes, detail)."""
-    kw1, n = h.shape
-    m = q_s.shape[1]
-    h_ties = int(torch.isin(h[0], q_s[0]).sum())
-    q_ties = int(torch.isin(q_s[0], h[0]).sum())
-    nbytes = 4 * (n + (kw1 - 1) * h_ties + m + (kw1 - 1) * q_ties + m + m)
-    steps = int(np.ceil(np.log2(n))) + 1
-    bound_ms, bound_by = bound(nbytes, m * steps * 2 * kw1)
-    return bound_ms, bound_by, nbytes, f"history word-0 ties {h_ties}, query word-0 ties {q_ties}"
+def phase1_bound(torch, tiers, q_s):
+    """Bytes the search of one sorted query set in every tier of `tiers`
+    needs: word 0 of every history row and query; the higher words only
+    where word 0 ties (this run's data: a history row whose word 0 some
+    query holds, a query whose word 0 some row of some tier holds); the
+    sides in, each tier's ranks out.  Returns (bound_ms, bound_by, bytes,
+    detail)."""
+    kw1, m = q_s.shape
+    nbytes = ops = 0
+    q_tied = torch.zeros(m, dtype=torch.bool, device=q_s.device)
+    h_ties = []
+    for h in tiers:
+        n = h.shape[1]
+        h_ties.append(int(torch.isin(h[0], q_s[0]).sum()))
+        q_tied |= torch.isin(q_s[0], h[0])
+        nbytes += 4 * (n + (kw1 - 1) * h_ties[-1] + m)
+        ops += m * (int(np.ceil(np.log2(n))) + 1) * 2 * kw1
+    q_ties = int(q_tied.sum())
+    nbytes += 4 * (m + (kw1 - 1) * q_ties + m)
+    bound_ms, bound_by = bound(nbytes, ops)
+    return (bound_ms, bound_by, nbytes,
+            f"history word-0 ties {'/'.join(map(str, h_ties))}, query word-0 ties {q_ties}")
 
 
-def bench_search_input(torch, keylib, rq, gen):
-    """The search at the bench shape: the floor row b"" then LIVE - 1
-    distinct sorted 4-byte keys, INF-padded to h_cap (the carried layout, in
-    the device encoding), and one batch's read ranges as queries."""
+def key_tier(torch, keylib, gen, width, live):
+    """A sorted history tier in the carried layout (device encoding): the
+    floor row b"" then live - 1 distinct sorted 4-byte keys, INF-padded to
+    width."""
+    dev = torch.device("cuda")
+    keys = torch.randperm(KEYSPACE, device=dev, generator=gen)[: live - 1]
+    keys = torch.sort(keys).values.to(torch.int64)
+    h = torch.full((KEY_WORDS + 1, width), keylib.INF_DEV, dtype=torch.int32, device=dev)
+    h[:, 0] = keylib.ZERO_DEV
+    h[0, 1:live] = (keys - 2**31).to(torch.int32)
+    h[1, 1:live] = keylib.ZERO_DEV
+    h[2, 1:live] = KEY_BYTES - 2**31
+    return h
+
+
+def batch_queries(torch, keylib, rq, gen):
+    """One bench batch's read ranges as sorted phase-1 queries."""
     dev = torch.device("cuda")
     kw1 = KEY_WORDS + 1
-    keys = torch.randperm(KEYSPACE, device=dev, generator=gen)[: LIVE - 1]
-    keys = torch.sort(keys).values.to(torch.int64)
-    h = torch.full((kw1, H_CAP), keylib.INF_DEV, dtype=torch.int32, device=dev)
-    h[:, 0] = keylib.ZERO_DEV
-    h[0, 1:LIVE] = (keys - 2**31).to(torch.int32)
-    h[1, 1:LIVE] = keylib.ZERO_DEV
-    h[2, 1:LIVE] = KEY_BYTES - 2**31
     a = torch.randint(0, KEYSPACE, (PER_BATCH,), device=dev, generator=gen)
     b = a + 1 + torch.randint(0, 10, (PER_BATCH,), device=dev, generator=gen)
 
@@ -257,7 +324,13 @@ def bench_search_input(torch, keylib, rq, gen):
         q[2] = KEY_BYTES - 2**31
         return q
 
-    return (h,) + sorted_queries(torch, rq, kw1, enc, a, b)
+    return sorted_queries(torch, rq, kw1, enc, a, b)
+
+
+def bench_search_input(torch, keylib, rq, gen):
+    """The search at the bench shape: LIVE rows at h_cap, and one batch's
+    read ranges as queries."""
+    return (key_tier(torch, keylib, gen, H_CAP, LIVE),) + batch_queries(torch, keylib, rq, gen)
 
 
 def skewed_search_input(torch, keylib, rq, gen):
@@ -315,7 +388,7 @@ def check_phase1(torch, tk, keylib, rq, flush, gen):
     plain_ms = cuda_ms(lambda: tk.phase1_ranks_reference(h, q_s, side_s), 5, flush)
     library_ms = cuda_ms(library, 20, flush)
     library_warm_ms = cuda_ms_warm(library, 50)
-    bound_ms, bound_by, nbytes, detail = phase1_bound(torch, h, q_s)
+    bound_ms, bound_by, nbytes, detail = phase1_bound(torch, [h], q_s)
     return dict(
         name="phase1_ranks", route="cuda",
         source="foundationdb_tpu_torch/conflict/csrc/phase1_search.cu",
@@ -345,7 +418,7 @@ def check_phase1_skewed(torch, tk, keylib, rq, flush, gen):
         raise AssertionError(f"skewed library yardstick disagrees (max |diff| {lib_err})")
     ms = cuda_ms(lambda: tk.phase1_ranks(h, q_s, side_s), 20, flush)
     library_ms = cuda_ms(library, 20, flush)
-    bound_ms, bound_by, nbytes, detail = phase1_bound(torch, h, q_s)
+    bound_ms, bound_by, nbytes, detail = phase1_bound(torch, [h], q_s)
     log(f"kernel phase1_ranks skewed input (64 word-0 values, Zipf 0.9 queries, "
         f"hottest key {top} of {PER_BATCH} begins): kernel_ms {ms:.6f} library_ms "
         f"{library_ms:.6f} bound_us {bound_ms * 1e3:.3f} ({bound_by}, {nbytes} B) "
@@ -413,7 +486,7 @@ def search_stamps(torch, keylib, rq, flush, gen):
                 f"{(t[:, 0] - t0).max()} ns; per phase p50/p90/max ns: " + "; ".join(cells))
 
 
-def merge_input(torch, gen, window, drop_run=0):
+def merge_input(torch, gen, window, drop_run=0, na=H_CAP, live=LIVE):
     """One full-width merge input.  A: the history's live rows, ~1% of them
     overwritten by the batch's segments (keep = 0), and with drop_run also
     runs of 1 to drop_run dropped rows (one run start in 5,000 rows, ~10%
@@ -422,19 +495,21 @@ def merge_input(torch, gen, window, drop_run=0):
     a random sorted subset, A's the rest in order.  Versions uniform in
     [0, 50): window 10 evicts ~4% of the merged rows, about one batch's
     share of a 50-batch window; window 45 puts 90% of the versions below
-    it, as after a large removeBefore jump.  Returns (args, merged_count)."""
+    it, as after a large removeBefore jump.  A has na rows, live of them
+    live (the flat history by default; the tiered delta with na=D_CAP).
+    Returns (args, merged_count)."""
     dev = torch.device("cuda")
     kw1 = KEY_WORDS + 1
-    NA, NB = H_CAP, 2 * PER_BATCH
+    NA, NB = na, 2 * PER_BATCH
     keep_a = torch.zeros(NA, dtype=torch.int32, device=dev)
-    keep_a[:LIVE] = (torch.rand(LIVE, device=dev, generator=gen) > 0.01).to(torch.int32)
+    keep_a[:live] = (torch.rand(live, device=dev, generator=gen) > 0.01).to(torch.int32)
     if drop_run:
-        starts = torch.nonzero(torch.rand(LIVE, device=dev, generator=gen) < 2e-4).flatten()
+        starts = torch.nonzero(torch.rand(live, device=dev, generator=gen) < 2e-4).flatten()
         ends = starts + torch.randint(1, drop_run + 1, starts.shape, device=dev, generator=gen)
-        edge = torch.zeros(LIVE + 1, dtype=torch.int32, device=dev)
+        edge = torch.zeros(live + 1, dtype=torch.int32, device=dev)
         edge.index_add_(0, starts, torch.ones_like(starts, dtype=torch.int32))
-        edge.index_add_(0, ends.clamp(max=LIVE), -torch.ones_like(ends, dtype=torch.int32))
-        keep_a[:LIVE][torch.cumsum(edge[:LIVE], 0) > 0] = 0
+        edge.index_add_(0, ends.clamp(max=live), -torch.ones_like(ends, dtype=torch.int32))
+        keep_a[:live][torch.cumsum(edge[:live], 0) > 0] = 0
     n_keep_a = int(keep_a.sum())
     n_b = NEW_ROWS
     keep_b = torch.zeros(NB, dtype=torch.int32, device=dev)
@@ -532,6 +607,130 @@ def check_merge(torch, tk, flush, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the tiered history's forms at the tiered4 shape
+# ---------------------------------------------------------------------------
+
+
+def check_phase1_tiers(torch, tk, keylib, rq, flush, gen):
+    """The tiered step's phase 1: a base of LIVE rows at TIERED_H_CAP and a
+    delta of DELTA_LIVE rows at D_CAP searched with one sorted query set
+    (two launches), each bit for bit against the plain twin."""
+    base = key_tier(torch, keylib, gen, TIERED_H_CAP, LIVE)
+    delta = key_tier(torch, keylib, gen, D_CAP, DELTA_LIVE)
+    q_s, side_s = batch_queries(torch, keylib, rq, gen)
+    err = max(phase1_against_plain(torch, tk, h, q_s, side_s, f"the tiered {what}")[1]
+              for what, h in (("base", base), ("delta", delta)))
+    # Library yardstick, exact as in check_phase1: word 1 is constant.
+    values = ((q_s[0].to(torch.int64) << 32) | (q_s[2].to(torch.int64) + 2**31)) \
+        + side_s.to(torch.int64)
+    packed = [(h[0].to(torch.int64) << 32) | (h[2].to(torch.int64) + 2**31)
+              for h in (base, delta)]
+
+    def run():
+        return [tk.phase1_ranks(h, q_s, side_s) for h in (base, delta)]
+
+    def library():
+        return [torch.searchsorted(p, values, out_int32=True) for p in packed]
+
+    for got, lib in zip(run(), library()):
+        if not torch.equal(got, lib):
+            raise AssertionError("tiered search: library yardstick disagrees")
+    out = dict(
+        what="two-tier search (base 3,538,944 rows, delta 655,360, 131,072 queries; "
+             "2 launches)",
+        max_abs_err=err, ms=cuda_ms(run, 20, flush), warm_ms=cuda_ms_warm(run, 50),
+        plain_ms=cuda_ms(lambda: [tk.phase1_ranks_reference(h, q_s, side_s)
+                                  for h in (base, delta)], 3, flush),
+        library_ms=cuda_ms(library, 20, flush),
+    )
+    out["bound_ms"], out["bound_by"], out["bytes"], out["detail"] = phase1_bound(
+        torch, [base, delta], q_s)
+    return out
+
+
+def compaction_input(torch, et, keylib, gen):
+    """The major compaction's merge arguments at the tiered4 shape, made by
+    the engine's own _major_compact_inputs: a base of LIVE sorted keys at
+    TIERED_H_CAP with versions uniform in [0, 50), and a delta at D_CAP laid
+    out as write segments leave it: its floor row, then for each of about
+    DELTA_LIVE / 2 segments [a, a + 1 + U[0, 10)) a begin row covered at a
+    version in 50-52 (above every base version) and an end row at the
+    floor.  Where an end row falls on a base key it is dropped, so B's keep
+    flags have gaps.  Window 10.  Returns (args, merged_count)."""
+    dev = torch.device("cuda")
+    kw1 = KEY_WORDS + 1
+    H, D = TIERED_H_CAP, D_CAP
+    hk = key_tier(torch, keylib, gen, H, LIVE)
+    hv = torch.full((H,), et.FLOOR_REL, dtype=torch.int32, device=dev)
+    hv[:LIVE] = torch.randint(0, 50, (LIVE,), dtype=torch.int32, device=dev, generator=gen)
+    n_seg = (DELTA_LIVE - 1) // 2
+    begins = torch.randperm(KEYSPACE - 16, device=dev, generator=gen)[: n_seg + n_seg // 4]
+    begins = torch.sort(begins).values
+    ends = begins + 1 + torch.randint(0, 10, begins.shape, device=dev, generator=gen)
+    apart = torch.cat([ends[:-1] < begins[1:], torch.ones(1, dtype=torch.bool, device=dev)])
+    begins, ends = begins[apart][:n_seg], ends[apart][:n_seg]
+    rows = torch.stack([begins, ends], dim=1).reshape(-1)
+    nd = 1 + rows.shape[0]
+    dk = torch.full((kw1, D), keylib.INF_DEV, dtype=torch.int32, device=dev)
+    dk[:, 0] = keylib.ZERO_DEV
+    dk[0, 1:nd] = (rows.to(torch.int64) - 2**31).to(torch.int32)
+    dk[1, 1:nd] = keylib.ZERO_DEV
+    dk[2, 1:nd] = KEY_BYTES - 2**31
+    dv = torch.full((D,), et.FLOOR_REL, dtype=torch.int32, device=dev)
+    dv[1:nd:2] = torch.randint(50, 53, ((nd - 1) // 2,), dtype=torch.int32, device=dev,
+                               generator=gen)
+    hc = torch.tensor(LIVE, dtype=torch.int32, device=dev)
+    dc = torch.tensor(nd, dtype=torch.int32, device=dev)
+    args = et._major_compact_inputs(hk, hv, hc, dk, dv, dc, H=H, D=D)
+    window = torch.tensor(10, dtype=torch.int32, device=dev)
+    return args + (window,), int(args[-1])
+
+
+def check_tiered_merges(torch, tk, et, keylib, flush, gen):
+    """The tiered step's two merges, bit for bit, cold and warm, beside
+    their bounds: the delta merge (A the delta at D_CAP, B a batch's
+    131,072 rows) and the major compaction (A the base at TIERED_H_CAP,
+    B the delta with sparse keep flags)."""
+    out = []
+    for what, make, width in (
+        ("delta merge (A 655,360-row delta, B 131,072 rows)",
+         lambda: merge_input(torch, gen, 10, na=D_CAP, live=DELTA_LIVE), D_CAP),
+        ("major compaction (A 3,538,944-row base, B 655,360-row delta, sparse keep)",
+         lambda: compaction_input(torch, et, keylib, gen), TIERED_H_CAP),
+    ):
+        args, mc = make()
+        n, err = merge_against_plain(torch, tk, args, width, f"the tiered {what}")
+        kept_b = args[6] != 0
+        # B rows not kept before its last kept one (0 for a dense prefix).
+        gaps = int(torch.nonzero(kept_b).max()) + 1 - int(kept_b.sum())
+        if width == TIERED_H_CAP and gaps == 0:
+            raise AssertionError("the compaction input's delta has no gaps in its kept rows")
+
+        def run():
+            return tk.fused_merge_evict(*args, width=width)
+
+        row = dict(
+            what=what, max_abs_err=err, ms=cuda_ms(run, 20, flush), warm_ms=cuda_ms_warm(run, 50),
+            plain_ms=cuda_ms(lambda: tk.fused_merge_evict_reference(*args, width=width), 3, flush),
+            library_ms=None,
+        )
+        row["bound_ms"], row["bound_by"], row["bytes"] = merge_bound(args, mc, n, width)
+        row["detail"] = (f"merged rows {mc}, surviving rows {n}, B kept rows "
+                         f"{int(kept_b.sum())} of {args[6].shape[0]}, {gaps} unkept among them")
+        out.append(row)
+        del args
+    return out
+
+
+def log_tiered_shape(name, r, card):
+    lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.6f}"
+    log(f"kernel {name} tiered {r['what']}: kernel_ms {r['ms']:.6f} warm_ms "
+        f"{r['warm_ms']:.6f} plain_ms {r['plain_ms']:.6f} bound_us {r['bound_ms'] * 1e3:.3f} "
+        f"({r['bound_by']}, {r['bytes']} B) library_ms {lib} max_abs_err "
+        f"{r['max_abs_err']} ({r['detail']}) [{card}]")
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: the engine
 # ---------------------------------------------------------------------------
 
@@ -550,24 +749,94 @@ def history_sorted(torch, rq, cs) -> int:
     return n
 
 
-def main_path(torch, api, T, tk, rq, profile: bool):
+class GcPauses:
+    """Wall seconds the interpreter's garbage collector runs while this is
+    installed (gc.callbacks)."""
+
+    def __init__(self):
+        self.seconds, self._t0 = 0.0, None
+        gc.callbacks.append(self)
+
+    def __call__(self, phase, _info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self._t0 = None
+
+    def remove(self) -> float:
+        gc.callbacks.remove(self)
+        return self.seconds
+
+
+class DispatchSpans:
+    """CUDA events around each dispatch of an engine: a batch's device span,
+    from the start of its upload to the end of its readback copy (the
+    fixpoint's host checks inside it included), and whether it compacted."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.spans = torch, eng, []
+        self._dispatch = eng.dispatch_packed
+        eng.dispatch_packed = self._timed
+
+    def _majors(self) -> int:
+        c = self.eng.metrics.counters.get("major_compactions")
+        return c.value if c is not None else 0
+
+    def _timed(self, pb, now, new_oldest_version):
+        a, b = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+        majors = self._majors()
+        a.record()
+        ticket = self._dispatch(pb, now, new_oldest_version)
+        b.record()
+        self.spans.append((a, b, self._majors() > majors))
+        return ticket
+
+    def remove(self):
+        """Stop timing; returns (compaction spans ms, other spans ms)."""
+        del self.eng.dispatch_packed
+        self.torch.cuda.synchronize()
+        major = [a.elapsed_time(b) for a, b, c in self.spans if c]
+        minor = [a.elapsed_time(b) for a, b, c in self.spans if not c]
+        return major, minor
+
+
+def main_path(torch, api, T, tk, rq, et, profile: bool, tiered=False, want=None):
     """The bench stream through ConflictSet at depth 2, as a Resolver
-    serves it.  Returns (launches of the timed batches, txn/s)."""
+    serves it: flat (phase 4), or with the tiered4 settings (phase 4t),
+    whose every batch must then equal `want`, the flat run's digests.
+    Returns (launches of the timed batches, txn/s, every batch's digest)."""
     depth = 2
+    label = "tiered" if tiered else "main"
+    gc.collect()  # an earlier phase's garbage is not this path's cost
     rng = np.random.default_rng(2026)
-    cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth)
+    if tiered:
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=TIERED_H_CAP, pipeline_depth=depth,
+                             history="tiered", evict_every=EVICT_EVERY, delta_cap=D_CAP)
+        # A search of both tiers a batch; a delta merge a batch and a
+        # compaction every EVICT_EVERY batches (WARM is a multiple of it).
+        expect = {"phase1_ranks": 2 * TIMED, "fused_merge_evict": TIMED + TIMED // EVICT_EVERY}
+    else:
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth)
+        expect = {name: TIMED for name in tk.LAUNCHES}
     eng, m = cs._dev, cs._dev.metrics
+    caps0 = (eng.h_cap, eng.d_cap)
+    digests = []
     t0 = time.perf_counter()
-    drive(cs, ((gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i) for i in range(WARM)), depth)
+    drive(cs, ((gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i) for i in range(WARM)), depth,
+          sink=lambda st, w: digests.append(digest(st, w)))
     torch.cuda.synchronize()
-    log(f"main: {WARM} warm-up batches through ConflictSet in "
-        f"{time.perf_counter() - t0:.3f} s, boundaries {eng.boundary_count}")
+    log(f"{label}: {WARM} warm-up batches through ConflictSet in "
+        f"{time.perf_counter() - t0:.3f} s, boundaries (bound) {eng.boundary_count_bound}")
     timed = [(gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i)
              for i in range(WARM, WARM + TIMED)]
     extra = [(gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i)
-             for i in range(WARM + TIMED, WARM + TIMED + (4 if profile else 0))]
-    syncs0, rounds0 = eng.host_syncs, eng.fixpoint_rounds
+             for i in range(WARM + TIMED, WARM + TIMED + 4)]
+    syncs0, allocs0, rounds0 = eng.host_syncs, eng.host_allocs, eng.fixpoint_rounds
     wall0 = m.snapshot(include_wall=True)["wall"]
+    spans = DispatchSpans(torch, eng)
+    gc.collect()
+    pauses = GcPauses()
     for name in tk.LAUNCHES:
         tk.LAUNCHES[name] = 0
     t0 = time.perf_counter()
@@ -575,35 +844,45 @@ def main_path(torch, api, T, tk, rq, profile: bool):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(tk.LAUNCHES)
-    for name, n in launches.items():
-        if n != TIMED:
-            raise AssertionError(f"{name} launched {n} times in {TIMED} main-path batches")
+    gc_ms = pauses.remove() / TIMED * 1e3
+    major_ms, minor_ms = spans.remove()
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches} in {TIMED} batches, expected {expect}")
     if eng.cpu_fallbacks != 0:
-        raise AssertionError(f"cpu_fallbacks = {eng.cpu_fallbacks}")
+        raise AssertionError(f"{label}: cpu_fallbacks = {eng.cpu_fallbacks}")
     faults = tk.merge_contract_faults("cuda")
     if faults:
-        raise AssertionError(f"the merge found {faults} order faults on the main path")
-    if eng.h_cap != H_CAP:
-        raise AssertionError(f"history grew to {eng.h_cap}")
+        raise AssertionError(f"{label}: the merge found {faults} order faults")
+    if (eng.h_cap, eng.d_cap) != caps0:
+        raise AssertionError(f"{label}: history grew from (h_cap, d_cap) {caps0} to "
+                             f"{(eng.h_cap, eng.d_cap)}")
     s = np.asarray(out[-1][0])
     if not ((s >= 0) & (s <= 2)).all() or not (s == 2).any():
-        raise AssertionError("verdicts out of range or none committed")
+        raise AssertionError(f"{label}: verdicts out of range or none committed")
     if len(out[-1][1]) != PER_BATCH:
-        raise AssertionError("no witness for the last batch")
+        raise AssertionError(f"{label}: no witness for the last batch")
+    digests.extend(digest(st, w) for st, w in out)
+    if want is not None and digests != want:
+        first = next(i for i, (a, b) in enumerate(zip(digests, want)) if a != b)
+        raise AssertionError(f"{label}: batch {first}'s verdicts or witnesses differ from "
+                             f"the flat path's")
     counters = m.snapshot()["counters"]
     for name in ("device_faults", "breaker_opens", "degraded_batches", "cpu_fallback_txns",
                  "pipeline_replayed_batches"):
         if counters[name] != 0:
-            raise AssertionError(f"{name} = {counters[name]} on the main path")
+            raise AssertionError(f"{label}: {name} = {counters[name]}")
     if counters["pipeline_dispatches"] != WARM + TIMED:
-        raise AssertionError(f"pipeline_dispatches {counters['pipeline_dispatches']} != "
-                             f"{WARM + TIMED} batches submitted")
+        raise AssertionError(f"{label}: pipeline_dispatches {counters['pipeline_dispatches']} "
+                             f"!= {WARM + TIMED} batches submitted")
+    if tiered and counters["major_compactions"] != (WARM + TIMED) // EVICT_EVERY:
+        raise AssertionError(f"{label}: {counters['major_compactions']} compactions in "
+                             f"{WARM + TIMED} batches")
     wall = m.snapshot(include_wall=True)["wall"]
 
     def per_batch_ms(name):
         n = wall[name]["count"] - wall0[name]["count"]
         if n != TIMED:
-            raise AssertionError(f"{name}: {n} samples in {TIMED} timed batches")
+            raise AssertionError(f"{label}: {name}: {n} samples in {TIMED} timed batches")
         return (wall[name]["seconds"] - wall0[name]["seconds"]) / n * 1e3
 
     apply_ms = per_batch_ms("mirror_apply_seconds")
@@ -612,23 +891,80 @@ def main_path(torch, api, T, tk, rq, profile: bool):
     report = cs.mirror_check()
     check_s = time.perf_counter() - t1
     if report["status"] != "ok":
-        raise AssertionError(f"mirror_check on the main path: {report}")
+        raise AssertionError(f"{label}: mirror_check: {report}")
     n = history_sorted(torch, rq, eng)
     tps = TIMED * PER_BATCH / dt
-    log(f"main: {TIMED} timed batches x {PER_BATCH} txns through ConflictSet "
+    spans_text = (f"compaction batches {np.mean(major_ms):.3f} ms ({len(major_ms)}), "
+                  f"minor batches {np.mean(minor_ms):.3f} ms ({len(minor_ms)})" if tiered
+                  else f"{np.mean(minor_ms):.3f} ms")
+    log(f"{label}: {TIMED} timed batches x {PER_BATCH} txns through ConflictSet "
         f"(depth {depth}) in {dt:.6f} s: {tps:.1f} txn/s, {dt / TIMED * 1e3:.3f} ms/batch; "
-        f"mirror apply {apply_ms:.3f} ms/batch, note_synced {synced_ms:.3f} ms/batch; "
+        f"mirror apply {apply_ms:.3f} ms/batch, note_synced {synced_ms:.3f} ms/batch, "
+        f"garbage collection {gc_ms:.3f} ms/batch; device span a batch: {spans_text}; "
         f"conflicts {int((s == 0).sum())}/{PER_BATCH} in the last batch, "
-        f"boundaries {n}, host syncs/batch {(eng.host_syncs - syncs0) / TIMED}, "
+        f"{'base rows' if tiered else 'boundaries'} {n}, "
+        f"host syncs/batch {(eng.host_syncs - syncs0) / TIMED}, "
+        f"host allocs in the timed batches {eng.host_allocs - allocs0} "
+        f"({allocs0} before), "
         f"fixpoint rounds/batch {(eng.fixpoint_rounds - rounds0) / TIMED}, "
-        f"mirror_check ok ({report['boundaries']} boundaries, {check_s:.3f} s), "
+        f"launches {launches}, "
+        f"mirror_check ok ({report['boundaries']} boundaries, "
+        f"{report.get('below_window_keys', 0)} keys differing only below the window, "
+        f"{check_s:.3f} s), "
         f"card {torch.cuda.get_device_name(0)}")
+    if want is not None:
+        log(f"{label}: all {len(digests)} batches' verdicts and witnesses equal the flat path's")
+    packed = [(eng._pack(t), now, nov) for t, now, nov in extra]
+    if not tiered:
+        first_chunk_sweep(torch, et, eng, packed)
     if profile:
-        profile_batches(torch, eng, [eng._pack(t) for t, _now, _nov in extra], WARM + TIMED)
-    return launches, tps
+        profile_batches(torch, eng, packed, label)
+    return launches, tps, digests
 
 
-def profile_batches(torch, cs, batches, first):
+def first_chunk_sweep(torch, et, eng, batches):
+    """The fixpoint's first chunk — the rounds it runs before its first
+    host check: 1, 2 or FIXPOINT_CHUNK — on main-path batches, each step
+    run from the same carried state: the host checks and the device span
+    (CUDA events around the step) a batch for each, and outputs (state,
+    verdicts, iters, witnesses) equal across the choices."""
+    default = et.FIXPOINT_FIRST_CHUNK
+    kw1 = eng.key_words + 1
+    state = (eng._hkeys, eng._hvers, eng._hcount, eng._oldest)
+    blobs = []
+    for pb, now, nov in batches:
+        blob = eng._pack_blob(pb, now, nov)
+        blobs.append((pb, torch.from_numpy(blob.view(np.int32).copy()).cuda()))
+    first_out = []
+    try:
+        for first in (1, 2, et.FIXPOINT_CHUNK):
+            et.FIXPOINT_FIRST_CHUNK = first
+            checks, spans, rounds = [0], [], 0
+            for j, (pb, blob) in enumerate(blobs):
+                torch.cuda.synchronize()
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                out = et._blob_core(*state, blob, txn_cap=pb.txn_cap, rr_cap=pb.rr_cap,
+                                    wr_cap=pb.wr_cap, h_cap=eng.h_cap, kw1=kw1,
+                                    on_sync=lambda: checks.__setitem__(0, checks[0] + 1))
+                b.record()
+                b.synchronize()
+                spans.append(a.elapsed_time(b))
+                rounds += int(out[6]) - 2
+                if len(first_out) <= j:
+                    first_out.append(out)
+                elif not all(torch.equal(x, y) for x, y in zip(out, first_out[j])):
+                    raise AssertionError(f"first chunk {first}: batch {j}'s outputs differ")
+            n = len(blobs)
+            log(f"fixpoint first chunk {first}{' (default)' if first == default else ''}: "
+                f"{checks[0] / n} host checks/batch, device span {np.mean(spans):.3f} ms/batch "
+                f"(each: {', '.join(f'{x:.3f}' for x in spans)}), fixpoint rounds/batch "
+                f"{rounds / n}, over {n} main-path batches from one state")
+    finally:
+        et.FIXPOINT_FIRST_CHUNK = default
+
+
+def profile_batches(torch, cs, batches, label):
     """Where a main-path batch's time goes: a host-clock split of two
     batches (pack alone; dispatch = pack + upload + step enqueue + the
     fixpoint's host checks; device drain; readback = verdicts + witness
@@ -638,43 +974,47 @@ def profile_batches(torch, cs, batches, first):
     from torch.profiler import ProfilerActivity, profile
 
     half = len(batches) // 2
-    for j, pb in enumerate(batches[:half]):
-        i = first + j
+    for pb, now, nov in batches[:half]:
         t0 = time.perf_counter()
-        cs._pack_blob(pb, i + WINDOW, i)
+        cs._pack_blob(pb, now, nov)
         t1 = time.perf_counter()
-        statuses, undecided = cs.dispatch_packed(pb, now=i + WINDOW, new_oldest_version=i)
+        ticket = cs.dispatch_packed(pb, now=now, new_oldest_version=nov)
         t2 = time.perf_counter()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        cs.readback_packed(pb, statuses, undecided, i + WINDOW, i)
+        cs.readback_packed(ticket)
         t4 = time.perf_counter()
-        log(f"split batch {i}: pack {1e3 * (t1 - t0):.3f} ms, dispatch "
+        log(f"{label} split batch {nov}: pack {1e3 * (t1 - t0):.3f} ms, dispatch "
             f"{1e3 * (t2 - t1):.3f} ms, device drain {1e3 * (t3 - t2):.3f} ms, "
             f"readback+witness decode {1e3 * (t4 - t3):.3f} ms")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for j, pb in enumerate(batches[half:]):
-            i = first + half + j
-            cs.detect_packed(pb, now=i + WINDOW, new_oldest_version=i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # Device-side events only: an aten op's own row repeats its kernels' time.
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA)
-    table = events.table(sort_by="self_device_time_total", row_limit=40)
-    log(f"profile: {len(batches) - half} batches, wall {wall_ms:.3f} ms under the "
-        f"profiler, device busy {busy_us / 1e3:.3f} ms, idle share "
-        f"{1 - busy_us / 1e3 / wall_ms:.4f}")
-    # The hand-written kernels as the main path runs them, beside phase 3's
-    # cold and warm times (whether the main path finds the history in L2).
-    ours = ("phase1_ranks_kernel", "merge_index_kernel", "merge_tiles_kernel")
-    for e in events:
-        if e.device_type == DeviceType.CUDA and any(k in e.key for k in ours):
-            log(f"profile kernel {e.key}: {e.count} launches, "
-                f"{e.self_device_time_total / max(e.count, 1) / 1e3:.6f} ms each")
-    log(table)
+    def majors():
+        c = cs.metrics.counters.get("major_compactions")
+        return c.value if c is not None else 0
+
+    # One profile a batch, so a compaction batch shows apart.
+    for pb, now, nov in batches[half:]:
+        majors0 = majors()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cs.detect_packed(pb, now=now, new_oldest_version=nov)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        # Device-side events only: an aten op's own row repeats its kernels' time.
+        busy_us = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA)
+        log(f"{label} profile batch {nov}{' (compaction)' if majors() > majors0 else ''}: "
+            f"wall {wall_ms:.3f} ms under the profiler, device busy {busy_us / 1e3:.3f} ms, "
+            f"idle share {1 - busy_us / 1e3 / wall_ms:.4f}")
+        # The hand-written kernels as the main path runs them, beside phase
+        # 3's cold and warm times (whether the main path finds the history
+        # in L2).
+        ours = ("phase1_ranks_kernel", "merge_index_kernel", "merge_tiles_kernel")
+        for e in events:
+            if e.device_type == DeviceType.CUDA and any(k in e.key for k in ours):
+                log(f"{label} profile kernel {e.key}: {e.count} launches, "
+                    f"{e.self_device_time_total / max(e.count, 1) / 1e3:.6f} ms each")
+    log(events.table(sort_by="self_device_time_total", row_limit=40))
 
 
 def versus_cpu(torch, et):
@@ -759,6 +1099,66 @@ def conflictset_vs_cpu(torch, api, T, faults):
         f"{c['rehydrate_keys_total']}, grows {c['grows']}")
 
 
+def tiered_conflictset_vs_cpu(torch, api, T, faults):
+    """ConflictSet(history="tiered") on the GPU against ConflictSet(
+    backend="cpu") on the reduced stream, 18 batches long: compactions
+    every third batch and an 8,192-row delta that the first batch grows,
+    at depths 1-3; then dispatch faults 3-6 (batch 3 is a compaction batch;
+    the fourth fault takes the first probe; the recovered engine compacts
+    again), whose injected log and breaker walk must equal the same
+    script's run with device="cpu"."""
+    n_txn, batches, window = 4096, 18, 4
+    rng = np.random.default_rng(7)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=200_000), i + window, i)
+              for i in range(batches)]
+    want = drive(api.ConflictSet(backend="cpu", key_words=KEY_WORDS), stream, 1)
+    tiers = dict(history="tiered", evict_every=3, delta_cap=8192)
+    for depth in (1, 2, 3):
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 16, pipeline_depth=depth, **tiers)
+        if drive(cs, stream, depth) != want:
+            raise AssertionError(f"tiered ConflictSet depth {depth}: GPU verdicts/witnesses "
+                                 f"differ from CPU")
+        c = cs.device_metrics()["counters"]
+        if c["major_compactions"] < batches // 3 or cs._dev.d_cap <= 8192 or c["grows"] < 1:
+            raise AssertionError(f"tiered ConflictSet depth {depth}: compactions "
+                                 f"{c['major_compactions']}, d_cap {cs._dev.d_cap}, "
+                                 f"grows {c['grows']}")
+        if cs.mirror_check()["status"] != "ok":
+            raise AssertionError(f"tiered ConflictSet depth {depth}: mirror_check failed")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        inj = faults.DeviceFaultInjector()
+        for at in (3, 4, 5, 6):
+            inj.script("dispatch", at=at)
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 16, device=device,
+                             fault_injector=inj, **tiers)
+        if drive(cs, stream, 2) != want:
+            raise AssertionError(f"tiered fault run on {device}: verdicts/witnesses differ "
+                                 f"from CPU")
+        dm = cs.device_metrics()
+        walk = [(f, t) for _s, f, t, _r in dm["breaker"]["transitions"]]
+        if walk != [("ok", "degraded"), ("degraded", "probing"), ("probing", "degraded"),
+                    ("degraded", "probing"), ("probing", "ok")]:
+            raise AssertionError(f"tiered fault run on {device}: breaker walk {walk}")
+        if [site for _seq, site, _kind in inj.injected] != ["dispatch"] * 4:
+            raise AssertionError(f"tiered fault run on {device}: injected {inj.injected}")
+        if cs.mirror_check()["status"] != "ok":
+            raise AssertionError(f"tiered fault run on {device}: mirror_check failed")
+        if dm["counters"]["major_compactions"] < 1:
+            raise AssertionError(f"tiered fault run on {device}: no compaction after recovery")
+        runs[device] = (inj.injected, dm["breaker"]["transitions"], dm["counters"], dm["tiers"])
+    if runs["cuda"][:2] != runs["cpu"][:2] or runs["cuda"][3] != runs["cpu"][3]:
+        raise AssertionError(f"tiered fault logs differ: cuda {runs['cuda'][:2]} "
+                             f"cpu {runs['cpu'][:2]}")
+    c = runs["cuda"][2]
+    log(f"tiered set vs cpu: {batches} batches x {n_txn} txns through ConflictSet("
+        f"history='tiered', evict_every=3, delta_cap=8192) on the GPU at depths 1, 2, 3 "
+        f"identical to ConflictSet(backend='cpu'); fault script: injected "
+        f"{runs['cuda'][0]}, transitions {[t[1:] for t in runs['cuda'][1]]}, equal on cuda "
+        f"and cpu; compactions {c['major_compactions']}, grows {c['grows']}, rehydrates "
+        f"{c['rehydrates']}, tiers {runs['cuda'][3]}")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -803,6 +1203,8 @@ def main(argv) -> int:
     rows = [check_phase1(torch, tk, keylib, rq, flush, gen),
             check_merge(torch, tk, flush, gen)]
     check_phase1_skewed(torch, tk, keylib, rq, flush, gen)
+    rows[0]["tiered"] = [check_phase1_tiers(torch, tk, keylib, rq, flush, gen)]
+    rows[1]["tiered"] = check_tiered_merges(torch, tk, et, keylib, flush, gen)
     if stamps:
         search_stamps(torch, keylib, rq, flush, gen)
     del flush
@@ -812,19 +1214,29 @@ def main(argv) -> int:
             f"bound_us {r['bound_ms'] * 1e3:.3f} ({r['bound_by']}, {r['bytes']} B) "
             f"library_ms {lib} max_abs_err {r['max_abs_err']} ({r['detail']}) "
             f"[{kind}, {smi}]")
+        for t in r["tiered"]:
+            log_tiered_shape(r["name"], t, f"{kind}, {smi}")
 
-    # 4. main path
-    launches, _tps = main_path(torch, api, T, tk, rq, profile)
+    # 4. the main path, flat then tiered
+    launches, _tps, digests = main_path(torch, api, T, tk, rq, et, profile)
+    launches_tiered, _tps, _d = main_path(torch, api, T, tk, rq, et, profile,
+                                          tiered=True, want=digests)
     # 5-6. held against the CPU
     versus_cpu(torch, et)
     conflictset_vs_cpu(torch, api, T, faults)
+    tiered_conflictset_vs_cpu(torch, api, T, faults)
 
     # 7. result
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape_keys = ("what", "max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms")
     for r in rows:
         r["launches"] = launches[r["name"]]
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(json.dumps({"kernels": [
+        dict({k: r[k] for k in keys}, launches_tiered=launches_tiered[r["name"]],
+             tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]])
+        for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -28,10 +28,12 @@ reads the oldest one back, applies it to the mirror and records the synced
 snapshot.  The breaker is credited at that sync, never at dispatch.
 
 Settings the reference reads from environment knobs are constructor
-arguments here, with the reference's defaults.  Two knobs have no
-counterpart yet: the mirror applies every batch at once (no coalescing),
-and the device takes every key that fits its width (``key_words * 4``
-bytes).  Only injected faults and out-of-memory errors reach the breaker;
+arguments here, with the reference's defaults (``history``, ``delta_cap``
+and ``evict_every`` select and size the tiered history, see
+engine_torch.TorchConflictSet).  The mirror applies every batch at once
+(no coalescing knob), and the device takes keys of at most
+``min(MAX_DEVICE_KEY_BYTES, key_words * 4)`` bytes, the reference knob's
+default.  Only injected faults and out-of-memory errors reach the breaker;
 any other error, CUDA errors included, propagates.
 
 Usage mirrors the reference ABI:
@@ -49,7 +51,25 @@ from typing import List, Optional
 
 from .device_faults import DeviceCircuitBreaker, DeviceFault
 from .engine_cpu import CpuConflictSet
+from .engine_cpu_flat import FLOOR_VERSION
 from .types import TransactionConflictInfo
+
+# Longest key the device takes (the reference's
+# conflict_max_device_key_bytes default); longer ones go to the mirror.
+MAX_DEVICE_KEY_BYTES = 16
+
+
+def _above_window(keys, vers, oldest):
+    """A history as every snapshot the window admits sees it: a version
+    below ``oldest`` never conflicts, so it reads as the floor, and a row
+    that repeats its predecessor's value is dropped."""
+    out_k, out_v = [], []
+    for k, v in zip(keys, vers):
+        v = v if v >= oldest else FLOOR_VERSION
+        if not out_v or out_v[-1] != v:
+            out_k.append(k)
+            out_v.append(v)
+    return out_k, out_v
 
 
 class ConflictBatch:
@@ -130,6 +150,9 @@ class ConflictSet:
         pipeline_depth: int = 2,
         witness: bool = True,
         device_min_batch: int = 256,
+        history: str = "flat",
+        delta_cap: int = 0,
+        evict_every: int = 1,
     ):
         if backend not in ("cpu", "torch", "hybrid"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -155,6 +178,10 @@ class ConflictSet:
                 device=device,
                 bucket_mins=bucket_mins,
                 h_cap=h_cap,
+                history=history,
+                delta_cap=delta_cap,
+                evict_every=evict_every,
+                pipeline_depth=self.pipeline_depth,
             )
             for name in ("device_faults", "breaker_opens", "breaker_probes",
                          "breaker_closes", "degraded_batches", "rehydrates",
@@ -237,7 +264,7 @@ class ConflictSet:
     def _device_eligible(self, txns, now: int = 0) -> bool:
         """Every key in the batch fits the device width and no long-key
         write has pinned history host-side."""
-        max_key = self._key_words * 4
+        max_key = min(MAX_DEVICE_KEY_BYTES, self._key_words * 4)
         if self._history_long_keys and self._long_key_version < self._cpu.oldest_version:
             # The last long-key write aged out of the window; it may still
             # survive as a boundary, so check the mirror before lifting
@@ -542,7 +569,14 @@ class ConflictSet:
         ({status: ok|diverged|skipped, ...}).  A confirmed divergence is a
         device fault: counted, and the breaker opens (the mirror stays
         authoritative; the device is marked stale).  O(H) host decode, so
-        callers run it on a period, never per batch."""
+        callers run it on a period, never per batch.
+
+        Tiered history evicts its base only at major compactions, so below
+        the window its rows may carry other (equally inert) versions than
+        the mirror's, which evicts every batch.  There a row-by-row
+        mismatch is a divergence only if the two histories also differ as
+        the window sees them (_above_window); the report's
+        ``below_window_keys`` counts the keys that differ only below it."""
         if self._dev is None:
             return None
         m = self._dev.metrics
@@ -575,6 +609,10 @@ class ConflictSet:
             for key in mirror.keys() | device.keys():
                 if mirror.get(key) != device.get(key):
                     mismatch += 1
+        below_window = 0
+        if (mismatch and self._dev.tiered and s.oldest_version == d_oldest
+                and _above_window(mk, mv, d_oldest) == _above_window(dk, dv, d_oldest)):
+            below_window, mismatch = mismatch, 0
         report = {
             "status": "ok" if mismatch == 0 else "diverged",
             "boundaries": len(mk),
@@ -582,6 +620,8 @@ class ConflictSet:
             "mismatch_keys": mismatch,
             "stamp": s.stamp,
         }
+        if self._dev.tiered:
+            report["below_window_keys"] = below_window
         if mismatch:
             m.counter("mirror_divergence").add()
             m.counter("mirror_mismatch_keys").add(mismatch)
@@ -604,6 +644,16 @@ class ConflictSet:
         snap["last_occupancy"] = dict(self._dev.last_occupancy)
         snap["distinct_shapes"] = len(self._dev._bucket_dispatches)
         snap["h_cap"] = self._dev.h_cap
+        if self._dev.tiered:
+            # The host-side shape facts of the tiers (their sizes and fill
+            # are in the counters, gauges and histograms above).
+            snap["tiers"] = {
+                "mode": "tiered",
+                "d_cap": self._dev.d_cap,
+                "compact_every": self._dev.compact_every,
+                "batches_since_major": self._dev._batches_since_major,
+                "delta_bound": self._dev._dcount_bound,
+            }
         snap["backend_state"] = self._breaker.state
         snap["breaker"] = self._breaker.snapshot()
         snap["pipeline"] = {"depth": self.pipeline_depth, "inflight": len(self._pipe)}

@@ -1,8 +1,10 @@
 """Device conflict engine: whole-batch MVCC conflict detection in PyTorch.
 
-Port of the reference package's flat (single-tier, single-device) engine,
-conflict/engine_jax.py.  The Resolver's ResolveTransactionBatchRequest is
-decided in one device step:
+Port of the reference package's single-device engine,
+conflict/engine_jax.py, with both of its history modes: flat (one sorted
+history) and tiered (a frozen base tier plus a small delta tier, folded
+together by a major compaction).  The Resolver's
+ResolveTransactionBatchRequest is decided in one device step:
 
   phase 1      history conflicts: every read range's insertion ranks in the
                sorted history (kernels.phase1_search, the hand-written
@@ -14,7 +16,9 @@ decided in one device step:
 
 History is a word-major (kw1, h_cap) int32 key buffer (device word encoding,
 conflict/keys.py) plus (h_cap,) int32 versions relative to a host-held
-base; rows past the live count are INF / FLOOR_REL.  Every output — the
+base; rows past the live count are INF / FLOOR_REL.  Tiered mode adds a
+(kw1, d_cap) delta tier in the same form and the base's sparse max table,
+carried across batches (see detect_core_tiered).  Every output — the
 verdicts, the abort witness, iters and the carried state — is bit-identical
 to the reference step on the same inputs.
 
@@ -25,13 +29,16 @@ Where the reference relies on JAX semantics that PyTorch lacks:
   - the uint32 wraparound of the point-domain tail word is reproduced in
     int64 masked to 32 bits;
   - the fixpoint while_loop runs in fixed chunks of masked rounds with one
-    host sync per chunk; ``iters`` counts only the rounds the reference's
-    loop would run.
+    host sync after each chunk; ``iters`` counts only the rounds the
+    reference's loop would run;
+  - the reference's traced major-compaction cond is a Python ``if`` on the
+    host's own compaction flag.
 """
 
 from __future__ import annotations
 
 import math
+from bisect import bisect_left
 from typing import List
 
 import numpy as np
@@ -41,6 +48,7 @@ from ..device import resolve_device
 from ..metrics import MetricsRegistry
 from ..ops.rangequery import (
     build_max_table,
+    build_max_table_np,
     build_min_table,
     lex_argsort,
     lex_less,
@@ -54,7 +62,7 @@ from . import keys as keylib
 from .device_faults import DeviceOOM
 from .engine_cpu import chunk_encoding
 from .engine_cpu_flat import FLOOR_VERSION, FlatCpuConflictSet
-from .kernels import fused_merge_evict, phase1_search
+from .kernels import fused_merge_evict, phase1_search, phase1_search_tiers
 from .types import COMMITTED, CONFLICT, TOO_OLD, TransactionConflictInfo
 
 FLOOR_REL = -(2**30)  # below every representable snapshot
@@ -68,7 +76,12 @@ _UNDECIDED = 0
 _COMM = 1
 _CONF = 2
 
-# Fixpoint rounds run between two host checks of "anything left?".
+# Fixpoint rounds run before the first host check of "anything left?", and
+# between two later checks.  One first round: at the bench shape most
+# batches end after 0-1 rounds, and a masked round past the exit costs the
+# host more time to enqueue than a check costs (chip_smoke.py's
+# first-chunk sweep).
+FIXPOINT_FIRST_CHUNK = 1
 FIXPOINT_CHUNK = 4
 
 I32 = torch.int32
@@ -130,25 +143,38 @@ def decode_witness(pb, statuses, w_ver, w_rng, base):
     return out
 
 
+# Head of a ticket's readback buffer: undecided, iters, hcount, dcount.
+_HEAD = 4
+
+
 class DispatchTicket:
-    """One dispatched batch: the packed batch, its versions (what a caller
-    needs to re-decide it elsewhere after a divergence) and the step's
-    output tensors (statuses, undecided count, fixpoint iterations, the
-    witness vectors with the base they are relative to).  sync_ticket
-    reads them back."""
+    """One dispatched batch: the packed batch and its versions (what a
+    caller needs to re-decide it elsewhere after a divergence), and the
+    step's outputs in ONE int32 buffer that a single copy reads back:
+    [undecided, iters, hcount, dcount, statuses, w_ver, w_rng] (the last
+    three txn_cap long; hcount and dcount are the tiers' row counts after
+    the batch, dcount 0 in flat mode).  On CUDA the copy into the pinned
+    ``host`` buffer is enqueued right behind the step and ``ready`` is its
+    event, so a sync waits for this batch and not for later ones.  ``base``
+    is the dispatch-time version base of the witness versions, ``d_cap``
+    the dispatch-time delta capacity, and ``added``/``epoch`` date the
+    flat row-count bound."""
 
-    __slots__ = ("pb", "statuses", "undecided", "iters", "now",
-                 "new_oldest_version", "witness")
+    __slots__ = ("pb", "now", "new_oldest_version", "out", "host", "ready",
+                 "base", "d_cap", "added", "epoch")
 
-    def __init__(self, pb, statuses, undecided, iters, now,
-                 new_oldest_version, witness):
+    def __init__(self, pb, now, new_oldest_version, out, host, ready, base,
+                 d_cap, added, epoch):
         self.pb = pb
-        self.statuses = statuses
-        self.undecided = undecided
-        self.iters = iters
         self.now = now
         self.new_oldest_version = new_oldest_version
-        self.witness = witness
+        self.out = out
+        self.host = host
+        self.ready = ready
+        self.base = base
+        self.d_cap = d_cap
+        self.added = added
+        self.epoch = epoch
 
 
 class PackedBatch:
@@ -402,22 +428,27 @@ def _resolve_batch(
     # The reference's while_loop (it from 2, while any undecided and
     # it < RCAP + 2) as masked rounds: a round past the loop's exit leaves
     # status and it unchanged, so chunks of rounds between host checks
-    # give exactly the reference's status and iteration count.
-    status = status2
-    it = torch.full((), 2, dtype=I32, device=dev)
-
+    # give exactly the reference's status and iteration count.  The first
+    # chunk runs before the first check, so a batch that needs no more
+    # rounds than it holds costs one check.
     def looping(status, it):
         return (status == _UNDECIDED).any() & (it < RCAP + 2)
 
+    def rounds(status, it, n):
+        for _ in range(n):
+            go = looping(status, it)
+            status = torch.where(go, fix_body(status), status)
+            it = it + go.to(I32)
+        return status, it
+
+    status, it = rounds(status2, torch.full((), 2, dtype=I32, device=dev),
+                        FIXPOINT_FIRST_CHUNK)
     while True:
         if on_sync is not None:
             on_sync()
         if not bool(looping(status, it)):
             break
-        for _ in range(FIXPOINT_CHUNK):
-            go = looping(status, it)
-            status = torch.where(go, fix_body(status), status)
-            it = it + go.to(I32)
+        status, it = rounds(status, it, FIXPOINT_CHUNK)
     iters = it
     # Residual overflow is treated like divergence: the host re-decides
     # the batch on the CPU engine against the UNCHANGED history.
@@ -548,6 +579,13 @@ def _merge_evict_fused(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
     return out_keys, out_vers, out_count
 
 
+def _out_status(too_old, status):
+    """Final statuses in the reference's enum."""
+    return torch.where(
+        too_old, TOO_OLD, torch.where(status == _COMM, COMMITTED, CONFLICT)
+    ).to(I32)
+
+
 def _finish_flat(hkeys, hvers, hcount, oldest, out_keys, out_vers,
                  out_count, new_oldest, too_old, status, undecided_left,
                  iters):
@@ -555,16 +593,13 @@ def _finish_flat(hkeys, hvers, hcount, oldest, out_keys, out_vers,
     fixpoint did not converge the statuses are unreliable and so is the
     write merge derived from them, so the history reverts UNCHANGED and the
     host re-runs the batch on the CPU engine."""
-    out_status = torch.where(
-        too_old, TOO_OLD, torch.where(status == _COMM, COMMITTED, CONFLICT)
-    ).to(I32)
     ok = undecided_left == 0
     return (
         torch.where(ok, out_keys, hkeys),
         torch.where(ok, out_vers, hvers),
         torch.where(ok, out_count, hcount).to(I32),
         torch.where(ok, new_oldest, oldest).to(I32),
-        out_status,
+        _out_status(too_old, status),
         undecided_left,
         iters,
     )
@@ -656,11 +691,177 @@ def detect_core(
     ) + (w_ver, w_rng)
 
 
-def _blob_core(hkeys, hvers, hcount, oldest, blob, *, txn_cap, rr_cap,
-               wr_cap, h_cap, kw1, on_sync=None):
-    """Unpack the single-transfer blob (int32 bit patterns on the device)
-    and run the step.  Key fields flip into the device word encoding
-    here."""
+# ---------------------------------------------------------------------------
+# Two-tier history: a large sorted BASE tier, frozen between major
+# compactions (its sparse max table is carried across batches instead of
+# rebuilt), plus a small sorted DELTA tier that absorbs each batch's new
+# boundaries.  The delta is a step function whose floor value FLOOR_REL
+# means "uncovered"; every other delta value is a write version issued
+# while the base was frozen, so it exceeds every base value and the logical
+# history is exactly merged(x) = max(base(x), delta(x)).  Phase 1 combines
+# per-tier range maxima with max; phases 5-6 merge each batch into the
+# delta only.  A major compaction folds the delta into the base, evicts
+# below the window, rebuilds the table and empties the delta, on the batches
+# the host's row-count bounds pick (delta nearly full, or every
+# ``evict_every`` batches), so no device sync decides it.
+# ---------------------------------------------------------------------------
+
+
+def _major_compact_inputs(hk, hv, hc, dk, dv, dc, *, H, D):
+    """fused_merge_evict's arguments for a major compaction (A = the base,
+    B = the delta), before the window: (hk, hv, keep_base, pos_base, dk,
+    dvals, keep_delta, pos_delta, merged_count).
+
+    Covered delta intervals (value above the floor) take the delta row
+    verbatim and drop every base row inside them; uncovered intervals keep
+    their base rows; a floor-valued delta row re-anchors the base's value
+    at its key (dropped when an equal-key base row already provides it).
+    Every per-row quantity comes by rank inversion: delta-sized searches
+    into the base turned into per-base-row values by histograms (slot H is
+    the dump) and cumsums."""
+    dev = hk.device
+    dvalid = _arange(D, dev) < dc
+    dl = searchsorted_words(hk, dk, "left")
+    dr = searchsorted_words(hk, dk, "right")
+    covered = dvalid & (dv > FLOOR_REL)
+    # Delta interval j spans base ranks [dl[j], dl[j+1]); the last valid
+    # row's interval extends to the end of the live base.
+    dl_next = torch.cat([dl[1:], hc.to(I32).reshape(1)])
+    cov_diff = torch.zeros((H + 1,), dtype=I32, device=dev)
+    cov_diff.index_add_(0, torch.where(covered, dl, H).long(), covered.to(I32))
+    cov_diff.index_add_(0, torch.where(covered, dl_next, H).long(), -covered.to(I32))
+    in_cov = _cumsum(cov_diff[:H]) > 0
+    keep_base = (_arange(H, dev) < hc) & ~in_cov
+    ckb = _cumsum(keep_base)  # prefix-inclusive
+
+    eq = (dr - dl) > 0  # an equal-key base row exists
+    base_at = hv[(dr - 1).clamp(0, H - 1).long()]  # base value at dk[j]
+    is_end = dvalid & (dv == FLOOR_REL)
+    keep_delta = dvalid & ((dv > FLOOR_REL) | ~eq)
+    dvals = torch.where(is_end, base_at, dv)
+
+    # Merge positions by rank inversion (kept keys never tie: the rules
+    # above drop exactly one side of every key collision).
+    dhist = torch.zeros((H + 1,), dtype=I32, device=dev)
+    dhist.index_add_(0, torch.where(keep_delta, dl, H).long(), keep_delta.to(I32))
+    pos_base = (ckb - 1) + _cumsum(dhist[:H])
+    cnt_base_less = torch.where(dl > 0, ckb[(dl - 1).clamp(0, H - 1).long()], 0)
+    pos_delta = (_cumsum(keep_delta) - 1) + cnt_base_less
+    merged_count = keep_base.sum(dtype=I32) + keep_delta.sum(dtype=I32)
+    return (hk, hv, keep_base.to(I32), pos_base, dk, dvals, keep_delta.to(I32),
+            pos_delta, merged_count)
+
+
+def _major_compact(hk, hv, hc, dk, dv, dc, new_oldest, *, H, D):
+    """Merge base + delta into a new base tier and evict below the window
+    ``new_oldest``, in one fused_merge_evict call; rows past the new count
+    are INF / FLOOR_REL."""
+    k_keys, k_vers, out_count = fused_merge_evict(
+        *_major_compact_inputs(hk, hv, hc, dk, dv, dc, H=H, D=D),
+        new_oldest, width=H,
+    )
+    live = _arange(H, hk.device) < out_count
+    return (torch.where(live[None, :], k_keys, keylib.INF_DEV),
+            torch.where(live, k_vers, FLOOR_REL), out_count)
+
+
+def _empty_delta(kw1, D, dev):
+    """A delta tier holding only its floor row b"" at FLOOR_REL."""
+    dk = torch.full((kw1, D), keylib.INF_DEV, dtype=I32, device=dev)
+    dk[:, 0] = keylib.ZERO_DEV
+    dv = torch.full((D,), FLOOR_REL, dtype=I32, device=dev)
+    return dk, dv, torch.ones((), dtype=I32, device=dev)
+
+
+def detect_core_tiered(
+    hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
+    r_begin, r_end, r_txn, r_snap,
+    w_begin, w_end, w_txn,
+    t_snap, t_has_reads, t_valid,
+    now_rel, new_oldest_rel,
+    *, do_major: bool, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int,
+    d_cap: int, on_sync=None,
+):
+    """The two-tier conflict step (the reference detect_core_tiered with
+    kernels on and witness on); decision-identical to detect_core.  A minor
+    batch does no H-wide sort and no H-wide table build: its base work is
+    the phase-1 search against the frozen base and the carried max table.
+    ``do_major`` is the host's compaction flag.  Returns (base keys, base
+    vers, base count, max table, delta keys, delta vers, delta count,
+    new_oldest, out_status, undecided_left, iters, w_ver, w_rng)."""
+    dev = hkeys.device
+    kw1 = hkeys.shape[0]
+    H, D = h_cap, d_cap
+    TXN = txn_cap
+
+    r_nonempty = lex_less(r_begin, r_end)
+    r_valid = r_txn < TXN
+
+    # ---- phase 1 over both tiers, one query sort: merged max = max of the
+    # per-tier maxima ----
+    (i0b, j1b), (i0d, j1d) = phase1_search_tiers((hkeys, dkeys), r_begin, r_end)
+    mb = range_max(maxtab, i0b.clamp(0, H - 1), j1b.clamp(0, H - 1))
+    md = range_max(build_max_table(dvers), i0d.clamp(0, D - 1), j1d.clamp(0, D - 1))
+    m = torch.maximum(torch.where(j1b >= i0b, mb, FLOOR_REL),
+                      torch.where(j1d >= i0d, md, FLOOR_REL))
+    r_hist = r_valid & r_nonempty & (m > r_snap)
+    hist_conf = _agg_txn(r_hist, r_txn, TXN)
+    too_old = t_valid & t_has_reads & (t_snap < oldest)
+
+    # ---- phases 2-4 (shared with the flat step) ----
+    status0 = torch.where(
+        ~t_valid, _COMM,
+        torch.where(too_old | hist_conf, _CONF, _UNDECIDED),
+    ).to(I32)
+    status, iters, undecided_left, ub, ue, seg_valid, ib_flag = (
+        _resolve_batch(
+            r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_valid, status0,
+            txn_cap=TXN, rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
+        )
+    )
+    w_ver, w_rng = _witness_vectors(
+        m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old, status,
+        now_rel, txn_cap=TXN, rr_cap=rr_cap,
+    )
+
+    # ---- phases 5-6 into the delta only, one kernel at width D ----
+    new_oldest = torch.maximum(oldest, new_oldest_rel)
+    d_keys, d_vers, d_count = _merge_evict_fused(
+        dkeys, dvers, dcount, ub, ue, seg_valid, now_rel, new_oldest,
+        width=D, wr_cap=wr_cap,
+    )
+    # Divergence guard (detect_core's contract): the delta merge and the
+    # window advance revert BEFORE the compaction, so the host can re-run
+    # the batch on the CPU engine against the same logical state.
+    ok = undecided_left == 0
+    d_keys = torch.where(ok, d_keys, dkeys)
+    d_vers = torch.where(ok, d_vers, dvers)
+    d_count = torch.where(ok, d_count, dcount).to(I32)
+    new_oldest = torch.where(ok, new_oldest, oldest).to(I32)
+
+    # ---- major compaction on the host's flag alone (never on ok): a
+    # diverged batch compacts the reverted delta, which rewrites the same
+    # logical step function, so the host's bounds stay true ----
+    if do_major:
+        hkeys, hvers, hcount = _major_compact(
+            hkeys, hvers, hcount, d_keys, d_vers, d_count, new_oldest, H=H, D=D,
+        )
+        maxtab = build_max_table(hvers)
+        d_keys, d_vers, d_count = _empty_delta(kw1, D, dev)
+    return (
+        hkeys, hvers, hcount.to(I32), maxtab, d_keys, d_vers, d_count,
+        new_oldest, _out_status(too_old, status), undecided_left, iters,
+        w_ver, w_rng,
+    )
+
+
+def _unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1):
+    """The step inputs from the single-transfer blob (int32 bit patterns
+    on the device), key fields flipped into the device word encoding:
+    (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap,
+    t_has_reads, t_valid, now_rel, new_oldest_rel).  The blob's third
+    scalar (the flat blob's 1, the tiered blob's compaction flag) is the
+    host's own and is not read here."""
     offs, _total = _blob_offsets(txn_cap, rr_cap, wr_cap, kw1)
 
     def field(i, n):
@@ -671,16 +872,66 @@ def _blob_core(hkeys, hvers, hcount, oldest, blob, *, txn_cap, rr_cap,
 
     t_flags = field(8, txn_cap)
     scalars = field(9, 3)
-    return detect_core(
-        hkeys, hvers, hcount, oldest,
+    return (
         key_field(0, rr_cap), key_field(1, rr_cap),
         field(4, rr_cap), field(5, rr_cap),
         key_field(2, wr_cap), key_field(3, wr_cap), field(6, wr_cap),
         field(7, txn_cap), (t_flags & 1) > 0, (t_flags & 2) > 0,
         scalars[0], scalars[1],
+    )
+
+
+def _blob_core(hkeys, hvers, hcount, oldest, blob, *, txn_cap, rr_cap,
+               wr_cap, h_cap, kw1, on_sync=None):
+    """The flat step on one blob."""
+    return detect_core(
+        hkeys, hvers, hcount, oldest,
+        *_unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1),
         txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap,
         on_sync=on_sync,
     )
+
+
+def _tiered_blob_core(hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount,
+                      oldest, blob, *, do_major, txn_cap, rr_cap, wr_cap,
+                      h_cap, d_cap, kw1, on_sync=None):
+    """The tiered step on one blob (the flat layout; its third scalar
+    carries ``do_major``)."""
+    return detect_core_tiered(
+        hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
+        *_unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1),
+        do_major=do_major, txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap,
+        h_cap=h_cap, d_cap=d_cap, on_sync=on_sync,
+    )
+
+
+def fold_delta_over_base(bkeys, bvers, dkeys, dvers_rel, base):
+    """Fold a decoded delta tier over a decoded base tier into the merged
+    logical step function (keys, absolute versions): the host twin of
+    _major_compact's rules, without eviction.  ``bvers`` are absolute,
+    ``dvers_rel`` relative (FLOOR_REL = uncovered)."""
+    n = len(bkeys)
+    nd = len(dkeys)
+    out_k: list = []
+    out_v: list = []
+    for j in range(nd):
+        lo = dkeys[j]
+        hi = dkeys[j + 1] if j + 1 < nd else None
+        vrel = int(dvers_rel[j])
+        if vrel != FLOOR_REL:
+            # Covered interval: the delta value dominates everything under
+            # it (a write version issued after the base froze).
+            out_k.append(lo)
+            out_v.append(vrel + base)
+            continue
+        i0 = bisect_left(bkeys, lo)
+        if not (i0 < n and bkeys[i0] == lo):
+            out_k.append(lo)
+            out_v.append(bvers[max(0, i0 - 1)])
+        i1 = n if hi is None else bisect_left(bkeys, hi)
+        out_k.extend(bkeys[i0:i1])
+        out_v.extend(bvers[i0:i1])
+    return out_k, out_v
 
 
 # ---------------------------------------------------------------------------
@@ -693,32 +944,68 @@ def _counter(name: str):
     return property(lambda self: self.metrics.counter(name).value)
 
 
+class _StagingRing:
+    """Host buffers for the blobs of one length, handed out round-robin.
+    On CUDA they are pinned, uploads from them do not block, and each
+    buffer keeps the event of its last upload, which must have completed
+    before the buffer is written again.  On the CPU they are plain numpy
+    arrays that the step reads in place."""
+
+    __slots__ = ("views", "pinned", "events", "pos")
+
+    def __init__(self, nwords: int, size: int, cuda: bool):
+        if cuda:
+            self.pinned = [torch.empty((nwords,), dtype=I32, pin_memory=True)
+                           for _ in range(size)]
+            self.views = [b.numpy().view(np.uint32) for b in self.pinned]
+            self.events = [torch.cuda.Event() for _ in range(size)]
+        else:
+            self.pinned = self.events = None
+            self.views = [np.empty((nwords,), np.uint32) for _ in range(size)]
+        self.pos = 0
+
+
 class TorchConflictSet:
     """Host wrapper owning the device-resident history state.
 
     ``device=None`` means the GPU (construction raises without one);
     ``device="cpu"`` runs the same step with the kernels' plain twins.
 
+    ``history`` is ``"flat"`` (one sorted history) or ``"tiered"`` (a
+    frozen base plus a delta tier of ``delta_cap`` rows, 0 meaning
+    ``max(64, h_cap // 8)``, folded into the base by a major compaction
+    when the delta may not fit the next batch and every ``evict_every``
+    batches; ``evict_every=1`` means on fill only).  In flat mode
+    ``evict_every`` must be 1: the reference's amortized eviction is not
+    ported.  ``pipeline_depth`` sizes the blob staging ring (depth + 1
+    buffers per blob length, at least 2).
+
     Counters live in ``metrics``, a registry named ``TorchConflict`` with
     the reference engine's counter names; ``batches``, ``fixpoint_rounds``,
     ``cpu_fallbacks``, ``host_syncs``, ``grows`` and ``rebases`` read them.
+    ``host_syncs`` counts each blocking device-to-host read (one per batch
+    readback, one per fixpoint check, the bound refreshes and diagnostic
+    exports) and each wait on a staging buffer's upload that had not
+    finished; ``host_allocs`` counts the host buffers the staging ring and
+    the readback pool allocate, and stays flat once both are populated.
 
     Device faults.  ``fault_injector`` (device_faults.DeviceFaultInjector)
     is consulted at the reference's choke points, in its order, before any
     state changes: ``dispatch`` first in dispatch_packed, ``rebase`` when a
-    rebase shifts the versions, ``grow`` first in _grow (load_from's grow
-    included), ``compile`` at the first dispatch of a shape.  Real device
-    failures map into the same taxonomy: an out-of-memory error at grow,
-    rebase or dispatch is ``DeviceOOM``.  Any other exception propagates
-    unchanged: a failed kernel build, a kernel launch error (no image for
-    this card, a launch configuration it refuses) and a CUDA error raised
-    at a readback are faults of the code or the build, and the breaker
-    would hide them behind the CPU mirror."""
+    rebase shifts the versions, ``grow`` first in _grow and _grow_delta
+    (load_from's grow included), ``compile`` at the first dispatch of a
+    shape.  Real device failures map into the same taxonomy: an
+    out-of-memory error at grow, rebase or dispatch is ``DeviceOOM``.  Any
+    other exception propagates unchanged: a failed kernel build, a kernel
+    launch error (no image for this card, a launch configuration it
+    refuses) and a CUDA error raised at a readback are faults of the code
+    or the build, and the breaker would hide them behind the CPU mirror."""
 
     batches = _counter("batches")
     fixpoint_rounds = _counter("fixpoint_rounds")
     cpu_fallbacks = _counter("cpu_fallbacks")
     host_syncs = _counter("host_syncs")
+    host_allocs = _counter("host_allocs")
     grows = _counter("grows")
     rebases = _counter("rebases")
 
@@ -729,22 +1016,39 @@ class TorchConflictSet:
         h_cap: int = 1 << 16,
         device=None,
         bucket_mins: tuple = (8, 8, 8),
+        history: str = "flat",
+        delta_cap: int = 0,
+        evict_every: int = 1,
+        pipeline_depth: int = 2,
     ):
+        if history not in ("flat", "tiered"):
+            raise ValueError(f"unknown history mode {history!r}")
+        if evict_every < 1:
+            raise ValueError(f"evict_every must be at least 1, got {evict_every}")
+        if history == "flat" and evict_every > 1:
+            raise ValueError("evict_every > 1 (amortized eviction) is supported "
+                             "only with history='tiered'")
         self.device = resolve_device(device)
         self.key_words = key_words
         self.h_cap = h_cap
         self.bucket_mins = bucket_mins
+        self.tiered = history == "tiered"
+        # Tiered: compaction cadence (0 = fill-triggered only) and delta
+        # capacity, as the reference derives them from its knobs.
+        self.compact_every = evict_every if self.tiered and evict_every > 1 else 0
+        self.d_cap = max(64, delta_cap if delta_cap > 0 else h_cap // 8) if self.tiered else 0
+        self.pipeline_depth = max(1, pipeline_depth)
         self._base = oldest_version  # absolute version of rel 0
         self.last_witness: list = []
         self.last_iters = 0
-        self._last_witness_dev = None
-        self._last_iters_dev = None
         self.metrics = MetricsRegistry("TorchConflict")
         for name in ("retraces", "batches", "transactions", "fixpoint_rounds",
                      "grows", "rebases", "cpu_fallbacks", "rehydrate_keys_total",
                      "rehydrate_keys_encoded", "mirror_sync_keys_encoded",
-                     "host_syncs"):
+                     "host_syncs", "host_allocs"):
             self.metrics.counter(name)  # pre-create: snapshots list them all
+        if self.tiered:
+            self.metrics.counter("major_compactions")
         # Static shape key -> dispatch count; a key's first dispatch is the
         # `compile` fault site.
         self._bucket_dispatches: dict = {}
@@ -753,6 +1057,18 @@ class TorchConflictSet:
         self.last_occupancy: dict = {}
         # Stamp of the MirrorSnapshot this device state equals.
         self._synced_stamp = None
+        # Blob staging rings by blob length, the ring and slot of the blob
+        # last staged, and pinned readback buffers (with their events) by
+        # readback length, free for the next dispatch.
+        self._blob_ring: dict = {}
+        self._staged = None
+        self._readback_pool: dict = {}
+        # Flat mode's row-count bound bookkeeping: the running sum of every
+        # dispatch's bound increment, and a counter of state adoptions (a
+        # ticket from before one cannot tighten the bound).
+        self._bound_added = 0
+        self._epoch = 0
+        self._no_delta = torch.zeros((), dtype=I32, device=self.device)
         self._init_state(oldest_rel=0)
 
     # -- state management --
@@ -775,6 +1091,20 @@ class TorchConflictSet:
         # most 2*wr_cap); the true value is synced only when the bound
         # approaches capacity.
         self._hcount_bound = hcount
+        self._epoch += 1
+        if self.tiered:
+            self._reset_delta_state(hvers_i32)
+
+    def _reset_delta_state(self, hvers_np):
+        """(Re)build the tiered extras: the base's max table (on the host),
+        an empty delta tier and the host bounds that drive compaction and
+        growth without device syncs."""
+        dev = self.device
+        self._maxtab = torch.from_numpy(build_max_table_np(hvers_np)).to(dev)
+        self._dkeys, self._dvers, self._dcount = _empty_delta(
+            self.key_words + 1, self.d_cap, dev)
+        self._dcount_bound = 1
+        self._batches_since_major = 0
 
     def load_state(self, state) -> None:
         """Adopt a carried state (conflict/state.py ConflictState)."""
@@ -788,10 +1118,14 @@ class TorchConflictSet:
         self._hcount = torch.tensor(state.hcount, dtype=I32, device=self.device)
         self._oldest = torch.tensor(state.oldest, dtype=I32, device=self.device)
         self._hcount_bound = state.hcount
+        self._epoch += 1
+        if self.tiered:
+            self._reset_delta_state(state.hvers.cpu().numpy())
 
     def export_state(self):
         """(hkeys uint32 (kw1, h_cap), hvers int32 (h_cap,), hcount, oldest
-        (relative), base) — the numpy form the reference engine holds."""
+        (relative), base) — the numpy form the reference engine holds; in
+        tiered mode the base tier."""
         self._sync()
         return (
             keylib.from_device_words(self._hkeys.cpu().numpy()),
@@ -808,14 +1142,28 @@ class TorchConflictSet:
 
     @property
     def boundary_count(self) -> int:
+        """The exact logical boundary count (tiered: the merged view, an
+        O(rows) host fold — a diagnostic, not a hot path)."""
+        if self.tiered:
+            return len(self._merged_host_state()[0])
         self._sync()
+        return int(self._hcount)
+
+    @property
+    def boundary_count_bound(self) -> int:
+        """A cheap upper bound on the logical boundary count (exact in flat
+        mode and right after a major compaction)."""
+        self._sync()
+        if self.tiered:
+            hc, dc = torch.stack([self._hcount, self._dcount]).tolist()
+            return hc + dc - 1
         return int(self._hcount)
 
     def _rel(self, v: int) -> int:
         return int(np.clip(v - self._base, FLOOR_REL + 1, 2**31 - 2))
 
     def _sync(self):
-        """Count one blocking device->host readback."""
+        """Count one blocking device->host read."""
         self.metrics.counter("host_syncs").add()
 
     def _check_fault(self, site: str):
@@ -835,10 +1183,17 @@ class TorchConflictSet:
                 self.metrics.counter("rebases").add()
                 try:
                     self._hvers = torch.clamp(self._hvers - d, min=FLOOR_REL)
+                    if self.tiered:
+                        # Rebase commutes with max: the delta and the
+                        # carried table shift by the same constant.
+                        self._dvers = torch.clamp(self._dvers - d, min=FLOOR_REL)
+                        self._maxtab = torch.clamp(self._maxtab - d, min=FLOOR_REL)
                 except torch.OutOfMemoryError as e:
                     raise DeviceOOM(f"cuda: {e}", site="rebase") from e
                 self._oldest = self._oldest - d
                 self._base += d
+        if self.tiered:
+            return  # tiered growth is decided by _plan_tiered_batch
         # Must-fit guard: this batch's merge adds at most 2*wr_cap rows.
         if self._hcount_bound + 2 * wr_cap + 2 > self.h_cap:
             self._sync()
@@ -846,7 +1201,47 @@ class TorchConflictSet:
             if self._hcount_bound + 2 * wr_cap + 2 > self.h_cap:
                 self._grow(max(self.h_cap * 2, self.h_cap + 4 * wr_cap))
 
-    def _grow(self, new_cap: int):
+    def _plan_tiered_batch(self, wr_cap: int) -> int:
+        """Compaction and growth planning for one tiered batch; returns
+        do_major (0/1).  Driven by row-count UPPER BOUNDS (the delta grows
+        by at most 2*wr_cap a batch, the base only at compactions, by at
+        most the delta's bound), syncing the true counts only when a
+        bound-based trigger fires."""
+        add = 2 * wr_cap
+        # This batch's merge must fit the delta outright.
+        if 2 * add + 8 > self.d_cap:
+            self._grow_delta(_next_pow2(2 * add + 8, self.d_cap * 2))
+        # A batch of a larger bucket than the ones that filled the delta
+        # may not fit although the fill trigger below never fired, and the
+        # merge runs before the compaction: sync the true count and grow.
+        if self._dcount_bound + add + 2 > self.d_cap:
+            self._sync()
+            self._dcount_bound = int(self._dcount)
+            if self._dcount_bound + add + 2 > self.d_cap:
+                self._grow_delta(_next_pow2(self._dcount_bound + add + 2, self.d_cap * 2))
+        do_major = 0
+        if self.compact_every and self._batches_since_major + 1 >= self.compact_every:
+            do_major = 1
+        # Fill trigger: compact now if the batch after this one might not
+        # fit.
+        if self._dcount_bound + 2 * add + 2 > self.d_cap:
+            do_major = 1
+        if do_major:
+            need = self._hcount_bound + self._dcount_bound + add + 2
+            if need > self.h_cap:
+                self._sync()  # the true counts, once, before paying a grow
+                self._hcount_bound, self._dcount_bound = (
+                    torch.stack([self._hcount, self._dcount]).tolist())
+                need = self._hcount_bound + self._dcount_bound + add + 2
+                if need > self.h_cap:
+                    self._grow(max(self.h_cap * 2, _next_pow2(need, self.h_cap)))
+        return do_major
+
+    def _grow(self, new_cap: int, rebuild_maxtab: bool = True):
+        """Grow the (base) history to new_cap rows.  In tiered mode the
+        carried table's level count follows h_cap, so it is rebuilt from
+        the grown versions, unless the caller replaces the whole state
+        next (load_from)."""
         self._check_fault("grow")
         self.metrics.counter("grows").add()
         pad = new_cap - self.h_cap
@@ -860,10 +1255,38 @@ class TorchConflictSet:
                 self._hvers,
                 torch.full((pad,), FLOOR_REL, dtype=I32, device=self.device),
             ])
+            maxtab = None
+            if self.tiered and rebuild_maxtab:
+                self._sync()
+                maxtab = torch.from_numpy(
+                    build_max_table_np(hvers.cpu().numpy())).to(self.device)
         except torch.OutOfMemoryError as e:
             raise DeviceOOM(f"cuda: {e}", site="grow") from e
         self._hkeys, self._hvers = hkeys, hvers
         self.h_cap = new_cap
+        if maxtab is not None:
+            self._maxtab = maxtab
+
+    def _grow_delta(self, new_cap: int):
+        """Grow the delta tier (a batch's wr_cap exceeded what it can
+        absorb); a grow fault site like _grow."""
+        self._check_fault("grow")
+        self.metrics.counter("grows").add()
+        pad = new_cap - self.d_cap
+        kw1 = self.key_words + 1
+        try:
+            dkeys = torch.cat([
+                self._dkeys,
+                torch.full((kw1, pad), keylib.INF_DEV, dtype=I32, device=self.device),
+            ], dim=1)
+            dvers = torch.cat([
+                self._dvers,
+                torch.full((pad,), FLOOR_REL, dtype=I32, device=self.device),
+            ])
+        except torch.OutOfMemoryError as e:
+            raise DeviceOOM(f"cuda: {e}", site="grow") from e
+        self._dkeys, self._dvers = dkeys, dvers
+        self.d_cap = new_cap
 
     # -- detection --
     def detect(
@@ -882,18 +1305,48 @@ class TorchConflictSet:
             transactions, self.key_words, min_txn=mt, min_rr=mr, min_wr=mw,
         )
 
-    def _pack_blob(self, pb: PackedBatch, now: int, new_oldest_version: int) -> np.ndarray:
+    def _staging_blob(self, nwords: int) -> np.ndarray:
+        """The next staging buffer for a blob of nwords (see _StagingRing),
+        populating the ring on first use.  On CUDA, a buffer whose last
+        upload has not finished is waited for (a host sync)."""
+        ring = self._blob_ring.get(nwords)
+        if ring is None:
+            size = max(2, self.pipeline_depth + 1)
+            self.metrics.counter("host_allocs").add(size)
+            ring = self._blob_ring[nwords] = _StagingRing(
+                nwords, size, self.device.type == "cuda")
+        slot = ring.pos
+        ring.pos = (slot + 1) % len(ring.views)
+        if ring.events is not None and not ring.events[slot].query():
+            self._sync()
+            ring.events[slot].synchronize()
+        self._staged = (ring, slot)
+        return ring.views[slot]
+
+    def _upload(self, blob: np.ndarray) -> torch.Tensor:
+        """The blob just staged, on the device: the buffer itself on the
+        CPU; on CUDA a non-blocking copy from its pinned buffer, whose
+        event then guards the buffer's reuse."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(blob.view(np.int32))
+        ring, slot = self._staged
+        blob_dev = ring.pinned[slot].to(self.device, non_blocking=True)
+        ring.events[slot].record()
+        return blob_dev
+
+    def _pack_blob(self, pb: PackedBatch, now: int, new_oldest_version: int,
+                   flag: int = 1) -> np.ndarray:
         """Single contiguous uint32 blob for one-copy dispatch (see
-        _blob_offsets), byte-identical to the reference engine's blob.
-        A fresh buffer per batch: the copy from pageable host memory to
-        the device has finished reading it when ``.to(device)`` returns."""
+        _blob_offsets), byte-identical to the reference engine's blob,
+        written into a staging buffer.  ``flag`` is the third scalar: 1 in
+        flat mode, the compaction flag in tiered mode."""
         r_snap = np.clip(pb.r_snap - self._base, FLOOR_REL + 1, 2**31 - 2).astype(np.int32)
         t_snap = np.clip(pb.t_snap - self._base, FLOOR_REL + 1, 2**31 - 2).astype(np.int32)
         t_flags = pb.t_has_reads.astype(np.uint32) | (pb.t_valid.astype(np.uint32) << 1)
         kw1 = self.key_words + 1
         rr, wr, tc = pb.rr_cap, pb.wr_cap, pb.txn_cap
         nwords = 2 * kw1 * (rr + wr) + 2 * rr + wr + 2 * tc + 3
-        blob = np.empty((nwords,), np.uint32)
+        blob = self._staging_blob(nwords)
         o = 0
         for arr in (pb.r_begin, pb.r_end):
             np.copyto(blob[o : o + kw1 * rr].reshape(kw1, rr), arr.T)
@@ -911,18 +1364,25 @@ class TorchConflictSet:
             blob[o : o + arr.shape[0]] = arr
             o += arr.shape[0]
         blob[o : o + 3] = np.array(
-            [self._rel(now), self._rel(new_oldest_version), 1], np.int32
+            [self._rel(now), self._rel(new_oldest_version), flag], np.int32
         ).view(np.uint32)
         assert o + 3 == nwords
         return blob
 
-    def dispatch_packed(self, pb: PackedBatch, now: int, new_oldest_version: int):
-        """Run one batch's step on the device; returns (statuses,
-        undecided) tensors without reading them back.  The fixpoint makes
-        its own small host checks (one per chunk of rounds)."""
+    def dispatch_packed(self, pb: PackedBatch, now: int,
+                        new_oldest_version: int) -> DispatchTicket:
+        """Run one batch's step on the device without reading its results
+        back; returns its DispatchTicket.  The fixpoint makes its own small
+        host checks (one after each chunk of rounds)."""
         self._check_fault("dispatch")
         self._maybe_grow_or_rebase(now, pb.wr_cap)
-        shape_key = (pb.bucket(), self.h_cap, self.key_words + 1)
+        # The tiered plan runs before the shape key: a grow changes it.
+        do_major = self._plan_tiered_batch(pb.wr_cap) if self.tiered else 0
+        kw1 = self.key_words + 1
+        if self.tiered:
+            shape_key = (pb.bucket(), self.h_cap, kw1, "tiered", self.d_cap)
+        else:
+            shape_key = (pb.bucket(), self.h_cap, kw1)
         first_dispatch = shape_key not in self._bucket_dispatches
         if first_dispatch:
             # Registered only after the dispatch succeeds, so the retry of
@@ -936,51 +1396,140 @@ class TorchConflictSet:
             "read": pb.n_r / pb.rr_cap,
             "write": pb.n_w / pb.wr_cap,
         }
-        blob = self._pack_blob(pb, now, new_oldest_version)
+        if self.tiered:
+            # Delta fill, from the bound: no sync on the dispatch path.
+            self.last_occupancy["delta"] = self._dcount_bound / self.d_cap
+        for axis, occ in self.last_occupancy.items():
+            m.histogram(f"{axis}_occupancy").add(occ)
+        blob = self._pack_blob(pb, now, new_oldest_version, do_major if self.tiered else 1)
+        caps = dict(txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
+                    h_cap=self.h_cap, kw1=kw1, on_sync=self._sync)
         try:
-            blob_dev = torch.from_numpy(blob.view(np.int32)).to(self.device)
-            out = _blob_core(
-                self._hkeys, self._hvers, self._hcount, self._oldest, blob_dev,
-                txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
-                h_cap=self.h_cap, kw1=self.key_words + 1, on_sync=self._sync,
-            )
+            blob_dev = self._upload(blob)
+            if self.tiered:
+                (hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
+                 statuses, undecided, iters, w_ver, w_rng) = _tiered_blob_core(
+                    self._hkeys, self._hvers, self._hcount, self._maxtab,
+                    self._dkeys, self._dvers, self._dcount, self._oldest,
+                    blob_dev, do_major=bool(do_major), d_cap=self.d_cap, **caps,
+                )
+            else:
+                (hkeys, hvers, hcount, oldest, statuses, undecided, iters,
+                 w_ver, w_rng) = _blob_core(
+                    self._hkeys, self._hvers, self._hcount, self._oldest,
+                    blob_dev, **caps,
+                )
+                dcount = self._no_delta
+            out = torch.cat([torch.stack([undecided, iters, hcount, dcount]),
+                             statuses, w_ver, w_rng])
         except torch.OutOfMemoryError as e:
             raise DeviceOOM(f"cuda: {e}", site="dispatch") from e
-        (self._hkeys, self._hvers, self._hcount, self._oldest,
-         statuses, undecided, iters, w_ver, w_rng) = out
+        self._hkeys, self._hvers, self._hcount, self._oldest = hkeys, hvers, hcount, oldest
+        if self.tiered:
+            self._maxtab, self._dkeys, self._dvers, self._dcount = maxtab, dkeys, dvers, dcount
         if first_dispatch:
             self._bucket_dispatches[shape_key] = 0
             m.counter("retraces").add()
         self._bucket_dispatches[shape_key] += 1
-        self._last_iters_dev = iters
-        # Witness tensors travel with the dispatch-time base: a later
-        # dispatch may rebase before this batch is read back.
-        self._last_witness_dev = (w_ver, w_rng, self._base)
-        self._hcount_bound = min(self._hcount_bound + 2 * pb.wr_cap, self.h_cap)
-        return statuses, undecided
+        add = 2 * pb.wr_cap
+        if not self.tiered:
+            self._hcount_bound = min(self._hcount_bound + add, self.h_cap)
+            self._bound_added += add
+        elif do_major:
+            # The compaction folded the delta (and this batch's rows) into
+            # the base and emptied the delta.
+            m.counter("major_compactions").add()
+            self._hcount_bound = min(self._hcount_bound + self._dcount_bound + add, self.h_cap)
+            self._dcount_bound = 1
+            self._batches_since_major = 0
+        else:
+            self._dcount_bound = min(self._dcount_bound + add, self.d_cap)
+            self._batches_since_major += 1
+        return self._ticket(pb, now, new_oldest_version, out)
+
+    def _ticket(self, pb, now, new_oldest_version, out) -> DispatchTicket:
+        """The ticket of the batch just dispatched.  On CUDA its readback
+        buffer's copy into a pinned host buffer (from the free pool, or a
+        new one) is enqueued here, behind the step."""
+        host = ready = None
+        if self.device.type == "cuda":
+            pool = self._readback_pool.setdefault(out.shape[0], [])
+            if pool:
+                host, ready = pool.pop()
+            else:
+                self.metrics.counter("host_allocs").add()
+                host = torch.empty(out.shape, dtype=I32, pin_memory=True)
+                ready = torch.cuda.Event()
+            host.copy_(out, non_blocking=True)
+            ready.record()
+        return DispatchTicket(pb, now, new_oldest_version, out, host, ready,
+                              self._base, self.d_cap, self._bound_added, self._epoch)
+
+    def _readback(self, ticket: DispatchTicket, pipelined: bool):
+        """THE blocking readback of one dispatched batch, shared by
+        readback_packed and sync_ticket: one copy of the ticket's buffer
+        (on CUDA, a wait for the copy enqueued at dispatch).  Records
+        iters, the boundary gauges and the histograms, tightens the host
+        bounds, and returns the statuses (None if the fixpoint diverged),
+        with the witness decoded into last_witness."""
+        self._sync()
+        if ticket.ready is not None:
+            ticket.ready.synchronize()
+            arr = ticket.host.numpy()
+        else:
+            arr = ticket.out.numpy()
+        undecided, iters, hcount, dcount = (int(x) for x in arr[:_HEAD])
+        m = self.metrics
+        self.last_iters = iters
+        m.counter("fixpoint_rounds").add(iters)
+        m.histogram("fixpoint_rounds_per_batch").add(iters)
+        if self.tiered:
+            m.gauge("boundary_count").set(hcount + dcount - 1)
+            m.gauge("base_boundaries").set(hcount)
+            m.gauge("delta_boundaries").set(dcount)
+            # Against the ticket's d_cap: a later dispatch may have grown
+            # the delta since.
+            m.histogram("delta_occupancy_synced").add(dcount / ticket.d_cap)
+            if not pipelined:
+                # As the reference: only the unpipelined readback, where no
+                # later batch is in flight, resets the bounds to the truth.
+                self._hcount_bound, self._dcount_bound = hcount, dcount
+        else:
+            m.gauge("boundary_count").set(hcount)
+            if ticket.epoch == self._epoch:
+                # The synced count plus every later dispatch's increment is
+                # an upper bound too.  It only spares must-fit syncs: a grow
+                # is still decided on the synced truth.
+                self._hcount_bound = min(
+                    self._hcount_bound, hcount + self._bound_added - ticket.added)
+        statuses = None
+        if undecided == 0:
+            tc = ticket.pb.txn_cap
+            statuses = arr[_HEAD : _HEAD + tc].copy()
+            self.last_witness = decode_witness(
+                ticket.pb, statuses, arr[_HEAD + tc : _HEAD + 2 * tc],
+                arr[_HEAD + 2 * tc :], ticket.base,
+            )
+        if ticket.host is not None:
+            self._readback_pool.setdefault(arr.shape[0], []).append((ticket.host, ticket.ready))
+            ticket.host = ticket.ready = None
+        return statuses
 
     def detect_packed(self, pb: PackedBatch, now: int, new_oldest_version: int):
         """Run one packed batch; returns numpy statuses [txn_cap]."""
-        statuses, undecided = self.dispatch_packed(pb, now, new_oldest_version)
-        return self.readback_packed(pb, statuses, undecided, now, new_oldest_version)
+        return self.readback_packed(self.dispatch_packed(pb, now, new_oldest_version))
 
-    def readback_packed(self, pb: PackedBatch, statuses, undecided, now: int,
-                        new_oldest_version: int):
+    def readback_packed(self, ticket: DispatchTicket):
         """The host half of detect_packed for the batch just dispatched:
-        read back undecided/iters, re-decide on the CPU engine if the
-        fixpoint diverged, else read the verdicts and decode the
-        witness."""
-        self._sync()
-        undecided_n, iters = torch.stack([undecided, self._last_iters_dev]).tolist()
-        self.last_iters = iters
-        self.metrics.counter("fixpoint_rounds").add(iters)
-        if undecided_n != 0:
-            # The step left the history untouched: re-decide the batch on
-            # the CPU engine against that state and adopt its result.
-            return self._fallback_cpu(pb, now, new_oldest_version)
-        statuses_np = statuses.cpu().numpy()
-        self.last_witness = self._witness_host(pb, statuses_np, *self._last_witness_dev)
-        return statuses_np
+        one readback; re-decide on the CPU engine if the fixpoint diverged,
+        else the verdicts (the witness goes to last_witness)."""
+        statuses = self._readback(ticket, pipelined=False)
+        if statuses is None:
+            # The step left the logical history untouched: re-decide the
+            # batch on the CPU engine against that state and adopt its
+            # result.
+            return self._fallback_cpu(ticket.pb, ticket.now, ticket.new_oldest_version)
+        return statuses
 
     # -- pipelined dispatch --
     def dispatch_txns(
@@ -993,35 +1542,19 @@ class TorchConflictSet:
         sync_ticket does that later.  The carried history advances in
         dispatch order, so the next dispatch already decides against this
         batch's committed writes."""
-        pb = self._pack(transactions)
-        statuses, undecided = self.dispatch_packed(pb, now, new_oldest_version)
-        return DispatchTicket(
-            pb=pb,
-            statuses=statuses,
-            undecided=undecided,
-            iters=self._last_iters_dev,
-            now=now,
-            new_oldest_version=new_oldest_version,
-            witness=self._last_witness_dev,
-        )
+        return self.dispatch_packed(self._pack(transactions), now, new_oldest_version)
 
     def sync_ticket(self, ticket: DispatchTicket):
         """Read one dispatched batch back.  Returns (statuses ndarray
         [txn_cap], diverged): diverged=True means the fixpoint left the
-        batch undecided — the step left the device history UNCHANGED for
+        batch undecided — the step left the logical history UNCHANGED for
         it, so the caller must re-decide this batch (and any dispatched
-        after it) on an authoritative CPU engine.  Host capacity bounds
-        are not tightened here: later batches may already be in flight."""
-        self._sync()
-        undecided_n, iters = torch.stack([ticket.undecided, ticket.iters]).tolist()
-        self.last_iters = iters
-        self.metrics.counter("fixpoint_rounds").add(iters)
-        if undecided_n != 0:
+        after it) on an authoritative CPU engine."""
+        statuses = self._readback(ticket, pipelined=True)
+        if statuses is None:
             self.metrics.counter("cpu_fallbacks").add()
             return None, True
-        statuses_np = ticket.statuses.cpu().numpy()
-        self.last_witness = self._witness_host(ticket.pb, statuses_np, *ticket.witness)
-        return statuses_np, False
+        return statuses, False
 
     def _fallback_cpu(self, pb: PackedBatch, now: int, new_oldest_version: int):
         self.metrics.counter("cpu_fallbacks").add()
@@ -1037,10 +1570,6 @@ class TorchConflictSet:
         out = np.full((pb.txn_cap,), COMMITTED, np.int32)
         out[: pb.n_txn] = statuses
         return out
-
-    def _witness_host(self, pb: PackedBatch, statuses, w_ver, w_rng, base):
-        self._sync()
-        return decode_witness(pb, statuses, w_ver.cpu().numpy(), w_rng.cpu().numpy(), base)
 
     # -- state exchange with the CPU mirror --
     def note_synced(self, snap, fresh=None) -> None:
@@ -1073,7 +1602,8 @@ class TorchConflictSet:
         self._synced_stamp = snap.stamp
 
     def load_from(self, src) -> None:
-        """Adopt a CPU-mirror state as device state.  `src` is a
+        """Adopt a CPU-mirror state as device state (in tiered mode as the
+        base, with an empty delta and a rebuilt max table).  `src` is a
         MirrorSnapshot (immutable, and its chunks' cached encodings make
         the host work proportional to the chunks changed since the last
         note_synced) or any flat engine exposing keys / vers /
@@ -1098,7 +1628,9 @@ class TorchConflictSet:
         self.metrics.counter("rehydrate_keys_total").add(n)
         self.metrics.counter("rehydrate_keys_encoded").add(encoded)
         if n + 8 > self.h_cap:
-            self._grow(_next_pow2(n + 8, self.h_cap * 2))
+            # No table rebuild: _adopt below rebuilds it from the adopted
+            # state.
+            self._grow(_next_pow2(n + 8, self.h_cap * 2), rebuild_maxtab=False)
         self._base = src.oldest_version
         kw1 = self.key_words + 1
         hkeys = np.full((kw1, self.h_cap), keylib.INF_WORD, np.uint32)
@@ -1111,7 +1643,7 @@ class TorchConflictSet:
         self._synced_stamp = synced_stamp
 
     def _host_state(self):
-        """(keys, absolute versions, absolute oldest): the device history
+        """(keys, absolute versions, absolute oldest): the (base) history
         decoded to host lists, from one readback."""
         keys_u32, vers, n, oldest, base = self.export_state()
         keys = keylib.decode_keys(np.ascontiguousarray(keys_u32[:, :n].T), self.key_words)
@@ -1119,11 +1651,20 @@ class TorchConflictSet:
         return keys, vers_abs, oldest + base
 
     def _merged_host_state(self):
-        """The device history as host (keys, absolute versions) lists —
-        what mirror_check compares with the mirror."""
-        return self._host_state()[:2]
+        """The logical history as host (keys, absolute versions) lists —
+        what mirror_check compares with the mirror: in tiered mode the
+        delta folded over the base (fold_delta_over_base)."""
+        keys, vers, _oldest = self._host_state()
+        if not self.tiered:
+            return keys, vers
+        self._sync()
+        nd = int(self._dcount)
+        dk = keylib.from_device_words(self._dkeys[:, :nd].cpu().numpy())
+        dkeys = keylib.decode_keys(np.ascontiguousarray(dk.T), self.key_words)
+        return fold_delta_over_base(keys, vers, dkeys, self._dvers[:nd].cpu().numpy(), self._base)
 
     def store_to(self, cpu) -> None:
-        """Write the device state into a flat CPU engine (keys as bytes,
+        """Write the logical history into a flat CPU engine (keys as bytes,
         absolute versions)."""
-        cpu.keys, cpu.vers, cpu.oldest_version = self._host_state()
+        cpu.keys, cpu.vers = self._merged_host_state()
+        cpu.oldest_version = self.oldest_version

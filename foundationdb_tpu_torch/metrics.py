@@ -1,12 +1,13 @@
-"""Counters, gauges and a wall-clock namespace for one subsystem.
+"""Counters, gauges, histograms and a wall-clock namespace for one subsystem.
 
 The deterministic part of the reference package's ``MetricsRegistry``
-(``flow/metrics.py``): named counters and gauges, read back as one
-``snapshot()`` dict of the shape the reference's time-series sampler and
-status surfaces read (``{"name", ["time"], "counters", "gauges",
-"histograms"}``).  The port keeps no histograms, so that key is always
-empty.  There is no event loop here: a snapshot carries ``time`` only when
-the caller passes ``now``.
+(``flow/metrics.py``): named counters, gauges and histograms, read back as
+one ``snapshot()`` dict of the shape the reference's time-series sampler
+and status surfaces read (``{"name", ["time"], "counters", "gauges",
+"histograms"}``).  A histogram keeps the reference's exact aggregates
+(count, sum, mean, min, max) and no sample reservoir, so it has no
+percentiles.  There is no event loop here: a snapshot carries ``time``
+only when the caller passes ``now``.
 
 Wall-clock measurements (``record_wall``) live in a separate namespace
 that ``snapshot()`` leaves out unless ``include_wall=True``, so two runs
@@ -44,13 +45,44 @@ class Gauge:
         self.value = v
 
 
+class Histogram:
+    """Exact aggregates of a stream of values: the reference's
+    ``BoundedHistogram`` without an rng."""
+
+    __slots__ = ("name", "count", "total", "_min", "_max")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self.total = 0.0
+        self._min = None
+        self._max = None
+
+    def add(self, x) -> None:
+        self.count += 1
+        self.total += x
+        self._min = x if self._min is None else min(self._min, x)
+        self._max = x if self._max is None else max(self._max, x)
+
+    def summary(self) -> dict:
+        return {
+            "count": self.count,
+            "sum": self.total,
+            "mean": self.total / self.count if self.count else None,
+            "min": self._min,
+            "max": self._max,
+        }
+
+
 class MetricsRegistry:
-    """Named counters and gauges (get-or-create), plus wall seconds."""
+    """Named counters, gauges and histograms (get-or-create), plus wall
+    seconds."""
 
     def __init__(self, name: str):
         self.name = name
         self.counters: Dict[str, Counter] = {}
         self.gauges: Dict[str, Gauge] = {}
+        self.histograms: Dict[str, Histogram] = {}
         # (count, total seconds) per name; never in a default snapshot.
         self.wall: Dict[str, list] = {}
 
@@ -66,6 +98,12 @@ class MetricsRegistry:
             g = self.gauges[name] = Gauge(name)
         return g
 
+    def histogram(self, name: str) -> Histogram:
+        h = self.histograms.get(name)
+        if h is None:
+            h = self.histograms[name] = Histogram(name)
+        return h
+
     def record_wall(self, name: str, seconds: float) -> None:
         ent = self.wall.setdefault(name, [0, 0.0])
         ent[0] += 1
@@ -78,7 +116,9 @@ class MetricsRegistry:
             out["time"] = now
         out["counters"] = {k: c.value for k, c in sorted(self.counters.items())}
         out["gauges"] = {k: g.value for k, g in sorted(self.gauges.items())}
-        out["histograms"] = {}
+        out["histograms"] = {
+            k: h.summary() for k, h in sorted(self.histograms.items())
+        }
         if include_wall:
             out["wall"] = {
                 k: {"count": v[0], "seconds": v[1]}

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -135,6 +136,24 @@ def build_max_table(values: torch.Tensor) -> torch.Tensor:
 
 def build_min_table(values: torch.Tensor) -> torch.Tensor:
     return _build_table(values, torch.minimum)
+
+
+def build_max_table_np(values: np.ndarray) -> np.ndarray:
+    """Host (numpy) twin of build_max_table, bit-identical: the tiered
+    engine seeds its carried base table with it without a device pass."""
+    values = np.asarray(values, dtype=np.int32)
+    n = values.shape[0]
+    levels = [values]
+    span = 1
+    lmax = max(1, math.ceil(math.log2(max(n, 2))))
+    for _ in range(lmax):
+        prev = levels[-1]
+        shifted = np.concatenate(
+            [prev[span:], np.broadcast_to(prev[-1:], (min(span, n),))]
+        )
+        levels.append(np.maximum(prev, shifted))
+        span *= 2
+    return np.stack(levels)
 
 
 def _range_query(table, i, j, op):

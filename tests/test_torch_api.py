@@ -88,13 +88,15 @@ def _port_txns(txns):
 def _ref_set(monkeypatch, depth, **kw):
     monkeypatch.setenv("FDB_TPU_PIPELINE_DEPTH", str(depth))
     kw.setdefault("backend", "jax")
-    return RefConflictSet(key_words=3, bucket_mins=(32, 128, 64), h_cap=kw.pop("h_cap", 1 << 10), **kw)
+    kw.setdefault("key_words", 3)
+    return RefConflictSet(bucket_mins=(32, 128, 64), h_cap=kw.pop("h_cap", 1 << 10), **kw)
 
 
 def _port_set(depth, **kw):
     kw.setdefault("backend", "torch")
     kw.setdefault("h_cap", 1 << 10)
-    return ConflictSet(key_words=3, bucket_mins=(32, 128, 64), device="cpu",
+    kw.setdefault("key_words", 3)
+    return ConflictSet(bucket_mins=(32, 128, 64), device="cpu",
                        pipeline_depth=depth, **kw)
 
 
@@ -147,6 +149,8 @@ def _assert_same(port_cs, ref_cs, got, want):
     assert pm["backend_state"] == rm["backend_state"]
     assert pm["pipeline"] == rm["pipeline"]
     assert pm["h_cap"] == rm["h_cap"]
+    assert pm["histograms"] == rm["histograms"]
+    assert pm["gauges"] == rm["gauges"]
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +170,10 @@ def test_pipeline_depths_match_the_reference(monkeypatch, depth):
     counters = cs.device_metrics()["counters"]
     assert counters["pipeline_dispatches"] == (len(stream) if depth > 1 else 0)
     assert counters["batches"] == len(stream)
+    hist = cs.device_metrics()["histograms"]
+    assert sorted(hist) == ["fixpoint_rounds_per_batch", "read_occupancy",
+                            "txn_occupancy", "write_occupancy"]
+    assert all(h["count"] == len(stream) for h in hist.values())
     assert counters["rehydrates"] == 1
     # mirror_apply and note_synced time every device-served batch.
     wall = cs._dev.metrics.snapshot(include_wall=True)["wall"]
@@ -380,6 +388,77 @@ def test_long_key_pin_and_its_lift_match_the_reference(monkeypatch):
     assert not cs._history_long_keys
     served = cs._dev.batches
     assert 0 < served < len(stream)
+
+
+def test_device_key_cap_matches_the_reference_at_five_key_words(monkeypatch):
+    """At key_words=5 the device takes keys of at most 16 bytes (the
+    reference's conflict_max_device_key_bytes default), not 20: a batch
+    with a 20-byte read key is served by the mirror, and a 20-byte write
+    also pins history host-side until the window passes it — batch by
+    batch as in the reference (routing, the engine's batches and
+    pipeline_dispatches, the pin)."""
+    stream = _random_stream(17, 60, 30, 6)
+    txns, now, _nov = stream[2]
+    txns.append(JT(read_snapshot=now - 1, read_ranges=[(b"R" * 20, b"S" * 20)]))
+    txns, now, _nov = stream[5]
+    txns.append(JT(read_snapshot=now - 1, write_ranges=[(b"W" * 20, b"X" * 20)]))
+    ref = _ref_set(monkeypatch, 2, key_words=5)
+    cs = _port_set(2, key_words=5)
+
+    def walk(cs, dev, port):
+        seen = []
+        for txns, now, nov in stream:
+            cs.pipeline_submit(_port_txns(txns) if port else txns, now, nov)
+            cs.pipeline_drain()
+            c = dev.metrics.snapshot()["counters"]
+            seen.append((cs._history_long_keys, c["batches"], c["pipeline_dispatches"]))
+        return seen
+
+    want = walk(ref, ref._jax, port=False)
+    got = walk(cs, cs._dev, port=True)
+    assert got == want
+    assert want[2][1] == want[1][1]  # the 20-byte read skipped the device
+    assert want[5][0]                # the 20-byte write pinned the history
+    assert not want[-1][0] and want[-1][1] < len(stream)
+    _assert_same(cs, ref, [], [])
+
+
+def _big_batch(base, ranges=40):
+    """tests/test_perf_smoke.py's side-heavy one-transaction batch."""
+    t = TT(read_snapshot=0)
+    for j in range(ranges):
+        t.read_ranges.append((k(base + 4 * j), k(base + 4 * j + 1)))
+        t.write_ranges.append((k(base + 4 * j + 2), k(base + 4 * j + 3)))
+    return [t]
+
+
+def test_pipelined_batch_host_sync_and_alloc_budget():
+    """tests/test_perf_smoke.py's host budget, on the port: a healthy batch
+    at depth 2 costs at most 3 blocking reads (its one readback, the
+    fixpoint's check, an occasional bound refresh), and once the staging
+    ring is populated the batches allocate no host buffer."""
+    cs = _port_set(2)
+    eng = cs._dev
+
+    def drive(i0, n):
+        v = 5 * i0
+        for i in range(i0, i0 + n):
+            v += 5
+            e = cs.pipeline_submit(_big_batch(10_000 * i), v, 0)
+            while cs.pipeline_inflight > 1:
+                cs.pipeline_complete_oldest()
+            assert e is not None
+        cs.pipeline_drain()
+
+    drive(0, 2)  # populates the staging ring
+    syncs0, allocs0 = eng.host_syncs, eng.host_allocs
+    batches = 8
+    drive(2, batches)
+    syncs = eng.host_syncs - syncs0
+    assert syncs <= 3 * batches, f"{syncs} host syncs over {batches} batches"
+    assert eng.host_allocs - allocs0 == 0
+    assert allocs0 == 3  # the ring: depth + 1 buffers of the one blob length
+    assert syncs >= 2 * batches  # one readback and one fixpoint check each
 
 
 # ---------------------------------------------------------------------------

@@ -345,3 +345,72 @@ def test_conflict_set_fault_script_on_the_card_matches_the_cpu(dev):
         assert cs.mirror_check()["status"] == "ok"
     assert exports[0] == exports[1]
     assert tk.merge_contract_faults(dev) == 0
+
+
+def _tiers(cs):
+    """The tiered engine's raw state on the host: both tiers, the carried
+    table, the counts and the host bounds."""
+    return [cs._hkeys.cpu().numpy(), cs._hvers.cpu().numpy(), int(cs._hcount),
+            cs._maxtab.cpu().numpy(), cs._dkeys.cpu().numpy(), cs._dvers.cpu().numpy(),
+            int(cs._dcount), int(cs._oldest), cs._base, cs._hcount_bound,
+            cs._dcount_bound, cs._batches_since_major, cs.h_cap, cs.d_cap]
+
+
+def test_tiered_engine_on_the_card_matches_the_cpu(dev):
+    """The tiered step on the card — the two-tier search, the delta merge
+    and the major compaction's merge with a sparse delta — against the
+    same engine on the CPU (plain twins), batch by batch, raw tiers
+    included, with compactions by cadence, a delta grow and a base that
+    grows on a compaction batch."""
+    stream = _stream(29, 400, batches=16, txns_per_batch=30)
+    kw = dict(key_words=3, h_cap=128, bucket_mins=BUCKETS, history="tiered",
+              delta_cap=128, evict_every=3)
+    gpu = et.TorchConflictSet(**kw)
+    cpu = et.TorchConflictSet(device="cpu", **kw)
+    before = dict(tk.LAUNCHES)
+    for txns, now, nov in stream:
+        assert gpu.detect(txns, now, nov) == cpu.detect(txns, now, nov)
+        assert gpu.last_witness == cpu.last_witness
+        assert gpu.last_iters == cpu.last_iters
+        for x, y in zip(_tiers(gpu), _tiers(cpu)):
+            assert np.array_equal(x, y)
+    majors = gpu.metrics.counter("major_compactions").value
+    assert majors >= 4 and gpu.h_cap > 128 and gpu.d_cap > 128
+    assert tk.LAUNCHES["phase1_ranks"] - before["phase1_ranks"] == 2 * len(stream)
+    assert (tk.LAUNCHES["fused_merge_evict"] - before["fused_merge_evict"]
+            == len(stream) + majors)
+    assert tk.merge_contract_faults(dev) == 0
+
+
+def test_pipelined_host_budget_on_the_card(dev):
+    """At depth 2 on the card a healthy batch costs at most 3 host syncs
+    (its readback, the fixpoint's check, an occasional bound refresh) and,
+    once the staging ring and the readback pool are populated, no host
+    allocation; the verdicts equal the CPU run's."""
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+
+    def batch(i):
+        t = TT(read_snapshot=0)
+        for j in range(40):
+            t.read_ranges.append((_k(10_000 * i + 4 * j), _k(10_000 * i + 4 * j + 1)))
+            t.write_ranges.append((_k(10_000 * i + 4 * j + 2), _k(10_000 * i + 4 * j + 3)))
+        return [t]
+
+    def drive(cs, i0, n):
+        out = []
+        for i in range(i0, i0 + n):
+            out.append(cs.pipeline_submit(batch(i), 5 * i + 5, 0))
+            while cs.pipeline_inflight > 1:
+                cs.pipeline_complete_oldest()
+        cs.pipeline_drain()
+        return [(e.statuses, e.witness) for e in out]
+
+    gpu = ConflictSet(key_words=3, h_cap=1 << 10, bucket_mins=BUCKETS, pipeline_depth=2)
+    cpu = ConflictSet(key_words=3, h_cap=1 << 10, bucket_mins=BUCKETS, pipeline_depth=2,
+                      device="cpu")
+    eng = gpu._dev
+    assert drive(gpu, 0, 2) == drive(cpu, 0, 2)
+    syncs0, allocs0 = eng.host_syncs, eng.host_allocs
+    assert drive(gpu, 2, 8) == drive(cpu, 2, 8)
+    assert eng.host_syncs - syncs0 <= 3 * 8
+    assert eng.host_allocs == allocs0

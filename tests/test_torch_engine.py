@@ -259,15 +259,28 @@ def test_divergence_takes_the_cpu_fallback():
     assert jcs.metrics.snapshot()["counters"]["cpu_fallbacks"] == 1
 
 
-def test_long_fixpoint_counts_iterations_exactly():
+def test_long_fixpoint_counts_iterations_exactly(monkeypatch):
     """A 40-txn dependency chain needs ~40 fixpoint rounds — many chunks
-    of masked rounds — and iters must equal the reference's count."""
-    jcs = JaxConflictSet(key_words=3, h_cap=256, bucket_mins=BUCKETS)
-    tcs = TorchConflictSet(key_words=3, h_cap=256, bucket_mins=BUCKETS, device="cpu")
-    _run_both([(_chain(40), 5, 0), (_chain(33, snapshot=5), 9, 2)], jcs, tcs,
-              OracleConflictSet())
-    assert tcs.last_iters > 2 * et.FIXPOINT_CHUNK
-    assert tcs.cpu_fallbacks == 0
+    of masked rounds — and iters must equal the reference's count, for
+    every first-chunk length; so must chains whose rounds end just before,
+    at and just after the first check, which cost one check."""
+    for first in (1, 2, et.FIXPOINT_CHUNK, et.FIXPOINT_FIRST_CHUNK):
+        monkeypatch.setattr(et, "FIXPOINT_FIRST_CHUNK", first)
+        jcs = JaxConflictSet(key_words=3, h_cap=256, bucket_mins=BUCKETS)
+        tcs = TorchConflictSet(key_words=3, h_cap=256, bucket_mins=BUCKETS, device="cpu")
+        _run_both([(_chain(40), 5, 0), (_chain(33, snapshot=5), 9, 2)], jcs, tcs,
+                  OracleConflictSet())
+        assert tcs.last_iters > 2 * et.FIXPOINT_CHUNK
+        assert tcs.cpu_fallbacks == 0
+        v = 9
+        for n in (1, 2, 3, 4, 5, 6, 7):
+            syncs = tcs.host_syncs
+            v += 4
+            _run_both([(_chain(n, snapshot=v - 1), v, v - 3)], jcs, tcs)
+            rounds = tcs.last_iters - 2
+            checks = 1 + max(0, -(-(rounds - first) // et.FIXPOINT_CHUNK))
+            # the fixpoint's checks, the readback, the export's read
+            assert tcs.host_syncs - syncs == checks + 2, (first, n, rounds)
 
 
 def test_growth_and_rebase_match_reference():

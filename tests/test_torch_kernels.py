@@ -166,3 +166,97 @@ def test_wrappers_check_their_arguments():
         tk.phase1_ranks(_tw(hk), _tw(rb).t().contiguous().t(), side)
     with pytest.raises(ValueError):
         tk.phase1_ranks(_tw(hk).to("meta"), _tw(rb).to("meta"), side.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the tiered history's forms: two tiers, and the major compaction
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("NB,live_b,ND,live_d,R", [
+    (1024, 700, 256, 90, 64),
+    (2048, 2048, 512, 1, 128),   # a full base, a delta of its floor row only
+    (512, 300, 512, 512, 32),    # tiers of one width, a full delta
+], ids=lambda v: str(v))
+def test_phase1_search_tiers_two_tiers_vs_pallas_interpret(NB, live_b, ND, live_d, R):
+    """The tiered step's phase 1: one query sort for a base and a delta of
+    different widths, against the reference's phase1_search_tiers in
+    interpret mode, tier by tier."""
+    base, rb, re_ = _history_and_queries(NB + R, NB, live_b, R)
+    delta, _rb, _re = _history_and_queries(ND + 7, ND, live_d, R)
+    want = jk.phase1_search_tiers(
+        (jnp.asarray(base), jnp.asarray(delta)), jnp.asarray(rb), jnp.asarray(re_),
+        interpret=True)
+    got = tk.phase1_search_tiers((_tw(base), _tw(delta)), _tw(rb), _tw(re_))
+    assert len(got) == len(want) == 2
+    for (i0, j1), (wi0, wj1) in zip(got, want):
+        assert (i0.numpy() == np.asarray(wi0)).all()
+        assert (j1.numpy() == np.asarray(wj1)).all()
+
+
+def _major_compaction_inputs(monkeypatch):
+    """fused_merge_evict's arguments at every major compaction of a seeded
+    tiered stream (A = the base at width H, B = the delta, D < H rows,
+    sparse keep flags), recorded from the port's engine."""
+    from foundationdb_tpu_torch.conflict import engine_torch as et
+    from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
+
+    seen = []
+    merge, compact = et.fused_merge_evict, et._major_compact
+    in_compaction = []
+
+    def recording(*args, width):
+        if in_compaction:
+            seen.append((tuple(a.clone() for a in args), width))
+        return merge(*args, width=width)
+
+    def compacting(*args, **kwargs):
+        in_compaction.append(1)
+        try:
+            return compact(*args, **kwargs)
+        finally:
+            in_compaction.pop()
+
+    monkeypatch.setattr(et, "fused_merge_evict", recording)
+    monkeypatch.setattr(et, "_major_compact", compacting)
+    r = np.random.default_rng(12)
+    cs = et.TorchConflictSet(key_words=2, h_cap=1024, device="cpu", history="tiered",
+                             delta_cap=256, evict_every=3, bucket_mins=(8, 8, 16))
+    for i in range(12):
+        txns = []
+        for _ in range(12):
+            a, b = sorted(int(x) for x in r.integers(0, 4000, 2))
+            c = int(r.integers(0, 4000))
+            txns.append(T(i, [(b"%06d" % a, b"%06d" % (b + 1))],
+                          [(b"%06d" % c, b"%06d" % (c + 1 + int(r.integers(0, 30))))]))
+        cs.detect(txns, i + 6, max(0, i - 3))
+    return seen
+
+
+def test_fused_merge_evict_major_compaction_vs_pallas_interpret(monkeypatch):
+    """The major compaction's merge, on the inputs the tiered engine really
+    hands it: the port's plain twin against the reference's Pallas kernel
+    in interpret mode, bit for bit over the surviving rows, and the
+    position order the CUDA kernel relies on holds."""
+    seen = _major_compaction_inputs(monkeypatch)
+    assert len(seen) >= 3
+    sparse = 0
+    for args, width in seen:
+        a_keys, a_vers, a_keep, a_pos, b_keys, b_vers, b_keep, b_pos, mc, window = args
+        assert a_keys.shape[1] == width > b_keys.shape[1]
+        kept = np.flatnonzero(b_keep.numpy())
+        sparse += int(len(kept) and kept[-1] + 1 != len(kept))
+        pa, pb = a_pos[a_keep != 0].numpy(), b_pos[b_keep != 0].numpy()
+        assert (np.diff(pa) > 0).all() and (np.diff(pb) > 0).all()
+        assert np.array_equal(np.sort(np.concatenate([pa, pb])), np.arange(int(mc)))
+        jok, jov, joc = jk.fused_merge_evict(
+            *(jnp.asarray(from_device_words(t.numpy())) if i in (0, 4)
+              else jnp.asarray(t.numpy()) for i, t in enumerate(args)),
+            width=width, kw1=a_keys.shape[0], interpret=True,
+        )
+        ok, ov, oc = tk.fused_merge_evict(*args, width=width)
+        n = int(joc)
+        assert int(oc) == n
+        assert (from_device_words(ok.numpy()[:, :n]) == np.asarray(jok)[:, :n]).all()
+        assert (ov.numpy()[:n] == np.asarray(jov)[:n]).all()
+    assert sparse, "no compaction had a delta with gaps in its kept rows"

@@ -147,3 +147,18 @@ def test_stabbing_min(n_log2, m):
         torch.from_numpy(lo), torch.from_numpy(hi), torch.from_numpy(weight),
         torch.from_numpy(valid), n_log2)
     assert (got.numpy() == want).all()
+
+
+def test_host_and_device_max_tables_agree():
+    """The tiered engine's carried base table is built on the host and
+    queried by range_max in the device layout: the port's numpy twin equals
+    its build_max_table and the reference's build_max_table_np bit for bit
+    (tests/test_perf_smoke.py's parity test, for the port)."""
+    r = np.random.default_rng(3)
+    for n in (1, 2, 3, 7, 64, 1000, 4096):
+        v = r.integers(-(2**30), 2**30, size=(n,)).astype(np.int32)
+        host = trq.build_max_table_np(v)
+        dev = trq.build_max_table(torch.from_numpy(v)).numpy()
+        ref = np.asarray(jrq.build_max_table_np(v))
+        assert host.dtype == np.int32 and host.shape == dev.shape == ref.shape, n
+        assert (host == dev).all() and (host == ref).all(), n
