@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole check, about five minutes
+    python3 chip_smoke.py            # the whole check, about ten minutes
     python3 chip_smoke.py --profile  # also a host/device time split and a
                                      # torch.profiler table of batches of
                                      # both main paths (flat and tiered)
@@ -30,7 +30,12 @@ Phases, in order; any failure exits non-zero:
                width 655,360, B 131,072 rows) and the major compaction (A
                the base at width 3,538,944, B a 655,360-row delta with
                sparse keep flags, built by the engine's own
-               _major_compact_inputs)
+               _major_compact_inputs); then both at one shard's shape of
+               phase 4s, bit for bit, cold and warm, beside their bounds:
+               the search over 1,048,576 rows (358,750 live keys of the
+               shard's range) with a batch's read ranges clipped to the
+               shard, the merge with A 1,048,576 rows and 15,000 of B's
+               131,072 valid
   4. main      ConflictSet(key_words=2, h_cap=3,145,728) at pipeline depth 2
                — the resolver's entry point: CPU mirror, circuit breaker,
                TorchConflictSet behind — on the bench stream (4-byte keys
@@ -62,6 +67,19 @@ Phases, in order; any failure exits non-zero:
                CPU fallback, no growth.  Prints txn/s, the device span of
                compaction and minor batches apart, host syncs and
                allocations a batch.
+  4s. sharded  the bench stream through ShardedTorchConflictSet at the
+               bench's multichip shape (bench.py:547-606) on the one card:
+               8 shards split by uniform_int_split_keys(8, 2e7, 4), each
+               a history of 1,048,576 rows, driven through detect_packed
+               (synchronous), 52 warm-up and 8 timed batches.  Each kernel
+               must launch exactly 64 times (once a shard a batch), with
+               no growth, no CPU fallback, no degraded shard, no merge
+               order fault, and mirror_check "ok" on all 8 shards.
+               Prints txn/s, the host ms a batch of the batch's unpacking
+               for the mirrors, the committed-write clip, the per-shard
+               mirror applies and the witness decode,
+               the host syncs a batch, and each shard's device span (CUDA
+               events around its decide and commit halves)
   5. vs cpu    TorchConflictSet on a reduced stream on the GPU and on the
                CPU (plain twins): verdicts, witnesses and exported state
                identical
@@ -81,9 +99,17 @@ Phases, in order; any failure exits non-zero:
                (batch 3 a compaction batch, held down through the first
                probe) verdicts identical and the injected log and breaker
                walk equal on cuda and cpu
+  6s. sharded set vs cpu  ShardedTorchConflictSet with 4 shards on a
+               reduced stream, on the GPU and on the CPU, flat and tiered,
+               from 4,096 rows a shard (so it grows): a dispatch outage on
+               shard 1 over batches 2-4 opens its breaker, a grow outage
+               fails its first probe's rehydration; verdicts, witnesses,
+               the injected log, every breaker walk and the counters
+               equal on cuda and cpu, only shard 1's breaker walks
   7. result    one JSON line per kernel table (launches: the flat main
-               path's; launches_tiered: the tiered one's; tiered: the
-               tiered shapes' times), then {"ok": true, ...}
+               path's; launches_tiered: the tiered one's; launches_sharded:
+               the sharded one's; tiered and sharded: those shapes'
+               times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
 """
@@ -118,6 +144,13 @@ TIERED_H_CAP = H_CAP + 3 * 2 * PER_BATCH
 D_CAP = 655_360
 EVICT_EVERY = 4
 DELTA_LIVE = 3 * NEW_ROWS  # delta rows just before a compaction
+# The bench's multichip arm (bench.py:547-606) on one card: 8 key-range
+# shards split evenly over the key space, each a history of
+# _next_pow2(H_CAP / 8 + 4 * PER_BATCH) rows.
+SHARDS = 8
+SHARD_H_CAP = 1 << 20
+SHARD_LIVE = LIVE // SHARDS  # steady-state boundaries of one shard
+SHARD_NEW_ROWS = NEW_ROWS // SHARDS  # new boundaries one shard takes a batch
 
 
 def log(msg: str) -> None:
@@ -295,12 +328,12 @@ def phase1_bound(torch, tiers, q_s):
             f"history word-0 ties {'/'.join(map(str, h_ties))}, query word-0 ties {q_ties}")
 
 
-def key_tier(torch, keylib, gen, width, live):
+def key_tier(torch, keylib, gen, width, live, keyspace=KEYSPACE):
     """A sorted history tier in the carried layout (device encoding): the
-    floor row b"" then live - 1 distinct sorted 4-byte keys, INF-padded to
-    width."""
+    floor row b"" then live - 1 distinct sorted 4-byte keys in [0,
+    keyspace), INF-padded to width."""
     dev = torch.device("cuda")
-    keys = torch.randperm(KEYSPACE, device=dev, generator=gen)[: live - 1]
+    keys = torch.randperm(keyspace, device=dev, generator=gen)[: live - 1]
     keys = torch.sort(keys).values.to(torch.int64)
     h = torch.full((KEY_WORDS + 1, width), keylib.INF_DEV, dtype=torch.int32, device=dev)
     h[:, 0] = keylib.ZERO_DEV
@@ -310,12 +343,15 @@ def key_tier(torch, keylib, gen, width, live):
     return h
 
 
-def batch_queries(torch, keylib, rq, gen):
-    """One bench batch's read ranges as sorted phase-1 queries."""
+def batch_queries(torch, keylib, rq, gen, hi=None):
+    """One bench batch's read ranges as sorted phase-1 queries; with `hi`,
+    clipped to the shard [0, hi) as the sharded step clips them."""
     dev = torch.device("cuda")
     kw1 = KEY_WORDS + 1
     a = torch.randint(0, KEYSPACE, (PER_BATCH,), device=dev, generator=gen)
     b = a + 1 + torch.randint(0, 10, (PER_BATCH,), device=dev, generator=gen)
+    if hi is not None:
+        a, b = a.clamp(max=hi), b.clamp(max=hi)
 
     def enc(x):
         q = torch.empty((kw1, PER_BATCH), dtype=torch.int32, device=dev)
@@ -486,7 +522,7 @@ def search_stamps(torch, keylib, rq, flush, gen):
                 f"{(t[:, 0] - t0).max()} ns; per phase p50/p90/max ns: " + "; ".join(cells))
 
 
-def merge_input(torch, gen, window, drop_run=0, na=H_CAP, live=LIVE):
+def merge_input(torch, gen, window, drop_run=0, na=H_CAP, live=LIVE, n_b=NEW_ROWS):
     """One full-width merge input.  A: the history's live rows, ~1% of them
     overwritten by the batch's segments (keep = 0), and with drop_run also
     runs of 1 to drop_run dropped rows (one run start in 5,000 rows, ~10%
@@ -496,8 +532,8 @@ def merge_input(torch, gen, window, drop_run=0, na=H_CAP, live=LIVE):
     [0, 50): window 10 evicts ~4% of the merged rows, about one batch's
     share of a 50-batch window; window 45 puts 90% of the versions below
     it, as after a large removeBefore jump.  A has na rows, live of them
-    live (the flat history by default; the tiered delta with na=D_CAP).
-    Returns (args, merged_count)."""
+    live (the flat history by default; the tiered delta with na=D_CAP), and
+    n_b of B's rows valid.  Returns (args, merged_count)."""
     dev = torch.device("cuda")
     kw1 = KEY_WORDS + 1
     NA, NB = na, 2 * PER_BATCH
@@ -511,7 +547,6 @@ def merge_input(torch, gen, window, drop_run=0, na=H_CAP, live=LIVE):
         edge.index_add_(0, ends.clamp(max=live), -torch.ones_like(ends, dtype=torch.int32))
         keep_a[:live][torch.cumsum(edge[:live], 0) > 0] = 0
     n_keep_a = int(keep_a.sum())
-    n_b = NEW_ROWS
     keep_b = torch.zeros(NB, dtype=torch.int32, device=dev)
     keep_b[:n_b] = 1
     mc = n_keep_a + n_b
@@ -722,12 +757,75 @@ def check_tiered_merges(torch, tk, et, keylib, flush, gen):
     return out
 
 
-def log_tiered_shape(name, r, card):
+def log_shape(name, label, r, card):
     lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.6f}"
-    log(f"kernel {name} tiered {r['what']}: kernel_ms {r['ms']:.6f} warm_ms "
+    log(f"kernel {name} {label} {r['what']}: kernel_ms {r['ms']:.6f} warm_ms "
         f"{r['warm_ms']:.6f} plain_ms {r['plain_ms']:.6f} bound_us {r['bound_ms'] * 1e3:.3f} "
         f"({r['bound_by']}, {r['bytes']} B) library_ms {lib} max_abs_err "
         f"{r['max_abs_err']} ({r['detail']}) [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 3, one shard of the sharded path
+# ---------------------------------------------------------------------------
+
+
+def check_phase1_shard(torch, tk, keylib, rq, flush, gen):
+    """The sharded step's search on shard 0: SHARD_LIVE rows of keys in the
+    shard's range [0, KEYSPACE / SHARDS) at SHARD_H_CAP, and a bench
+    batch's read ranges clipped to the shard as queries (7 in 8 of them
+    collapse onto its upper bound)."""
+    hi = KEYSPACE // SHARDS
+    h = key_tier(torch, keylib, gen, SHARD_H_CAP, SHARD_LIVE, keyspace=hi)
+    q_s, side_s = batch_queries(torch, keylib, rq, gen, hi=hi)
+    got, err = phase1_against_plain(torch, tk, h, q_s, side_s, "one shard's history")
+    # Library yardstick, exact as in check_phase1: word 1 is constant.
+    packed = (h[0].to(torch.int64) << 32) | (h[2].to(torch.int64) + 2**31)
+    values = ((q_s[0].to(torch.int64) << 32) | (q_s[2].to(torch.int64) + 2**31)) \
+        + side_s.to(torch.int64)
+
+    def library():
+        return torch.searchsorted(packed, values, out_int32=True)
+
+    if not torch.equal(library(), got):
+        raise AssertionError("shard search: library yardstick disagrees")
+
+    def run():
+        return tk.phase1_ranks(h, q_s, side_s)
+
+    out = dict(
+        what=f"one shard (history {SHARD_H_CAP:,} rows, {SHARD_LIVE:,} live; "
+             f"{2 * PER_BATCH:,} clipped queries)",
+        max_abs_err=err, ms=cuda_ms(run, 20, flush), warm_ms=cuda_ms_warm(run, 50),
+        plain_ms=cuda_ms(lambda: tk.phase1_ranks_reference(h, q_s, side_s), 3, flush),
+        library_ms=cuda_ms(library, 20, flush),
+    )
+    out["bound_ms"], out["bound_by"], out["bytes"], out["detail"] = phase1_bound(
+        torch, [h], q_s)
+    return out
+
+
+def check_merge_shard(torch, tk, flush, gen):
+    """The sharded step's merge on one shard: A the shard's history
+    (SHARD_LIVE live rows of SHARD_H_CAP), B a batch's 131,072 segment rows
+    of which SHARD_NEW_ROWS fall in the shard."""
+    width = SHARD_H_CAP
+    args, mc = merge_input(torch, gen, 10, na=width, live=SHARD_LIVE, n_b=SHARD_NEW_ROWS)
+    n, err = merge_against_plain(torch, tk, args, width, "one shard's history")
+
+    def run():
+        return tk.fused_merge_evict(*args, width=width)
+
+    out = dict(
+        what=f"one shard (A {width:,} rows, {SHARD_LIVE:,} live; B {2 * PER_BATCH:,} rows, "
+             f"{SHARD_NEW_ROWS:,} valid)",
+        max_abs_err=err, ms=cuda_ms(run, 20, flush), warm_ms=cuda_ms_warm(run, 50),
+        plain_ms=cuda_ms(lambda: tk.fused_merge_evict_reference(*args, width=width), 3, flush),
+        library_ms=None,
+    )
+    out["bound_ms"], out["bound_by"], out["bytes"] = merge_bound(args, mc, n, width)
+    out["detail"] = f"merged rows {mc}, surviving rows {n}"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1160,6 +1258,197 @@ def tiered_conflictset_vs_cpu(torch, api, T, faults):
 
 
 # ---------------------------------------------------------------------------
+# phases 4s and 6s: the sharded resolver
+# ---------------------------------------------------------------------------
+
+
+class ShardSpans:
+    """CUDA events around each half step of each shard: the decide half
+    (phases 1-4, with the fixpoint's host checks inside it) and the commit
+    half (phases 5-6).  A batch calls every shard's decide, then every
+    active shard's commit, each in shard order."""
+
+    def __init__(self, torch, et):
+        self.torch, self.et = torch, et
+        self.real = {name: getattr(et, name) for name in ("decide_flat", "commit_flat")}
+        self.calls = {name: [] for name in self.real}
+        for name, fn in self.real.items():
+            setattr(et, name, self._timed(name, fn))
+
+    def _timed(self, name, fn):
+        def call(*args, **kw):
+            a, b = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            self.calls[name].append((a, b))
+            return out
+        return call
+
+    def remove(self, batches, shards):
+        """Stop timing; returns (mean span per shard, mean batch span) in
+        ms: a shard's span is its decide plus its commit, a batch's runs
+        from shard 0's decide to the last commit."""
+        for name, fn in self.real.items():
+            setattr(self.et, name, fn)
+        self.torch.cuda.synchronize()
+        dec, com = self.calls["decide_flat"], self.calls["commit_flat"]
+        if len(dec) != batches * shards or len(com) != batches * shards:
+            raise AssertionError(f"sharded: {len(dec)} decide and {len(com)} commit calls in "
+                                 f"{batches} batches of {shards} shards")
+        per_shard = [np.mean([dec[i * shards + s][0].elapsed_time(dec[i * shards + s][1])
+                              + com[i * shards + s][0].elapsed_time(com[i * shards + s][1])
+                              for i in range(batches)]) for s in range(shards)]
+        batch = np.mean([dec[i * shards][0].elapsed_time(com[(i + 1) * shards - 1][1])
+                         for i in range(batches)])
+        return per_shard, batch
+
+
+def sharded_path(torch, sr, tk, et, keylib):
+    """Phase 4s: the bench stream through ShardedTorchConflictSet(detect_packed)
+    at the multichip arm's shape, 8 shards on the one card.  Returns the
+    launches of the timed batches."""
+    gc.collect()
+    rng = np.random.default_rng(2026)
+    split = keylib.uniform_int_split_keys(SHARDS, KEYSPACE, KEY_BYTES)
+    cs = sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=SHARD_H_CAP)
+    if SHARD_H_CAP != et._next_pow2(H_CAP // SHARDS + 4 * PER_BATCH, 8):
+        raise AssertionError("SHARD_H_CAP is not the multichip arm's shard history")
+    m = cs.metrics
+    t0 = time.perf_counter()
+    for i in range(WARM):
+        cs.detect_packed(gen_packed(et, rng, PER_BATCH, i), i + WINDOW, i)
+    torch.cuda.synchronize()
+    log(f"sharded: {WARM} warm-up batches through ShardedTorchConflictSet ({SHARDS} shards) "
+        f"in {time.perf_counter() - t0:.3f} s, boundaries {cs.shard_occupancy()}")
+    timed = [(gen_packed(et, rng, PER_BATCH, i), i + WINDOW, i)
+             for i in range(WARM, WARM + TIMED)]
+    syncs0 = cs.host_syncs
+    wall0 = m.snapshot(include_wall=True)["wall"]
+    gc.collect()
+    spans = ShardSpans(torch, et)
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    for pb, now, nov in timed:
+        statuses = cs.detect_packed(pb, now, nov)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    shard_ms, batch_ms = spans.remove(TIMED, SHARDS)
+    expect = {name: SHARDS * TIMED for name in tk.LAUNCHES}
+    if launches != expect:
+        raise AssertionError(f"sharded: launches {launches} in {TIMED} batches, expected {expect}")
+    counters = m.snapshot()["counters"]
+    for name in ("cpu_fallbacks", "cpu_fallback_txns", "degraded_shard_serves", "grows"):
+        if counters[name] != 0:
+            raise AssertionError(f"sharded: {name} = {counters[name]}")
+    if counters["device_batches"] != WARM + TIMED:
+        raise AssertionError(f"sharded: {counters['device_batches']} device batches")
+    if cs.backend_signal()["shards_degraded"] != 0 or cs.h_cap != SHARD_H_CAP:
+        raise AssertionError(f"sharded: {cs.backend_signal()}, h_cap {cs.h_cap}")
+    faults = tk.merge_contract_faults("cuda")
+    if faults:
+        raise AssertionError(f"sharded: the merge found {faults} order faults")
+    s = np.asarray(statuses[:PER_BATCH])
+    if not ((s >= 0) & (s <= 2)).all() or not (s == 2).any() or not (s == 0).any():
+        raise AssertionError("sharded: verdicts out of range, or none committed or conflicting")
+    if len(cs.last_witness) != PER_BATCH:
+        raise AssertionError("sharded: no witness for the last batch")
+    wall = m.snapshot(include_wall=True)["wall"]
+
+    def per_batch_ms(name):
+        n = wall[name]["count"] - wall0[name]["count"]
+        if n != TIMED:
+            raise AssertionError(f"sharded: {name}: {n} samples in {TIMED} timed batches")
+        return (wall[name]["seconds"] - wall0[name]["seconds"]) / n * 1e3
+
+    t1 = time.perf_counter()
+    report = cs.mirror_check()
+    check_s = time.perf_counter() - t1
+    if report["status"] != "ok" or any(r["status"] != "ok" for r in report["shards"].values()):
+        raise AssertionError(f"sharded: mirror_check: {report}")
+    tps = TIMED * PER_BATCH / dt
+    log(f"sharded: {TIMED} timed batches x {PER_BATCH} txns through ShardedTorchConflictSet"
+        f".detect_packed ({SHARDS} shards, h_cap {SHARD_H_CAP} each) in {dt:.6f} s: "
+        f"{tps:.1f} txn/s, {dt / TIMED * 1e3:.3f} ms/batch; host ms/batch: unpack "
+        f"{per_batch_ms('unpack_seconds'):.3f}, clip "
+        f"{per_batch_ms('clip_seconds'):.3f}, mirror applies "
+        f"{per_batch_ms('mirror_apply_seconds'):.3f}, witness decode "
+        f"{per_batch_ms('witness_decode_seconds'):.3f}; host syncs/batch "
+        f"{(cs.host_syncs - syncs0) / TIMED}; device span a batch {batch_ms:.3f} ms, "
+        f"a shard (decide + commit) {', '.join(f'{x:.3f}' for x in shard_ms)} ms; "
+        f"conflicts {int((s == 0).sum())}/{PER_BATCH} in the last batch; launches {launches}; "
+        f"mirror_check ok on {SHARDS} shards ({sum(r['boundaries'] for r in report['shards'].values())} "
+        f"boundaries, {check_s:.3f} s); card {torch.cuda.get_device_name(0)}")
+    return launches
+
+
+def sharded_vs_cpu(torch, sr, faults, keylib):
+    """Phase 6s: the sharded set at 4 shards on a reduced stream, on cuda
+    and on cpu, flat and tiered, under one per-shard fault script: a
+    dispatch outage on shard 1 over batches 2-4 (its third fault opens its
+    breaker), then a grow outage on shard 1 during batch 6, its first probe,
+    whose rehydration checks the grow site first.  The history starts at
+    4,096 rows a shard, so every path grows.  Verdicts, witnesses, the
+    injected log, every shard's breaker walk and the counters must be
+    equal on the two devices."""
+    from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
+
+    n_txn, batches, window, keyspace = 2048, 12, 4, 200_000
+    rng = np.random.default_rng(7)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=keyspace), i + window, i)
+              for i in range(batches)]
+    split = keylib.uniform_int_split_keys(4, keyspace, KEY_BYTES)
+    for history in ("flat", "tiered"):
+        tiers = dict(history="tiered", evict_every=3, delta_cap=8192) if history == "tiered" else {}
+        runs = {}
+        for device in ("cuda", "cpu"):
+            inj = faults.DeviceFaultInjector()
+            cs = sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=1 << 12,
+                                            device=device, fault_injector=inj, **tiers)
+            out = []
+            for i, (txns, now, nov) in enumerate(stream):
+                if i == 2:
+                    inj.begin_outage("dispatch", shard=1)
+                if i == 5:
+                    inj.end_outage("dispatch", shard=1)
+                if i == 6:
+                    inj.begin_outage("grow", shard=1)
+                if i == 7:
+                    inj.end_outage("grow", shard=1)
+                out.append((cs.detect(txns, now, nov), list(cs.last_witness)))
+            report = cs.mirror_check()
+            if report["status"] != "ok":
+                raise AssertionError(f"sharded {history} on {device}: mirror_check {report}")
+            dm = cs.device_metrics()
+            runs[device] = (out, inj.injected, [b.transitions for b in cs._breakers],
+                            dm["counters"], cs.h_cap, cs.d_cap)
+        if runs["cuda"] != runs["cpu"]:
+            which = [k for k, a, b in zip(("verdicts", "injected", "transitions", "counters",
+                                           "h_cap", "d_cap"), runs["cuda"], runs["cpu"]) if a != b]
+            raise AssertionError(f"sharded {history}: cuda and cpu differ in {which}")
+        out, injected, transitions, c, h_cap, d_cap = runs["cuda"]
+        walk = [(f, t) for _s, f, t, _r in transitions[1]]
+        if walk != [("ok", "degraded"), ("degraded", "probing"), ("probing", "degraded"),
+                    ("degraded", "probing"), ("probing", "ok")]:
+            raise AssertionError(f"sharded {history}: shard 1's breaker walk {walk}")
+        if any(transitions[s] for s in (0, 2, 3)):
+            raise AssertionError(f"sharded {history}: a healthy shard's breaker moved")
+        if [site for _q, site, _k in injected] != ["dispatch#s1"] * 3 + ["grow#s1"]:
+            raise AssertionError(f"sharded {history}: injected {injected}")
+        conflicts = sum(int((np.asarray(v) == 0).sum()) for v, _w in out)
+        if conflicts == 0 or c["grows"] < 1 or (history == "tiered" and c["major_compactions"] < 3):
+            raise AssertionError(f"sharded {history}: conflicts {conflicts}, counters {c}")
+        log(f"sharded {history} vs cpu: {batches} batches x {n_txn} txns, 4 shards, identical "
+            f"on cuda and cpu (verdicts, witnesses, injected {injected}, breaker walks, "
+            f"counters); shard 1's walk {walk}; {conflicts} conflicts, grows {c['grows']}, "
+            f"h_cap {h_cap}, d_cap {d_cap}, degraded shard serves "
+            f"{c['degraded_shard_serves']}, shard 1 rehydrates {c['shard1_rehydrates']}"
+            + (f", compactions {c['major_compactions']}" if history == "tiered" else ""))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv) -> int:
@@ -1177,6 +1466,7 @@ def main(argv) -> int:
     from foundationdb_tpu_torch.conflict import kernels as tk
     from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
     from foundationdb_tpu_torch.ops import rangequery as rq
+    from foundationdb_tpu_torch.parallel import sharded_resolver as sr
 
     profile = "--profile" in argv
     stamps = "--stamps" in argv
@@ -1205,6 +1495,8 @@ def main(argv) -> int:
     check_phase1_skewed(torch, tk, keylib, rq, flush, gen)
     rows[0]["tiered"] = [check_phase1_tiers(torch, tk, keylib, rq, flush, gen)]
     rows[1]["tiered"] = check_tiered_merges(torch, tk, et, keylib, flush, gen)
+    rows[0]["sharded"] = [check_phase1_shard(torch, tk, keylib, rq, flush, gen)]
+    rows[1]["sharded"] = [check_merge_shard(torch, tk, flush, gen)]
     if stamps:
         search_stamps(torch, keylib, rq, flush, gen)
     del flush
@@ -1215,16 +1507,21 @@ def main(argv) -> int:
             f"library_ms {lib} max_abs_err {r['max_abs_err']} ({r['detail']}) "
             f"[{kind}, {smi}]")
         for t in r["tiered"]:
-            log_tiered_shape(r["name"], t, f"{kind}, {smi}")
+            log_shape(r["name"], "tiered", t, f"{kind}, {smi}")
+        for t in r["sharded"]:
+            log_shape(r["name"], "sharded", t, f"{kind}, {smi}")
 
     # 4. the main path, flat then tiered
     launches, _tps, digests = main_path(torch, api, T, tk, rq, et, profile)
     launches_tiered, _tps, _d = main_path(torch, api, T, tk, rq, et, profile,
                                           tiered=True, want=digests)
+    # 4s. the sharded resolver's main path
+    launches_sharded = sharded_path(torch, sr, tk, et, keylib)
     # 5-6. held against the CPU
     versus_cpu(torch, et)
     conflictset_vs_cpu(torch, api, T, faults)
     tiered_conflictset_vs_cpu(torch, api, T, faults)
+    sharded_vs_cpu(torch, sr, faults, keylib)
 
     # 7. result
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1235,7 +1532,9 @@ def main(argv) -> int:
         r["launches"] = launches[r["name"]]
     log(json.dumps({"kernels": [
         dict({k: r[k] for k in keys}, launches_tiered=launches_tiered[r["name"]],
-             tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]])
+             launches_sharded=launches_sharded[r["name"]],
+             tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
+             sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -12,6 +12,9 @@ easy to find:
   conflict/kernels.py        wrappers of the two hand-written Hopper
                              kernels, each with its plain PyTorch twin
   conflict/csrc/*.cu         the CUDA C++ kernels (built at first use)
+  parallel/sharded_resolver.py  ShardedTorchConflictSet: the key space cut
+                             into shards on one device, per-shard mirrors
+                             and circuit breakers
   ops/rangequery.py          multiword search + sparse-table range max/min
   ops/stabbing.py            dyadic segment-tree interval stabbing
   metrics.py                 counters and gauges (MetricsRegistry)
@@ -22,5 +25,7 @@ Entry points run on the GPU unless the caller passes ``device="cpu"``.
 from .conflict.api import ConflictSet
 from .conflict.engine_torch import PackedBatch, TorchConflictSet
 from .device import resolve_device
+from .parallel.sharded_resolver import ShardedTorchConflictSet
 
-__all__ = ["ConflictSet", "PackedBatch", "TorchConflictSet", "resolve_device"]
+__all__ = ["ConflictSet", "PackedBatch", "ShardedTorchConflictSet", "TorchConflictSet",
+           "resolve_device"]

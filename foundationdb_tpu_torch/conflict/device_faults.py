@@ -11,7 +11,11 @@ trace, span, flight-recorder and buggify hooks.  Two pieces:
     persistent ones hold a site down for a number of checks.  ``injected``
     logs every raised fault as ``[seq, site, kind]``, numbered exactly as
     the reference numbers them, so one script gives one log in both
-    packages.
+    packages.  Every plan and check takes an optional ``shard``: a
+    shard-scoped site (``"dispatch#s1"``) has its own check counter, so a
+    per-shard plan of the sharded set (parallel/sharded_resolver.py)
+    faults one shard alone.  ``shard=None`` is the single-device engine's
+    un-scoped site.
 
 ``DeviceCircuitBreaker``
     the state machine ``ConflictSet`` consults around every device
@@ -25,11 +29,15 @@ trace, span, flight-recorder and buggify hooks.  Two pieces:
     While not ``ok``, batches are served by the CPU mirror, which stays
     authoritative at all times, so verdicts never depend on device health.
     Transitions are counted in the engine's registry and appended to
-    ``transitions``.
+    ``transitions``.  ``label`` names a breaker's fault domain
+    (``"shard3"``) and ``counter_prefix`` namespaces its counters and
+    ``backend_state`` gauge in a shared registry (``"shard3_"``); both
+    default empty, the single-device engine's names.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional
 
 
@@ -67,64 +75,70 @@ _SITE_FAULT = {
 class DeviceFaultInjector:
     """Deterministic fault source for the engine's choke points.
 
-    ``script(site, at=n, persist=k)`` faults the n-th check of a site
-    (1-based) and holds it down for k checks; ``begin_outage`` /
-    ``end_outage`` model an open-ended device loss.  The reference's
-    random (buggify) mode is not ported."""
+    ``script(site, at=n, persist=k, shard=None)`` faults the n-th check of
+    a site (1-based; the shard's own count when ``shard`` is given) and
+    holds it down for k checks; ``begin_outage`` / ``end_outage`` model an
+    open-ended device loss.  The reference's random (buggify) mode is not
+    ported."""
 
     def __init__(self):
         self.checks: Dict[str, int] = {s: 0 for s in SITES}
-        self.injected: List[list] = []  # [seq, site, kind]
+        self.injected: List[list] = []  # [seq, site key, kind]
         self._seq = 0
-        self._outage: Dict[str, Optional[int]] = {}  # site -> remaining (None = open-ended)
-        self._scripted: Dict[str, Dict[int, int]] = {}  # site -> {at: persist}
+        self._outage: Dict[str, Optional[int]] = {}  # key -> remaining (None = open-ended)
+        self._scripted: Dict[str, Dict[int, int]] = {}  # key -> {at: persist}
+
+    @staticmethod
+    def _site_key(site: str, shard) -> str:
+        assert site in SITES, site
+        return site if shard is None else f"{site}#s{int(shard)}"
 
     # -- plans --
-    def script(self, site: str, at: int, persist: int = 1) -> None:
-        """Fault the `at`-th check of `site` and keep the site down for
-        `persist` consecutive checks."""
-        assert site in SITES, site
-        assert at > self.checks[site], "cannot script the past"
-        self._scripted.setdefault(site, {})[at] = persist
+    def script(self, site: str, at: int, persist: int = 1, shard=None) -> None:
+        """Fault the `at`-th check of `site` (of `shard`'s site when given)
+        and keep it down for `persist` consecutive checks."""
+        key = self._site_key(site, shard)
+        assert at > self.checks.get(key, 0), "cannot script the past"
+        self._scripted.setdefault(key, {})[at] = persist
 
-    def begin_outage(self, site: str) -> None:
-        """Hold `site` down until end_outage."""
-        assert site in SITES, site
-        self._outage[site] = None
+    def begin_outage(self, site: str, shard=None) -> None:
+        """Hold `site` (on one shard when given) down until end_outage."""
+        self._outage[self._site_key(site, shard)] = None
 
-    def end_outage(self, site: str) -> None:
-        self._outage.pop(site, None)
+    def end_outage(self, site: str, shard=None) -> None:
+        self._outage.pop(self._site_key(site, shard), None)
 
     # -- the choke-point hook --
-    def check(self, site: str) -> None:
-        """Called by the engine before mutating state at `site`; raises the
+    def check(self, site: str, shard=None) -> None:
+        """Called by the engine before mutating state at `site` (scoped to
+        one shard of the sharded set when `shard` is given); raises the
         site's fault type when the plan says so."""
-        assert site in SITES, site
+        key = self._site_key(site, shard)
         self._seq += 1
-        n = self.checks[site] = self.checks[site] + 1
+        n = self.checks[key] = self.checks.get(key, 0) + 1
         kind = None
         # Scripted entries are consumed at their check number even inside
         # an outage or persistence window: overlapping plans extend the
         # window (max-merge), they never vanish.
-        persist = self._scripted.get(site, {}).pop(n, None)
-        remaining = self._outage.get(site, 0)
-        if site in self._outage:
+        persist = self._scripted.get(key, {}).pop(n, None)
+        remaining = self._outage.get(key, 0)
+        if key in self._outage:
             if remaining is None:
                 kind = "outage"
             else:
-                self._outage[site] = remaining - 1
-                if self._outage[site] == 0:
-                    del self._outage[site]
+                self._outage[key] = remaining - 1
+                if self._outage[key] == 0:
+                    del self._outage[key]
                 kind = "persistent"
         if persist is not None:
             if persist > 1:
-                tail = self._outage.get(site, 0)
-                if not (site in self._outage and tail is None):
-                    self._outage[site] = max(tail, persist - 1)
+                tail = self._outage.get(key, 0)
+                if not (key in self._outage and tail is None):
+                    self._outage[key] = max(tail, persist - 1)
             if kind is None:
                 kind = "persistent" if persist > 1 else "transient"
         if kind is not None:
-            self.injected.append([self._seq, site, kind])
+            self.injected.append([self._seq, key, kind])
             raise _SITE_FAULT[site](f"injected {kind} fault", site=site)
 
 
@@ -134,6 +148,9 @@ STATE_DEGRADED = "degraded"
 STATE_PROBING = "probing"
 
 _STATE_GAUGE = {STATE_OK: 0, STATE_DEGRADED: 1, STATE_PROBING: 2}
+
+# Construction-order breaker ids (deterministic, unlike id()).
+_BREAKER_SEQ = itertools.count()
 
 
 class DeviceCircuitBreaker:
@@ -146,11 +163,16 @@ class DeviceCircuitBreaker:
         threshold: int = 3,
         backoff_batches: int = 2,
         backoff_cap: int = 64,
+        label: str = "",
+        counter_prefix: str = "",
     ):
+        self.breaker_id = next(_BREAKER_SEQ)
         self.metrics = metrics
         self.threshold = threshold
         self.initial_backoff = backoff_batches
         self.backoff_cap = backoff_cap
+        self.label = label
+        self._prefix = counter_prefix
         self.state = STATE_OK
         self.consecutive_failures = 0
         self.backoff = backoff_batches
@@ -158,7 +180,7 @@ class DeviceCircuitBreaker:
         self.seq = 0  # device-eligible batches observed
         self.transitions: List[list] = []  # [seq, from, to, reason]
         if metrics is not None:
-            metrics.gauge("backend_state").set(_STATE_GAUGE[self.state])
+            metrics.gauge(f"{counter_prefix}backend_state").set(_STATE_GAUGE[self.state])
 
     # -- queries --
     def allows_device(self) -> bool:
@@ -210,16 +232,19 @@ class DeviceCircuitBreaker:
     def note_rehydrate(self) -> None:
         self._count("rehydrates")
 
+    def count_degraded_batch(self) -> None:
+        self._count("degraded_batches")
+
     # -- plumbing --
     def _count(self, name: str) -> None:
         if self.metrics is not None:
-            self.metrics.counter(name).add()
+            self.metrics.counter(f"{self._prefix}{name}").add()
 
     def _transition(self, to: str, reason: str) -> None:
         frm, self.state = self.state, to
         self.transitions.append([self.seq, frm, to, reason])
         if self.metrics is not None:
-            self.metrics.gauge("backend_state").set(_STATE_GAUGE[to])
+            self.metrics.gauge(f"{self._prefix}backend_state").set(_STATE_GAUGE[to])
 
     def snapshot(self) -> dict:
         """Replayable view for device_metrics()."""

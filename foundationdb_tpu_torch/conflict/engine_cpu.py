@@ -265,6 +265,9 @@ class CpuConflictSet:
         # walks every chunk instead.
         self._fresh: list = []
         self._fresh_overflow = False
+        # Keys assigned through the ``keys`` setter, waiting for their
+        # ``vers`` (store_to-style adoption).
+        self._staged_keys: Optional[list] = None
 
     _FRESH_CAP = 8192
 
@@ -275,6 +278,11 @@ class CpuConflictSet:
         if self._pending:
             return max(self._oldest, max(p[2] for p in self._pending))
         return self._oldest
+
+    @oldest_version.setter
+    def oldest_version(self, v: int) -> None:
+        self._settle()
+        self._oldest = v
 
     def _track_fresh(self, ch: _Chunk) -> _Chunk:
         if not self._fresh_overflow:
@@ -350,6 +358,43 @@ class CpuConflictSet:
     @property
     def vers(self) -> list:
         return self._materialize()[1]
+
+    @keys.setter
+    def keys(self, new_keys) -> None:
+        """Flat adoption (store_to writes ``keys``, then ``vers``): the keys
+        wait for their versions, and the chunks are rebuilt once."""
+        self._settle()
+        self._staged_keys = list(new_keys)
+
+    @vers.setter
+    def vers(self, new_vers) -> None:
+        new_vers = list(new_vers)
+        ks, self._staged_keys = self._staged_keys, None
+        if ks is None or len(ks) != len(new_vers):
+            raise ValueError("assign keys, then vers of the same length")
+        self._rebuild_from_flat(ks, new_vers)
+
+    def _rebuild_from_flat(self, ks: list, vs: list) -> None:
+        """Replace the history with the flat lists (keys[0] == b""), cut
+        into chunks of chunk_size boundaries."""
+        if not ks or ks[0] != b"":
+            raise ValueError("a history starts with the b'' floor boundary")
+        c = self.chunk_size
+        try:
+            ek = keylib.encode_keys(ks, self._kw)
+        except ValueError:
+            self._set_chunks(tuple(self._new_chunk(ks[i : i + c], vs[i : i + c])
+                                   for i in range(0, len(ks), c)))
+            return
+        va = np.asarray(vs, dtype=np.int64)
+        pfx = _pfx_from_ek(ek)
+        chunks = []
+        for i in range(0, len(ks), c):
+            ch = self._new_chunk_cols(ek[i : i + c], va[i : i + c], pfx[i : i + c])
+            ch._keys = ks[i : i + c]  # the bytes are known: keep them
+            ch._key0 = ch._keys[0]
+            chunks.append(ch)
+        self._set_chunks(tuple(chunks))
 
     def _set_chunks(self, chunks: tuple) -> None:
         self._chunks = chunks

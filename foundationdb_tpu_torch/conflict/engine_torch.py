@@ -14,6 +14,13 @@ ResolveTransactionBatchRequest is decided in one device step:
   phases 5-6   rank-inversion merge prep, then the hand-written fused
                merge + removeBefore eviction + compaction kernel
 
+Each step is a decide half (phases 1-4 and the witness: decide_flat,
+decide_tiered) and a commit half (phases 5-6 and the divergence guard:
+commit_flat, commit_tiered), so that the sharded set
+(parallel/sharded_resolver.py) can combine every shard's undecided count
+before any shard commits; detect_core and detect_core_tiered run the two
+back to back.
+
 History is a word-major (kw1, h_cap) int32 key buffer (device word encoding,
 conflict/keys.py) plus (h_cap,) int32 versions relative to a host-held
 base; rows past the live count are INF / FLOOR_REL.  Tiered mode adds a
@@ -39,7 +46,7 @@ from __future__ import annotations
 
 import math
 from bisect import bisect_left
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -586,25 +593,6 @@ def _out_status(too_old, status):
     ).to(I32)
 
 
-def _finish_flat(hkeys, hvers, hcount, oldest, out_keys, out_vers,
-                 out_count, new_oldest, too_old, status, undecided_left,
-                 iters):
-    """Statuses in the reference's enum plus the divergence guard: if the
-    fixpoint did not converge the statuses are unreliable and so is the
-    write merge derived from them, so the history reverts UNCHANGED and the
-    host re-runs the batch on the CPU engine."""
-    ok = undecided_left == 0
-    return (
-        torch.where(ok, out_keys, hkeys),
-        torch.where(ok, out_vers, hvers),
-        torch.where(ok, out_count, hcount).to(I32),
-        torch.where(ok, new_oldest, oldest).to(I32),
-        _out_status(too_old, status),
-        undecided_left,
-        iters,
-    )
-
-
 def _witness_vectors(m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old,
                      status, now_rel, *, txn_cap, rr_cap):
     """Per-txn abort witness: (conflicting version, losing read-range
@@ -634,6 +622,97 @@ def _witness_vectors(m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old,
     return w_ver, w_rng
 
 
+class Decision(NamedTuple):
+    """The decide half of one step: the verdicts in the reference's enum,
+    the fixpoint's undecided count and iterations, the witness vectors, and
+    the committed-write segments (ub, ue, seg_valid) the commit half
+    merges.  Nothing in it changes the history."""
+
+    status: torch.Tensor
+    undecided: torch.Tensor
+    iters: torch.Tensor
+    w_ver: torch.Tensor
+    w_rng: torch.Tensor
+    ub: torch.Tensor
+    ue: torch.Tensor
+    seg_valid: torch.Tensor
+
+
+def _decide(m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
+            t_has_reads, t_valid, oldest, now_rel, *, txn_cap, rr_cap, wr_cap,
+            on_sync):
+    """Phases 2-4 and the witness, from phase 1's per-range history max `m`
+    and flags `r_hist`."""
+    TXN = txn_cap
+    hist_conf = _agg_txn(r_hist, r_txn, TXN)
+    too_old = t_valid & t_has_reads & (t_snap < oldest)
+    status0 = torch.where(
+        ~t_valid, _COMM,
+        torch.where(too_old | hist_conf, _CONF, _UNDECIDED),
+    ).to(I32)
+    status, iters, undecided_left, ub, ue, seg_valid, ib_flag = (
+        _resolve_batch(
+            r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_valid, status0,
+            txn_cap=TXN, rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
+        )
+    )
+    w_ver, w_rng = _witness_vectors(
+        m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old, status,
+        now_rel, txn_cap=TXN, rr_cap=rr_cap,
+    )
+    return Decision(_out_status(too_old, status), undecided_left, iters,
+                    w_ver, w_rng, ub, ue, seg_valid)
+
+
+def decide_flat(
+    hkeys, hvers, oldest,
+    r_begin, r_end, r_txn, r_snap,
+    w_begin, w_end, w_txn,
+    t_snap, t_has_reads, t_valid,
+    now_rel,
+    *, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int, on_sync=None,
+) -> Decision:
+    """The decide half of the flat step: phase 1 against the history, then
+    phases 2-4 and the witness."""
+    H = h_cap
+    r_nonempty = lex_less(r_begin, r_end)
+    r_valid = r_txn < txn_cap
+
+    # ---- phase 1: history conflicts (ref checkReadConflictRanges) ----
+    i0, j1 = phase1_search(hkeys, r_begin, r_end)
+    maxtab = build_max_table(hvers)
+    m = range_max(maxtab, i0.clamp(0, H - 1), j1.clamp(0, H - 1))
+    r_hist = r_valid & r_nonempty & (j1 >= i0) & (m > r_snap)
+    return _decide(
+        m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
+        t_has_reads, t_valid, oldest, now_rel, txn_cap=txn_cap,
+        rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
+    )
+
+
+def commit_flat(hkeys, hvers, hcount, oldest, dec: Decision, now_rel,
+                new_oldest_rel, undecided, *, h_cap: int, wr_cap: int):
+    """The commit half of the flat step: phases 5-6 (merge + removeBefore
+    eviction, one kernel) and the divergence guard.  `undecided` is the
+    count the guard reads: the step's own, or the sum over the shards of a
+    sharded step.  If it is not 0 the statuses are unreliable and so is the
+    write merge derived from them, so the history reverts UNCHANGED and the
+    host re-runs the batch on the CPU engine.  Returns (keys, vers, count,
+    oldest)."""
+    new_oldest = torch.maximum(oldest, new_oldest_rel)
+    out_keys, out_vers, out_count = _merge_evict_fused(
+        hkeys, hvers, hcount, dec.ub, dec.ue, dec.seg_valid, now_rel,
+        new_oldest, width=h_cap, wr_cap=wr_cap,
+    )
+    ok = undecided == 0
+    return (
+        torch.where(ok, out_keys, hkeys),
+        torch.where(ok, out_vers, hvers),
+        torch.where(ok, out_count, hcount).to(I32),
+        torch.where(ok, new_oldest, oldest).to(I32),
+    )
+
+
 def detect_core(
     hkeys, hvers, hcount, oldest,
     r_begin, r_end, r_txn, r_snap,
@@ -643,52 +722,19 @@ def detect_core(
     *, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int, on_sync=None,
 ):
     """The flat conflict step (the reference detect_core with kernels on,
-    witness on, eviction every batch).  Key words are in the device
-    encoding; scalars are 0-dim int32 tensors.  Returns (out_keys,
-    out_vers, out_count, new_oldest, out_status, undecided_left, iters,
-    w_ver, w_rng).  `on_sync` is called before each host sync the
-    fixpoint makes."""
-    dev = hkeys.device
-    H = h_cap
-    TXN, RR = txn_cap, rr_cap
-
-    r_nonempty = lex_less(r_begin, r_end)
-    r_valid = r_txn < TXN
-
-    # ---- phase 1: history conflicts (ref checkReadConflictRanges) ----
-    i0, j1 = phase1_search(hkeys, r_begin, r_end)
-    maxtab = build_max_table(hvers)
-    m = range_max(maxtab, i0.clamp(0, H - 1), j1.clamp(0, H - 1))
-    r_hist = r_valid & r_nonempty & (j1 >= i0) & (m > r_snap)
-    hist_conf = _agg_txn(r_hist, r_txn, TXN)
-    too_old = t_valid & t_has_reads & (t_snap < oldest)
-
-    # ---- phases 2-4: point domain, fixpoint, committed segments ----
-    status0 = torch.where(
-        ~t_valid, _COMM,
-        torch.where(too_old | hist_conf, _CONF, _UNDECIDED),
-    ).to(I32)
-    status, iters, undecided_left, ub, ue, seg_valid, ib_flag = (
-        _resolve_batch(
-            r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_valid, status0,
-            txn_cap=TXN, rr_cap=RR, wr_cap=wr_cap, on_sync=on_sync,
-        )
+    witness on, eviction every batch): decide_flat then commit_flat.  Key
+    words are in the device encoding; scalars are 0-dim int32 tensors.
+    Returns (out_keys, out_vers, out_count, new_oldest, out_status,
+    undecided_left, iters, w_ver, w_rng).  `on_sync` is called before each
+    host sync the fixpoint makes."""
+    dec = decide_flat(
+        hkeys, hvers, oldest, r_begin, r_end, r_txn, r_snap, w_begin, w_end,
+        w_txn, t_snap, t_has_reads, t_valid, now_rel, txn_cap=txn_cap,
+        rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap, on_sync=on_sync,
     )
-    w_ver, w_rng = _witness_vectors(
-        m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old, status,
-        now_rel, txn_cap=TXN, rr_cap=RR,
-    )
-
-    # ---- phases 5-6: merge + removeBefore eviction, one kernel ----
-    new_oldest = torch.maximum(oldest, new_oldest_rel)
-    out_keys, out_vers, out_count = _merge_evict_fused(
-        hkeys, hvers, hcount, ub, ue, seg_valid, now_rel, new_oldest,
-        width=H, wr_cap=wr_cap,
-    )
-    return _finish_flat(
-        hkeys, hvers, hcount, oldest, out_keys, out_vers, out_count,
-        new_oldest, too_old, status, undecided_left, iters,
-    ) + (w_ver, w_rng)
+    state = commit_flat(hkeys, hvers, hcount, oldest, dec, now_rel,
+                        new_oldest_rel, dec.undecided, h_cap=h_cap, wr_cap=wr_cap)
+    return state + (dec.status, dec.undecided, dec.iters, dec.w_ver, dec.w_rng)
 
 
 # ---------------------------------------------------------------------------
@@ -773,6 +819,71 @@ def _empty_delta(kw1, D, dev):
     return dk, dv, torch.ones((), dtype=I32, device=dev)
 
 
+def decide_tiered(
+    hkeys, maxtab, dkeys, dvers, oldest,
+    r_begin, r_end, r_txn, r_snap,
+    w_begin, w_end, w_txn,
+    t_snap, t_has_reads, t_valid,
+    now_rel,
+    *, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int, d_cap: int,
+    on_sync=None,
+) -> Decision:
+    """The decide half of the two-tier step: phase 1 over both tiers with
+    one query sort (merged max = max of the per-tier maxima), then phases
+    2-4 and the witness."""
+    H, D = h_cap, d_cap
+    r_nonempty = lex_less(r_begin, r_end)
+    r_valid = r_txn < txn_cap
+    (i0b, j1b), (i0d, j1d) = phase1_search_tiers((hkeys, dkeys), r_begin, r_end)
+    mb = range_max(maxtab, i0b.clamp(0, H - 1), j1b.clamp(0, H - 1))
+    md = range_max(build_max_table(dvers), i0d.clamp(0, D - 1), j1d.clamp(0, D - 1))
+    m = torch.maximum(torch.where(j1b >= i0b, mb, FLOOR_REL),
+                      torch.where(j1d >= i0d, md, FLOOR_REL))
+    r_hist = r_valid & r_nonempty & (m > r_snap)
+    return _decide(
+        m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
+        t_has_reads, t_valid, oldest, now_rel, txn_cap=txn_cap,
+        rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
+    )
+
+
+def commit_tiered(hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
+                  dec: Decision, now_rel, new_oldest_rel, undecided, *,
+                  do_major: bool, h_cap: int, d_cap: int, wr_cap: int):
+    """The commit half of the two-tier step: phases 5-6 into the delta only
+    (one kernel at width D), the divergence guard on `undecided` (as in
+    commit_flat), then the major compaction on the host's flag.  Returns
+    (base keys, base vers, base count, max table, delta keys, delta vers,
+    delta count, new_oldest); on a minor batch the base tensors and the
+    table are the very ones passed in."""
+    kw1 = hkeys.shape[0]
+    H, D = h_cap, d_cap
+    new_oldest = torch.maximum(oldest, new_oldest_rel)
+    d_keys, d_vers, d_count = _merge_evict_fused(
+        dkeys, dvers, dcount, dec.ub, dec.ue, dec.seg_valid, now_rel, new_oldest,
+        width=D, wr_cap=wr_cap,
+    )
+    # Divergence guard: the delta merge and the window advance revert
+    # BEFORE the compaction, so the host can re-run the batch on the CPU
+    # engine against the same logical state.
+    ok = undecided == 0
+    d_keys = torch.where(ok, d_keys, dkeys)
+    d_vers = torch.where(ok, d_vers, dvers)
+    d_count = torch.where(ok, d_count, dcount).to(I32)
+    new_oldest = torch.where(ok, new_oldest, oldest).to(I32)
+
+    # ---- major compaction on the host's flag alone (never on ok): a
+    # diverged batch compacts the reverted delta, which rewrites the same
+    # logical step function, so the host's bounds stay true ----
+    if do_major:
+        hkeys, hvers, hcount = _major_compact(
+            hkeys, hvers, hcount, d_keys, d_vers, d_count, new_oldest, H=H, D=D,
+        )
+        maxtab = build_max_table(hvers)
+        d_keys, d_vers, d_count = _empty_delta(kw1, D, hkeys.device)
+    return hkeys, hvers, hcount.to(I32), maxtab, d_keys, d_vers, d_count, new_oldest
+
+
 def detect_core_tiered(
     hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
     r_begin, r_end, r_txn, r_snap,
@@ -789,70 +900,60 @@ def detect_core_tiered(
     ``do_major`` is the host's compaction flag.  Returns (base keys, base
     vers, base count, max table, delta keys, delta vers, delta count,
     new_oldest, out_status, undecided_left, iters, w_ver, w_rng)."""
-    dev = hkeys.device
-    kw1 = hkeys.shape[0]
-    H, D = h_cap, d_cap
-    TXN = txn_cap
-
-    r_nonempty = lex_less(r_begin, r_end)
-    r_valid = r_txn < TXN
-
-    # ---- phase 1 over both tiers, one query sort: merged max = max of the
-    # per-tier maxima ----
-    (i0b, j1b), (i0d, j1d) = phase1_search_tiers((hkeys, dkeys), r_begin, r_end)
-    mb = range_max(maxtab, i0b.clamp(0, H - 1), j1b.clamp(0, H - 1))
-    md = range_max(build_max_table(dvers), i0d.clamp(0, D - 1), j1d.clamp(0, D - 1))
-    m = torch.maximum(torch.where(j1b >= i0b, mb, FLOOR_REL),
-                      torch.where(j1d >= i0d, md, FLOOR_REL))
-    r_hist = r_valid & r_nonempty & (m > r_snap)
-    hist_conf = _agg_txn(r_hist, r_txn, TXN)
-    too_old = t_valid & t_has_reads & (t_snap < oldest)
-
-    # ---- phases 2-4 (shared with the flat step) ----
-    status0 = torch.where(
-        ~t_valid, _COMM,
-        torch.where(too_old | hist_conf, _CONF, _UNDECIDED),
-    ).to(I32)
-    status, iters, undecided_left, ub, ue, seg_valid, ib_flag = (
-        _resolve_batch(
-            r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_valid, status0,
-            txn_cap=TXN, rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
-        )
+    dec = decide_tiered(
+        hkeys, maxtab, dkeys, dvers, oldest, r_begin, r_end, r_txn, r_snap,
+        w_begin, w_end, w_txn, t_snap, t_has_reads, t_valid, now_rel,
+        txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap,
+        d_cap=d_cap, on_sync=on_sync,
     )
-    w_ver, w_rng = _witness_vectors(
-        m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old, status,
-        now_rel, txn_cap=TXN, rr_cap=rr_cap,
+    state = commit_tiered(
+        hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest, dec,
+        now_rel, new_oldest_rel, dec.undecided, do_major=do_major,
+        h_cap=h_cap, d_cap=d_cap, wr_cap=wr_cap,
     )
+    return state + (dec.status, dec.undecided, dec.iters, dec.w_ver, dec.w_rng)
 
-    # ---- phases 5-6 into the delta only, one kernel at width D ----
-    new_oldest = torch.maximum(oldest, new_oldest_rel)
-    d_keys, d_vers, d_count = _merge_evict_fused(
-        dkeys, dvers, dcount, ub, ue, seg_valid, now_rel, new_oldest,
-        width=D, wr_cap=wr_cap,
-    )
-    # Divergence guard (detect_core's contract): the delta merge and the
-    # window advance revert BEFORE the compaction, so the host can re-run
-    # the batch on the CPU engine against the same logical state.
-    ok = undecided_left == 0
-    d_keys = torch.where(ok, d_keys, dkeys)
-    d_vers = torch.where(ok, d_vers, dvers)
-    d_count = torch.where(ok, d_count, dcount).to(I32)
-    new_oldest = torch.where(ok, new_oldest, oldest).to(I32)
 
-    # ---- major compaction on the host's flag alone (never on ok): a
-    # diverged batch compacts the reverted delta, which rewrites the same
-    # logical step function, so the host's bounds stay true ----
-    if do_major:
-        hkeys, hvers, hcount = _major_compact(
-            hkeys, hvers, hcount, d_keys, d_vers, d_count, new_oldest, H=H, D=D,
-        )
-        maxtab = build_max_table(hvers)
-        d_keys, d_vers, d_count = _empty_delta(kw1, D, dev)
-    return (
-        hkeys, hvers, hcount.to(I32), maxtab, d_keys, d_vers, d_count,
-        new_oldest, _out_status(too_old, status), undecided_left, iters,
-        w_ver, w_rng,
-    )
+def blob_words(pb: PackedBatch) -> int:
+    """Length in uint32 words of a batch's blob (see _blob_offsets)."""
+    return _blob_offsets(pb.txn_cap, pb.rr_cap, pb.wr_cap, pb.key_words + 1)[1]
+
+
+def fill_blob(blob: np.ndarray, pb: PackedBatch, base: int, now: int,
+              new_oldest_version: int, flag: int) -> np.ndarray:
+    """Write a batch into `blob` (blob_words(pb) uint32 words) in the
+    layout of _blob_offsets, byte-identical to the reference engine's blob:
+    versions relative to `base`, clipped above the floor; ``flag`` is the
+    third scalar.  Returns `blob`."""
+    def rel(v):
+        return np.clip(v - base, FLOOR_REL + 1, 2**31 - 2)
+
+    r_snap = rel(pb.r_snap).astype(np.int32)
+    t_snap = rel(pb.t_snap).astype(np.int32)
+    t_flags = pb.t_has_reads.astype(np.uint32) | (pb.t_valid.astype(np.uint32) << 1)
+    kw1 = pb.key_words + 1
+    rr, wr = pb.rr_cap, pb.wr_cap
+    o = 0
+    for arr in (pb.r_begin, pb.r_end):
+        np.copyto(blob[o : o + kw1 * rr].reshape(kw1, rr), arr.T)
+        o += kw1 * rr
+    for arr in (pb.w_begin, pb.w_end):
+        np.copyto(blob[o : o + kw1 * wr].reshape(kw1, wr), arr.T)
+        o += kw1 * wr
+    for arr in (
+        pb.r_txn.view(np.uint32),
+        r_snap.view(np.uint32),
+        pb.w_txn.view(np.uint32),
+        t_snap.view(np.uint32),
+        t_flags,
+    ):
+        blob[o : o + arr.shape[0]] = arr
+        o += arr.shape[0]
+    blob[o : o + 3] = np.array(
+        [int(rel(now)), int(rel(new_oldest_version)), flag], np.int32
+    ).view(np.uint32)
+    assert o + 3 == blob.shape[0]
+    return blob
 
 
 def _unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1):
@@ -1159,9 +1260,6 @@ class TorchConflictSet:
             return hc + dc - 1
         return int(self._hcount)
 
-    def _rel(self, v: int) -> int:
-        return int(np.clip(v - self._base, FLOOR_REL + 1, 2**31 - 2))
-
     def _sync(self):
         """Count one blocking device->host read."""
         self.metrics.counter("host_syncs").add()
@@ -1336,38 +1434,11 @@ class TorchConflictSet:
 
     def _pack_blob(self, pb: PackedBatch, now: int, new_oldest_version: int,
                    flag: int = 1) -> np.ndarray:
-        """Single contiguous uint32 blob for one-copy dispatch (see
-        _blob_offsets), byte-identical to the reference engine's blob,
+        """Single contiguous uint32 blob for one-copy dispatch (fill_blob),
         written into a staging buffer.  ``flag`` is the third scalar: 1 in
         flat mode, the compaction flag in tiered mode."""
-        r_snap = np.clip(pb.r_snap - self._base, FLOOR_REL + 1, 2**31 - 2).astype(np.int32)
-        t_snap = np.clip(pb.t_snap - self._base, FLOOR_REL + 1, 2**31 - 2).astype(np.int32)
-        t_flags = pb.t_has_reads.astype(np.uint32) | (pb.t_valid.astype(np.uint32) << 1)
-        kw1 = self.key_words + 1
-        rr, wr, tc = pb.rr_cap, pb.wr_cap, pb.txn_cap
-        nwords = 2 * kw1 * (rr + wr) + 2 * rr + wr + 2 * tc + 3
-        blob = self._staging_blob(nwords)
-        o = 0
-        for arr in (pb.r_begin, pb.r_end):
-            np.copyto(blob[o : o + kw1 * rr].reshape(kw1, rr), arr.T)
-            o += kw1 * rr
-        for arr in (pb.w_begin, pb.w_end):
-            np.copyto(blob[o : o + kw1 * wr].reshape(kw1, wr), arr.T)
-            o += kw1 * wr
-        for arr in (
-            pb.r_txn.view(np.uint32),
-            r_snap.view(np.uint32),
-            pb.w_txn.view(np.uint32),
-            t_snap.view(np.uint32),
-            t_flags,
-        ):
-            blob[o : o + arr.shape[0]] = arr
-            o += arr.shape[0]
-        blob[o : o + 3] = np.array(
-            [self._rel(now), self._rel(new_oldest_version), flag], np.int32
-        ).view(np.uint32)
-        assert o + 3 == nwords
-        return blob
+        blob = self._staging_blob(blob_words(pb))
+        return fill_blob(blob, pb, self._base, now, new_oldest_version, flag)
 
     def dispatch_packed(self, pb: PackedBatch, now: int,
                         new_oldest_version: int) -> DispatchTicket:

@@ -23,7 +23,7 @@ state — via ``to_device_words`` / ``from_device_words`` (numpy) and
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -81,6 +81,18 @@ def encode_int_keys(ints: np.ndarray, key_words: int, byte_len: int = 8) -> np.n
         out[:, 1] = (shifted & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     out[:, key_words] = byte_len
     return out
+
+
+def fits(keys: Sequence[bytes], key_words: int) -> bool:
+    """Every key is representable at key_words (at most 4*key_words bytes)."""
+    width = key_words * 4
+    return all(len(k) <= width for k in keys)
+
+
+def uniform_int_split_keys(n_shards: int, max_key: int, byte_len: int = 8) -> List[bytes]:
+    """n_shards - 1 split points dividing the big-endian byte_len-byte
+    integer keys in [0, max_key) evenly."""
+    return [(max_key * s // n_shards).to_bytes(byte_len, "big") for s in range(1, n_shards)]
 
 
 def decode_key(row: np.ndarray, key_words: int) -> bytes:

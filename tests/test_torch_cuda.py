@@ -414,3 +414,47 @@ def test_pipelined_host_budget_on_the_card(dev):
     assert drive(gpu, 2, 8) == drive(cpu, 2, 8)
     assert eng.host_syncs - syncs0 <= 3 * 8
     assert eng.host_allocs == allocs0
+
+
+@pytest.mark.parametrize("history", ["flat", "tiered"])
+def test_sharded_set_on_the_card_matches_the_cpu(dev, history):
+    """ShardedTorchConflictSet with 4 shards on the card against the same
+    set on the CPU, batch by batch: verdicts, witnesses, iterations, every
+    shard's slice and the counters, under a dispatch outage on shard 2 and
+    with histories that grow; each active shard launches each kernel once a
+    batch (tiered: the two-tier search twice, the merge once plus its
+    compactions)."""
+    from foundationdb_tpu_torch.parallel import sharded_resolver as sr
+
+    stream = _stream(31, 400, batches=14, txns_per_batch=30)
+    split = [_k(100), _k(200), _k(300)]
+    kw = dict(key_words=3, h_cap=128, bucket_mins=BUCKETS)
+    if history == "tiered":
+        kw.update(history="tiered", delta_cap=128, evict_every=3)
+    runs = []
+    for device in (None, "cpu"):
+        from foundationdb_tpu_torch.conflict.device_faults import DeviceFaultInjector
+
+        inj = DeviceFaultInjector()
+        cs = sr.ShardedTorchConflictSet(split, device=device, fault_injector=inj, **kw)
+        before = dict(tk.LAUNCHES)
+        out = []
+        for i, (txns, now, nov) in enumerate(stream):
+            if i == 3:
+                inj.begin_outage("dispatch", shard=2)
+            if i == 6:
+                inj.end_outage("dispatch", shard=2)
+            v = cs.detect(txns, now, nov)
+            host = cs._host_state()
+            out.append((v, cs.last_witness, cs.last_iters,
+                        [cs._device_shard_state(s, *host) for s in range(4)]))
+        launches = {k: tk.LAUNCHES[k] - before[k] for k in before}
+        runs.append((out, inj.injected, [b.transitions for b in cs._breakers],
+                     cs.metrics.snapshot()["counters"], launches))
+    (gpu, g_inj, g_tr, g_c, g_l), (cpu, c_inj, c_tr, c_c, c_l) = runs
+    assert gpu == cpu
+    assert (g_inj, g_tr, g_c) == (c_inj, c_tr, c_c)
+    assert g_c["grows"] >= 1 and g_c["degraded_shard_serves"] > 0 and g_tr[2]
+    assert c_l == {"phase1_ranks": 0, "fused_merge_evict": 0}
+    assert g_l["phase1_ranks"] > 0 and g_l["fused_merge_evict"] > 0
+    assert tk.merge_contract_faults(dev) == 0

@@ -455,6 +455,15 @@ def test_port_runs_without_loading_jax_or_the_reference():
         "assert [x.statuses for x in e] == [[2, 0], [0, 0], [0, 0]], e\n"
         "assert cs.mirror_check()['status'] == 'ok'\n"
         "assert inj.injected == [[3, 'dispatch', 'transient']]\n"
+        "from foundationdb_tpu_torch.parallel import ShardedTorchConflictSet\n"
+        "inj = DeviceFaultInjector()\n"
+        "inj.script('dispatch', at=1, shard=1)\n"
+        "sh = ShardedTorchConflictSet([b'b'], key_words=2, h_cap=64, device='cpu',\n"
+        "                             fault_injector=inj)\n"
+        "v = sh.detect([T(0, [(b'a', b'c')], [(b'a', b'c')]),\n"
+        "               T(0, [(b'b', b'c')], [])], 5, 0)\n"
+        "assert v == [2, 0] and inj.injected == [[2, 'dispatch#s1', 'transient']], v\n"
+        "assert sh.mirror_check()['status'] == 'ok'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'foundationdb_tpu')]\n"
         "print(sorted(bad))\n"
