@@ -80,6 +80,23 @@ Phases, in order; any failure exits non-zero:
                mirror applies and the witness decode,
                the host syncs a batch, and each shard's device span (CUDA
                events around its decide and commit halves)
+  4r. resharded  phase 4s's set (built with max_shards=16), resharded live
+               on the bench stream after its timed batches: split point 3
+               (10,000,000) moves to 8,750,000 — live, shards 3 and 4
+               moved, 6 mirrors kept — then 4 batches, the first with the
+               two lazy rehydrates; then reshard(balance_split_keys(16)) —
+               live, all 16 moved, 8 -> 16 shards — and 5 batches, the
+               first with 16 rehydrates, the last 3 timed.  Each kernel
+               must launch once a shard in every batch, only shards 3 and
+               4 rehydrate after the move and every shard after the
+               scale-up, with no growth, no CPU fallback, no degraded
+               shard, no merge order fault, and mirror_check ok on every
+               shard after each step.  Prints both reshard calls' host
+               ms, the first batches' ms and their rehydrated keys
+               (total and encoded), txn/s over the last 3 batches, host
+               ms a batch of unpack, clip, mirror applies and witness
+               decode, host syncs a batch, the device span of a batch and
+               of a shard, and the occupancy before and after
   5. vs cpu    TorchConflictSet on a reduced stream on the GPU and on the
                CPU (plain twins): verdicts, witnesses and exported state
                identical
@@ -106,10 +123,19 @@ Phases, in order; any failure exits non-zero:
                fails its first probe's rehydration; verdicts, witnesses,
                the injected log, every breaker walk and the counters
                equal on cuda and cpu, only shard 1's breaker walks
+  6r. resharded set vs cpu  the same 4 shards and stream, flat and tiered,
+               on cuda and cpu under a reshard schedule: a boundary move
+               after batch 3, a second move after batch 5 that a scripted
+               reshard fault on moved shard 2 defers, its retry after
+               batch 7, and balance_split_keys scale-ups to 6 and 8 shards
+               after batches 8 and 10; verdicts, witnesses, the move log,
+               the injected log, every breaker walk, the counters, h_cap
+               and d_cap equal on cuda and cpu
   7. result    one JSON line per kernel table (launches: the flat main
                path's; launches_tiered: the tiered one's; launches_sharded:
-               the sharded one's; tiered and sharded: those shapes'
-               times), then {"ok": true, ...}
+               the sharded one's; launches_resharded: phase 4r's 9
+               batches; tiered and sharded: those shapes' times), then
+               {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
 """
@@ -1306,12 +1332,14 @@ class ShardSpans:
 
 def sharded_path(torch, sr, tk, et, keylib):
     """Phase 4s: the bench stream through ShardedTorchConflictSet(detect_packed)
-    at the multichip arm's shape, 8 shards on the one card.  Returns the
-    launches of the timed batches."""
+    at the multichip arm's shape, 8 shards on the one card (room for 16, the
+    scale-up of phase 4r).  Returns the launches of the timed batches, the
+    set and the stream's generator, which phase 4r continues."""
     gc.collect()
     rng = np.random.default_rng(2026)
     split = keylib.uniform_int_split_keys(SHARDS, KEYSPACE, KEY_BYTES)
-    cs = sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=SHARD_H_CAP)
+    cs = sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=SHARD_H_CAP,
+                                    max_shards=2 * SHARDS)
     if SHARD_H_CAP != et._next_pow2(H_CAP // SHARDS + 4 * PER_BATCH, 8):
         raise AssertionError("SHARD_H_CAP is not the multichip arm's shard history")
     m = cs.metrics
@@ -1381,6 +1409,139 @@ def sharded_path(torch, sr, tk, et, keylib):
         f"conflicts {int((s == 0).sum())}/{PER_BATCH} in the last batch; launches {launches}; "
         f"mirror_check ok on {SHARDS} shards ({sum(r['boundaries'] for r in report['shards'].values())} "
         f"boundaries, {check_s:.3f} s); card {torch.cuda.get_device_name(0)}")
+    return launches, cs, rng
+
+
+def resharded_path(torch, tk, et, cs, rng):
+    """Phase 4r: phase 4s's set, after its timed batches, resharded live on
+    the bench stream.  A boundary move (split point 3, 10,000,000, to the
+    middle of shard 3) and 4 batches, then the scale-up to 16 shards along
+    balance_split_keys(16) and 5 batches, the last 3 timed.  Returns the
+    launches of those 9 batches."""
+    m = cs.metrics
+    next_batch = [WARM + TIMED]
+
+    def counters():
+        return m.snapshot()["counters"]
+
+    def run_batches(n, shards):
+        """n bench batches; each one's host ms (generation excluded) and
+        launches, which must be one of each kernel a shard."""
+        out = []
+        for _ in range(n):
+            i = next_batch[0]
+            next_batch[0] += 1
+            pb = gen_packed(et, rng, PER_BATCH, i)
+            before = dict(tk.LAUNCHES)
+            t0 = time.perf_counter()
+            statuses = cs.detect_packed(pb, i + WINDOW, i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: tk.LAUNCHES[k] - before[k] for k in before}
+            if launches != {k: shards for k in before}:
+                raise AssertionError(f"resharded: batch {i} launched {launches} on {shards} shards")
+            s = np.asarray(statuses[:PER_BATCH])
+            if not ((s >= 0) & (s <= 2)).all() or not (s == 2).any() or not (s == 0).any():
+                raise AssertionError(f"resharded: batch {i}: verdicts out of range")
+            out.append(ms)
+        return out
+
+    def check_mirrors(shards, what):
+        t0 = time.perf_counter()
+        report = cs.mirror_check()
+        if (report["status"] != "ok" or len(report["shards"]) != shards
+                or any(r["status"] != "ok" for r in report["shards"].values())):
+            raise AssertionError(f"resharded: mirror_check after the {what}: {report}")
+        return time.perf_counter() - t0
+
+    def rehydrated(c0, c1):
+        return [c1[f"shard{k}_rehydrates"] - c0[f"shard{k}_rehydrates"] for k in range(cs.n_shards)]
+
+    gc.collect()
+    start = time.perf_counter()
+    occ0 = cs.shard_occupancy()
+    old = list(cs.split_keys)
+    if old[3] != (10_000_000).to_bytes(KEY_BYTES, "big"):
+        raise AssertionError(f"resharded: split point 3 is {old[3].hex()}")
+    new = list(old)
+    new[3] = (8_750_000).to_bytes(KEY_BYTES, "big")
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    c0 = counters()
+    t0 = time.perf_counter()
+    entry = cs.reshard(new, reason="chip_smoke move")
+    move_ms = (time.perf_counter() - t0) * 1e3
+    if (entry["action"], entry["moved"], entry["reused_mirrors"]) != ("live", [3, 4], 6):
+        raise AssertionError(f"resharded: the move {entry}")
+    move_rows = run_batches(4, SHARDS)
+    c1 = counters()
+    if rehydrated(c0, c1) != [1 if k in (3, 4) else 0 for k in range(SHARDS)]:
+        raise AssertionError(f"resharded: rehydrates after the move {rehydrated(c0, c1)}")
+    keys_total = c1["rehydrate_keys_total"] - c0["rehydrate_keys_total"]
+    keys_encoded = c1["rehydrate_keys_encoded"] - c0["rehydrate_keys_encoded"]
+    check_move_s = check_mirrors(SHARDS, "move")
+    occ1 = cs.shard_occupancy()
+    log(f"resharded move: split point 3 {old[3].hex()} -> {new[3].hex()} (live, moved "
+        f"{entry['moved']}, {entry['reused_mirrors']} mirrors kept) in {move_ms:.3f} ms of host; "
+        f"first batch {move_rows[0]:.3f} ms (2 rehydrates: rehydrate_keys_total +{keys_total}, "
+        f"rehydrate_keys_encoded +{keys_encoded}), then "
+        f"{', '.join(f'{x:.3f}' for x in move_rows[1:])} ms; {SHARDS} launches of each kernel a batch; mirror_check ok on {SHARDS} shards "
+        f"({check_move_s:.3f} s); occupancy {occ0} -> {occ1}")
+
+    gc.collect()
+    t0 = time.perf_counter()
+    split16 = cs.balance_split_keys(2 * SHARDS)
+    t1 = time.perf_counter()
+    entry = cs.reshard(split16, reason="chip_smoke scale")
+    t2 = time.perf_counter()
+    if (entry["action"], entry["moved"], entry["shards"], cs.n_shards) != (
+            "live", list(range(2 * SHARDS)), [SHARDS, 2 * SHARDS], 2 * SHARDS):
+        raise AssertionError(f"resharded: the scale-up {entry}, {cs.n_shards} shards")
+    first = run_batches(1, 2 * SHARDS)
+    c2 = counters()
+    scale_keys = (c2["rehydrate_keys_total"] - c1["rehydrate_keys_total"],
+                  c2["rehydrate_keys_encoded"] - c1["rehydrate_keys_encoded"])
+    if rehydrated(c1, c2) != [1] * (2 * SHARDS):
+        raise AssertionError(f"resharded: rehydrates after the scale-up {rehydrated(c1, c2)}")
+    second = run_batches(1, 2 * SHARDS)
+    syncs0 = cs.host_syncs
+    wall0 = m.snapshot(include_wall=True)["wall"]
+    gc.collect()
+    spans = ShardSpans(torch, et)
+    timed = run_batches(3, 2 * SHARDS)
+    shard_ms, batch_ms = spans.remove(3, 2 * SHARDS)
+    wall = m.snapshot(include_wall=True)["wall"]
+    c3 = counters()
+    for name in ("cpu_fallbacks", "cpu_fallback_txns", "degraded_shard_serves", "grows"):
+        if c3[name] != 0:
+            raise AssertionError(f"resharded: {name} = {c3[name]}")
+    if cs.backend_signal()["shards_degraded"] != 0 or cs.h_cap != SHARD_H_CAP:
+        raise AssertionError(f"resharded: {cs.backend_signal()}, h_cap {cs.h_cap}")
+    faults = tk.merge_contract_faults("cuda")
+    if faults:
+        raise AssertionError(f"resharded: the merge found {faults} order faults")
+    launches = dict(tk.LAUNCHES)
+    check_scale_s = check_mirrors(2 * SHARDS, "scale-up")
+
+    def per_batch_ms(name):
+        if wall[name]["count"] - wall0[name]["count"] != 3:
+            raise AssertionError(f"resharded: {name}: not one sample a timed batch")
+        return (wall[name]["seconds"] - wall0[name]["seconds"]) / 3 * 1e3
+
+    log(f"resharded scale-up: {SHARDS} -> {2 * SHARDS} shards along balance_split_keys"
+        f"({2 * SHARDS}) ({(t1 - t0) * 1e3:.3f} ms) by reshard in {(t2 - t1) * 1e3:.3f} ms of "
+        f"host (live, all {2 * SHARDS} moved); first batch {first[0]:.3f} ms ({2 * SHARDS} "
+        f"rehydrates, rehydrate_keys_total +{scale_keys[0]}, encoded +{scale_keys[1]}), then "
+        f"{second[0]:.3f} ms; last 3 batches {3 * PER_BATCH / sum(timed) * 1e3:.1f} txn/s "
+        f"({', '.join(f'{x:.3f}' for x in timed)} ms); host ms/batch: unpack "
+        f"{per_batch_ms('unpack_seconds'):.3f}, clip {per_batch_ms('clip_seconds'):.3f}, mirror "
+        f"applies {per_batch_ms('mirror_apply_seconds'):.3f}, witness decode "
+        f"{per_batch_ms('witness_decode_seconds'):.3f}; host syncs/batch "
+        f"{(cs.host_syncs - syncs0) / 3}; device span a batch {batch_ms:.3f} ms, a shard "
+        f"{min(shard_ms):.3f}-{max(shard_ms):.3f} ms; {2 * SHARDS} launches of each kernel a "
+        f"batch, no growth, fallback or degraded shard; mirror_check ok on {2 * SHARDS} shards "
+        f"({check_scale_s:.3f} s); occupancy {occ1} -> {cs.shard_occupancy()}; launches {launches}"
+        f"; phase 4r {time.perf_counter() - start:.3f} s in all")
     return launches
 
 
@@ -1446,6 +1607,72 @@ def sharded_vs_cpu(torch, sr, faults, keylib):
             f"h_cap {h_cap}, d_cap {d_cap}, degraded shard serves "
             f"{c['degraded_shard_serves']}, shard 1 rehydrates {c['shard1_rehydrates']}"
             + (f", compactions {c['major_compactions']}" if history == "tiered" else ""))
+
+
+def resharded_vs_cpu(torch, sr, faults, keylib):
+    """Phase 6r: a reshard schedule at 4 shards on a reduced stream, on cuda
+    and on cpu, flat and tiered: a boundary move after batch 3, after batch
+    5 a second move that a scripted `reshard` fault on moved shard 2
+    defers, its retry after batch 7, and balance_split_keys scale-ups to 6
+    and 8 shards after batches 8 and 10.  Verdicts, witnesses, the move
+    log, the injected log, every shard's breaker walk, the counters, h_cap
+    and d_cap must be equal on the two devices."""
+    from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
+
+    n_txn, batches, window, keyspace = 2048, 12, 4, 200_000
+    rng = np.random.default_rng(11)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=keyspace), i + window, i)
+              for i in range(batches)]
+    split = keylib.uniform_int_split_keys(4, keyspace, KEY_BYTES)
+    moves = {3: (60_000, "move"), 5: (80_000, "raced"), 7: (80_000, "retry")}
+    for history in ("flat", "tiered"):
+        start = time.perf_counter()
+        tiers = dict(history="tiered", evict_every=3, delta_cap=8192) if history == "tiered" else {}
+        runs = {}
+        for device in ("cuda", "cpu"):
+            inj = faults.DeviceFaultInjector()
+            # Shard 2's second reshard check: the move after batch 5.
+            inj.script("reshard", at=2, shard=2)
+            cs = sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=1 << 12,
+                                            device=device, fault_injector=inj, max_shards=8,
+                                            **tiers)
+            out = []
+            for i, (txns, now, nov) in enumerate(stream):
+                out.append((cs.detect(txns, now, nov), list(cs.last_witness)))
+                if i in moves:
+                    key, reason = moves[i]
+                    cs.reshard([split[0], key.to_bytes(KEY_BYTES, "big"), split[2]], reason)
+                if i in (8, 10):
+                    cs.reshard(cs.balance_split_keys(cs.n_shards + 2), "scale")
+            report = cs.mirror_check()
+            if report["status"] != "ok" or len(report["shards"]) != 8:
+                raise AssertionError(f"resharded {history} on {device}: mirror_check {report}")
+            runs[device] = (out, cs.move_log, inj.injected,
+                            [b.transitions for b in cs._breakers],
+                            cs.device_metrics()["counters"], cs.h_cap, cs.d_cap)
+        if runs["cuda"] != runs["cpu"]:
+            which = [k for k, a, b in zip(("verdicts", "move_log", "injected", "transitions",
+                                           "counters", "h_cap", "d_cap"),
+                                          runs["cuda"], runs["cpu"]) if a != b]
+            raise AssertionError(f"resharded {history}: cuda and cpu differ in {which}")
+        out, move_log, injected, transitions, c, h_cap, d_cap = runs["cuda"]
+        actions = [(e["action"], e["shards"], e.get("fault_shard")) for e in move_log]
+        if actions != [("live", [4, 4], None), ("deferred", [4, 4], 2), ("live", [4, 4], None),
+                       ("live", [4, 6], None), ("live", [6, 8], None)]:
+            raise AssertionError(f"resharded {history}: moves {actions}")
+        if [site for _q, site, _k in injected] != ["reshard#s2"] or c["reshard_deferred"] != 1:
+            raise AssertionError(f"resharded {history}: injected {injected}")
+        conflicts = sum(int((np.asarray(v) == 0).sum()) for v, _w in out)
+        if conflicts == 0 or (history == "tiered" and c["major_compactions"] < 3):
+            raise AssertionError(f"resharded {history}: conflicts {conflicts}, counters {c}")
+        log(f"resharded {history} vs cpu: {batches} batches x {n_txn} txns, 4 -> 8 shards, "
+            f"identical on cuda and cpu (verdicts, witnesses, move log, injected {injected}, "
+            f"breaker walks, counters, h_cap {h_cap}, d_cap {d_cap}); moves {actions}; "
+            f"{conflicts} conflicts, reshards {c['reshards']}, moved shards "
+            f"{c['reshard_moved_shards']}, rehydrates "
+            f"{sum(c[f'shard{k}_rehydrates'] for k in range(8))}, grows {c['grows']}"
+            + (f", compactions {c['major_compactions']}" if history == "tiered" else "")
+            + f"; {time.perf_counter() - start:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1515,13 +1742,16 @@ def main(argv) -> int:
     launches, _tps, digests = main_path(torch, api, T, tk, rq, et, profile)
     launches_tiered, _tps, _d = main_path(torch, api, T, tk, rq, et, profile,
                                           tiered=True, want=digests)
-    # 4s. the sharded resolver's main path
-    launches_sharded = sharded_path(torch, sr, tk, et, keylib)
+    # 4s. the sharded resolver's main path; 4r. resharded live
+    launches_sharded, sharded_set, rng = sharded_path(torch, sr, tk, et, keylib)
+    launches_resharded = resharded_path(torch, tk, et, sharded_set, rng)
+    del sharded_set
     # 5-6. held against the CPU
     versus_cpu(torch, et)
     conflictset_vs_cpu(torch, api, T, faults)
     tiered_conflictset_vs_cpu(torch, api, T, faults)
     sharded_vs_cpu(torch, sr, faults, keylib)
+    resharded_vs_cpu(torch, sr, faults, keylib)
 
     # 7. result
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1533,6 +1763,7 @@ def main(argv) -> int:
     log(json.dumps({"kernels": [
         dict({k: r[k] for k in keys}, launches_tiered=launches_tiered[r["name"]],
              launches_sharded=launches_sharded[r["name"]],
+             launches_resharded=launches_resharded[r["name"]],
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

@@ -6,7 +6,8 @@ trace, span, flight-recorder and buggify hooks.  Two pieces:
 ``DeviceFaultInjector``
     makes ``TorchConflictSet`` raise the failures a GPU can produce at its
     choke points — dispatch (``DeviceUnavailable``), the first dispatch of
-    a shape (``CompileFailed``), ``_grow``/rebase (``DeviceOOM``) — from a
+    a shape (``CompileFailed``), ``_grow``/rebase (``DeviceOOM``), and the
+    sharded set's live ``reshard`` (``DeviceUnavailable``) — from a
     scripted plan or an open-ended outage.  Transient faults fire once;
     persistent ones hold a site down for a number of checks.  ``injected``
     logs every raised fault as ``[seq, site, kind]``, numbered exactly as
@@ -43,7 +44,7 @@ from typing import Dict, List, Optional
 
 class DeviceFault(Exception):
     """Base of every device failure the breaker handles; `site` names the
-    choke point that raised (dispatch/compile/grow/rebase/sync)."""
+    choke point that raised (dispatch/compile/grow/rebase/reshard)."""
 
     def __init__(self, message: str = "", site: str = ""):
         super().__init__(message or site)
@@ -62,13 +63,16 @@ class DeviceOOM(DeviceFault):
     """Device allocation failed growing, rebasing or running the history."""
 
 
-SITES = ("dispatch", "compile", "grow", "rebase")
+SITES = ("dispatch", "compile", "grow", "rebase", "reshard")
 
 _SITE_FAULT = {
     "dispatch": DeviceUnavailable,
     "compile": CompileFailed,
     "grow": DeviceOOM,
     "rebase": DeviceOOM,
+    # A live reshard of the sharded set: the device going away during the
+    # handoff.  The move defers, the old partition stays whole.
+    "reshard": DeviceUnavailable,
 }
 
 

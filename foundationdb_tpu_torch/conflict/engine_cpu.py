@@ -36,6 +36,12 @@ a chunk's device encoding on the chunk, so rehydrating the device from a
 snapshot re-encodes only chunks created since the last sync — and nothing
 at all when the mirror's key width is the device's.
 
+The live reshard of the sharded set hands chunks over between shards:
+``slice_snapshot_chunks`` cuts one snapshot to a key range, adopting every
+chunk wholly inside it by reference, and ``engine_from_handoff`` builds a
+new shard's engine from such cuts, so a moved range keeps its chunks and
+their encodings.
+
 ``engine_cpu_flat.FlatCpuConflictSet`` is the flat engine this one is
 state-identical to.
 """
@@ -51,7 +57,8 @@ from . import keys as keylib
 from .engine_cpu_flat import FLOOR_VERSION, _IntervalSet
 from .types import CONFLICT, COMMITTED, TOO_OLD, TransactionConflictInfo
 
-__all__ = ["CpuConflictSet", "MirrorSnapshot", "chunk_encoding", "FLOOR_VERSION"]
+__all__ = ["CpuConflictSet", "MirrorSnapshot", "chunk_encoding", "engine_from_handoff",
+           "slice_snapshot_chunks", "FLOOR_VERSION"]
 
 _PAIR_INF = 1 << 63  # "no droppable pair here" sentinel
 
@@ -152,6 +159,12 @@ class _Chunk:
                 k0 = keylib.decode_key(self.ek[0], self.kw)
             self._key0 = k0
         return k0
+
+    @property
+    def last_key(self) -> bytes:
+        if self._keys is not None:
+            return self._keys[-1]
+        return keylib.decode_key(self.ek[-1], self.kw)
 
     def __len__(self):
         return len(self.va)
@@ -888,6 +901,30 @@ class CpuConflictSet:
         self._settle()
         return self._count
 
+    # -- columnar views: boundary order without materializing the flat
+    # byte keys (the sharded balancer's quantiles read these) --
+    def boundary_locate(self, key: bytes, side: str = "left") -> int:
+        """Global index of `key` in boundary order (bisect_left /
+        bisect_right per `side`): one chunk bisect, one in-chunk column
+        bisect and an O(chunks) offset walk."""
+        self._settle()
+        c = bisect_right(self._starts, key) - 1
+        base = 0
+        for ch in self._chunks[:c]:
+            base += len(ch)
+        return base + _ch_bisect_key(self._chunks[c], key, side)
+
+    def boundary_key_at(self, i: int) -> bytes:
+        """The i-th boundary key; decodes one row."""
+        self._settle()
+        for ch in self._chunks:
+            if i < len(ch):
+                if ch._keys is not None or ch.ek is None:
+                    return ch.keys[i]
+                return keylib.decode_key(ch.ek[i], ch.kw)
+            i -= len(ch)
+        raise IndexError("boundary index out of range")
+
 
 def chunk_encoding(ch, key_words: int):
     """(encoded keys [n, kw1] uint32, abs versions int64) for one immutable
@@ -908,3 +945,63 @@ def chunk_encoding(ch, key_words: int):
     ent = (keylib.encode_keys(ch.keys, key_words), np.asarray(ch.vers, dtype=np.int64))
     cache[key_words] = ent
     return ent, len(ch.keys)
+
+
+# -- the live-reshard handoff --
+def slice_snapshot_chunks(snap: MirrorSnapshot, lo: bytes,
+                          hi: Optional[bytes]) -> Tuple[int, list]:
+    """(version in force at `lo`, the chunks of `snap` restricted to the
+    open interval (lo, hi)); hi=None means +inf.  A chunk wholly inside
+    the interval is adopted by reference, so its identity, its columnar
+    ``ek`` and its ``enc`` cache survive the move; a chunk straddling `lo`
+    or `hi` is cut by column slices.  The snapshot is immutable, so a fault
+    during the handoff cannot tear the cut."""
+    floor = FLOOR_VERSION
+    out: list = []
+    for ch in snap.chunks:
+        last = ch.last_key
+        if last <= lo:
+            # Wholly at or below lo: only its last version can be the one
+            # in force at lo so far.
+            floor = int(ch.va[-1])
+            continue
+        i = 0
+        if ch.key0 <= lo:
+            i = _ch_bisect_key(ch, lo, "right")  # first boundary > lo
+            floor = int(ch.va[i - 1])
+        j = _ch_bisect_key(ch, hi, "left") if hi is not None and last >= hi else len(ch.va)
+        if i == 0 and j == len(ch.va):
+            out.append(ch)
+        elif i < j:
+            if ch.ek is not None:
+                sl = _Chunk.from_cols(ch.ek[i:j], ch.va[i:j], ch.pfx[i:j], ch.kw)
+                if ch._keys is not None:
+                    sl._keys = ch._keys[i:j]
+                    sl._key0 = sl._keys[0]
+                out.append(sl)
+            else:
+                out.append(_Chunk(ch.keys[i:j], ch.vers[i:j], ch.kw))
+        if hi is not None and last >= hi:
+            break
+    return floor, out
+
+
+def engine_from_handoff(parts, oldest_version: int, chunk: int = DEFAULT_CHUNK,
+                        key_words: int = DEFAULT_KEY_WORDS) -> CpuConflictSet:
+    """A shard engine for a new key range, built from immutable snapshot
+    cuts of the old shards.  ``parts`` is ``[(snapshot, lo, hi)]`` in key
+    order, covering the new range contiguously (hi=None = +inf).  The
+    engine is re-anchored at ``b""`` with the version in force at the
+    first part's ``lo`` as its floor; interior chunks keep their identity
+    and only the chunks at moved split points are cut."""
+    eng = CpuConflictSet(oldest_version, chunk=chunk, key_words=key_words)
+    chunks: list = []
+    first_floor: Optional[int] = None
+    for snap, lo, hi in parts:
+        floor, chs = slice_snapshot_chunks(snap, lo, hi)
+        if first_floor is None:
+            first_floor = floor
+        chunks.extend(chs)
+    head = eng._new_chunk([b""], [FLOOR_VERSION if first_floor is None else first_floor])
+    eng._set_chunks(tuple([head] + chunks))
+    return eng

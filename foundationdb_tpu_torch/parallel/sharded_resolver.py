@@ -47,9 +47,18 @@ defaults: ``history`` (FDB_TPU_HISTORY), ``delta_cap`` (FDB_TPU_DELTA_CAP),
 The device takes keys of at most ``min(MAX_DEVICE_KEY_BYTES, 4 *
 key_words)`` bytes; a batch with a longer key runs on the mirrors, and a
 long-key write pins authority there until the mirrors fit again and a
-hysteresis streak of short batches passes.  Not ported yet: live
-resharding (``reshard``, ``balance_split_keys``) and shards on several
-GPUs.
+hysteresis streak of short batches passes.
+
+Live resharding (``reshard``, with ``balance_split_keys`` for quantile
+split points) re-partitions the shards between two batches: a shard whose
+range is unchanged keeps its mirror by identity (and its slice where its
+index and the shard count hold), a moved range gets a mirror built by
+chunk handoff (engine_cpu.engine_from_handoff) and goes stale, and a
+change of shard count re-stacks the device state at the new S; every
+stale slice rehydrates from its mirror at its next device batch.  The
+``reshard`` fault site is checked on every moved shard before anything
+mutates, and a fault defers the whole move.  Not ported: shards on
+several GPUs.
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ from ..conflict import engine_torch as et
 from ..conflict import keys as keylib
 from ..conflict.api import MAX_DEVICE_KEY_BYTES, ConflictBatch, _above_window
 from ..conflict.device_faults import DeviceCircuitBreaker, DeviceFault
-from ..conflict.engine_cpu import CpuConflictSet, chunk_encoding
+from ..conflict.engine_cpu import CpuConflictSet, chunk_encoding, engine_from_handoff
 from ..conflict.engine_cpu_flat import FLOOR_VERSION
 from ..conflict.keys import uniform_int_split_keys
 from ..conflict.types import COMMITTED, CONFLICT, TransactionConflictInfo
@@ -241,8 +250,7 @@ class ShardedTorchConflictSet:
         self._cpu_fallback_recent = deque(maxlen=32)  # (txns, wall seconds)
         self._last_mirror_check: Optional[dict] = None
         self.fault_injector = fault_injector
-        # Split-point move log (live resharding is not ported yet; kept so
-        # device_metrics has the reference's shape).
+        # One entry per reshard call: committed, deferred or a no-op.
         self.move_log: list = []
         self.host_syncs = 0
         self._ring: dict = {}
@@ -275,6 +283,9 @@ class ShardedTorchConflictSet:
     # -- state --
     def _init_state(self, oldest_rel: int):
         S, kw1, H, dev = self.n_shards, self.key_words + 1, self.h_cap, self.device
+        # A reshard to a new shard count re-stacks the state: drop the old
+        # tensors first, so that the two never hold the device at once.
+        self._hkeys = self._hvers = self._maxtab = self._dkeys = self._dvers = None
         self._hkeys = torch.full((S, kw1, H), keylib.INF_DEV, dtype=I32, device=dev)
         self._hkeys[:, :, 0] = keylib.ZERO_DEV  # the b"" floor boundary
         self._hvers = torch.full((S, H), FLOOR_REL, dtype=I32, device=dev)
@@ -1107,3 +1118,165 @@ class ShardedTorchConflictSet:
     @property
     def last_move(self) -> Optional[dict]:
         return self.move_log[-1] if self.move_log else None
+
+    def balance_split_keys(self, n_shards: Optional[int] = None) -> list:
+        """Quantile split points that equalize the mirrors' boundary counts
+        over `n_shards` (default: the current count).  The candidates are
+        the actual boundary keys of the global step function (store_to's
+        flattening), read through the mirrors' columnar views, so an
+        unchanged quantile reproduces an existing split point exactly and
+        reshard keeps that shard's mirror.  Returns the current split keys
+        when the history is too small to cut n ways."""
+        n = self.n_shards if n_shards is None else int(n_shards)
+        segs: list = []  # (key, None, 0, 1) | (None, engine, i0, count)
+        total = 0
+        for (lo, hi), eng in zip(self._shard_bounds(), self._mirrors):
+            if lo == b"":
+                i0 = 1  # the b"" floor boundary is not a cuttable key
+            else:
+                segs.append((lo, None, 0, 1))
+                total += 1
+                i0 = eng.boundary_locate(lo, "right")
+            i1 = eng.boundary_count if hi is None else eng.boundary_locate(hi, "left")
+            if i1 > i0:
+                segs.append((None, eng, i0, i1 - i0))
+                total += i1 - i0
+        if total < n:
+            return list(self.split_keys)
+        out: list = []
+        for j in range(1, n):
+            g = (total * j) // n
+            k = b""
+            for key, eng, i0, c in segs:
+                if g < c:
+                    k = key if eng is None else eng.boundary_key_at(i0 + g)
+                    break
+                g -= c
+            if k != b"" and (not out or k > out[-1]):
+                out.append(k)
+        if len(out) != n - 1:
+            return list(self.split_keys)
+        return out
+
+    def reshard(self, new_split_keys: Sequence[bytes], reason: str = "manual") -> dict:
+        """Re-partition the shards along `new_split_keys` between two
+        batches and return the move-log entry appended.
+
+        Every batch resolves against one whole partition, the old one up
+        to the commit and the new one after, and the min-combine does not
+        depend on the partition, so verdicts and witnesses are those of a
+        single set across the move.  One immutable snapshot cut is taken
+        per old mirror.  A new shard whose range is unchanged keeps the
+        old mirror by identity; its slice and sync stamp are kept only
+        when its index is the same and the shard count holds.  A moved
+        range gets a mirror built by chunk handoff.  Every other shard goes
+        stale and rehydrates from its mirror at its next device batch.  A
+        change of shard count (up to ``max_shards``) re-stacks the device
+        state at the new S.
+
+        The ``reshard`` fault site is checked on every moved shard that
+        exists, before anything mutates: a fault defers the whole move
+        (``action: "deferred"``).  A moved shard whose breaker is not ok
+        completes the move on its mirror (``"degraded_on_mirror"``)."""
+        new = [bytes(k) for k in new_split_keys]
+        n_new = len(new) + 1
+        if not (all(new[i] < new[i + 1] for i in range(len(new) - 1))
+                and all(k != b"" for k in new)):
+            raise AssertionError("split keys must be strictly increasing and non-empty")
+        if n_new > self.max_shards:
+            raise AssertionError(
+                f"{n_new} shards exceed max_shards={self.max_shards} "
+                "(per-shard fault domains are pre-created at construction)")
+        if not keylib.fits(new, self.key_words):
+            raise ValueError(
+                f"split keys must fit the device key width ({self.key_words * 4} bytes)")
+        old = list(self.split_keys)
+        m = self.metrics
+        entry: dict = {
+            "seq": len(self.move_log),
+            "reason": reason,
+            "from": [k.hex() for k in old],
+            "to": [k.hex() for k in new],
+            "shards": [len(old) + 1, n_new],
+        }
+        if new == old:
+            entry["action"] = "noop"
+            entry["moved"] = []
+            self.move_log.append(entry)
+            return entry
+        old_bounds = self._shard_bounds()
+        new_bounds = list(zip([b""] + new, new + [None]))
+        scaling = n_new != self.n_shards
+        moved = (list(range(max(self.n_shards, n_new))) if scaling
+                 else [s for s in range(n_new) if old_bounds[s] != new_bounds[s]])
+        entry["moved"] = moved
+        for s in moved:
+            if s >= self.n_shards:
+                continue  # not materialized yet: nothing on the device to fault
+            try:
+                self._check_fault("reshard", s)
+            except DeviceFault as e:
+                self._shard_fault(s, e)
+                m.counter("reshard_deferred").add()
+                entry["action"] = "deferred"
+                entry["fault_shard"] = s
+                self.move_log.append(entry)
+                return entry
+        degraded = [s for s in moved if s < self.n_shards and self._breakers[s].state != "ok"]
+        entry["action"] = "degraded_on_mirror" if degraded else "live"
+        if degraded:
+            entry["degraded_shards"] = degraded
+            m.counter("reshard_degraded").add()
+        snaps = [mir.snapshot() for mir in self._mirrors]
+        chunk = self._mirrors[0].chunk_size
+        by_bounds = {old_bounds[s]: s for s in range(self.n_shards)}
+        new_mirrors: list = []
+        new_stale: list = []
+        new_synced: list = []
+        reused = 0
+        for s, (lo, hi) in enumerate(new_bounds):
+            t = by_bounds.get((lo, hi))
+            if t is not None:
+                keep_slice = not scaling and t == s
+                new_mirrors.append(self._mirrors[t])
+                new_stale.append(bool(self._stale[t]) or not keep_slice)
+                new_synced.append(self._synced_stamp[t] if keep_slice else None)
+                reused += 1
+                continue
+            parts = []
+            for t2, (olo, ohi) in enumerate(old_bounds):
+                if hi is not None and olo >= hi:
+                    break
+                if ohi is not None and ohi <= lo:
+                    continue
+                plo = olo if olo > lo else lo
+                if ohi is None:
+                    phi = hi
+                elif hi is None:
+                    phi = ohi
+                else:
+                    phi = ohi if ohi < hi else hi
+                parts.append((snaps[t2], plo, phi))
+            oldest = max(p[0].oldest_version for p in parts)
+            new_mirrors.append(engine_from_handoff(parts, oldest, chunk=chunk,
+                                                   key_words=self.key_words))
+            new_stale.append(True)
+            new_synced.append(None)
+        # The commit: the partition flips between batches.
+        self.split_keys = new
+        self._mirrors = new_mirrors
+        self._stale = new_stale
+        self._synced_stamp = new_synced
+        self._lo, self._hi = self._partition_tensors(new)
+        if scaling:
+            # Fresh state at the new S, whose first step is a new shape (the
+            # compile site fires again); every shard rehydrates from its
+            # repartitioned mirror at its next device batch.
+            self.n_shards = n_new
+            self._steps.clear()
+            self._init_state(oldest_rel=0)
+        m.counter("reshards").add()
+        m.counter("reshard_moved_shards").add(len(moved))
+        entry["reused_mirrors"] = reused
+        self.move_log.append(entry)
+        return entry

@@ -458,3 +458,45 @@ def test_sharded_set_on_the_card_matches_the_cpu(dev, history):
     assert c_l == {"phase1_ranks": 0, "fused_merge_evict": 0}
     assert g_l["phase1_ranks"] > 0 and g_l["fused_merge_evict"] > 0
     assert tk.merge_contract_faults(dev) == 0
+
+
+@pytest.mark.parametrize("history", ["flat", "tiered"])
+def test_resharded_set_on_the_card_matches_the_cpu(dev, history):
+    """A live boundary move and a scale-up from 4 to 8 shards on the card
+    against the same schedule on the CPU: verdicts, witnesses, iterations,
+    every shard's slice, which slices are stale, the counters and the move
+    log are equal batch by batch; after the scale-up each kernel launches
+    once a shard a batch on the re-stacked state."""
+    from foundationdb_tpu_torch.parallel import sharded_resolver as sr
+
+    stream = _stream(37, 400, batches=12, txns_per_batch=30)
+    kw = dict(key_words=3, h_cap=256, bucket_mins=BUCKETS, max_shards=8)
+    if history == "tiered":
+        kw.update(history="tiered", delta_cap=128, evict_every=3)
+    runs = []
+    for device in (None, "cpu"):
+        cs = sr.ShardedTorchConflictSet([_k(100), _k(200), _k(300)], device=device, **kw)
+        out = []
+        for i, (txns, now, nov) in enumerate(stream):
+            if i == 3:
+                assert cs.reshard([_k(100), _k(150), _k(300)])["moved"] == [1, 2]
+            if i == 6:
+                assert cs.reshard(cs.balance_split_keys(8))["shards"] == [4, 8]
+            before = dict(tk.LAUNCHES)
+            stale = list(cs._stale)
+            v = cs.detect(txns, now, nov)
+            host = cs._host_state()
+            out.append((v, cs.last_witness, cs.last_iters, stale,
+                        [cs._device_shard_state(s, *host) for s in range(cs.n_shards)],
+                        {k: tk.LAUNCHES[k] - before[k] for k in before}))
+        runs.append((out, cs.move_log, cs.metrics.snapshot()["counters"]))
+    (gpu, g_log, g_c), (cpu, c_log, c_c) = runs
+    strip = lambda o: [x[:5] for x in o]  # noqa: E731
+    assert strip(gpu) == strip(cpu)
+    assert (g_log, g_c) == (c_log, c_c)
+    assert [e["action"] for e in g_log] == ["live", "live"]
+    assert all(x[3] == [True] * 8 for x in gpu[6:7])
+    if history == "flat":
+        assert all(x[5] == {"phase1_ranks": 8, "fused_merge_evict": 8} for x in gpu[7:])
+    assert all(x[5] == {"phase1_ranks": 0, "fused_merge_evict": 0} for x in cpu)
+    assert tk.merge_contract_faults(dev) == 0

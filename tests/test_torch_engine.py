@@ -459,11 +459,15 @@ def test_port_runs_without_loading_jax_or_the_reference():
         "inj = DeviceFaultInjector()\n"
         "inj.script('dispatch', at=1, shard=1)\n"
         "sh = ShardedTorchConflictSet([b'b'], key_words=2, h_cap=64, device='cpu',\n"
-        "                             fault_injector=inj)\n"
+        "                             fault_injector=inj, max_shards=3)\n"
         "v = sh.detect([T(0, [(b'a', b'c')], [(b'a', b'c')]),\n"
         "               T(0, [(b'b', b'c')], [])], 5, 0)\n"
         "assert v == [2, 0] and inj.injected == [[2, 'dispatch#s1', 'transient']], v\n"
         "assert sh.mirror_check()['status'] == 'ok'\n"
+        "e = sh.reshard([b'a', b'bb'], reason='t')\n"
+        "assert e['action'] == 'live' and sh.n_shards == 3, e\n"
+        "v = sh.detect([T(4, [(b'a', b'c')], []), T(6, [(b'a', b'c')], [])], 7, 0)\n"
+        "assert v == [0, 2] and sh.mirror_check()['status'] == 'ok', v\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'foundationdb_tpu')]\n"
         "print(sorted(bad))\n"
