@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole check, about ten minutes
+    python3 chip_smoke.py            # the whole check, about twelve minutes
     python3 chip_smoke.py --profile  # also a host/device time split and a
                                      # torch.profiler table of batches of
                                      # both main paths (flat and tiered)
@@ -131,11 +131,31 @@ Phases, in order; any failure exits non-zero:
                after batches 8 and 10; verdicts, witnesses, the move log,
                the injected log, every breaker walk, the counters, h_cap
                and d_cap equal on cuda and cpu
+  6c. chaos    (a) phase 4's ConflictSet, stream and seed (52 + 8 batches
+               of 65,536 transactions at h_cap 3,145,728, depth 2) under
+               the injector's random mode (the port's buggify armed on a
+               DeterministicRandom, fire probability 0.05) and an
+               open-ended dispatch outage over batches 54-56: every
+               batch's verdicts and witnesses equal phase 4's, a legal
+               breaker walk that ends ok, device_faults equal to the
+               faults injected, at least one rehydration, mirror_check
+               "ok", and each kernel launched once in every batch whose
+               submit dispatched it and never in a batch the mirror
+               served.  Prints the faults by site and kind, the buggify
+               coverage, the degraded batches, each rehydration's
+               CUDA-event and host ms and keys, a degraded turn's host ms
+               against a device-served one's, and txn/s (not a claim).
+               (b) the random mode at phase 6's shape (12 batches of
+               4,096 transactions) for ConflictSet and a 4-shard
+               ShardedTorchConflictSet (per-shard sites), the same seeds
+               on cuda and cpu: injected log, breaker walks, counters,
+               buggify coverage, verdicts and witnesses equal, and the
+               flat set's verdicts equal ConflictSet(backend="cpu")'s
   7. result    one JSON line per kernel table (launches: the flat main
                path's; launches_tiered: the tiered one's; launches_sharded:
                the sharded one's; launches_resharded: phase 4r's 9
-               batches; tiered and sharded: those shapes' times), then
-               {"ok": true, ...}
+               batches; launches_chaos: phase 6c(a)'s 60 batches; tiered
+               and sharded: those shapes' times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
 """
@@ -273,21 +293,25 @@ def gen_txns(T, rng, n_txn, batch_index, keyspace=KEYSPACE):
     return [T(batch_index, [(rb[j], re_[j])], [(wb[j], we[j])]) for j in range(n_txn)]
 
 
-def drive(cs, stream, depth, sink=None):
+def drive(cs, stream, depth, sink=None, tick=None):
     """The Resolver's discipline over (txns, now, new_oldest) batches:
     submit, complete the oldest while more than depth - 1 are in flight,
     drain.  Returns each batch's (statuses, witness), or hands each to
     sink(statuses, witness) instead; a finished batch's transactions are
-    dropped at once."""
+    dropped at once.  tick(entry), when given, runs after each batch's
+    turn with the entry its submit returned."""
     out, parked = [], []
     sink = sink or (lambda st, w: out.append((st, w)))
     for txns, now, nov in stream:
-        parked.append(cs.pipeline_submit(txns, now, nov))
+        entry = cs.pipeline_submit(txns, now, nov)
+        parked.append(entry)
         while cs.pipeline_inflight > depth - 1:
             cs.pipeline_complete_oldest()
         while parked and parked[0].done:
             e = parked.pop(0)
             sink(e.statuses, e.witness)
+        if tick is not None:
+            tick(entry)
     cs.pipeline_drain()
     for e in parked:
         sink(e.statuses, e.witness)
@@ -1676,6 +1700,239 @@ def resharded_vs_cpu(torch, sr, faults, keylib):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: chaos on the card
+# ---------------------------------------------------------------------------
+
+# The random fault schedule of phase 6c(a): the port's buggify stream and
+# the injector's own, and the per-check fire probability of a device site.
+# With the open-ended dispatch outage over batches 54-56 (inside the timed
+# window 52-59) it fires a handful of faults, two of them when the window
+# is full, and lets the breaker close by the last batch.
+CHAOS_BUGGIFY_SEED = 6
+CHAOS_INJECTOR_SEED = 7
+CHAOS_FIRE = 0.05
+CHAOS_OUTAGE = range(WARM + 2, WARM + 5)
+LEGAL_WALK = {("ok", "degraded"), ("degraded", "probing"), ("probing", "ok"),
+              ("probing", "degraded")}
+CHAOS_COUNTERS = ("device_faults", "breaker_opens", "breaker_probes", "breaker_closes",
+                  "degraded_batches", "rehydrates", "rehydrate_keys_total",
+                  "rehydrate_keys_encoded", "cpu_fallback_txns", "pipeline_dispatches",
+                  "pipeline_replayed_batches")
+
+
+def walk_end(label, transitions) -> str:
+    """The breaker's last state, after checking that its transitions are a
+    legal walk of the state machine from ok."""
+    prev = "ok"
+    for _seq, frm, to, _reason in transitions:
+        if frm != prev or (frm, to) not in LEGAL_WALK:
+            raise AssertionError(f"{label}: illegal breaker walk {transitions}")
+        prev = to
+    return prev
+
+
+class RehydrateSpans:
+    """CUDA events and the host clock around each rehydration of a
+    ConflictSet's device history from its mirror, with the keys it loaded."""
+
+    def __init__(self, torch, cs):
+        self.torch, self.cs, self.spans = torch, cs, []
+        self._rehydrate = cs._rehydrate_from_mirror
+        cs._rehydrate_from_mirror = self._timed
+
+    def _timed(self):
+        keys = self.cs._dev.metrics.counter("rehydrate_keys_total")
+        k0 = keys.value
+        a, b = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        self._rehydrate()
+        b.record()
+        self.spans.append((a, b, time.perf_counter() - t0, keys.value - k0))
+
+    def remove(self):
+        """Stop timing; returns [(CUDA-event ms, host ms, keys)]."""
+        del self.cs._rehydrate_from_mirror
+        self.torch.cuda.synchronize()
+        return [(a.elapsed_time(b), host * 1e3, k) for a, b, host, k in self.spans]
+
+
+def chaos_path(torch, api, T, tk, faults, buggify, DR, want):
+    """Phase 6c(a): phase 4's set, stream and seed under the port's random
+    faults at full width.  The buggify sites are armed (activated
+    probability 1.0) on a DeterministicRandom, the injector runs in random
+    mode, and an open-ended dispatch outage holds batches CHAOS_OUTAGE.
+    Every batch's verdicts and witnesses must equal phase 4's (`want`), the
+    breaker must walk legally back to ok, each fault must be counted, the
+    mirror must check ok, and each kernel must launch once in every batch
+    whose submit dispatched it and never in a batch the mirror served.
+    Returns the kernels' launches in the run."""
+    depth = 2
+    gc.collect()
+    rng = np.random.default_rng(2026)
+    buggify.set_buggify_enabled(True, DR(CHAOS_BUGGIFY_SEED), activated_probability=1.0)
+    inj = faults.DeviceFaultInjector(rng=DR(CHAOS_INJECTOR_SEED), fire_probability=CHAOS_FIRE)
+    cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth,
+                         fault_injector=inj)
+    def stream():
+        for i in range(WARM + TIMED):
+            if i == CHAOS_OUTAGE.start:
+                inj.begin_outage("dispatch")
+            if i == CHAOS_OUTAGE.stop:
+                inj.end_outage("dispatch")
+            yield gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i
+
+    turns = []  # (batch, kind, seconds, launches so far, rehydrations so far)
+    clock = [time.perf_counter()]
+
+    def tick(entry):
+        now = time.perf_counter()
+        kind = "degraded" if entry.done else "device"  # parked = dispatched
+        turns.append((len(turns), kind, now - clock[0], dict(tk.LAUNCHES), len(spans.spans)))
+        clock[0] = now
+
+    digests = []
+    spans = RehydrateSpans(torch, cs)
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    prev_launches = dict(tk.LAUNCHES)
+    t0 = clock[0] = time.perf_counter()
+    drive(cs, stream(), depth, sink=lambda st, w: digests.append(digest(st, w)), tick=tick)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    counters = cs._dev.metrics.snapshot()["counters"]
+    reh = spans.remove()
+    buggify_cov = buggify.coverage()
+    buggify.set_buggify_enabled(False)
+
+    if digests != want:
+        first = next(i for i, (a, b) in enumerate(zip(digests, want)) if a != b)
+        raise AssertionError(f"chaos: batch {first}'s verdicts or witnesses differ from phase 4's")
+    transitions = cs._breaker.transitions
+    if walk_end("chaos", transitions) != "ok":
+        raise AssertionError(f"chaos: the breaker ends {cs._breaker.state}")
+    injected = inj.injected
+    if not injected or counters["device_faults"] != len(injected):
+        raise AssertionError(f"chaos: {len(injected)} faults injected, device_faults "
+                             f"{counters['device_faults']}")
+    if counters["rehydrates"] < 1 or len(reh) != counters["rehydrates"]:
+        raise AssertionError(f"chaos: rehydrates {counters['rehydrates']}, timed {len(reh)}")
+    if not any(site.startswith("device_fault_") for site in buggify_cov["fired_counts"]):
+        raise AssertionError(f"chaos: no device fault site fired: {buggify_cov}")
+    for i, kind, _s, after, _r in turns:
+        before = prev_launches
+        for name in tk.LAUNCHES:
+            n = after[name] - before[name]
+            if n != (1 if kind == "device" else 0):
+                raise AssertionError(f"chaos: batch {i} ({kind}) launched {name} {n} times")
+        prev_launches = after
+    dispatches = counters["pipeline_dispatches"]
+    replayed = counters["pipeline_replayed_batches"]
+    if any(v != dispatches for v in launches.values()):
+        raise AssertionError(f"chaos: launches {launches} != {dispatches} dispatches")
+    order_faults = tk.merge_contract_faults("cuda")
+    if order_faults:
+        raise AssertionError(f"chaos: the merge found {order_faults} order faults")
+    t1 = time.perf_counter()
+    report = cs.mirror_check()
+    check_s = time.perf_counter() - t1
+    if report["status"] != "ok":
+        raise AssertionError(f"chaos: mirror_check {report}")
+
+    by_site = {}
+    for _seq, site, kind in injected:
+        by_site[f"{site}:{kind}"] = by_site.get(f"{site}:{kind}", 0) + 1
+    degraded = [i for i, kind, _s, _l, _r in turns if kind == "degraded"]
+    # A turn's host time: its submit (dispatch, or the mirror's detect)
+    # and the completion of the batch before it.
+    device_ms = [s * 1e3 for i, kind, s, _l, r in turns
+                 if kind == "device" and r == (turns[i - 1][4] if i else 0)]
+    degraded_ms = [s * 1e3 for _i, kind, s, _l, _r in turns if kind == "degraded"]
+    timed = turns[WARM:WARM + TIMED]
+    timed_s = sum(s for _i, _k, s, _l, _r in timed)
+    log(f"chaos: {WARM + TIMED} batches x {PER_BATCH} txns through ConflictSet(h_cap "
+        f"{H_CAP}, depth {depth}) under random faults (fire probability {CHAOS_FIRE}, "
+        f"buggify seed {CHAOS_BUGGIFY_SEED}, injector seed {CHAOS_INJECTOR_SEED}) and a "
+        f"dispatch outage over batches {CHAOS_OUTAGE.start}-{CHAOS_OUTAGE.stop - 1}, in "
+        f"{dt:.3f} s: {(WARM + TIMED) * PER_BATCH / dt:.1f} txn/s over the run, "
+        f"{TIMED * PER_BATCH / timed_s:.1f} over the timed window (not a claim); every "
+        f"batch's verdicts and witnesses equal phase 4's; card {torch.cuda.get_device_name(0)}")
+    log(f"chaos: faults {len(injected)} by site and kind {by_site}; injected {injected}; "
+        f"buggify coverage {buggify_cov}")
+    log(f"chaos: breaker walk {[t[1:] + [t[0]] for t in transitions]}; counters "
+        f"{ {k: counters[k] for k in CHAOS_COUNTERS} }")
+    log(f"chaos: degraded batches {degraded} ({len(degraded)}); replayed {replayed}; "
+        f"device-served {dispatches - replayed}; launches {launches} = dispatches "
+        f"{dispatches}, one a dispatching batch, none a degraded one")
+    log("chaos: rehydrations (CUDA-event ms, host ms, keys): "
+        + "; ".join(f"{d:.3f}, {h:.3f}, {k}" for d, h, k in reh))
+    log(f"chaos: host ms a turn: device-served {np.mean(device_ms):.3f} (median "
+        f"{np.median(device_ms):.3f}, {len(device_ms)} turns without a rehydration), degraded "
+        f"{np.mean(degraded_ms):.3f} (median {np.median(degraded_ms):.3f}, "
+        f"{len(degraded_ms)} turns); each turn "
+        + ", ".join(f"{i} {k} {s * 1e3:.0f}" for i, k, s, _l, _r in turns))
+    log(f"chaos: mirror_check ok ({report['boundaries']} boundaries, {check_s:.3f} s)")
+    return launches
+
+
+def chaos_vs_cpu(torch, api, sr, T, faults, buggify, DR, keylib):
+    """Phase 6c(b): the random mode at phase 6's reduced shape (12 batches of
+    4,096 transactions), for ConflictSet and for a 4-shard
+    ShardedTorchConflictSet (per-shard sites), on cuda and on cpu from the
+    same seeds: the injected log, every breaker walk, the counters, the
+    verdicts and the witnesses must be equal, and the flat set's verdicts
+    equal ConflictSet(backend="cpu")'s."""
+    n_txn, batches, window, keyspace = 4096, 12, 4, 200_000
+    rng = np.random.default_rng(7)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=keyspace), i + window, i)
+              for i in range(batches)]
+    want = drive(api.ConflictSet(backend="cpu", key_words=KEY_WORDS), stream, 1)
+    split = keylib.uniform_int_split_keys(4, keyspace, KEY_BYTES)
+    for kind in ("flat", "sharded"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            buggify.set_buggify_enabled(True, DR(4), activated_probability=1.0)
+            inj = faults.DeviceFaultInjector(rng=DR(104), fire_probability=0.3)
+            if kind == "flat":
+                cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 14, device=device,
+                                     fault_injector=inj)
+                out = drive(cs, stream, 2)
+                breakers = [cs._breaker]
+                counters = dict(cs.device_metrics()["counters"])
+                # The pinned readback buffers, which only a CUDA run has.
+                counters.pop("host_allocs")
+            else:
+                cs = sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=1 << 12,
+                                                device=device, fault_injector=inj)
+                out = [(cs.detect(txns, now, nov), list(cs.last_witness))
+                       for txns, now, nov in stream]
+                breakers = cs._breakers
+                counters = cs.device_metrics()["counters"]
+            for k, b in enumerate(breakers):
+                walk_end(f"chaos {kind} on {device}, breaker {k}", b.transitions)
+            runs[device] = (out, inj.injected, [b.transitions for b in breakers], counters,
+                            buggify.coverage())
+        buggify.set_buggify_enabled(False)
+        if runs["cuda"] != runs["cpu"]:
+            which = [k for k, a, b in zip(("verdicts", "injected", "transitions", "counters",
+                                           "coverage"), runs["cuda"], runs["cpu"]) if a != b]
+            raise AssertionError(f"chaos {kind}: cuda and cpu differ in {which}")
+        out, injected, transitions, c, cov = runs["cuda"]
+        if kind == "flat" and out != want:
+            raise AssertionError("chaos flat: verdicts/witnesses differ from the CPU backend's")
+        if not injected or not any(transitions):
+            raise AssertionError(f"chaos {kind}: injected {injected}, transitions {transitions}")
+        sites = sorted({site for _q, site, _k in injected})
+        log(f"chaos {kind} vs cpu: {batches} batches x {n_txn} txns"
+            + (", 4 shards" if kind == "sharded" else "")
+            + f", random faults (fire probability 0.3), identical on cuda and cpu "
+            f"(verdicts, witnesses, injected log of {len(injected)} faults at sites {sites}, "
+            f"breaker walks {[[t[1:3] for t in w] for w in transitions]}, counters, coverage "
+            f"{cov['fired_counts']}); grows {c['grows']}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv) -> int:
@@ -1692,6 +1949,8 @@ def main(argv) -> int:
     from foundationdb_tpu_torch.conflict import keys as keylib
     from foundationdb_tpu_torch.conflict import kernels as tk
     from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
+    from foundationdb_tpu_torch.flow import buggify
+    from foundationdb_tpu_torch.flow.rng import DeterministicRandom as DR
     from foundationdb_tpu_torch.ops import rangequery as rq
     from foundationdb_tpu_torch.parallel import sharded_resolver as sr
 
@@ -1752,6 +2011,10 @@ def main(argv) -> int:
     tiered_conflictset_vs_cpu(torch, api, T, faults)
     sharded_vs_cpu(torch, sr, faults, keylib)
     resharded_vs_cpu(torch, sr, faults, keylib)
+    # 6c. chaos on the card: random faults at full width, then replayed
+    # on cuda and cpu at the reduced shape
+    launches_chaos = chaos_path(torch, api, T, tk, faults, buggify, DR, digests)
+    chaos_vs_cpu(torch, api, sr, T, faults, buggify, DR, keylib)
 
     # 7. result
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1764,6 +2027,7 @@ def main(argv) -> int:
         dict({k: r[k] for k in keys}, launches_tiered=launches_tiered[r["name"]],
              launches_sharded=launches_sharded[r["name"]],
              launches_resharded=launches_resharded[r["name"]],
+             launches_chaos=launches_chaos[r["name"]],
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

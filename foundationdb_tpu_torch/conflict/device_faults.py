@@ -1,14 +1,17 @@
 """Device-fault injection and the degraded-mode circuit breaker.
 
 A copy of the reference package's ``conflict/device_faults.py`` without its
-trace, span, flight-recorder and buggify hooks.  Two pieces:
+trace-event, span and flight-recorder hooks (the breaker's
+``DeviceBackendStateChange`` event, its ``breaker.*`` marker spans and the
+flight-recorder capture at a breaker open).  Two pieces:
 
 ``DeviceFaultInjector``
     makes ``TorchConflictSet`` raise the failures a GPU can produce at its
     choke points — dispatch (``DeviceUnavailable``), the first dispatch of
     a shape (``CompileFailed``), ``_grow``/rebase (``DeviceOOM``), and the
     sharded set's live ``reshard`` (``DeviceUnavailable``) — from a
-    scripted plan or an open-ended outage.  Transient faults fire once;
+    scripted plan, an open-ended outage, or BUGGIFY sites that a seeded
+    RNG drives (random mode).  Transient faults fire once;
     persistent ones hold a site down for a number of checks.  ``injected``
     logs every raised fault as ``[seq, site, kind]``, numbered exactly as
     the reference numbers them, so one script gives one log in both
@@ -40,6 +43,8 @@ from __future__ import annotations
 
 import itertools
 from typing import Dict, List, Optional
+
+from ..flow.buggify import buggify_with_prob
 
 
 class DeviceFault(Exception):
@@ -79,23 +84,53 @@ _SITE_FAULT = {
 class DeviceFaultInjector:
     """Deterministic fault source for the engine's choke points.
 
-    ``script(site, at=n, persist=k, shard=None)`` faults the n-th check of
-    a site (1-based; the shard's own count when ``shard`` is given) and
-    holds it down for k checks; ``begin_outage`` / ``end_outage`` model an
-    open-ended device loss.  The reference's random (buggify) mode is not
-    ported."""
+    Scripted mode: ``script(site, at=n, persist=k, shard=None)`` faults the
+    n-th check of a site (1-based; the shard's own count when ``shard`` is
+    given) and holds it down for k checks; ``begin_outage`` /
+    ``end_outage`` model an open-ended device loss.
 
-    def __init__(self):
+    Random mode (``fire_probability > 0``): a check that no plan faults
+    consults the BUGGIFY site ``device_fault_<site>`` (``..._s<k>`` for
+    shard k) of the port's ``flow.buggify`` at ``fire_probability``; on a
+    fire it draws persistent-vs-transient (``persistent_probability``) and
+    a persistent fault's length (1 to ``max_persistent - 1`` more checks)
+    from ``rng``, or, for a shard, from a stream forked from ``rng`` at
+    that shard's first draw.  ``rng`` is any object with ``random01``,
+    ``random_int`` and ``split`` (the reference's ``DeterministicRandom``
+    serves too).  The defaults leave random mode off."""
+
+    def __init__(
+        self,
+        rng=None,
+        fire_probability: float = 0.0,
+        persistent_probability: float = 0.25,
+        max_persistent: int = 4,
+    ):
+        self.rng = rng
+        self.fire_probability = fire_probability
+        self.persistent_probability = persistent_probability
+        self.max_persistent = max_persistent
         self.checks: Dict[str, int] = {s: 0 for s in SITES}
         self.injected: List[list] = []  # [seq, site key, kind]
         self._seq = 0
         self._outage: Dict[str, Optional[int]] = {}  # key -> remaining (None = open-ended)
         self._scripted: Dict[str, Dict[int, int]] = {}  # key -> {at: persist}
+        # Per-shard persistence streams, forked from self.rng at a shard's
+        # first draw (check order is deterministic, so lazy forks replay).
+        self._shard_rngs: Dict[int, object] = {}
 
     @staticmethod
     def _site_key(site: str, shard) -> str:
         assert site in SITES, site
         return site if shard is None else f"{site}#s{int(shard)}"
+
+    def _rng_for(self, shard):
+        if shard is None or self.rng is None:
+            return self.rng
+        r = self._shard_rngs.get(int(shard))
+        if r is None:
+            r = self._shard_rngs[int(shard)] = self.rng.split()
+        return r
 
     # -- plans --
     def script(self, site: str, at: int, persist: int = 1, shard=None) -> None:
@@ -141,6 +176,14 @@ class DeviceFaultInjector:
                     self._outage[key] = max(tail, persist - 1)
             if kind is None:
                 kind = "persistent" if persist > 1 else "transient"
+        if kind is None and self.fire_probability > 0:
+            suffix = "" if shard is None else f"_s{int(shard)}"
+            if buggify_with_prob(f"device_fault_{site}{suffix}", self.fire_probability):
+                kind = "transient"
+                rng = self._rng_for(shard)
+                if rng is not None and rng.random01() < self.persistent_probability:
+                    self._outage[key] = int(rng.random_int(1, self.max_persistent))
+                    kind = "persistent"
         if kind is not None:
             self.injected.append([self._seq, key, kind])
             raise _SITE_FAULT[site](f"injected {kind} fault", site=site)

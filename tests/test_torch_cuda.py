@@ -500,3 +500,90 @@ def test_resharded_set_on_the_card_matches_the_cpu(dev, history):
         assert all(x[5] == {"phase1_ranks": 8, "fused_merge_evict": 8} for x in gpu[7:])
     assert all(x[5] == {"phase1_ranks": 0, "fused_merge_evict": 0} for x in cpu)
     assert tk.merge_contract_faults(dev) == 0
+
+
+def _random_injector(seed):
+    """The port's buggify armed on a seeded stream (every site activated)
+    and a random-mode injector on another."""
+    from foundationdb_tpu_torch.conflict.device_faults import DeviceFaultInjector
+    from foundationdb_tpu_torch.flow import buggify
+    from foundationdb_tpu_torch.flow.rng import DeterministicRandom
+
+    buggify.set_buggify_enabled(True, DeterministicRandom(seed), activated_probability=1.0)
+    return DeviceFaultInjector(rng=DeterministicRandom(seed + 100), fire_probability=0.3)
+
+
+@pytest.fixture
+def buggify_off():
+    from foundationdb_tpu_torch.flow import buggify
+
+    yield
+    buggify.set_buggify_enabled(False)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_random_faults_on_the_card_match_the_cpu(dev, buggify_off, seed):
+    """ConflictSet at pipeline depth 2 under random-mode faults, the same
+    seeds on the GPU and the CPU: identical verdicts, witnesses, injected
+    log, breaker walk, counters and buggify coverage, and verdicts equal to
+    the CPU-only backend's; each kernel launches once a dispatch."""
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.flow import buggify
+
+    stream = _stream(seed, 400, batches=20, txns_per_batch=8)
+
+    def run(device, backend="torch"):
+        inj = _random_injector(seed)
+        cs = ConflictSet(backend=backend, key_words=3, bucket_mins=BUCKETS, h_cap=64,
+                         device=device, fault_injector=inj)
+        before = dict(tk.LAUNCHES)
+        out = []
+        for txns, now, nov in stream:
+            out.append(cs.pipeline_submit(txns, now, nov))
+            while cs.pipeline_inflight > 1:
+                cs.pipeline_complete_oldest()
+        cs.pipeline_drain()
+        launches = {k: tk.LAUNCHES[k] - before[k] for k in before}
+        return cs, inj, [(e.statuses, e.witness) for e in out], launches, buggify.coverage()
+
+    gpu, ginj, got, g_l, g_cov = run(dev)
+    cpu, cinj, want, c_l, c_cov = run("cpu")
+    assert got == want == run("cpu", backend="cpu")[2]
+    assert ginj.injected == cinj.injected and ginj.injected
+    assert g_cov == c_cov
+    gm, cm = gpu.device_metrics(), cpu.device_metrics()
+    # host_allocs counts the pinned readback buffers, which only the GPU has.
+    gc, cc = ({k: v for k, v in m["counters"].items() if k != "host_allocs"} for m in (gm, cm))
+    assert gm["breaker"] == cm["breaker"] and gc == cc
+    assert gm["counters"]["device_faults"] == len(ginj.injected)
+    dispatches = gm["counters"]["pipeline_dispatches"]
+    assert g_l == {"phase1_ranks": dispatches, "fused_merge_evict": dispatches}
+    assert c_l == {"phase1_ranks": 0, "fused_merge_evict": 0}
+    assert tk.merge_contract_faults(dev) == 0
+
+
+def test_random_faults_on_the_card_match_the_cpu_sharded(dev, buggify_off):
+    """ShardedTorchConflictSet with 4 shards under random-mode faults at
+    per-shard sites, the same seeds on the GPU and the CPU: identical
+    verdicts, witnesses, iterations, shard slices, injected log, every
+    breaker walk and the counters."""
+    from foundationdb_tpu_torch.parallel import sharded_resolver as sr
+
+    stream = _stream(37, 400, batches=14, txns_per_batch=30)
+    split = [_k(100), _k(200), _k(300)]
+    runs = []
+    for device in (None, "cpu"):
+        inj = _random_injector(5)
+        cs = sr.ShardedTorchConflictSet(split, device=device, fault_injector=inj, key_words=3,
+                                        h_cap=128, bucket_mins=BUCKETS)
+        out = []
+        for txns, now, nov in stream:
+            v = cs.detect(txns, now, nov)
+            host = cs._host_state()
+            out.append((v, cs.last_witness, cs.last_iters,
+                        [cs._device_shard_state(s, *host) for s in range(4)]))
+        runs.append((out, inj.injected, [b.transitions for b in cs._breakers],
+                     cs.metrics.snapshot()["counters"]))
+    assert runs[0] == runs[1]
+    assert runs[0][1] and {site.split("#")[1] for _q, site, _k in runs[0][1]} >= {"s0", "s1"}
+    assert tk.merge_contract_faults(dev) == 0
