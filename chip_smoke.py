@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole check, about twelve minutes
+    python3 chip_smoke.py            # the whole check, about fifteen minutes
     python3 chip_smoke.py --profile  # also a host/device time split and a
                                      # torch.profiler table of batches of
-                                     # both main paths (flat and tiered)
+                                     # the main paths (flat, amortized and
+                                     # tiered); the profiler slows the
+                                     # host's launches in every later phase
     python3 chip_smoke.py --stamps   # also the search kernel's time by phase,
                                      # block by block (a -DPHASE1_STAMPS build)
 
@@ -12,6 +14,11 @@ Phases, in order; any failure exits non-zero:
 
   1. card      nvidia-smi's name and power limit, torch and CUDA versions
   2. build     nvcc both kernels from foundationdb_tpu_torch/conflict/csrc
+  2c. programs the device program cost table (conflict/programs.py) on the
+               card: every registered program once at the reference's
+               canonical shapes on a valid empty history; its block, the
+               bytes it allocates above its arguments and outputs (temp)
+               and the run's wall ms
   3. kernels   each kernel at the bench shape (history h_cap = 3,145,728
                rows, 65,536-transaction batches, key_words=2) against its
                plain PyTorch twin on the same CUDA tensors, bit for bit;
@@ -57,6 +64,29 @@ Phases, in order; any failure exits non-zero:
                FIXPOINT_CHUNK) on four more batches from one carried
                state: host checks and device span a batch for each, and
                equal outputs.
+  4a. attribution  attribute_phases on phase 4's engine (its ~2.7 M-row
+               history at h_cap 3,145,728) with one of phase 4's extra
+               batches of 65,536 transactions, every arm (full, nosearch,
+               nofix, nomerge, noevict, and each again on the plain
+               non-kernel step) run once warm and 9 times timed, the arms
+               taking turns: the full arm equals the engine's own dispatch
+               of the batch, the plain full arm the kernel one, the
+               engine's history is unchanged, each kernel arm launches the
+               kernels it keeps once a run and a plain arm none, no merge
+               order fault.  Prints each arm's CUDA-event and host ms and
+               fixpoint host checks, each phase's ms and share of the full
+               step, and the kernels' ms against the plain step's per
+               phase.  Each arm's device busy time under torch.profiler
+               waits for the end of the script (7.), because the profiler
+               slows the host's launches for the rest of the process
+  4e. amortized  the same stream and seed through ConflictSet(key_words=2,
+               h_cap=3,538,944, evict_every=4) at depth 2 (the bench's
+               evict4 arm): every batch's verdicts and witnesses equal
+               phase 4's, one launch of each kernel a batch (8 + 8 in the
+               timed 8), an eviction every 4th batch, mirror_check "ok"
+               (below_window_keys printed), no growth, no CPU fallback.
+               Prints txn/s and the device span of evicting and keeping
+               batches apart
   4t. tiered   the same stream and seed through ConflictSet(history=
                "tiered", evict_every=4, delta_cap=655,360, h_cap=3,538,944)
                at depth 2 (the bench's tiered4 settings): every batch's
@@ -116,6 +146,12 @@ Phases, in order; any failure exits non-zero:
                (batch 3 a compaction batch, held down through the first
                probe) verdicts identical and the injected log and breaker
                walk equal on cuda and cpu
+  6e. ablation and amortized vs cpu  at phase 6's shape (4,096-txn
+               batches): every attribution arm's outputs from one engine
+               state equal on cuda and cpu, and ConflictSet(evict_every=3)
+               under phase 6's fault script equal on cuda and cpu
+               (verdicts, witnesses, injected log, breaker walk, counters,
+               exported state) and to ConflictSet(backend="cpu")
   6s. sharded set vs cpu  ShardedTorchConflictSet with 4 shards on a
                reduced stream, on the GPU and on the CPU, flat and tiered,
                from 4,096 rows a shard (so it grows): a dispatch outage on
@@ -151,8 +187,12 @@ Phases, in order; any failure exits non-zero:
                on cuda and cpu: injected log, breaker walks, counters,
                buggify coverage, verdicts and witnesses equal, and the
                flat set's verdicts equal ConflictSet(backend="cpu")'s
-  7. result    one JSON line per kernel table (launches: the flat main
-               path's; launches_tiered: the tiered one's; launches_sharded:
+  7. result    phase 4a's arms once more each under torch.profiler, on
+               the state they were attributed on: each phase's device busy
+               and idle ms; then one JSON line per kernel table (launches: the flat main
+               path's; launches_attribution: phase 4a's, every arm's runs;
+               launches_amortized: phase 4e's timed batches;
+               launches_tiered: the tiered one's; launches_sharded:
                the sharded one's; launches_resharded: phase 4r's 9
                batches; launches_chaos: phase 6c(a)'s 60 batches; tiered
                and sharded: those shapes' times), then {"ok": true, ...}
@@ -920,7 +960,8 @@ class GcPauses:
 class DispatchSpans:
     """CUDA events around each dispatch of an engine: a batch's device span,
     from the start of its upload to the end of its readback copy (the
-    fixpoint's host checks inside it included), and whether it compacted."""
+    fixpoint's host checks inside it included), and whether it compacted
+    (tiered) or evicted (amortized flat)."""
 
     def __init__(self, torch, eng):
         self.torch, self.eng, self.spans = torch, eng, []
@@ -937,11 +978,15 @@ class DispatchSpans:
         a.record()
         ticket = self._dispatch(pb, now, new_oldest_version)
         b.record()
-        self.spans.append((a, b, self._majors() > majors))
+        amortized = not self.eng.tiered and self.eng.evict_every > 1
+        special = (self.eng._batches_since_evict == 0 if amortized
+                   else self._majors() > majors)
+        self.spans.append((a, b, special))
         return ticket
 
     def remove(self):
-        """Stop timing; returns (compaction spans ms, other spans ms)."""
+        """Stop timing; returns (compaction or evicting spans ms, other
+        spans ms)."""
         del self.eng.dispatch_packed
         self.torch.cuda.synchronize()
         major = [a.elapsed_time(b) for a, b, c in self.spans if c]
@@ -949,13 +994,16 @@ class DispatchSpans:
         return major, minor
 
 
-def main_path(torch, api, T, tk, rq, et, profile: bool, tiered=False, want=None):
+def main_path(torch, api, T, tk, rq, et, profile: bool, mode="flat", want=None):
     """The bench stream through ConflictSet at depth 2, as a Resolver
-    serves it: flat (phase 4), or with the tiered4 settings (phase 4t),
-    whose every batch must then equal `want`, the flat run's digests.
-    Returns (launches of the timed batches, txn/s, every batch's digest)."""
+    serves it: flat (phase 4), with the tiered4 settings (phase 4t), or
+    flat with the evict4 arm's amortized eviction (phase 4e); the last two
+    must give every batch's verdicts and witnesses as `want`, the flat
+    run's digests.  Returns (launches of the timed batches, txn/s, every
+    batch's digest, the set, the 4 extra batches packed for its engine)."""
     depth = 2
-    label = "tiered" if tiered else "main"
+    tiered, amortized = mode == "tiered", mode == "amortized"
+    label = {"flat": "main", "tiered": "tiered", "amortized": "amortized"}[mode]
     gc.collect()  # an earlier phase's garbage is not this path's cost
     rng = np.random.default_rng(2026)
     if tiered:
@@ -964,6 +1012,11 @@ def main_path(torch, api, T, tk, rq, et, profile: bool, tiered=False, want=None)
         # A search of both tiers a batch; a delta merge a batch and a
         # compaction every EVICT_EVERY batches (WARM is a multiple of it).
         expect = {"phase1_ranks": 2 * TIMED, "fused_merge_evict": TIMED + TIMED // EVICT_EVERY}
+    elif amortized:
+        # The bench's evict4 arm: room for EVICT_EVERY - 1 unevicted batches.
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=TIERED_H_CAP, pipeline_depth=depth,
+                             evict_every=EVICT_EVERY)
+        expect = {name: TIMED for name in tk.LAUNCHES}
     else:
         cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth)
         expect = {name: TIMED for name in tk.LAUNCHES}
@@ -1025,6 +1078,8 @@ def main_path(torch, api, T, tk, rq, et, profile: bool, tiered=False, want=None)
     if tiered and counters["major_compactions"] != (WARM + TIMED) // EVICT_EVERY:
         raise AssertionError(f"{label}: {counters['major_compactions']} compactions in "
                              f"{WARM + TIMED} batches")
+    if amortized and len(major_ms) != TIMED // EVICT_EVERY:
+        raise AssertionError(f"{label}: {len(major_ms)} evicting batches in the {TIMED} timed")
     wall = m.snapshot(include_wall=True)["wall"]
 
     def per_batch_ms(name):
@@ -1042,9 +1097,14 @@ def main_path(torch, api, T, tk, rq, et, profile: bool, tiered=False, want=None)
         raise AssertionError(f"{label}: mirror_check: {report}")
     n = history_sorted(torch, rq, eng)
     tps = TIMED * PER_BATCH / dt
-    spans_text = (f"compaction batches {np.mean(major_ms):.3f} ms ({len(major_ms)}), "
-                  f"minor batches {np.mean(minor_ms):.3f} ms ({len(minor_ms)})" if tiered
-                  else f"{np.mean(minor_ms):.3f} ms")
+    if tiered or amortized:
+        kinds = ("compaction", "minor") if tiered else ("evicting", "keeping")
+        spans_text = (f"{kinds[0]} batches {np.mean(major_ms):.3f} ms ({len(major_ms)}: "
+                      f"{', '.join(f'{x:.3f}' for x in major_ms)}), {kinds[1]} batches "
+                      f"{np.mean(minor_ms):.3f} ms ({len(minor_ms)}: "
+                      f"{', '.join(f'{x:.3f}' for x in minor_ms)})")
+    else:
+        spans_text = f"{np.mean(minor_ms):.3f} ms"
     log(f"{label}: {TIMED} timed batches x {PER_BATCH} txns through ConflictSet "
         f"(depth {depth}) in {dt:.6f} s: {tps:.1f} txn/s, {dt / TIMED * 1e3:.3f} ms/batch; "
         f"mirror apply {apply_ms:.3f} ms/batch, note_synced {synced_ms:.3f} ms/batch, "
@@ -1063,11 +1123,143 @@ def main_path(torch, api, T, tk, rq, et, profile: bool, tiered=False, want=None)
     if want is not None:
         log(f"{label}: all {len(digests)} batches' verdicts and witnesses equal the flat path's")
     packed = [(eng._pack(t), now, nov) for t, now, nov in extra]
-    if not tiered:
+    if mode == "flat":
         first_chunk_sweep(torch, et, eng, packed)
     if profile:
         profile_batches(torch, eng, packed, label)
-    return launches, tps, digests
+    return launches, tps, digests, cs, extra
+
+
+# Timed runs of each attribution arm (after its warm run).  On the H100 an
+# arm's span varies by up to ~10 ms from run to run (the host's enqueue
+# pace), more than some phases take, so 3 runs do not resolve them.
+ATTRIBUTION_REPEATS = 9
+
+# The kernels each attribution arm launches once a run: phase 1's search
+# unless the arm cuts it (nosearch), the merge unless it cuts phases 5-6
+# (nomerge); the plain arms none.
+ARM_LAUNCHES = {
+    "full": (1, 1), "search": (0, 1), "fixpoint": (1, 1), "merge": (1, 0), "evict": (1, 1),
+}
+
+
+def attribution_path(torch, et, tk, pa, eng, txns):
+    """Phase 4a: attribute_phases on phase 4's engine (its full-width
+    history) with one of phase 4's extra batches, every arm measured.  The
+    full arm must equal the engine's own dispatch of that batch, the plain
+    arm the kernel arm; the engine's history must be unchanged; each arm
+    must launch the kernels it keeps once a run.  Returns the kernels'
+    launches in the attribution and attribution_busy's arguments."""
+    gc.collect()
+
+    def history():
+        return int(eng._hcount), pa.outputs_digest((eng._hkeys, eng._hvers, eng._hcount,
+                                                    eng._oldest))
+
+    before = history()
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    rep = pa.attribute_phases(eng, txns, measure=True, repeats=ATTRIBUTION_REPEATS)
+    dt = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    if history() != before:
+        raise AssertionError("attribution: the engine's history changed")
+    if not rep["kernel_ab"]["identical"]:
+        raise AssertionError("attribution: the plain full arm differs from the kernel arm")
+    arms = dict(full=rep["full"], **{p["phase"]: p for p in rep["phases"]})
+    arms.update({f"plain_{p['phase']}": p for p in rep["kernel_ab"]["plain_phases"]})
+    arms["plain_full"] = rep["kernel_ab"]["plain_full"]
+    for name, blk in arms.items():
+        want = (0, 0) if name.startswith("plain_") else ARM_LAUNCHES[name]
+        got = (blk["launches"]["phase1_ranks"], blk["launches"]["fused_merge_evict"])
+        if got != want:
+            raise AssertionError(f"attribution: arm {name} launched {got}, expected {want}")
+    runs = 1 + rep["measured"]["repeats"]
+    want_total = {"phase1_ranks": 4 * runs, "fused_merge_evict": 4 * runs}
+    if launches != want_total:
+        raise AssertionError(f"attribution: launches {launches}, expected {want_total}")
+    faults = tk.merge_contract_faults("cuda")
+    if faults:
+        raise AssertionError(f"attribution: the merge found {faults} order faults")
+    oldest = eng.oldest_version
+    pb = eng._pack(txns)
+    # The state the arms ran on, kept for attribution_busy: the engine's
+    # own dispatch below moves it on.
+    state = tuple(t.clone() for t in (eng._hkeys, eng._hvers, eng._hcount, eng._oldest))
+    # The engine's own dispatch of the batch, at the attribution's versions.
+    ticket = eng.dispatch_packed(pb, oldest + 8, oldest)
+    out, tc = ticket.out, pb.txn_cap
+    own = pa.outputs_digest((eng._hkeys, eng._hvers, eng._hcount, eng._oldest,
+                             out[4:4 + tc], out[0], out[1], out[4 + tc:4 + 2 * tc],
+                             out[4 + 2 * tc:]))
+    eng.readback_packed(ticket)
+    if own != rep["full"]["digest"]:
+        raise AssertionError("attribution: the full arm differs from the engine's dispatch")
+
+    m = rep["measured"]
+    kab = rep["kernel_ab"]
+    log(f"attribution: {len(txns)} txns (txn_cap {rep['shapes']['txn_cap']}) on phase 4's "
+        f"engine, {before[0]} rows at h_cap {eng.h_cap}, {len(arms)} arms x {runs} runs in "
+        f"{dt:.3f} s; full arm == the engine's dispatch, plain == kernel arm, history "
+        f"unchanged, launches {launches}; card {torch.cuda.get_device_name(0)}")
+    for name, blk in arms.items():
+        lo, hi = m["arm_device_ms_range"][name]
+        log(f"attribution arm {name} (ablate {blk['ablate']}): CUDA-event "
+            f"{m['arm_device_ms'][name]:.3f} ms (median of {runs - 1}, range {lo:.3f}-{hi:.3f}), "
+            f"host {m['arm_wall_seconds'][name] * 1e3:.3f} ms, fixpoint host checks "
+            f"{blk['host_checks']}, launches {blk['launches']}")
+    full_ms = m["full_device_ms"]
+    for ph, ms in m["phase_device_ms"].items():
+        kp = kab["measured_phase_device_ms"][ph]
+        log(f"attribution phase {ph}: {ms:.3f} ms CUDA-event ({ms / full_ms:.4f} of the "
+            f"full {full_ms:.3f}), host {m['phase_wall_seconds'][ph] * 1e3:.3f} ms; kernels "
+            f"{kp['kernels']:.3f} ms against plain {kp['plain']:.3f} ms")
+    kf = kab["measured_full_device_ms"]
+    log(f"attribution full step: kernels {kf['kernels']:.3f} ms against plain "
+        f"{kf['plain']:.3f} ms CUDA-event; host "
+        f"{kab['measured_full_wall_seconds']['kernels'] * 1e3:.3f} against "
+        f"{kab['measured_full_wall_seconds']['plain'] * 1e3:.3f} ms")
+    blob = np.empty((et.blob_words(pb),), np.uint32)
+    et.fill_blob(blob, pb, eng._base, oldest + 8, oldest, 1)
+    caps = dict(txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap, h_cap=eng.h_cap,
+                kw1=eng.key_words + 1)
+    busy = (state, torch.from_numpy(blob.view(np.int32)).cuda(), caps, rep, arms)
+    return launches, busy
+
+
+def attribution_busy(torch, et, pa, state, blob, caps, rep, arms):
+    """Phase 4a's device busy time, run last: every arm once more under
+    torch.profiler on the state phase 4a attributed (the profiler slows
+    the host's launches for the rest of the process, so no timed phase may
+    follow it).  Splits each phase's CUDA-event ms into device work and
+    the device's idle while the host enqueues the phase (for the fixpoint,
+    also its host checks)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    busy = {}
+    for name, blk in arms.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            et._blob_core(*state, blob, ablate=frozenset(blk["ablate"]), **caps)
+            torch.cuda.synchronize()
+        busy[name] = sum(e.self_device_time_total for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA) / 1e3
+    m = rep["measured"]
+    phase, plain = pa.split_phases(busy), pa.split_phases(busy, "plain_")
+    log("attribution busy (torch.profiler, one run an arm): "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in busy.items()))
+    for ph, ms in m["phase_device_ms"].items():
+        log(f"attribution busy phase {ph}: {ms:.3f} ms CUDA-event, of it device busy "
+            f"{phase[ph]:.3f} ms and idle {max(0.0, ms - phase[ph]):.3f} ms; plain step's "
+            f"busy {plain[ph]:.3f} ms")
+    full = m["full_device_ms"]
+    log(f"attribution busy full step: {busy['full']:.3f} ms of {full:.3f} ms CUDA-event "
+        f"(idle share {1 - busy['full'] / full:.4f}), plain {busy['plain_full']:.3f} ms of "
+        f"{m['arm_device_ms']['plain_full']:.3f}; not in any phase (phases 2-4's sort and "
+        f"stabbings, the witness): {busy['full'] - sum(phase.values()):.3f} ms busy; the "
+        f"fixpoint's {rep['full']['host_checks']} host check(s) sit in its idle")
 
 
 def first_chunk_sweep(torch, et, eng, batches):
@@ -1305,6 +1497,89 @@ def tiered_conflictset_vs_cpu(torch, api, T, faults):
         f"{runs['cuda'][0]}, transitions {[t[1:] for t in runs['cuda'][1]]}, equal on cuda "
         f"and cpu; compactions {c['major_compactions']}, grows {c['grows']}, rehydrates "
         f"{c['rehydrates']}, tiers {runs['cuda'][3]}")
+
+
+def program_table(torch, et):
+    """Phase 2c: the device program cost table on the card: every
+    registered program at its canonical shapes on a valid empty history,
+    with the bytes it allocates above its arguments and outputs."""
+    t0 = time.perf_counter()
+    table = et.program_cost_table(include_wall=True)
+    dt = time.perf_counter() - t0
+    hist = table.pop("_run_wall")
+    if set(table) != set(et.DEVICE_ENTRY_POINTS):
+        raise AssertionError(f"programs: table {sorted(table)} != registry "
+                             f"{sorted(et.DEVICE_ENTRY_POINTS)}")
+    for name, blk in table.items():
+        if "error" in blk or "temp" not in blk.get("memory", {}):
+            raise AssertionError(f"programs: {name}: {blk}")
+        wall = blk.pop("run_wall_seconds")
+        log(f"program {name}: temp {blk['memory']['temp']} B, run {wall * 1e3:.3f} ms, "
+            f"block {json.dumps(blk, sort_keys=True)}")
+    log(f"programs: {len(table)} entries in {dt:.3f} s, run wall {hist}; card "
+        f"{torch.cuda.get_device_name(0)}")
+
+
+def ablation_vs_cpu(torch, api, et, pa, T, faults):
+    """Phase 6e: at phase 6's reduced shape, every attribution arm's outputs
+    (their digests) equal on cuda and cpu from one engine state; then a
+    ConflictSet with amortized eviction (evict_every=3) under phase 6's
+    fault script (dispatch faults 1-3, a grow fault at the first probe)
+    on cuda and cpu: verdicts and witnesses equal each other's and
+    ConflictSet(backend="cpu")'s, and the injected log, breaker walk,
+    counters and exported state equal."""
+    n_txn, batches, window, keyspace = 4096, 12, 4, 200_000
+    rng = np.random.default_rng(7)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=keyspace), i + window, i)
+              for i in range(batches)]
+    reports = {}
+    for device in ("cuda", "cpu"):
+        eng = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 16, device=device)
+        for txns, now, nov in stream[:-1]:
+            eng.detect(txns, now, nov)
+        reports[device] = pa.attribute_phases(eng, stream[-1][0])
+    arms = {}
+    for device, rep in reports.items():
+        blocks = [rep["full"], rep["kernel_ab"]["plain_full"], *rep["phases"],
+                  *rep["kernel_ab"]["plain_phases"]]
+        arms[device] = {(tuple(b["ablate"]), b["host_checks"]): b["digest"] for b in blocks}
+    if arms["cuda"] != arms["cpu"]:
+        diff = [a for a in arms["cuda"] if arms["cuda"][a] != arms["cpu"].get(a)]
+        raise AssertionError(f"ablation arms differ on cuda and cpu: {diff}")
+    if not reports["cuda"]["kernel_ab"]["identical"]:
+        raise AssertionError("ablation arms: the plain full arm differs from the kernel arm")
+    want = drive(api.ConflictSet(backend="cpu", key_words=KEY_WORDS), stream, 1)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        inj = faults.DeviceFaultInjector()
+        for at in (1, 2, 3):
+            inj.script("dispatch", at=at)
+        inj.script("grow", at=1)
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 14, device=device,
+                             fault_injector=inj, evict_every=3)
+        if drive(cs, stream, 2) != want:
+            raise AssertionError(f"amortized fault run on {device}: verdicts/witnesses differ "
+                                 f"from the CPU backend's")
+        dm = cs.device_metrics()
+        report = cs.mirror_check()
+        if report["status"] != "ok":
+            raise AssertionError(f"amortized fault run on {device}: mirror_check {report}")
+        counters = dict(dm["counters"])
+        counters.pop("host_allocs")  # the pinned readback buffers, CUDA only
+        runs[device] = (inj.injected, dm["breaker"]["transitions"], counters,
+                        cs._dev.export_state(), report["below_window_keys"])
+    a, b = runs["cuda"], runs["cpu"]
+    same = [a[0] == b[0], a[1] == b[1], a[2] == b[2],
+            all(np.array_equal(x, y) for x, y in zip(a[3], b[3])), a[4] == b[4]]
+    if not all(same):
+        raise AssertionError(f"amortized fault runs differ on cuda and cpu: {same}")
+    walk = [(f, t) for _s, f, t, _r in a[1]]
+    log(f"ablation vs cpu: {len(arms['cuda'])} attribution arms at {n_txn} txns equal on cuda "
+        f"and cpu (digests of state, verdicts, iters, witnesses), plain == kernel; amortized "
+        f"ConflictSet(evict_every=3) under dispatch faults 1-3 and a grow fault: verdicts and "
+        f"witnesses equal ConflictSet(backend='cpu'), injected {a[0]}, walk {walk}, counters, "
+        f"exported state and below_window_keys {a[4]} equal on cuda and cpu; grows "
+        f"{a[2]['grows']}, rehydrates {a[2]['rehydrates']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1948,6 +2223,7 @@ def main(argv) -> int:
     from foundationdb_tpu_torch.conflict import engine_torch as et
     from foundationdb_tpu_torch.conflict import keys as keylib
     from foundationdb_tpu_torch.conflict import kernels as tk
+    from foundationdb_tpu_torch.conflict import phase_attribution as pa
     from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
     from foundationdb_tpu_torch.flow import buggify
     from foundationdb_tpu_torch.flow.rng import DeterministicRandom as DR
@@ -1971,6 +2247,8 @@ def main(argv) -> int:
     for name, text in logs.items():
         log(f"build {name}:\n{text.strip()}")
     log(f"build: {secs:.3f} s")
+    # 2c. the program table on the card
+    program_table(torch, et)
 
     # 3. kernels
     gen = torch.Generator(device="cuda")
@@ -1997,10 +2275,17 @@ def main(argv) -> int:
         for t in r["sharded"]:
             log_shape(r["name"], "sharded", t, f"{kind}, {smi}")
 
-    # 4. the main path, flat then tiered
-    launches, _tps, digests = main_path(torch, api, T, tk, rq, et, profile)
-    launches_tiered, _tps, _d = main_path(torch, api, T, tk, rq, et, profile,
-                                          tiered=True, want=digests)
+    # 4. the main path, flat; 4a. its step attributed by phase; then 4e
+    # (amortized flat eviction) and 4t (tiered)
+    launches, _tps, digests, cs, extra = main_path(torch, api, T, tk, rq, et, profile)
+    launches_attribution, busy = attribution_path(torch, et, tk, pa, cs._dev, extra[0][0])
+    del cs, extra
+    launches_amortized, _tps, _d, _cs, _x = main_path(torch, api, T, tk, rq, et, profile,
+                                                      mode="amortized", want=digests)
+    del _cs, _x
+    launches_tiered, _tps, _d, _cs, _x = main_path(torch, api, T, tk, rq, et, profile,
+                                                   mode="tiered", want=digests)
+    del _cs, _x
     # 4s. the sharded resolver's main path; 4r. resharded live
     launches_sharded, sharded_set, rng = sharded_path(torch, sr, tk, et, keylib)
     launches_resharded = resharded_path(torch, tk, et, sharded_set, rng)
@@ -2009,12 +2294,16 @@ def main(argv) -> int:
     versus_cpu(torch, et)
     conflictset_vs_cpu(torch, api, T, faults)
     tiered_conflictset_vs_cpu(torch, api, T, faults)
+    ablation_vs_cpu(torch, api, et, pa, T, faults)
     sharded_vs_cpu(torch, sr, faults, keylib)
     resharded_vs_cpu(torch, sr, faults, keylib)
     # 6c. chaos on the card: random faults at full width, then replayed
     # on cuda and cpu at the reduced shape
     launches_chaos = chaos_path(torch, api, T, tk, faults, buggify, DR, digests)
     chaos_vs_cpu(torch, api, sr, T, faults, buggify, DR, keylib)
+    # 4a's device busy under the profiler, after every timed phase
+    attribution_busy(torch, et, pa, *busy)
+    del busy
 
     # 7. result
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2025,6 +2314,8 @@ def main(argv) -> int:
         r["launches"] = launches[r["name"]]
     log(json.dumps({"kernels": [
         dict({k: r[k] for k in keys}, launches_tiered=launches_tiered[r["name"]],
+             launches_amortized=launches_amortized[r["name"]],
+             launches_attribution=launches_attribution[r["name"]],
              launches_sharded=launches_sharded[r["name"]],
              launches_resharded=launches_resharded[r["name"]],
              launches_chaos=launches_chaos[r["name"]],

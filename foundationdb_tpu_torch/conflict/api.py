@@ -29,8 +29,9 @@ snapshot.  The breaker is credited at that sync, never at dispatch.
 
 Settings the reference reads from environment knobs are constructor
 arguments here, with the reference's defaults (``history``, ``delta_cap``
-and ``evict_every`` select and size the tiered history, see
-engine_torch.TorchConflictSet).  The mirror applies every batch at once
+and ``evict_every`` select and size the tiered history, or in flat mode
+set the amortized eviction cadence, see engine_torch.TorchConflictSet;
+``program_costs`` is FDB_TPU_PROGRAM_COSTS).  The mirror applies every batch at once
 (no coalescing knob), and the device takes keys of at most
 ``min(MAX_DEVICE_KEY_BYTES, key_words * 4)`` bytes, the reference knob's
 default.  Only injected faults and out-of-memory errors reach the breaker;
@@ -153,6 +154,7 @@ class ConflictSet:
         history: str = "flat",
         delta_cap: int = 0,
         evict_every: int = 1,
+        program_costs: bool = False,
     ):
         if backend not in ("cpu", "torch", "hybrid"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -215,6 +217,9 @@ class ConflictSet:
         # Whichever engine serves a batch, its per-txn witness lands here.
         self._witness = witness
         self.last_witness: list = []
+        # device_metrics computes the program cost table itself (True), or
+        # shows it once some caller has (programs.cached_program_costs).
+        self.program_costs = program_costs
 
     @property
     def _jax(self):
@@ -571,12 +576,14 @@ class ConflictSet:
         authoritative; the device is marked stale).  O(H) host decode, so
         callers run it on a period, never per batch.
 
-        Tiered history evicts its base only at major compactions, so below
-        the window its rows may carry other (equally inert) versions than
-        the mirror's, which evicts every batch.  There a row-by-row
-        mismatch is a divergence only if the two histories also differ as
-        the window sees them (_above_window); the report's
-        ``below_window_keys`` counts the keys that differ only below it."""
+        Tiered history evicts its base only at major compactions, and flat
+        history with amortized eviction (``evict_every`` > 1) only every
+        evict_every-th batch, so below the window their rows may carry
+        other (equally inert) versions than the mirror's, which evicts
+        every batch.  There a row-by-row mismatch is a divergence only if
+        the two histories also differ as the window sees them
+        (_above_window); the report's ``below_window_keys`` counts the keys
+        that differ only below it."""
         if self._dev is None:
             return None
         m = self._dev.metrics
@@ -610,7 +617,8 @@ class ConflictSet:
                 if mirror.get(key) != device.get(key):
                     mismatch += 1
         below_window = 0
-        if (mismatch and self._dev.tiered and s.oldest_version == d_oldest
+        lazy = self._dev.tiered or self._dev.evict_every > 1
+        if (mismatch and lazy and s.oldest_version == d_oldest
                 and _above_window(mk, mv, d_oldest) == _above_window(dk, dv, d_oldest)):
             below_window, mismatch = mismatch, 0
         report = {
@@ -620,7 +628,7 @@ class ConflictSet:
             "mismatch_keys": mismatch,
             "stamp": s.stamp,
         }
-        if self._dev.tiered:
+        if lazy:
             report["below_window_keys"] = below_window
         if mismatch:
             m.counter("mirror_divergence").add()
@@ -667,6 +675,18 @@ class ConflictSet:
             "evict_scans": self._cpu.evict_scans,
             "evict_skips": self._cpu.evict_skips,
         }
+        # The device program cost table (programs.py): computed here only
+        # with program_costs (it runs every registered program once),
+        # otherwise shown once some caller has computed it.
+        from .programs import cached_program_costs, program_cost_table
+
+        dev = self._dev.device
+        if self.program_costs:
+            snap["programs"] = program_cost_table(device=dev)
+        else:
+            progs = cached_program_costs(dev)
+            if progs is not None:
+                snap["programs"] = progs
         return snap
 
     def clear(self, version: int):

@@ -21,6 +21,29 @@ commit_flat, commit_tiered), so that the sharded set
 before any shard commits; detect_core and detect_core_tiered run the two
 back to back.
 
+The flat step carries the reference's ablation seams (its FDB_TPU_ABLATE
+tokens, here the ``ablate`` argument, a subset of ABLATIONS) for in-step
+phase attribution (conflict/phase_attribution.py):
+
+  nosearch   phase 1 skips the history search: i0 = j1 = word 0 mod H
+  nofix      phase 3 skips the fixpoint rounds (and their host checks):
+             every undecided txn commits, iters = 1
+  nomerge    phases 5-6 are skipped: the history comes back unchanged,
+             the window advances unconditionally
+  noevict    phase 6 evicts nothing (window FLOOR_REL)
+  nokernel   the reference's non-kernel step: phase 1 by two plain
+             searches, phases 5-6 by the sort-by-target merge
+             (_merge_new_segments), the removeBefore rule (_evict_rule)
+             and a compaction sort (_compact_to), in plain PyTorch on the
+             same device; bit-identical to the kernel step.  Only a
+             caller's ``ablate`` reaches it: a kernel that fails to build
+             or launch still raises.
+
+The flat step also takes the reference's amortized eviction
+(``evict_every`` > 1): the blob's third scalar says whether this batch
+evicts, and a batch that does not keeps every merged row (the kernel step
+merges against the window FLOOR_REL).
+
 History is a word-major (kw1, h_cap) int32 key buffer (device word encoding,
 conflict/keys.py) plus (h_cap,) int32 versions relative to a host-held
 base; rows past the live count are INF / FLOOR_REL.  Tiered mode adds a
@@ -92,6 +115,21 @@ FIXPOINT_FIRST_CHUNK = 1
 FIXPOINT_CHUNK = 4
 
 I32 = torch.int32
+
+# The flat step's ablation seams (module docstring): the reference's
+# FDB_TPU_ABLATE tokens.
+ABLATIONS = frozenset({"nosearch", "nofix", "nomerge", "noevict", "nokernel"})
+
+
+def check_ablate(ablate) -> frozenset:
+    """`ablate` as a frozenset of ABLATIONS tokens; raises ValueError on any
+    other token."""
+    out = frozenset(ablate)
+    unknown = out - ABLATIONS
+    if unknown:
+        raise ValueError(f"unknown ablation tokens {sorted(unknown)}; "
+                         f"known: {sorted(ABLATIONS)}")
+    return out
 
 
 def _next_pow2(n: int, lo: int) -> int:
@@ -268,7 +306,9 @@ def _blob_offsets(txn_cap: int, rr_cap: int, wr_cap: int, kw1: int):
         wr_cap,  # w_txn (i32)
         txn_cap,  # t_snap_rel (i32)
         txn_cap,  # t_flags (bit0 has_reads, bit1 valid)
-        3,  # now_rel, new_oldest_rel, do_evict (i32; always 1, unread)
+        3,  # now_rel, new_oldest_rel, and the host's flag (i32): flat,
+        #     do_evict (1 unless amortized; read only when amortized);
+        #     tiered, do_major (not read on the device)
     ]
     offs, o = [], 0
     for s in sizes:
@@ -290,17 +330,20 @@ def _cumsum(x):
     return torch.cumsum(x, 0, dtype=I32)
 
 
-def _compact_to(pos, valid, words, width, count):
-    """Reorder columns of `words` [kw1, N] so column i lands at pos[i];
-    invalid columns drop off the end, slots at and past `count` are INF.
-    A stable sort by target position (positions of valid columns are
-    distinct)."""
+def _compact_to(pos, valid, words, width, count, vers=None):
+    """Reorder columns of `words` [kw1, N] (and of `vers` [N], when given)
+    so column i lands at pos[i]; invalid columns drop off the end, slots at
+    and past `count` are INF (versions FLOOR_REL).  A stable sort by target
+    position (positions of valid columns are distinct).  Returns the words,
+    or (words, vers)."""
     n = pos.shape[0]
     p = torch.where(valid, pos.to(I32), n + width + 2)
-    order = torch.sort(p, stable=True).indices
-    out = words[:, order][:, :width]
+    order = torch.sort(p, stable=True).indices[:width]
     live = _arange(width, words.device) < count
-    return torch.where(live[None, :], out, keylib.INF_DEV)
+    out = torch.where(live[None, :], words[:, order], keylib.INF_DEV)
+    if vers is None:
+        return out
+    return out, torch.where(live, vers[order], FLOOR_REL)
 
 
 def _agg_txn(flags, owner, txn_cap):
@@ -316,12 +359,14 @@ def _agg_txn(flags, owner, txn_cap):
 
 def _resolve_batch(
     r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_valid, status0,
-    *, txn_cap, rr_cap, wr_cap, on_sync=None,
+    *, txn_cap, rr_cap, wr_cap, on_sync=None, ablate=frozenset(),
 ):
     """Phases 2-4: point domain, intra-batch fixpoint, committed-write
     segment extraction.  Returns (status, iters, undecided_left, ub, ue,
     seg_valid, ib_flag) — ib_flag is the per-read-range intra-batch
-    conflict flag that the abort witness reads."""
+    conflict flag that the abort witness reads.  With ``nofix`` in
+    `ablate` the fixpoint's rounds and host checks are skipped and every
+    undecided txn commits."""
     dev = r_begin.device
     kw1 = r_begin.shape[0]
     TXN, RR, WR = txn_cap, rr_cap, wr_cap
@@ -385,11 +430,43 @@ def _resolve_batch(
 
     # -- residual compaction --
     RCAP = min(min(RR, WR), max(64, min(RR, WR) >> 4))
-    RP = 4 * RCAP
-    rp_log2 = max(1, math.ceil(math.log2(RP)))
     r_res = r_valid & (owner_status(status2, r_txn) == _UNDECIDED)
     w_res = w_valid & (owner_status(status2, w_txn) == _UNDECIDED)
     overflow = (r_res.sum() > RCAP) | (w_res.sum() > RCAP)
+    if "nofix" in ablate:
+        status = torch.where(status0 == _UNDECIDED, _COMM, status0).to(I32)
+        iters = torch.ones((), dtype=I32, device=dev)
+    else:
+        status, iters = _fixpoint(
+            status2, r_res, w_res, rb_idx, re_idx, r_txn, wb_idx, we_idx, w_txn,
+            txn_cap=TXN, rcap=RCAP, on_sync=on_sync)
+    # Residual overflow is treated like divergence: the host re-decides
+    # the batch on the CPU engine against the UNCHANGED history.
+    undecided_left = ((status == _UNDECIDED).sum() + overflow.to(torch.int64)).to(I32)
+
+    # Abort witness input: one more stabbing over the FINAL committed
+    # writers answers, per read range, whether an earlier committed txn's
+    # write intersects it (the CPU engine's `active.intersects`).
+    com_fin = w_valid & (owner_status(status, w_txn) == _COMM)
+    e_fin = read_query(stabbing_min(wb_idx, we_idx, w_txn, com_fin, p_log2))
+    ib_flag = r_valid & (e_fin < r_txn)
+    # ``nomerge`` reads no segments: the reference's compiler drops them.
+    segs = ((None, None, None) if "nomerge" in ablate
+            else _write_segments(sorted_keys, wb_idx, we_idx, com_fin, P=P, wr_cap=WR))
+    return (status, iters, undecided_left, *segs, ib_flag)
+
+
+def _fixpoint(status2, r_res, w_res, rb_idx, re_idx, r_txn, wb_idx, we_idx,
+              w_txn, *, txn_cap, rcap, on_sync):
+    """Phase 3's residual fixpoint at compact width, from round 2's
+    statuses: returns (status, iters)."""
+    dev = status2.device
+    TXN, RCAP = txn_cap, rcap
+    RP = 4 * RCAP
+    rp_log2 = max(1, math.ceil(math.log2(RP)))
+
+    def owner_status(status, owner):
+        return status[owner.clamp(0, TXN - 1).long()]
 
     def compact_1d(valid, cols, width):
         """Stable sort-by-target compaction of parallel int32 columns."""
@@ -456,19 +533,14 @@ def _resolve_batch(
         if not bool(looping(status, it)):
             break
         status, it = rounds(status, it, FIXPOINT_CHUNK)
-    iters = it
-    # Residual overflow is treated like divergence: the host re-decides
-    # the batch on the CPU engine against the UNCHANGED history.
-    undecided_left = ((status == _UNDECIDED).sum() + overflow.to(torch.int64)).to(I32)
+    return status, it
 
-    # Abort witness input: one more stabbing over the FINAL committed
-    # writers answers, per read range, whether an earlier committed txn's
-    # write intersects it (the CPU engine's `active.intersects`).
-    com_fin = w_valid & (owner_status(status, w_txn) == _COMM)
-    e_fin = read_query(stabbing_min(wb_idx, we_idx, w_txn, com_fin, p_log2))
-    ib_flag = r_valid & (e_fin < r_txn)
 
-    # ---- phase 4: committed-write union via point-domain coverage ----
+def _write_segments(sorted_keys, wb_idx, we_idx, com_fin, *, P, wr_cap):
+    """Phase 4: the committed writers' union as sorted, coalesced segments
+    (ub, ue, seg_valid) of at most wr_cap rows."""
+    dev = sorted_keys.device
+    WR = wr_cap
     delta = torch.zeros((P + 1,), dtype=I32, device=dev)
     delta.index_add_(0, torch.where(com_fin, wb_idx, P).long(), com_fin.to(I32))
     delta.index_add_(0, torch.where(com_fin, we_idx, P).long(), -com_fin.to(I32))
@@ -499,7 +571,7 @@ def _resolve_batch(
     ub = _compact_to(chain_id, chain_start & seg_valid, ub, WR, nseg2)
     ue = _compact_to(chain_id, is_chain_last & seg_valid, ue, WR, nseg2)
     seg_valid = _arange(WR, dev) < nseg2
-    return status, iters, undecided_left, ub, ue, seg_valid, ib_flag
+    return ub, ue, seg_valid
 
 
 def _merge_prep(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, *, width, wr_cap):
@@ -586,6 +658,60 @@ def _merge_evict_fused(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
     return out_keys, out_vers, out_count
 
 
+def _merge_new_segments(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, *,
+                        width, wr_cap):
+    """Phase 5 of the non-kernel step (``nokernel``): the same prep as the
+    kernel step, then one full-width sort by target position places every
+    kept row.  Returns (merged_keys, merged_vers, merged_count), rows past
+    the count INF / FLOOR_REL."""
+    (new_keys_s, new_vers_s, new_valid_s, keep_old, pos_old, pos_new,
+     merged_count) = _merge_prep(
+        tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
+        width=width, wr_cap=wr_cap,
+    )
+    merged_keys, merged_vers = _compact_to(
+        torch.cat([pos_old, pos_new]), torch.cat([keep_old, new_valid_s]),
+        torch.cat([tkeys, new_keys_s], dim=1), width, merged_count,
+        vers=torch.cat([tvers, new_vers_s]),
+    )
+    return merged_keys, merged_vers, merged_count
+
+
+def _evict_rule(merged_vers, merged_count, new_oldest, width):
+    """Phase 6's keep predicate (the removeBefore rule: drop row i > 0 iff
+    it and its predecessor are both below the window).  Returns (keep,
+    rank, out_count)."""
+    idx = _arange(width, merged_vers.device)
+    prev_v = torch.cat([
+        torch.full((1,), FLOOR_REL, dtype=I32, device=merged_vers.device),
+        merged_vers[:-1],
+    ])
+    keep = (idx < merged_count) & (
+        (idx == 0) | (merged_vers >= new_oldest) | (prev_v >= new_oldest))
+    return keep, _cumsum(keep) - 1, keep.sum(dtype=I32)
+
+
+def _merge_evict_plain(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
+                       new_oldest, do_evict, *, width, wr_cap, evict=True):
+    """Phases 5+6 of the non-kernel step: the sort-by-target merge, then
+    the eviction rule's compaction sort, unless ``evict`` is False
+    (``noevict``).  With ``do_evict`` (a 0-dim tensor: amortized eviction)
+    the merged rows are kept where it is 0, as the reference's cond keeps
+    them; the select runs on the device, without a host sync."""
+    merged_keys, merged_vers, merged_count = _merge_new_segments(
+        tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, width=width, wr_cap=wr_cap)
+    if not evict:
+        return merged_keys, merged_vers, merged_count
+    keep, rank, out_count = _evict_rule(merged_vers, merged_count, new_oldest, width)
+    out_keys, out_vers = _compact_to(rank, keep, merged_keys, width, out_count,
+                                     vers=merged_vers)
+    if do_evict is None:
+        return out_keys, out_vers, out_count
+    ev = do_evict != 0
+    return (torch.where(ev, out_keys, merged_keys), torch.where(ev, out_vers, merged_vers),
+            torch.where(ev, out_count, merged_count))
+
+
 def _out_status(too_old, status):
     """Final statuses in the reference's enum."""
     return torch.where(
@@ -640,7 +766,7 @@ class Decision(NamedTuple):
 
 def _decide(m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
             t_has_reads, t_valid, oldest, now_rel, *, txn_cap, rr_cap, wr_cap,
-            on_sync):
+            on_sync, ablate=frozenset()):
     """Phases 2-4 and the witness, from phase 1's per-range history max `m`
     and flags `r_hist`."""
     TXN = txn_cap
@@ -654,6 +780,7 @@ def _decide(m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
         _resolve_batch(
             r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_valid, status0,
             txn_cap=TXN, rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
+            ablate=ablate,
         )
     )
     w_ver, w_rng = _witness_vectors(
@@ -671,39 +798,69 @@ def decide_flat(
     t_snap, t_has_reads, t_valid,
     now_rel,
     *, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int, on_sync=None,
+    ablate=frozenset(),
 ) -> Decision:
     """The decide half of the flat step: phase 1 against the history, then
-    phases 2-4 and the witness."""
+    phases 2-4 and the witness.  `ablate` takes the seams of ABLATIONS
+    (module docstring); phase 1 reads ``nosearch`` and ``nokernel``."""
     H = h_cap
     r_nonempty = lex_less(r_begin, r_end)
     r_valid = r_txn < txn_cap
 
     # ---- phase 1: history conflicts (ref checkReadConflictRanges) ----
-    i0, j1 = phase1_search(hkeys, r_begin, r_end)
+    if "nosearch" in ablate:
+        # The reference's uint32 word 0 mod H: unflip the device word.
+        i0 = ((r_begin[0].to(torch.int64) + 2**31) % H).to(I32)
+        j1 = i0
+    elif "nokernel" in ablate:
+        i0 = searchsorted_words(hkeys, r_begin, "right") - 1
+        j1 = searchsorted_words(hkeys, r_end, "left") - 1
+    else:
+        i0, j1 = phase1_search(hkeys, r_begin, r_end)
     maxtab = build_max_table(hvers)
     m = range_max(maxtab, i0.clamp(0, H - 1), j1.clamp(0, H - 1))
     r_hist = r_valid & r_nonempty & (j1 >= i0) & (m > r_snap)
     return _decide(
         m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
         t_has_reads, t_valid, oldest, now_rel, txn_cap=txn_cap,
-        rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
+        rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync, ablate=ablate,
     )
 
 
 def commit_flat(hkeys, hvers, hcount, oldest, dec: Decision, now_rel,
-                new_oldest_rel, undecided, *, h_cap: int, wr_cap: int):
+                new_oldest_rel, undecided, *, h_cap: int, wr_cap: int,
+                ablate=frozenset(), do_evict=None):
     """The commit half of the flat step: phases 5-6 (merge + removeBefore
     eviction, one kernel) and the divergence guard.  `undecided` is the
     count the guard reads: the step's own, or the sum over the shards of a
     sharded step.  If it is not 0 the statuses are unreliable and so is the
     write merge derived from them, so the history reverts UNCHANGED and the
-    host re-runs the batch on the CPU engine.  Returns (keys, vers, count,
-    oldest)."""
+    host re-runs the batch on the CPU engine.  `do_evict` (amortized
+    eviction) is the blob's 0-dim flag: where it is 0 the batch evicts
+    nothing.  `ablate` takes ``nomerge`` (the history comes back unchanged
+    and the window advances without the guard), ``noevict`` and
+    ``nokernel``.  Returns (keys, vers, count, oldest)."""
+    if "nomerge" in ablate:
+        return hkeys, hvers, hcount, torch.maximum(oldest, new_oldest_rel).to(I32)
     new_oldest = torch.maximum(oldest, new_oldest_rel)
-    out_keys, out_vers, out_count = _merge_evict_fused(
-        hkeys, hvers, hcount, dec.ub, dec.ue, dec.seg_valid, now_rel,
-        new_oldest, width=h_cap, wr_cap=wr_cap,
-    )
+    if "nokernel" in ablate:
+        out_keys, out_vers, out_count = _merge_evict_plain(
+            hkeys, hvers, hcount, dec.ub, dec.ue, dec.seg_valid, now_rel,
+            new_oldest, do_evict, width=h_cap, wr_cap=wr_cap,
+            evict="noevict" not in ablate,
+        )
+    else:
+        # Eviction is the window: FLOOR_REL keeps every row.
+        if "noevict" in ablate:
+            window = torch.full((), FLOOR_REL, dtype=I32, device=hkeys.device)
+        elif do_evict is not None:
+            window = torch.where(do_evict != 0, new_oldest, FLOOR_REL).to(I32)
+        else:
+            window = new_oldest
+        out_keys, out_vers, out_count = _merge_evict_fused(
+            hkeys, hvers, hcount, dec.ub, dec.ue, dec.seg_valid, now_rel,
+            window, width=h_cap, wr_cap=wr_cap,
+        )
     ok = undecided == 0
     return (
         torch.where(ok, out_keys, hkeys),
@@ -718,22 +875,27 @@ def detect_core(
     r_begin, r_end, r_txn, r_snap,
     w_begin, w_end, w_txn,
     t_snap, t_has_reads, t_valid,
-    now_rel, new_oldest_rel,
+    now_rel, new_oldest_rel, do_evict=None,
     *, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int, on_sync=None,
+    ablate=frozenset(),
 ):
-    """The flat conflict step (the reference detect_core with kernels on,
-    witness on, eviction every batch): decide_flat then commit_flat.  Key
-    words are in the device encoding; scalars are 0-dim int32 tensors.
-    Returns (out_keys, out_vers, out_count, new_oldest, out_status,
-    undecided_left, iters, w_ver, w_rng).  `on_sync` is called before each
-    host sync the fixpoint makes."""
+    """The flat conflict step (the reference detect_core with kernels on
+    and witness on): decide_flat then commit_flat.  Key words are in the
+    device encoding; scalars are 0-dim int32 tensors.  ``do_evict`` None
+    evicts every batch; a 0-dim tensor is amortized eviction's flag.
+    `ablate` is a subset of ABLATIONS (module docstring; the default runs
+    the step as served).  Returns (out_keys, out_vers, out_count,
+    new_oldest, out_status, undecided_left, iters, w_ver, w_rng).
+    `on_sync` is called before each host sync the fixpoint makes."""
     dec = decide_flat(
         hkeys, hvers, oldest, r_begin, r_end, r_txn, r_snap, w_begin, w_end,
         w_txn, t_snap, t_has_reads, t_valid, now_rel, txn_cap=txn_cap,
         rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap, on_sync=on_sync,
+        ablate=ablate,
     )
     state = commit_flat(hkeys, hvers, hcount, oldest, dec, now_rel,
-                        new_oldest_rel, dec.undecided, h_cap=h_cap, wr_cap=wr_cap)
+                        new_oldest_rel, dec.undecided, h_cap=h_cap, wr_cap=wr_cap,
+                        ablate=ablate, do_evict=do_evict)
     return state + (dec.status, dec.undecided, dec.iters, dec.w_ver, dec.w_rng)
 
 
@@ -961,8 +1123,8 @@ def _unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1):
     on the device), key fields flipped into the device word encoding:
     (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap,
     t_has_reads, t_valid, now_rel, new_oldest_rel).  The blob's third
-    scalar (the flat blob's 1, the tiered blob's compaction flag) is the
-    host's own and is not read here."""
+    scalar (the host's flag, its last word) is not unpacked here: see
+    _blob_core."""
     offs, _total = _blob_offsets(txn_cap, rr_cap, wr_cap, kw1)
 
     def field(i, n):
@@ -983,13 +1145,17 @@ def _unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1):
 
 
 def _blob_core(hkeys, hvers, hcount, oldest, blob, *, txn_cap, rr_cap,
-               wr_cap, h_cap, kw1, on_sync=None):
-    """The flat step on one blob."""
+               wr_cap, h_cap, kw1, on_sync=None, amortized=False,
+               ablate=frozenset()):
+    """The flat step on one blob.  ``amortized`` reads the blob's last
+    word, the host's flag, as do_evict (the reference reads it only then);
+    `ablate` as detect_core."""
     return detect_core(
         hkeys, hvers, hcount, oldest,
         *_unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1),
+        blob[-1] if amortized else None,
         txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap,
-        on_sync=on_sync,
+        on_sync=on_sync, ablate=ablate,
     )
 
 
@@ -1004,6 +1170,17 @@ def _tiered_blob_core(hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount,
         do_major=do_major, txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap,
         h_cap=h_cap, d_cap=d_cap, on_sync=on_sync,
     )
+
+
+def _rebase_core(vers, d):
+    """Versions shifted down by the host's rebase amount `d`, floored."""
+    return torch.clamp(vers - d, min=FLOOR_REL)
+
+
+def _grow_core(buf, *, pad: int, fill: int):
+    """`buf` with `pad` columns of `fill` appended along its last axis."""
+    tail = torch.full((*buf.shape[:-1], pad), fill, dtype=buf.dtype, device=buf.device)
+    return torch.cat([buf, tail], dim=-1)
 
 
 def fold_delta_over_base(bkeys, bvers, dkeys, dvers_rel, base):
@@ -1077,9 +1254,14 @@ class TorchConflictSet:
     ``max(64, h_cap // 8)``, folded into the base by a major compaction
     when the delta may not fit the next batch and every ``evict_every``
     batches; ``evict_every=1`` means on fill only).  In flat mode
-    ``evict_every`` must be 1: the reference's amortized eviction is not
-    ported.  ``pipeline_depth`` sizes the blob staging ring (depth + 1
-    buffers per blob length, at least 2).
+    ``evict_every`` > 1 is the reference's amortized eviction: every
+    ``evict_every``-th batch evicts below the window and the others keep
+    their merged rows (decisions are the same: a row below the window
+    conflicts with no snapshot the window admits).  ``pipeline_depth``
+    sizes the blob staging ring (depth + 1 buffers per blob length, at
+    least 2).  ``ablate`` (a subset of ABLATIONS, flat only) runs every
+    dispatch with those seams cut, as the reference's FDB_TPU_ABLATE does;
+    phase_attribution.attribute_phases passes its arms per call instead.
 
     Counters live in ``metrics``, a registry named ``TorchConflict`` with
     the reference engine's counter names; ``batches``, ``fixpoint_rounds``,
@@ -1121,21 +1303,27 @@ class TorchConflictSet:
         delta_cap: int = 0,
         evict_every: int = 1,
         pipeline_depth: int = 2,
+        ablate=frozenset(),
     ):
         if history not in ("flat", "tiered"):
             raise ValueError(f"unknown history mode {history!r}")
         if evict_every < 1:
             raise ValueError(f"evict_every must be at least 1, got {evict_every}")
-        if history == "flat" and evict_every > 1:
-            raise ValueError("evict_every > 1 (amortized eviction) is supported "
-                             "only with history='tiered'")
+        self.ablate = check_ablate(ablate)
+        if history == "tiered" and self.ablate:
+            raise ValueError("ablate is not supported with history='tiered' (the "
+                             "ablation seams live in the flat step only)")
         self.device = resolve_device(device)
         self.key_words = key_words
         self.h_cap = h_cap
         self.bucket_mins = bucket_mins
         self.tiered = history == "tiered"
-        # Tiered: compaction cadence (0 = fill-triggered only) and delta
-        # capacity, as the reference derives them from its knobs.
+        # Flat: the eviction cadence (amortized when above 1) and the
+        # batches since the last evicting one.  Tiered: the compaction
+        # cadence (0 = fill-triggered only) and delta capacity, as the
+        # reference derives them from its knobs.
+        self.evict_every = evict_every
+        self._batches_since_evict = 0
         self.compact_every = evict_every if self.tiered and evict_every > 1 else 0
         self.d_cap = max(64, delta_cap if delta_cap > 0 else h_cap // 8) if self.tiered else 0
         self.pipeline_depth = max(1, pipeline_depth)
@@ -1280,12 +1468,12 @@ class TorchConflictSet:
                 self._check_fault("rebase")
                 self.metrics.counter("rebases").add()
                 try:
-                    self._hvers = torch.clamp(self._hvers - d, min=FLOOR_REL)
+                    self._hvers = _rebase_core(self._hvers, d)
                     if self.tiered:
                         # Rebase commutes with max: the delta and the
                         # carried table shift by the same constant.
-                        self._dvers = torch.clamp(self._dvers - d, min=FLOOR_REL)
-                        self._maxtab = torch.clamp(self._maxtab - d, min=FLOOR_REL)
+                        self._dvers = _rebase_core(self._dvers, d)
+                        self._maxtab = _rebase_core(self._maxtab, d)
                 except torch.OutOfMemoryError as e:
                     raise DeviceOOM(f"cuda: {e}", site="rebase") from e
                 self._oldest = self._oldest - d
@@ -1343,16 +1531,9 @@ class TorchConflictSet:
         self._check_fault("grow")
         self.metrics.counter("grows").add()
         pad = new_cap - self.h_cap
-        kw1 = self.key_words + 1
         try:
-            hkeys = torch.cat([
-                self._hkeys,
-                torch.full((kw1, pad), keylib.INF_DEV, dtype=I32, device=self.device),
-            ], dim=1)
-            hvers = torch.cat([
-                self._hvers,
-                torch.full((pad,), FLOOR_REL, dtype=I32, device=self.device),
-            ])
+            hkeys = _grow_core(self._hkeys, pad=pad, fill=keylib.INF_DEV)
+            hvers = _grow_core(self._hvers, pad=pad, fill=FLOOR_REL)
             maxtab = None
             if self.tiered and rebuild_maxtab:
                 self._sync()
@@ -1371,16 +1552,9 @@ class TorchConflictSet:
         self._check_fault("grow")
         self.metrics.counter("grows").add()
         pad = new_cap - self.d_cap
-        kw1 = self.key_words + 1
         try:
-            dkeys = torch.cat([
-                self._dkeys,
-                torch.full((kw1, pad), keylib.INF_DEV, dtype=I32, device=self.device),
-            ], dim=1)
-            dvers = torch.cat([
-                self._dvers,
-                torch.full((pad,), FLOOR_REL, dtype=I32, device=self.device),
-            ])
+            dkeys = _grow_core(self._dkeys, pad=pad, fill=keylib.INF_DEV)
+            dvers = _grow_core(self._dvers, pad=pad, fill=FLOOR_REL)
         except torch.OutOfMemoryError as e:
             raise DeviceOOM(f"cuda: {e}", site="grow") from e
         self._dkeys, self._dvers = dkeys, dvers
@@ -1435,8 +1609,8 @@ class TorchConflictSet:
     def _pack_blob(self, pb: PackedBatch, now: int, new_oldest_version: int,
                    flag: int = 1) -> np.ndarray:
         """Single contiguous uint32 blob for one-copy dispatch (fill_blob),
-        written into a staging buffer.  ``flag`` is the third scalar: 1 in
-        flat mode, the compaction flag in tiered mode."""
+        written into a staging buffer.  ``flag`` is the third scalar: in
+        flat mode do_evict, in tiered mode the compaction flag."""
         blob = self._staging_blob(blob_words(pb))
         return fill_blob(blob, pb, self._base, now, new_oldest_version, flag)
 
@@ -1450,10 +1624,11 @@ class TorchConflictSet:
         # The tiered plan runs before the shape key: a grow changes it.
         do_major = self._plan_tiered_batch(pb.wr_cap) if self.tiered else 0
         kw1 = self.key_words + 1
+        amortized = not self.tiered and self.evict_every > 1
         if self.tiered:
             shape_key = (pb.bucket(), self.h_cap, kw1, "tiered", self.d_cap)
         else:
-            shape_key = (pb.bucket(), self.h_cap, kw1)
+            shape_key = (pb.bucket(), self.h_cap, kw1, amortized)
         first_dispatch = shape_key not in self._bucket_dispatches
         if first_dispatch:
             # Registered only after the dispatch succeeds, so the retry of
@@ -1472,7 +1647,14 @@ class TorchConflictSet:
             self.last_occupancy["delta"] = self._dcount_bound / self.d_cap
         for axis, occ in self.last_occupancy.items():
             m.histogram(f"{axis}_occupancy").add(occ)
-        blob = self._pack_blob(pb, now, new_oldest_version, do_major if self.tiered else 1)
+        flag = do_major
+        if not self.tiered:
+            # The reference's eviction cadence (1: every batch evicts).
+            self._batches_since_evict += 1
+            flag = 1 if self._batches_since_evict >= self.evict_every else 0
+            if flag:
+                self._batches_since_evict = 0
+        blob = self._pack_blob(pb, now, new_oldest_version, flag)
         caps = dict(txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
                     h_cap=self.h_cap, kw1=kw1, on_sync=self._sync)
         try:
@@ -1488,7 +1670,7 @@ class TorchConflictSet:
                 (hkeys, hvers, hcount, oldest, statuses, undecided, iters,
                  w_ver, w_rng) = _blob_core(
                     self._hkeys, self._hvers, self._hcount, self._oldest,
-                    blob_dev, **caps,
+                    blob_dev, amortized=amortized, ablate=self.ablate, **caps,
                 )
                 dcount = self._no_delta
             out = torch.cat([torch.stack([undecided, iters, hcount, dcount]),
@@ -1739,3 +1921,13 @@ class TorchConflictSet:
         absolute versions)."""
         cpu.keys, cpu.vers = self._merged_host_state()
         cpu.oldest_version = self.oldest_version
+
+
+# The device program registry lives in programs.py (its factories import
+# this module lazily).
+from .programs import (  # noqa: E402
+    DEVICE_ENTRY_POINTS,
+    cached_program_costs,
+    program_cost_table,
+    register_entry_point,
+)

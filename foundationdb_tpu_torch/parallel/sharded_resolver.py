@@ -30,6 +30,11 @@ two cross-shard reductions need the step split in two here:
   commit   phases 5-6 of every active shard against the combined count;
            a masked shard keeps its slice.
 
+The three are ``sharded_step`` and ``sharded_step_tiered``, module
+functions that update the stacked state in place; the device program
+registry (conflict/programs.py) holds them as the reference's
+``sharded_step_kernels`` and ``sharded_step_tiered``.
+
 Around the device path, every shard has its own always-authoritative
 chunked CPU mirror (updated with the shard's LOCAL verdicts each batch) and
 its own circuit breaker, counters namespaced ``shard<k>_*`` in one registry
@@ -110,6 +115,90 @@ def _clip_batch(lo, hi, r_begin, r_end, r_txn, w_begin, w_end, txn_cap):
     we = _lex_min(w_end, hi)
     r_ne = lex_less(rb, re_) & (r_txn < txn_cap)
     return rb, re_, wb, we, et._agg_txn(r_ne, r_txn, txn_cap)
+
+
+def _sharded_step(lo, hi, active, state, batch, do_major, *, allowed, txn_cap,
+                  rr_cap, wr_cap, h_cap, d_cap, on_sync):
+    """One batch over every shard: decide every shard (a masked one
+    included: its iteration count enters iters, as the reference's
+    shard_map runs every body), combine the undecided counts and the
+    witness over the ACTIVE shards (`active` on the device, `allowed` its
+    host copy), commit each active shard against the combined count.  The
+    stacked `state` tensors are updated IN PLACE, shard slice by slice,
+    which keeps one copy of the history on the device.  Returns
+    (undecided, iters, statuses [S, txn_cap], w_ver, w_rng)."""
+    tiered = len(state) == 8
+    (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
+     now_rel, new_oldest_rel) = batch
+    caps = dict(txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap)
+    if tiered:
+        hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest = state
+    else:
+        hkeys, hvers, hcount, oldest = state
+    decs = []
+    for s in range(lo.shape[0]):
+        rb, re_, wb, we, t_has_reads = _clip_batch(
+            lo[s], hi[s], r_begin, r_end, r_txn, w_begin, w_end, txn_cap)
+        shard_batch = (rb, re_, r_txn, r_snap, wb, we, w_txn, t_snap, t_has_reads,
+                       t_valid, now_rel)
+        if tiered:
+            decs.append(et.decide_tiered(
+                hkeys[s], maxtab[s], dkeys[s], dvers[s], oldest[s], *shard_batch,
+                d_cap=d_cap, on_sync=on_sync, **caps))
+        else:
+            decs.append(et.decide_flat(
+                hkeys[s], hvers[s], oldest[s], *shard_batch, on_sync=on_sync, **caps))
+    undecided = torch.where(active, torch.stack([d.undecided for d in decs]), 0).sum().to(I32)
+    iters = torch.stack([d.iters for d in decs]).max()
+    # Witness combine over the active shards.
+    w_rng = torch.stack([d.w_rng for d in decs])
+    w_ver = torch.stack([d.w_ver for d in decs])
+    rng = torch.where(active[:, None], w_rng, et.WITNESS_NONE_RANGE).amin(0)
+    ver = torch.where(active[:, None] & (w_rng == rng), w_ver, FLOOR_REL).amax(0)
+    for s in range(lo.shape[0]):
+        if not allowed[s]:
+            continue  # a masked shard keeps its slice
+        views = tuple(t[s] for t in state)
+        if tiered:
+            new = et.commit_tiered(*views, decs[s], now_rel, new_oldest_rel, undecided,
+                                   do_major=bool(do_major), h_cap=h_cap,
+                                   d_cap=d_cap, wr_cap=wr_cap)
+        else:
+            new = et.commit_flat(*views, decs[s], now_rel, new_oldest_rel, undecided,
+                                 h_cap=h_cap, wr_cap=wr_cap)
+        for view, t in zip(views, new):
+            if t is not view:
+                view.copy_(t)
+    return (undecided, iters.to(I32), torch.stack([d.status for d in decs]),
+            ver.to(I32), rng.to(I32))
+
+
+def sharded_step(lo, hi, active, hkeys, hvers, hcount, oldest,
+                 r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn,
+                 t_snap, t_valid, now_rel, new_oldest_rel, *, allowed,
+                 txn_cap, rr_cap, wr_cap, h_cap, on_sync=None):
+    """The flat sharded step (the reference's sharded_step_kernels, one
+    device): the batch's fields are unpacked on the device, every state
+    tensor is stacked [S, ...] and updated in place.  See _sharded_step."""
+    return _sharded_step(
+        lo, hi, active, (hkeys, hvers, hcount, oldest),
+        (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
+         now_rel, new_oldest_rel), 0, allowed=allowed, txn_cap=txn_cap, rr_cap=rr_cap,
+        wr_cap=wr_cap, h_cap=h_cap, d_cap=0, on_sync=on_sync)
+
+
+def sharded_step_tiered(lo, hi, active, hkeys, hvers, hcount, maxtab, dkeys, dvers,
+                        dcount, oldest, r_begin, r_end, r_txn, r_snap, w_begin,
+                        w_end, w_txn, t_snap, t_valid, now_rel, new_oldest_rel,
+                        do_major, *, allowed, txn_cap, rr_cap, wr_cap, h_cap, d_cap,
+                        on_sync=None):
+    """The tiered sharded step (the reference's sharded_step_tiered):
+    ``do_major`` is the host's compaction flag.  See _sharded_step."""
+    return _sharded_step(
+        lo, hi, active, (hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest),
+        (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
+         now_rel, new_oldest_rel), do_major, allowed=allowed, txn_cap=txn_cap,
+        rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap, d_cap=d_cap, on_sync=on_sync)
 
 
 def _translate_witness(wit, rmap):
@@ -799,14 +888,6 @@ class ShardedTorchConflictSet:
         ring.events[slot].record()
         return blob_dev
 
-    def _shard_views(self, s: int) -> tuple:
-        """Shard s's slice of every state tensor, in the order of the
-        commit functions' arguments and results."""
-        if self.tiered:
-            return (self._hkeys[s], self._hvers[s], self._hcount[s], self._maxtab[s],
-                    self._dkeys[s], self._dvers[s], self._dcount[s], self._oldest[s])
-        return self._hkeys[s], self._hvers[s], self._hcount[s], self._oldest[s]
-
     def _device_serve(self, pb, now, new_oldest_version, allowed, do_major, rows) -> bool:
         """One batch on the device with the active-shard mask: decide every
         shard, combine, commit the active ones, one readback.  Fills `rows`
@@ -816,55 +897,30 @@ class ShardedTorchConflictSet:
         m = self.metrics
         S, kw1 = self.n_shards, self.key_words + 1
         TXN = pb.txn_cap
-        caps = dict(txn_cap=TXN, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap, h_cap=self.h_cap)
         self._step_for(pb)
         (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, _t_has_reads,
          t_valid, now_rel, new_oldest_rel) = et._unpack_blob(
             self._upload(pb, now, new_oldest_version), TXN, pb.rr_cap, pb.wr_cap, kw1)
-        decs = []
-        for s in range(S):
-            # Every shard decides, a masked one included: its iteration
-            # count enters last_iters as in the reference.
-            rb, re_, wb, we, t_has_reads = _clip_batch(
-                self._lo[s], self._hi[s], r_begin, r_end, r_txn, w_begin, w_end, TXN)
-            batch = (rb, re_, r_txn, r_snap, wb, we, w_txn, t_snap, t_has_reads,
-                     t_valid, now_rel)
-            if self.tiered:
-                decs.append(et.decide_tiered(
-                    self._hkeys[s], self._maxtab[s], self._dkeys[s], self._dvers[s],
-                    self._oldest[s], *batch, d_cap=self.d_cap, on_sync=self._sync, **caps))
-            else:
-                decs.append(et.decide_flat(
-                    self._hkeys[s], self._hvers[s], self._oldest[s], *batch,
-                    on_sync=self._sync, **caps))
         act = self._masks.get(tuple(allowed))
         if act is None:
             act = self._masks[tuple(allowed)] = torch.tensor(allowed, device=self.device)
-        undecided = torch.where(act, torch.stack([d.undecided for d in decs]), 0).sum().to(I32)
-        iters = torch.stack([d.iters for d in decs]).max()
-        # Witness combine over the active shards.
-        w_rng = torch.stack([d.w_rng for d in decs])
-        w_ver = torch.stack([d.w_ver for d in decs])
-        rng = torch.where(act[:, None], w_rng, et.WITNESS_NONE_RANGE).amin(0)
-        ver = torch.where(act[:, None] & (w_rng == rng), w_ver, FLOOR_REL).amax(0)
-        for s in range(S):
-            if not allowed[s]:
-                continue  # a masked shard keeps its slice
-            views = self._shard_views(s)
-            if self.tiered:
-                new = et.commit_tiered(*views, decs[s], now_rel, new_oldest_rel, undecided,
-                                       do_major=bool(do_major), h_cap=self.h_cap,
-                                       d_cap=self.d_cap, wr_cap=pb.wr_cap)
-            else:
-                new = et.commit_flat(*views, decs[s], now_rel, new_oldest_rel, undecided,
-                                     h_cap=self.h_cap, wr_cap=pb.wr_cap)
-            for view, t in zip(views, new):
-                if t is not view:
-                    view.copy_(t)
+        batch = (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
+                 now_rel, new_oldest_rel)
+        caps = dict(allowed=allowed, txn_cap=TXN, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
+                    h_cap=self.h_cap, on_sync=self._sync)
+        if self.tiered:
+            undecided, iters, status, ver, rng = sharded_step_tiered(
+                self._lo, self._hi, act, self._hkeys, self._hvers, self._hcount,
+                self._maxtab, self._dkeys, self._dvers, self._dcount, self._oldest,
+                *batch, do_major, d_cap=self.d_cap, **caps)
+        else:
+            undecided, iters, status, ver, rng = sharded_step(
+                self._lo, self._hi, act, self._hkeys, self._hvers, self._hcount,
+                self._oldest, *batch, **caps)
         dcount = self._dcount if self.tiered else torch.zeros_like(self._hcount)
         out = torch.cat([
-            torch.stack([undecided, iters.to(I32)]), self._hcount, dcount, self._oldest,
-            torch.stack([d.status for d in decs]).reshape(-1), ver.to(I32), rng.to(I32),
+            torch.stack([undecided, iters]), self._hcount, dcount, self._oldest,
+            status.reshape(-1), ver, rng,
         ])
         self._sync()
         arr = out.cpu().numpy()
@@ -1280,3 +1336,67 @@ class ShardedTorchConflictSet:
         entry["reused_mirrors"] = reused
         self.move_log.append(entry)
         return entry
+
+
+# ---------------------------------------------------------------------------
+# The sharded steps in the device program registry (conflict/programs.py),
+# at the reference's canonical sharded shapes.
+# ---------------------------------------------------------------------------
+
+EP_SHARDS, EP_SHARD_H, EP_SHARD_D = 2, 2048, 256
+
+
+def _ep_sharded_args(dev, tiered: bool):
+    from ..conflict import programs
+
+    S, kw1 = EP_SHARDS, programs.EP_KW1
+    cs = ShardedTorchConflictSet(uniform_int_split_keys(S, 1 << 16, 4), key_words=kw1 - 1,
+                                 h_cap=EP_SHARD_H, device=dev,
+                                 history="tiered" if tiered else "flat",
+                                 delta_cap=EP_SHARD_D)
+    pb = programs.ep_batch(kw1)
+    blob = np.empty((et.blob_words(pb),), np.uint32)
+    et.fill_blob(blob, pb, 0, 8, 0, 1)
+    (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, _t_has_reads, t_valid,
+     now_rel, new_oldest_rel) = et._unpack_blob(
+        torch.from_numpy(blob.view(np.int32).copy()).to(dev), pb.txn_cap, pb.rr_cap,
+        pb.wr_cap, kw1)
+    state = (cs._hkeys, cs._hvers, cs._hcount)
+    if tiered:
+        state += (cs._maxtab, cs._dkeys, cs._dvers, cs._dcount)
+    args = (cs._lo, cs._hi, torch.ones((S,), dtype=torch.bool, device=dev), *state,
+            cs._oldest, r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap,
+            t_valid, now_rel, new_oldest_rel)
+    statics = dict(allowed=[True] * S, txn_cap=pb.txn_cap, rr_cap=pb.rr_cap,
+                   wr_cap=pb.wr_cap, h_cap=EP_SHARD_H)
+    if tiered:
+        # The host's compaction flag: a compaction batch.
+        args += (torch.ones((), dtype=torch.int32),)
+        statics["d_cap"] = EP_SHARD_D
+    return args, statics
+
+
+def _ep_sharded_step_kernels(dev):
+    args, statics = _ep_sharded_args(dev, tiered=False)
+    return sharded_step, args, statics
+
+
+def _ep_sharded_step_tiered(dev):
+    args, statics = _ep_sharded_args(dev, tiered=True)
+    return sharded_step_tiered, args, statics
+
+
+_SHARDED_BATCH_ARGS = ("r_begin", "r_end", "r_txn", "r_snap", "w_begin", "w_end", "w_txn",
+                       "t_snap", "t_valid", "now_rel", "new_oldest_rel")
+
+et.register_entry_point(
+    "sharded_step_kernels", _ep_sharded_step_kernels,
+    arg_names=("lo", "hi", "active", "hkeys", "hvers", "hcount", "oldest")
+    + _SHARDED_BATCH_ARGS,
+    carried=("hkeys", "hvers", "hcount", "oldest"), pinned=("lo", "hi"), kernel=True)
+et.register_entry_point(
+    "sharded_step_tiered", _ep_sharded_step_tiered,
+    arg_names=("lo", "hi", "active", "hkeys", "hvers", "hcount", "maxtab", "dkeys",
+               "dvers", "dcount", "oldest") + _SHARDED_BATCH_ARGS + ("do_major",),
+    carried=("hkeys", "hvers", "hcount", "maxtab", "dkeys", "dvers", "dcount", "oldest"),
+    pinned=("lo", "hi"), kernel=True)

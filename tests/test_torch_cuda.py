@@ -587,3 +587,101 @@ def test_random_faults_on_the_card_match_the_cpu_sharded(dev, buggify_off):
     assert runs[0] == runs[1]
     assert runs[0][1] and {site.split("#")[1] for _q, site, _k in runs[0][1]} >= {"s0", "s1"}
     assert tk.merge_contract_faults(dev) == 0
+
+
+def _engines_at(dev, stream, **kw):
+    """A TorchConflictSet on the GPU and one on the CPU, each after the
+    stream."""
+    out = []
+    for device in (None, "cpu"):
+        eng = et.TorchConflictSet(key_words=3, h_cap=512, bucket_mins=BUCKETS, device=device,
+                                  **kw)
+        for txns, now, nov in stream:
+            eng.detect(txns, now, nov)
+        out.append(eng)
+    return out
+
+
+def test_ablation_arms_on_the_card_match_the_cpu(dev):
+    """Every attribution arm (each ablation, and each again on the plain
+    non-kernel step) gives the same outputs on the GPU as on the CPU; the
+    kernel arms launch the kernels they keep once a run, the plain arms
+    none, and the plain full arm equals the kernel full arm."""
+    from foundationdb_tpu_torch.conflict import phase_attribution as pa
+
+    stream = _stream(43, 60, batches=8, txns_per_batch=30)
+    gpu, cpu = _engines_at(dev, stream[:-1])
+    reps = [pa.attribute_phases(eng, stream[-1][0]) for eng in (gpu, cpu)]
+
+    def arms(rep):
+        kab = rep["kernel_ab"]
+        blocks = [rep["full"], *rep["phases"], kab["plain_full"], *kab["plain_phases"]]
+        return [(b["ablate"], b["host_checks"], b["digest"]) for b in blocks], blocks
+
+    (g, g_blocks), (c, _c_blocks) = arms(reps[0]), arms(reps[1])
+    assert g == c
+    assert reps[0]["kernel_ab"]["identical"]
+    keeps = {"nosearch": (0, 1), "nomerge": (1, 0)}
+    for b in g_blocks:
+        toks = set(b["ablate"])
+        want = (0, 0) if "nokernel" in toks else next(
+            (keeps[t] for t in toks if t in keeps), (1, 1))
+        assert (b["launches"]["phase1_ranks"], b["launches"]["fused_merge_evict"]) == want, b
+    assert tk.merge_contract_faults(dev) == 0
+
+
+def test_nokernel_engine_on_the_card_launches_nothing(dev):
+    """An engine built with ablate={"nokernel"} serves a stream on the GPU
+    without a kernel launch, bit for bit as the kernel engine does."""
+    stream = _stream(47, 60, batches=6, txns_per_batch=30)
+    kern = et.TorchConflictSet(key_words=3, h_cap=512, bucket_mins=BUCKETS)
+    plain = et.TorchConflictSet(key_words=3, h_cap=512, bucket_mins=BUCKETS,
+                                ablate={"nokernel"})
+    for txns, now, nov in stream:
+        want = kern.detect(txns, now, nov)
+        before = dict(tk.LAUNCHES)
+        assert plain.detect(txns, now, nov) == want
+        assert tk.LAUNCHES == before
+        assert plain.last_witness == kern.last_witness and plain.last_iters == kern.last_iters
+        for x, y in zip(plain.export_state(), kern.export_state()):
+            assert np.array_equal(x, y)
+
+
+def test_amortized_eviction_on_the_card_matches_the_cpu(dev):
+    """TorchConflictSet(evict_every=3) on the GPU and the CPU: identical
+    verdicts, witnesses, iterations and exported state after every batch,
+    through growth; and ConflictSet(evict_every=3): mirror_check ok."""
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+
+    stream = _stream(53, 300, batches=12, txns_per_batch=30)
+    gpu = et.TorchConflictSet(key_words=3, h_cap=160, bucket_mins=BUCKETS, evict_every=3)
+    cpu = et.TorchConflictSet(key_words=3, h_cap=160, bucket_mins=BUCKETS, evict_every=3,
+                              device="cpu")
+    _run_both(stream, gpu, cpu)
+    assert gpu.grows >= 1 and gpu.h_cap == cpu.h_cap
+    cs = ConflictSet(key_words=3, h_cap=160, bucket_mins=BUCKETS, evict_every=3)
+    for txns, now, nov in stream[:-1]:
+        b = cs.new_batch()
+        for t in txns:
+            b.add_transaction(t)
+        b.detect_conflicts(now, nov)
+    report = cs.mirror_check()
+    assert report["status"] == "ok" and "below_window_keys" in report
+    assert tk.merge_contract_faults(dev) == 0
+
+
+def test_program_table_on_the_card(dev):
+    """Every registered program runs on the GPU at its canonical shapes;
+    each step entry allocates temporaries above its arguments and outputs."""
+    import foundationdb_tpu_torch.parallel  # noqa: F401  registers the sharded steps
+    from foundationdb_tpu_torch.conflict import programs
+
+    table = programs.program_cost_table()
+    assert set(table) == set(programs.DEVICE_ENTRY_POINTS)
+    for name, blk in table.items():
+        assert "error" not in blk, blk
+        assert blk["memory"]["temp"] >= 0
+    for name in ("flat_step_kernels", "flat_step", "tiered_step_kernels",
+                 "sharded_step_kernels", "sharded_step_tiered"):
+        assert table[name]["memory"]["temp"] > 0, name
+    assert programs.cached_program_costs(dev) == table

@@ -502,10 +502,14 @@ def test_tiered_metrics_surface(monkeypatch):
 
 
 def test_flat_history_takes_no_compaction_cadence():
-    """Amortized eviction in flat mode is not ported: evict_every > 1
-    there is refused, and so is an unknown history mode."""
+    """In flat mode evict_every is the amortized eviction cadence
+    (tests/test_torch_amortized.py), never a compaction cadence; below 1
+    it is refused, and so is an unknown history mode."""
+    amortized = TorchConflictSet(device="cpu", evict_every=2)
+    assert amortized.evict_every == 2 and amortized.compact_every == 0
+    assert amortized.d_cap == 0
     with pytest.raises(ValueError, match="evict_every"):
-        TorchConflictSet(device="cpu", evict_every=2)
+        TorchConflictSet(device="cpu", evict_every=0)
     with pytest.raises(ValueError, match="history"):
         ConflictSet(device="cpu", history="layered")
     flat = TorchConflictSet(device="cpu", key_words=3, h_cap=1 << 10)
