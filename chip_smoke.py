@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole check, about fifteen minutes
+    python3 chip_smoke.py            # the whole check, about sixteen minutes
     python3 chip_smoke.py --profile  # also a host/device time split and a
                                      # torch.profiler table of batches of
                                      # the main paths (flat, amortized and
@@ -79,6 +79,26 @@ Phases, in order; any failure exits non-zero:
                phase.  Each arm's device busy time under torch.profiler
                waits for the end of the script (7.), because the profiler
                slows the host's launches for the rest of the process
+  4g. 2level   three TorchConflictSets loaded from phase 4's end state (its
+               mirror's snapshot, through load_from): search "" and
+               search "2level" at strides 512 and 1024.  One of phase 4's
+               extra batches on each: statuses, witnesses and exported
+               state identical, one launch of each kernel an arm.  Then the
+               step on that state, 1 warm + 5 timed runs an arm, the arms
+               taking turns: the CUDA-event span of the step and of the
+               merge prep's two searches; and searchsorted_words alone on
+               the merge prep's own inputs (3,145,728 rows, 2 x 65,536
+               segment endpoints), flat against 2level, bit for bit
+  4w. witness-free  phase 4's stream, seed and scale through ConflictSet(
+               witness=False): every batch's verdicts equal phase 4's and
+               every witness is [], decode_witness never runs (a counter
+               around it in this script), and phase 4's checks (launches,
+               no fallback, mirror_check "ok", no growth).  Prints phase
+               4's columns beside phase 4's own
+  4c. coalesced  4w with mirror_coalesce="auto" (a fold every 2 batches at
+               depth 2): the same checks, 4 note_synced calls and 4 folds
+               in the 8 timed batches; prints the mirror apply, fold and
+               note_synced ms beside phase 4's
   4e. amortized  the same stream and seed through ConflictSet(key_words=2,
                h_cap=3,538,944, evict_every=4) at depth 2 (the bench's
                evict4 arm): every batch's verdicts and witnesses equal
@@ -152,6 +172,13 @@ Phases, in order; any failure exits non-zero:
                under phase 6's fault script equal on cuda and cpu
                (verdicts, witnesses, injected log, breaker walk, counters,
                exported state) and to ConflictSet(backend="cpu")
+  6w. settings vs cpu  8 batches of 2,048 transactions on cuda and cpu,
+               every batch's verdict and witness digest equal: witness=
+               False (TorchConflictSet and 4 shards, flat and tiered),
+               mirror_coalesce 2 and "auto" at depths 1-3 (also equal to
+               ConflictSet(backend="cpu"), as many note_synced calls), and
+               search="2level" at h_cap 1 << 16 (TorchConflictSet and 4
+               shards, flat and tiered, also equal to the flat search)
   6s. sharded set vs cpu  ShardedTorchConflictSet with 4 shards on a
                reduced stream, on the GPU and on the CPU, flat and tiered,
                from 4,096 rows a shard (so it grows): a dispatch outage on
@@ -191,7 +218,9 @@ Phases, in order; any failure exits non-zero:
                the state they were attributed on: each phase's device busy
                and idle ms; then one JSON line per kernel table (launches: the flat main
                path's; launches_attribution: phase 4a's, every arm's runs;
-               launches_amortized: phase 4e's timed batches;
+               launches_witness_free, launches_coalesced: phases 4w's and
+               4c's timed batches; launches_amortized: phase 4e's timed
+               batches;
                launches_tiered: the tiered one's; launches_sharded:
                the sharded one's; launches_resharded: phase 4r's 9
                batches; launches_chaos: phase 6c(a)'s 60 batches; tiered
@@ -994,59 +1023,133 @@ class DispatchSpans:
         return major, minor
 
 
-def main_path(torch, api, T, tk, rq, et, profile: bool, mode="flat", want=None):
+def bench_batches(T) -> list:
+    """The bench stream's WARM + TIMED + 4 batches of PER_BATCH
+    transactions (seed 2026), made once and shared by every full-width
+    ConflictSet path: building 65,536 transactions takes the host about
+    half a second a batch.  The objects are then frozen out of the garbage
+    collector's sweeps (gc.freeze), so that a later collection does not
+    walk millions of them."""
+    rng = np.random.default_rng(2026)
+    batches = [gen_txns(T, rng, PER_BATCH, i) for i in range(WARM + TIMED + 4)]
+    gc.collect()
+    gc.freeze()
+    return batches
+
+
+class DecodeCalls:
+    """Counts the calls of engine_torch.decode_witness, and their wall
+    seconds, while installed (the witness decode of every batch readback)."""
+
+    def __init__(self, et):
+        self.et, self.real, self.calls, self.seconds = et, et.decode_witness, 0, 0.0
+        et.decode_witness = self
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        out = self.real(*args)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+    def remove(self):
+        self.et.decode_witness = self.real
+
+
+class SettleTimes:
+    """Wall seconds of each fold of the mirror's coalesced batches (its
+    _settle with batches queued), while installed."""
+
+    def __init__(self, cpu):
+        self.cpu, self.real, self.folds = cpu, cpu._settle, []
+        cpu._settle = self
+
+    def __call__(self):
+        pending = self.cpu.pending_batches
+        t0 = time.perf_counter()
+        self.real()
+        if pending:
+            self.folds.append((pending, time.perf_counter() - t0))
+
+    def remove(self):
+        del self.cpu._settle
+
+
+def path_mode(mode: str):
+    """(label, ConflictSet settings) of a main-path mode: flat (phase 4),
+    amortized (4e, the bench's evict4 arm: room for EVICT_EVERY - 1
+    unevicted batches), tiered (4t, the tiered4 arm), witness-free (4w),
+    and witness-free with the mirror's coalesced apply (4c)."""
+    return {
+        "flat": ("main", dict(h_cap=H_CAP)),
+        "amortized": ("amortized", dict(h_cap=TIERED_H_CAP, evict_every=EVICT_EVERY)),
+        "tiered": ("tiered", dict(h_cap=TIERED_H_CAP, history="tiered",
+                                  evict_every=EVICT_EVERY, delta_cap=D_CAP)),
+        "witness_free": ("witness-free", dict(h_cap=H_CAP, witness=False)),
+        "coalesced": ("coalesced", dict(h_cap=H_CAP, witness=False, mirror_coalesce="auto")),
+    }[mode]
+
+
+def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=None):
     """The bench stream through ConflictSet at depth 2, as a Resolver
-    serves it: flat (phase 4), with the tiered4 settings (phase 4t), or
-    flat with the evict4 arm's amortized eviction (phase 4e); the last two
-    must give every batch's verdicts and witnesses as `want`, the flat
-    run's digests.  Returns (launches of the timed batches, txn/s, every
-    batch's digest, the set, the 4 extra batches packed for its engine)."""
+    serves it, in one of path_mode's modes, on the bench stream's
+    `batches` (bench_batches).  Every mode but the flat one must give
+    every batch's verdicts as `want` (phase 4's result), and its witnesses
+    too where the witness is on (a witness-free mode's are all []).
+    Returns a dict: launches of the timed batches, txn/s, every batch's
+    digest (verdicts and witness) and verdict digest, the set, the 4
+    extra batches, and the stats its log line prints."""
     depth = 2
     tiered, amortized = mode == "tiered", mode == "amortized"
-    label = {"flat": "main", "tiered": "tiered", "amortized": "amortized"}[mode]
+    label, settings = path_mode(mode)
+    witness = settings.get("witness", True)
     gc.collect()  # an earlier phase's garbage is not this path's cost
-    rng = np.random.default_rng(2026)
+    cs = api.ConflictSet(key_words=KEY_WORDS, pipeline_depth=depth, **settings)
     if tiered:
-        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=TIERED_H_CAP, pipeline_depth=depth,
-                             history="tiered", evict_every=EVICT_EVERY, delta_cap=D_CAP)
         # A search of both tiers a batch; a delta merge a batch and a
         # compaction every EVICT_EVERY batches (WARM is a multiple of it).
         expect = {"phase1_ranks": 2 * TIMED, "fused_merge_evict": TIMED + TIMED // EVICT_EVERY}
-    elif amortized:
-        # The bench's evict4 arm: room for EVICT_EVERY - 1 unevicted batches.
-        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=TIERED_H_CAP, pipeline_depth=depth,
-                             evict_every=EVICT_EVERY)
-        expect = {name: TIMED for name in tk.LAUNCHES}
     else:
-        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth)
         expect = {name: TIMED for name in tk.LAUNCHES}
     eng, m = cs._dev, cs._dev.metrics
+    window = cs._cpu.coalesce_window
     caps0 = (eng.h_cap, eng.d_cap)
-    digests = []
-    t0 = time.perf_counter()
-    drive(cs, ((gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i) for i in range(WARM)), depth,
-          sink=lambda st, w: digests.append(digest(st, w)))
-    torch.cuda.synchronize()
-    log(f"{label}: {WARM} warm-up batches through ConflictSet in "
-        f"{time.perf_counter() - t0:.3f} s, boundaries (bound) {eng.boundary_count_bound}")
-    timed = [(gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i)
-             for i in range(WARM, WARM + TIMED)]
-    extra = [(gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i)
-             for i in range(WARM + TIMED, WARM + TIMED + 4)]
-    syncs0, allocs0, rounds0 = eng.host_syncs, eng.host_allocs, eng.fixpoint_rounds
-    wall0 = m.snapshot(include_wall=True)["wall"]
-    spans = DispatchSpans(torch, eng)
-    gc.collect()
-    pauses = GcPauses()
-    for name in tk.LAUNCHES:
-        tk.LAUNCHES[name] = 0
-    t0 = time.perf_counter()
-    out = drive(cs, timed, depth)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(tk.LAUNCHES)
-    gc_ms = pauses.remove() / TIMED * 1e3
-    major_ms, minor_ms = spans.remove()
+    pairs, last = [], [None]
+
+    def sink(st, w):
+        pairs.append((digest(st, w), digest(st, []), len(w)))
+        last[0] = st
+
+    stream = [(batches[i], i + WINDOW, i) for i in range(WARM + TIMED + 4)]
+    decodes = DecodeCalls(et)
+    try:
+        t0 = time.perf_counter()
+        drive(cs, stream[:WARM], depth, sink=sink)
+        torch.cuda.synchronize()
+        log(f"{label}: {WARM} warm-up batches through ConflictSet in "
+            f"{time.perf_counter() - t0:.3f} s, boundaries (bound) {eng.boundary_count_bound}")
+        timed, extra = stream[WARM : WARM + TIMED], stream[WARM + TIMED :]
+        syncs0, allocs0, rounds0 = eng.host_syncs, eng.host_allocs, eng.fixpoint_rounds
+        decodes0 = (decodes.calls, decodes.seconds)
+        wall0 = m.snapshot(include_wall=True)["wall"]
+        spans = DispatchSpans(torch, eng)
+        settles = SettleTimes(cs._cpu)
+        gc.collect()
+        pauses = GcPauses()
+        for name in tk.LAUNCHES:
+            tk.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        drive(cs, timed, depth, sink=sink)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(tk.LAUNCHES)
+        gc_ms = pauses.remove() / TIMED * 1e3
+        settles.remove()
+        major_ms, minor_ms = spans.remove()
+    finally:
+        decodes.remove()
+    n_decodes = decodes.calls - decodes0[0]
+    decode_ms = (decodes.seconds - decodes0[1]) / TIMED * 1e3
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches} in {TIMED} batches, expected {expect}")
     if eng.cpu_fallbacks != 0:
@@ -1057,16 +1160,28 @@ def main_path(torch, api, T, tk, rq, et, profile: bool, mode="flat", want=None):
     if (eng.h_cap, eng.d_cap) != caps0:
         raise AssertionError(f"{label}: history grew from (h_cap, d_cap) {caps0} to "
                              f"{(eng.h_cap, eng.d_cap)}")
-    s = np.asarray(out[-1][0])
-    if not ((s >= 0) & (s <= 2)).all() or not (s == 2).any():
-        raise AssertionError(f"{label}: verdicts out of range or none committed")
-    if len(out[-1][1]) != PER_BATCH:
-        raise AssertionError(f"{label}: no witness for the last batch")
-    digests.extend(digest(st, w) for st, w in out)
-    if want is not None and digests != want:
-        first = next(i for i, (a, b) in enumerate(zip(digests, want)) if a != b)
-        raise AssertionError(f"{label}: batch {first}'s verdicts or witnesses differ from "
-                             f"the flat path's")
+    if len(pairs) != WARM + TIMED:
+        raise AssertionError(f"{label}: {len(pairs)} batches answered of {WARM + TIMED}")
+    digests = [d for d, _v, _e in pairs]
+    verdicts = [v for _d, v, _e in pairs]
+    if witness:
+        if any(n != PER_BATCH for _d, _v, n in pairs[WARM:]):
+            raise AssertionError(f"{label}: a timed batch came back without its witness")
+        if n_decodes != TIMED:
+            raise AssertionError(f"{label}: decode_witness ran {n_decodes} times in {TIMED} "
+                                 f"timed batches")
+    else:
+        if any(n for _d, _v, n in pairs):
+            raise AssertionError(f"{label}: a witness came back with the witness off")
+        if decodes.calls != 0:
+            raise AssertionError(f"{label}: decode_witness ran {decodes.calls} times with the "
+                                 f"witness off")
+    if want is not None:
+        mine, theirs = (digests, want["digests"]) if witness else (verdicts, want["verdicts"])
+        if mine != theirs:
+            first = next(i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b)
+            raise AssertionError(f"{label}: batch {first}'s verdicts or witnesses differ from "
+                                 f"the flat path's")
     counters = m.snapshot()["counters"]
     for name in ("device_faults", "breaker_opens", "degraded_batches", "cpu_fallback_txns",
                  "pipeline_replayed_batches"):
@@ -1082,14 +1197,22 @@ def main_path(torch, api, T, tk, rq, et, profile: bool, mode="flat", want=None):
         raise AssertionError(f"{label}: {len(major_ms)} evicting batches in the {TIMED} timed")
     wall = m.snapshot(include_wall=True)["wall"]
 
-    def per_batch_ms(name):
+    def wall_ms(name, samples):
         n = wall[name]["count"] - wall0[name]["count"]
-        if n != TIMED:
-            raise AssertionError(f"{label}: {name}: {n} samples in {TIMED} timed batches")
-        return (wall[name]["seconds"] - wall0[name]["seconds"]) / n * 1e3
+        if n != samples:
+            raise AssertionError(f"{label}: {name}: {n} samples in {TIMED} timed batches, "
+                                 f"expected {samples}")
+        return (wall[name]["seconds"] - wall0[name]["seconds"]) * 1e3
 
-    apply_ms = per_batch_ms("mirror_apply_seconds")
-    synced_ms = per_batch_ms("note_synced_seconds")
+    apply_ms = wall_ms("mirror_apply_seconds", TIMED) / TIMED
+    # The synced point moves once a fold: every batch, or every K-th one
+    # with the coalesced apply (the warm-up's drain leaves no fold pending).
+    synced_calls = TIMED // window
+    synced_ms = wall_ms("note_synced_seconds", synced_calls) / TIMED
+    if window > 1 and len(settles.folds) != synced_calls:
+        raise AssertionError(f"{label}: {len(settles.folds)} folds in {TIMED} timed batches "
+                             f"at window {window}")
+    fold_ms = sum(t for _n, t in settles.folds) / TIMED * 1e3
     t1 = time.perf_counter()
     report = cs.mirror_check()
     check_s = time.perf_counter() - t1
@@ -1105,13 +1228,24 @@ def main_path(torch, api, T, tk, rq, et, profile: bool, mode="flat", want=None):
                       f"{', '.join(f'{x:.3f}' for x in minor_ms)})")
     else:
         spans_text = f"{np.mean(minor_ms):.3f} ms"
+    s = np.asarray(last[0])
+    if not ((s >= 0) & (s <= 2)).all() or not (s == 2).any():
+        raise AssertionError(f"{label}: verdicts out of range or none committed")
+    stats = dict(tps=tps, ms=dt / TIMED * 1e3, apply_ms=apply_ms, synced_ms=synced_ms,
+                 synced_calls=synced_calls, fold_ms=fold_ms, folds=len(settles.folds),
+                 decode_ms=decode_ms, decodes=n_decodes, span_ms=float(np.mean(minor_ms)),
+                 syncs=(eng.host_syncs - syncs0) / TIMED)
     log(f"{label}: {TIMED} timed batches x {PER_BATCH} txns through ConflictSet "
-        f"(depth {depth}) in {dt:.6f} s: {tps:.1f} txn/s, {dt / TIMED * 1e3:.3f} ms/batch; "
-        f"mirror apply {apply_ms:.3f} ms/batch, note_synced {synced_ms:.3f} ms/batch, "
+        f"(depth {depth}, witness {'on' if witness else 'off'}, mirror fold window {window}) "
+        f"in {dt:.6f} s: {tps:.1f} txn/s, {dt / TIMED * 1e3:.3f} ms/batch; "
+        f"mirror apply {apply_ms:.3f} ms/batch, note_synced {synced_ms:.3f} ms/batch "
+        f"({synced_calls} calls), coalesced folds {len(settles.folds)} "
+        f"({fold_ms:.3f} ms/batch), witness decode {decode_ms:.3f} ms/batch "
+        f"({n_decodes} calls), "
         f"garbage collection {gc_ms:.3f} ms/batch; device span a batch: {spans_text}; "
         f"conflicts {int((s == 0).sum())}/{PER_BATCH} in the last batch, "
         f"{'base rows' if tiered else 'boundaries'} {n}, "
-        f"host syncs/batch {(eng.host_syncs - syncs0) / TIMED}, "
+        f"host syncs/batch {stats['syncs']}, "
         f"host allocs in the timed batches {eng.host_allocs - allocs0} "
         f"({allocs0} before), "
         f"fixpoint rounds/batch {(eng.fixpoint_rounds - rounds0) / TIMED}, "
@@ -1121,13 +1255,165 @@ def main_path(torch, api, T, tk, rq, et, profile: bool, mode="flat", want=None):
         f"{check_s:.3f} s), "
         f"card {torch.cuda.get_device_name(0)}")
     if want is not None:
-        log(f"{label}: all {len(digests)} batches' verdicts and witnesses equal the flat path's")
+        what = "verdicts and witnesses" if witness else "verdicts"
+        log(f"{label}: all {len(pairs)} batches' {what} equal the flat path's")
     packed = [(eng._pack(t), now, nov) for t, now, nov in extra]
     if mode == "flat":
         first_chunk_sweep(torch, et, eng, packed)
     if profile:
         profile_batches(torch, eng, packed, label)
-    return launches, tps, digests, cs, extra
+    return dict(launches=launches, tps=tps, digests=digests, verdicts=verdicts, cs=cs,
+                extra=extra, stats=stats)
+
+
+def log_beside(label, mine, stats, other):
+    """One line of PERF.md's section 5 columns for a path (its stats
+    `mine`) beside another path's (stats[other])."""
+    base = stats[other]
+    cols = (("txn/s", "tps", "{:.1f}"), ("ms/batch", "ms", "{:.3f}"),
+            ("mirror apply ms/batch", "apply_ms", "{:.3f}"),
+            ("note_synced ms/batch", "synced_ms", "{:.3f}"),
+            ("note_synced calls", "synced_calls", "{}"),
+            ("coalesced fold ms/batch", "fold_ms", "{:.3f}"),
+            ("witness decode ms/batch", "decode_ms", "{:.3f}"),
+            ("witness decode calls", "decodes", "{}"),
+            ("device span ms/batch", "span_ms", "{:.3f}"),
+            ("host syncs/batch", "syncs", "{}"))
+    log(f"{label} beside {other}: " + "; ".join(
+        f"{name} {fmt.format(mine[key])} vs {fmt.format(base[key])}"
+        for name, key, fmt in cols))
+
+
+# Phase 4g's arms: the flat search and the 2level one at two strides.
+SEARCH_ARMS = (("flat", "", 512), ("2level/512", "2level", 512),
+               ("2level/1024", "2level", 1024))
+SEARCH_RUNS = 5  # timed steps an arm, after its warm one, the arms taking turns
+
+
+class SearchSpans:
+    """CUDA events around each call of engine_torch.searchsorted_words while
+    installed: in the flat kernel step these are the merge prep's two
+    searches of the segment endpoints into the history.  Keeps the first
+    call's arguments."""
+
+    def __init__(self, torch, et):
+        self.torch, self.et, self.real, self.spans, self.first = (
+            torch, et, et.searchsorted_words, [], None)
+        et.searchsorted_words = self
+
+    def __call__(self, keys, q, side, **kw):
+        if self.first is None:
+            self.first = (keys, q)
+        a, b = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = self.real(keys, q, side, **kw)
+        b.record()
+        self.spans.append((a, b))
+        return out
+
+    def take(self) -> list:
+        """The spans recorded since the last take, in ms."""
+        self.torch.cuda.synchronize()
+        out = [a.elapsed_time(b) for a, b in self.spans]
+        self.spans = []
+        return out
+
+    def remove(self):
+        self.et.searchsorted_words = self.real
+
+
+def search_path(torch, et, tk, rq, cs, txns, now, nov):
+    """Phase 4g: the 2level search at full width.  One TorchConflictSet an
+    arm of SEARCH_ARMS, each loaded from phase 4's end state (its mirror's
+    snapshot) through load_from, takes one bench batch: the statuses,
+    witnesses and exported state must be identical across the arms, and
+    each launches both kernels once.  Then the step on that state and
+    batch, SEARCH_RUNS timed runs an arm, the arms taking turns (outputs
+    never assigned back): the CUDA-event span of the whole step and of the
+    merge prep's two searches.  Last, searchsorted_words alone on the merge
+    prep's own inputs (the history and its 2 x 65,536 segment endpoints),
+    flat against 2level, bit for bit."""
+    gc.collect()
+    snap = cs._cpu.snapshot()
+    engines, results = {}, {}
+    for name, mode, stride in SEARCH_ARMS:
+        t0 = time.perf_counter()
+        eng = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, search=mode,
+                                  search_stride=stride)
+        eng.load_from(snap)
+        torch.cuda.synchronize()
+        engines[name] = (eng, time.perf_counter() - t0)
+    pb = engines["flat"][0]._pack(txns)
+    kw1 = KEY_WORDS + 1
+    blob = torch.from_numpy(et.fill_blob(np.empty((et.blob_words(pb),), np.uint32), pb,
+                                         engines["flat"][0]._base, now, nov, 1)
+                            .view(np.int32).copy()).cuda()
+    states = {name: (eng._hkeys, eng._hvers, eng._hcount, eng._oldest)
+              for name, (eng, _t) in engines.items()}
+    caps = dict(txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap, h_cap=H_CAP, kw1=kw1)
+    spans = SearchSpans(torch, et)
+    step_ms = {name: [] for name in engines}
+    prep_ms = {name: [] for name in engines}
+    try:
+        for run in range(SEARCH_RUNS + 1):
+            for name, mode, stride in SEARCH_ARMS:
+                torch.cuda.synchronize()
+                spans.take()
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                out = et._blob_core(*states[name], blob, search=mode, search_stride=stride,
+                                    **caps)
+                b.record()
+                b.synchronize()
+                searches = spans.take()
+                if len(searches) != 2:
+                    raise AssertionError(f"search {name}: {len(searches)} searches in a step")
+                if run:
+                    step_ms[name].append(a.elapsed_time(b))
+                    prep_ms[name].append(sum(searches))
+                del out
+        merge_keys, merge_q = spans.first
+    finally:
+        spans.remove()
+    for name, (eng, load_s) in engines.items():
+        before = dict(tk.LAUNCHES)
+        st = eng.detect_packed(pb, now, nov)
+        launches = {k: tk.LAUNCHES[k] - before[k] for k in before}
+        if launches != {k: 1 for k in before}:
+            raise AssertionError(f"search {name}: launches {launches} in one batch")
+        results[name] = (st.copy(), list(eng.last_witness), eng.export_state())
+    want = results["flat"]
+    for name, got in results.items():
+        if not (np.array_equal(got[0], want[0]) and got[1] == want[1]
+                and all(np.array_equal(x, y) for x, y in zip(got[2], want[2]))):
+            raise AssertionError(f"search {name}: statuses, witnesses or state differ from flat")
+    if tk.merge_contract_faults("cuda"):
+        raise AssertionError("search: the merge found order faults")
+    for name, (eng, load_s) in engines.items():
+        log(f"search {name}: load_from phase 4's snapshot ({snap.boundary_count} keys) "
+            f"{load_s * 1e3:.3f} ms; step {np.median(step_ms[name]):.3f} ms CUDA-event "
+            f"(median of {SEARCH_RUNS}: {', '.join(f'{x:.3f}' for x in step_ms[name])}), "
+            f"merge prep's two searches {np.median(prep_ms[name]):.3f} ms "
+            f"({', '.join(f'{x:.3f}' for x in prep_ms[name])}); "
+            f"card {torch.cuda.get_device_name(0)}")
+    log(f"search: {pb.n_txn} txns on {snap.boundary_count} rows at h_cap {H_CAP}: statuses, "
+        f"witnesses and exported state identical across {[a[0] for a in SEARCH_ARMS]}, "
+        f"one launch of each kernel an arm")
+    alone = {}
+    for side in ("left", "right"):
+        want_r = rq.searchsorted_words(merge_keys, merge_q, side)
+        for name, mode, stride in SEARCH_ARMS:
+            got = rq.searchsorted_words(merge_keys, merge_q, side, mode=mode, stride=stride)
+            if not torch.equal(got, want_r):
+                raise AssertionError(f"search alone {name} {side}: ranks differ from flat")
+            alone[(name, side)] = cuda_ms_warm(
+                lambda: rq.searchsorted_words(merge_keys, merge_q, side, mode=mode,
+                                              stride=stride), 20)
+    log(f"search alone: searchsorted_words over {merge_keys.shape[1]} rows x "
+        f"{merge_q.shape[1]} queries (the merge prep's), bit for bit; warm ms " + ", ".join(
+            f"{name} {side} {alone[(name, side)]:.3f}" for name, _m, _s in SEARCH_ARMS
+            for side in ("left", "right")) + f"; card {torch.cuda.get_device_name(0)}")
+    del engines, states
 
 
 # Timed runs of each attribution arm (after its warm run).  On the H100 an
@@ -1582,6 +1868,96 @@ def ablation_vs_cpu(torch, api, et, pa, T, faults):
         f"{a[2]['grows']}, rehydrates {a[2]['rehydrates']}")
 
 
+def settings_vs_cpu(torch, api, et, sr, tk, T, keylib):
+    """Phase 6w: this slice's settings at a reduced shape, each run on cuda
+    and on cpu with every batch's verdicts and witnesses digested: the
+    witness-free step (TorchConflictSet flat and tiered, 4 shards flat and
+    tiered; last_witness always []), ConflictSet(mirror_coalesce=2 and
+    "auto") at depths 1-3 (also equal to ConflictSet(backend="cpu"), with
+    as many note_synced calls on both devices), and search="2level" at
+    h_cap 1 << 16, the 2level form's least width (TorchConflictSet flat
+    and tiered, 4 shards flat and tiered; also equal to the flat search).
+    Exported state equal on both devices; the cuda runs launch the
+    kernels."""
+    n_txn, batches, window, keyspace = 2048, 8, 4, 200_000
+    rng = np.random.default_rng(11)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=keyspace), i + window, i)
+              for i in range(batches)]
+    split = keylib.uniform_int_split_keys(4, keyspace, KEY_BYTES)
+    tiers = dict(history="tiered", evict_every=3, delta_cap=8192)
+
+    def run(make, witness_free=False):
+        """Digests of every batch on cuda and cpu, the final exported state
+        of each, and the cuda run's kernel launches."""
+        out = {}
+        for device in ("cuda", "cpu"):
+            eng = make(device)
+            before = dict(tk.LAUNCHES)
+            digests = []
+            for txns, now, nov in stream:
+                st = eng.detect(txns, now, nov)
+                if witness_free and eng.last_witness != []:
+                    raise AssertionError("settings: a witness came back with the witness off")
+                digests.append(digest(st, eng.last_witness))
+            state = (eng._host_state() if hasattr(eng, "_device_shard_state")
+                     else eng.export_state())
+            out[device] = (digests, state, {k: tk.LAUNCHES[k] - before[k] for k in before})
+        (d_g, s_g, l_g), (d_c, s_c, _l) = out["cuda"], out["cpu"]
+        same_state = all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(s_g, s_c))
+        if d_g != d_c or not same_state:
+            raise AssertionError("settings: cuda and cpu differ "
+                                 f"({'verdicts or witnesses' if d_g != d_c else 'state'})")
+        if min(l_g.values()) < 1:
+            raise AssertionError(f"settings: the cuda run launched {l_g}")
+        return d_g
+
+    lines = []
+    for label, kw in (("flat", {}), ("tiered", tiers)):
+        run(lambda dev: et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 14, device=dev,
+                                            witness=False, **kw), witness_free=True)
+        run(lambda dev: sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=1 << 12,
+                                                   device=dev, witness=False, **kw),
+            witness_free=True)
+        flat = run(lambda dev: et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 16,
+                                                   device=dev, **kw))
+        two = run(lambda dev: et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 16,
+                                                  device=dev, search="2level", **kw))
+        if two != flat:
+            raise AssertionError(f"settings: 2level {label} differs from the flat search")
+        shard_flat = run(lambda dev: sr.ShardedTorchConflictSet(
+            split, key_words=KEY_WORDS, h_cap=1 << 16, device=dev, **kw))
+        shard_two = run(lambda dev: sr.ShardedTorchConflictSet(
+            split, key_words=KEY_WORDS, h_cap=1 << 16, device=dev, search="2level",
+            search_stride=1024, **kw))
+        if shard_two != shard_flat:
+            raise AssertionError(f"settings: 2level sharded {label} differs from the flat search")
+        lines.append(f"{label}: witness-free engine and 4 shards, 2level engine and 4 shards")
+    want = drive(api.ConflictSet(backend="cpu", key_words=KEY_WORDS), stream, 1)
+    for coalesce in (2, "auto"):
+        for depth in (1, 2, 3):
+            synced = {}
+            for device in ("cuda", "cpu"):
+                cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 16, device=device,
+                                     pipeline_depth=depth, mirror_coalesce=coalesce)
+                if drive(cs, stream, depth) != want:
+                    raise AssertionError(f"settings: coalesce {coalesce} depth {depth} on "
+                                         f"{device}: verdicts/witnesses differ from the CPU "
+                                         f"backend's")
+                if cs.mirror_check()["status"] != "ok":
+                    raise AssertionError(f"settings: coalesce {coalesce} depth {depth} on "
+                                         f"{device}: mirror_check failed")
+                wall = cs._dev.metrics.snapshot(include_wall=True)["wall"]
+                synced[device] = (wall["note_synced_seconds"]["count"],
+                                  cs._dev.export_state())
+            (n_g, s_g), (n_c, s_c) = synced["cuda"], synced["cpu"]
+            if n_g != n_c or not all(np.array_equal(x, y) for x, y in zip(s_g, s_c)):
+                raise AssertionError(f"settings: coalesce {coalesce} depth {depth}: note_synced "
+                                     f"calls {n_g} / {n_c} or state differ on cuda and cpu")
+            lines.append(f"coalesce {coalesce} depth {depth}: {n_g} note_synced calls")
+    log(f"settings vs cpu: {batches} batches x {n_txn} txns identical on cuda and cpu "
+        f"(verdict and witness digests, exported state): {'; '.join(lines)}")
+
+
 # ---------------------------------------------------------------------------
 # phases 4s and 6s: the sharded resolver
 # ---------------------------------------------------------------------------
@@ -2032,7 +2408,7 @@ class RehydrateSpans:
         return [(a.elapsed_time(b), host * 1e3, k) for a, b, host, k in self.spans]
 
 
-def chaos_path(torch, api, T, tk, faults, buggify, DR, want):
+def chaos_path(torch, api, batches, tk, faults, buggify, DR, want):
     """Phase 6c(a): phase 4's set, stream and seed under the port's random
     faults at full width.  The buggify sites are armed (activated
     probability 1.0) on a DeterministicRandom, the injector runs in random
@@ -2044,7 +2420,6 @@ def chaos_path(torch, api, T, tk, faults, buggify, DR, want):
     Returns the kernels' launches in the run."""
     depth = 2
     gc.collect()
-    rng = np.random.default_rng(2026)
     buggify.set_buggify_enabled(True, DR(CHAOS_BUGGIFY_SEED), activated_probability=1.0)
     inj = faults.DeviceFaultInjector(rng=DR(CHAOS_INJECTOR_SEED), fire_probability=CHAOS_FIRE)
     cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth,
@@ -2055,7 +2430,7 @@ def chaos_path(torch, api, T, tk, faults, buggify, DR, want):
                 inj.begin_outage("dispatch")
             if i == CHAOS_OUTAGE.stop:
                 inj.end_outage("dispatch")
-            yield gen_txns(T, rng, PER_BATCH, i), i + WINDOW, i
+            yield batches[i], i + WINDOW, i
 
     turns = []  # (batch, kind, seconds, launches so far, rehydrations so far)
     clock = [time.perf_counter()]
@@ -2275,17 +2650,29 @@ def main(argv) -> int:
         for t in r["sharded"]:
             log_shape(r["name"], "sharded", t, f"{kind}, {smi}")
 
-    # 4. the main path, flat; 4a. its step attributed by phase; then 4e
-    # (amortized flat eviction) and 4t (tiered)
-    launches, _tps, digests, cs, extra = main_path(torch, api, T, tk, rq, et, profile)
-    launches_attribution, busy = attribution_path(torch, et, tk, pa, cs._dev, extra[0][0])
-    del cs, extra
-    launches_amortized, _tps, _d, _cs, _x = main_path(torch, api, T, tk, rq, et, profile,
-                                                      mode="amortized", want=digests)
-    del _cs, _x
-    launches_tiered, _tps, _d, _cs, _x = main_path(torch, api, T, tk, rq, et, profile,
-                                                   mode="tiered", want=digests)
-    del _cs, _x
+    # 4. the main path, flat; 4a. its step attributed by phase; 4g. the
+    # 2level search from its end state; then 4w (witness-free), 4c
+    # (witness-free, coalesced mirror apply), 4e (amortized flat eviction)
+    # and 4t (tiered)
+    batches = bench_batches(T)
+    main = main_path(torch, api, batches, tk, rq, et, profile)
+    launches, digests = main["launches"], main["digests"]
+    launches_attribution, busy = attribution_path(torch, et, tk, pa, main["cs"]._dev,
+                                                  main["extra"][0][0])
+    search_path(torch, et, tk, rq, main["cs"], *main["extra"][1])
+    del main["cs"], main["extra"]
+    others, stats = {}, {"main": main["stats"]}
+    for mode in ("witness_free", "coalesced", "amortized", "tiered"):
+        run = main_path(torch, api, batches, tk, rq, et, profile, mode=mode, want=main)
+        label = path_mode(mode)[0]
+        stats[label] = run["stats"]
+        if mode == "witness_free":
+            log_beside(label, stats[label], stats, "main")
+        if mode == "coalesced":
+            log_beside(label, stats[label], stats, "main")
+            log_beside(label, stats[label], stats, "witness-free")
+        others[mode] = run["launches"]
+        del run
     # 4s. the sharded resolver's main path; 4r. resharded live
     launches_sharded, sharded_set, rng = sharded_path(torch, sr, tk, et, keylib)
     launches_resharded = resharded_path(torch, tk, et, sharded_set, rng)
@@ -2295,11 +2682,13 @@ def main(argv) -> int:
     conflictset_vs_cpu(torch, api, T, faults)
     tiered_conflictset_vs_cpu(torch, api, T, faults)
     ablation_vs_cpu(torch, api, et, pa, T, faults)
+    settings_vs_cpu(torch, api, et, sr, tk, T, keylib)
     sharded_vs_cpu(torch, sr, faults, keylib)
     resharded_vs_cpu(torch, sr, faults, keylib)
     # 6c. chaos on the card: random faults at full width, then replayed
     # on cuda and cpu at the reduced shape
-    launches_chaos = chaos_path(torch, api, T, tk, faults, buggify, DR, digests)
+    launches_chaos = chaos_path(torch, api, batches, tk, faults, buggify, DR, digests)
+    del batches
     chaos_vs_cpu(torch, api, sr, T, faults, buggify, DR, keylib)
     # 4a's device busy under the profiler, after every timed phase
     attribution_busy(torch, et, pa, *busy)
@@ -2313,8 +2702,10 @@ def main(argv) -> int:
     for r in rows:
         r["launches"] = launches[r["name"]]
     log(json.dumps({"kernels": [
-        dict({k: r[k] for k in keys}, launches_tiered=launches_tiered[r["name"]],
-             launches_amortized=launches_amortized[r["name"]],
+        dict({k: r[k] for k in keys}, launches_tiered=others["tiered"][r["name"]],
+             launches_amortized=others["amortized"][r["name"]],
+             launches_witness_free=others["witness_free"][r["name"]],
+             launches_coalesced=others["coalesced"][r["name"]],
              launches_attribution=launches_attribution[r["name"]],
              launches_sharded=launches_sharded[r["name"]],
              launches_resharded=launches_resharded[r["name"]],

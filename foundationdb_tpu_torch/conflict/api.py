@@ -30,11 +30,16 @@ snapshot.  The breaker is credited at that sync, never at dispatch.
 Settings the reference reads from environment knobs are constructor
 arguments here, with the reference's defaults (``history``, ``delta_cap``
 and ``evict_every`` select and size the tiered history, or in flat mode
-set the amortized eviction cadence, see engine_torch.TorchConflictSet;
-``program_costs`` is FDB_TPU_PROGRAM_COSTS).  The mirror applies every batch at once
-(no coalescing knob), and the device takes keys of at most
-``min(MAX_DEVICE_KEY_BYTES, key_words * 4)`` bytes, the reference knob's
-default.  Only injected faults and out-of-memory errors reach the breaker;
+set the amortized eviction cadence, and ``witness``, ``search`` and
+``search_stride`` are FDB_TPU_WITNESS, FDB_TPU_SEARCH and
+FDB_TPU_SEARCH_STRIDE, see engine_torch.TorchConflictSet;
+``program_costs`` is FDB_TPU_PROGRAM_COSTS).  ``mirror_coalesce`` is
+FDB_TPU_MIRROR_COALESCE (coalesce_window): the mirror queues the committed
+writes of up to that many device-served batches and folds them together,
+at the window's end or at the next mirror read, whichever comes first; the
+device's synced point is recorded only when no fold is pending.  The
+device takes keys of at most ``min(MAX_DEVICE_KEY_BYTES, key_words * 4)``
+bytes, the reference knob's default.  Only injected faults and out-of-memory errors reach the breaker;
 any other error, CUDA errors included, propagates.
 
 Usage mirrors the reference ABI:
@@ -58,6 +63,21 @@ from .types import TransactionConflictInfo
 # Longest key the device takes (the reference's
 # conflict_max_device_key_bytes default); longer ones go to the mirror.
 MAX_DEVICE_KEY_BYTES = 16
+
+
+def coalesce_window(value, pipeline_depth: int) -> int:
+    """A ``mirror_coalesce`` setting as the mirror's fold window K (1 =
+    apply every batch at once), read as the reference reads its
+    FDB_TPU_MIRROR_COALESCE knob: ``"auto"`` is one fold per pipeline turn
+    (``max(1, pipeline_depth)``), an integer k is ``max(1, k)``, and
+    anything else is 1."""
+    raw = str(value)
+    if raw == "auto":
+        return max(1, pipeline_depth)
+    try:
+        return max(1, int(raw))
+    except ValueError:
+        return 1
 
 
 def _above_window(keys, vers, oldest):
@@ -155,6 +175,9 @@ class ConflictSet:
         delta_cap: int = 0,
         evict_every: int = 1,
         program_costs: bool = False,
+        mirror_coalesce=1,
+        search: str = "",
+        search_stride: int = 512,
     ):
         if backend not in ("cpu", "torch", "hybrid"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -170,6 +193,7 @@ class ConflictSet:
         # Batches dispatched to the device and not yet synced, oldest
         # first.  Depth 1 keeps the synchronous path.
         self.pipeline_depth = max(1, pipeline_depth)
+        self._cpu.coalesce_window = coalesce_window(mirror_coalesce, self.pipeline_depth)
         self._pipe: "deque[InflightBatch]" = deque()
         if backend in ("torch", "hybrid"):
             from .engine_torch import TorchConflictSet
@@ -184,6 +208,9 @@ class ConflictSet:
                 delta_cap=delta_cap,
                 evict_every=evict_every,
                 pipeline_depth=self.pipeline_depth,
+                witness=witness,
+                search=search,
+                search_stride=search_stride,
             )
             for name in ("device_faults", "breaker_opens", "breaker_probes",
                          "breaker_closes", "degraded_batches", "rehydrates",
@@ -295,18 +322,23 @@ class ConflictSet:
         return batch_fits and not self._history_long_keys
 
     def _apply_to_mirror(self, txns, statuses, now, new_oldest_version) -> None:
-        """Apply a device-decided batch to the mirror, then record the
+        """Apply a device-decided batch to the mirror, then, unless the
+        mirror still holds queued (coalesced) batches, record the
         post-batch snapshot as the device's synced point (pre-encoding the
         chunks the batch created, so a later rehydration is a cheap diff).
-        Both steps' wall seconds go to the engine registry's wall
-        namespace."""
+        snapshot() is a settle barrier, so recording it with a fold pending
+        would fold early: with a window of K the synced point moves once
+        every K batches, as the reference's does.  Both steps' wall seconds
+        go to the engine registry's wall namespace (note_synced_seconds
+        only when it ran)."""
         m = self._dev.metrics
         t0 = time.perf_counter()
         self._cpu.apply_batch(txns, statuses, now, new_oldest_version)
         t1 = time.perf_counter()
         m.record_wall("mirror_apply_seconds", t1 - t0)
-        self._dev.note_synced(self._cpu.snapshot(), self._cpu.take_fresh_chunks())
-        m.record_wall("note_synced_seconds", time.perf_counter() - t1)
+        if self._cpu.pending_batches == 0:
+            self._dev.note_synced(self._cpu.snapshot(), self._cpu.take_fresh_chunks())
+            m.record_wall("note_synced_seconds", time.perf_counter() - t1)
 
     def _device_serve(self, txns, now, new_oldest_version):
         """One device attempt under the breaker.  Returns the statuses, or

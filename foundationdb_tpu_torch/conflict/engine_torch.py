@@ -19,7 +19,10 @@ decide_tiered) and a commit half (phases 5-6 and the divergence guard:
 commit_flat, commit_tiered), so that the sharded set
 (parallel/sharded_resolver.py) can combine every shard's undecided count
 before any shard commits; detect_core and detect_core_tiered run the two
-back to back.
+back to back.  With ``witness`` off (the reference's FDB_TPU_WITNESS=0)
+the step is the reference's witness-free program: no final stabbing for
+the witness and no witness vectors.  ``search`` picks the form of the
+step's plain multiword searches (the reference's FDB_TPU_SEARCH).
 
 The flat step carries the reference's ablation seams (its FDB_TPU_ABLATE
 tokens, here the ``ablate`` argument, a subset of ABLATIONS) for in-step
@@ -69,7 +72,7 @@ from __future__ import annotations
 
 import math
 from bisect import bisect_left
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -80,6 +83,7 @@ from ..ops.rangequery import (
     build_max_table,
     build_max_table_np,
     build_min_table,
+    check_search,
     lex_argsort,
     lex_less,
     range_max,
@@ -197,8 +201,9 @@ class DispatchTicket:
     caller needs to re-decide it elsewhere after a divergence), and the
     step's outputs in ONE int32 buffer that a single copy reads back:
     [undecided, iters, hcount, dcount, statuses, w_ver, w_rng] (the last
-    three txn_cap long; hcount and dcount are the tiers' row counts after
-    the batch, dcount 0 in flat mode).  On CUDA the copy into the pinned
+    three txn_cap long, the witness vectors only from a step with the
+    witness on; hcount and dcount are the tiers' row counts after the
+    batch, dcount 0 in flat mode).  On CUDA the copy into the pinned
     ``host`` buffer is enqueued right behind the step and ``ready`` is its
     event, so a sync waits for this batch and not for later ones.  ``base``
     is the dispatch-time version base of the witness versions, ``d_cap``
@@ -359,12 +364,13 @@ def _agg_txn(flags, owner, txn_cap):
 
 def _resolve_batch(
     r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_valid, status0,
-    *, txn_cap, rr_cap, wr_cap, on_sync=None, ablate=frozenset(),
+    *, txn_cap, rr_cap, wr_cap, on_sync=None, ablate=frozenset(), witness=True,
 ):
     """Phases 2-4: point domain, intra-batch fixpoint, committed-write
     segment extraction.  Returns (status, iters, undecided_left, ub, ue,
     seg_valid, ib_flag) — ib_flag is the per-read-range intra-batch
-    conflict flag that the abort witness reads.  With ``nofix`` in
+    conflict flag that the abort witness reads, None unless `witness`
+    (the witness-free step skips its stabbing).  With ``nofix`` in
     `ablate` the fixpoint's rounds and host checks are skipped and every
     undecided txn commits."""
     dev = r_begin.device
@@ -446,10 +452,13 @@ def _resolve_batch(
 
     # Abort witness input: one more stabbing over the FINAL committed
     # writers answers, per read range, whether an earlier committed txn's
-    # write intersects it (the CPU engine's `active.intersects`).
+    # write intersects it (the CPU engine's `active.intersects`).  Phase 4
+    # reads the same committed-writer mask.
     com_fin = w_valid & (owner_status(status, w_txn) == _COMM)
-    e_fin = read_query(stabbing_min(wb_idx, we_idx, w_txn, com_fin, p_log2))
-    ib_flag = r_valid & (e_fin < r_txn)
+    ib_flag = None
+    if witness:
+        e_fin = read_query(stabbing_min(wb_idx, we_idx, w_txn, com_fin, p_log2))
+        ib_flag = r_valid & (e_fin < r_txn)
     # ``nomerge`` reads no segments: the reference's compiler drops them.
     segs = ((None, None, None) if "nomerge" in ablate
             else _write_segments(sorted_keys, wb_idx, we_idx, com_fin, P=P, wr_cap=WR))
@@ -574,19 +583,21 @@ def _write_segments(sorted_keys, wb_idx, we_idx, com_fin, *, P, wr_cap):
     return ub, ue, seg_valid
 
 
-def _merge_prep(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, *, width, wr_cap):
+def _merge_prep(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, *, width, wr_cap,
+                search="", search_stride=512):
     """Phase-5 rank-inversion prep: the sorted new-boundary rows and every
     row's merged position, from two combined searches of the segment
-    endpoints into the history plus streaming cumsums and histograms —
-    never a full-width sort.  Returns (new_keys_s, new_vers_s, new_valid_s,
-    keep_old, pos_old, pos_new, merged_count)."""
+    endpoints into the history (searchsorted_words in the ``search`` mode)
+    plus streaming cumsums and histograms — never a full-width sort.
+    Returns (new_keys_s, new_vers_s, new_valid_s, keep_old, pos_old,
+    pos_new, merged_count)."""
     dev = tkeys.device
     kw1 = tkeys.shape[0]
     H = width
     WR = wr_cap
     both = torch.cat([ub, ue], dim=1)
-    both_left = searchsorted_words(tkeys, both, "left")
-    both_right = searchsorted_words(tkeys, both, "right")
+    both_left = searchsorted_words(tkeys, both, "left", mode=search, stride=search_stride)
+    both_right = searchsorted_words(tkeys, both, "right", mode=search, stride=search_stride)
     ub_left, ue_left = both_left[:WR], both_left[WR:]
     ub_right, ue_right = both_right[:WR], both_right[WR:]
     end_val = tvers[(ue_right - 1).clamp(0, H - 1).long()]
@@ -638,14 +649,14 @@ def _merge_prep(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, *, width, wr_c
 
 
 def _merge_evict_fused(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
-                       window, *, width, wr_cap):
+                       window, *, width, wr_cap, search="", search_stride=512):
     """Phases 5+6: merge the batch's segment rows into the history and
     apply the removeBefore eviction rule in one kernel pass, then mask the
     rows past the new count to INF / FLOOR_REL."""
     (new_keys_s, new_vers_s, new_valid_s, keep_old, pos_old, pos_new,
      merged_count) = _merge_prep(
         tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
-        width=width, wr_cap=wr_cap,
+        width=width, wr_cap=wr_cap, search=search, search_stride=search_stride,
     )
     ok_keys, ok_vers, out_count = fused_merge_evict(
         tkeys, tvers, keep_old.to(I32), pos_old,
@@ -659,7 +670,7 @@ def _merge_evict_fused(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
 
 
 def _merge_new_segments(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, *,
-                        width, wr_cap):
+                        width, wr_cap, search="", search_stride=512):
     """Phase 5 of the non-kernel step (``nokernel``): the same prep as the
     kernel step, then one full-width sort by target position places every
     kept row.  Returns (merged_keys, merged_vers, merged_count), rows past
@@ -667,7 +678,7 @@ def _merge_new_segments(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, *,
     (new_keys_s, new_vers_s, new_valid_s, keep_old, pos_old, pos_new,
      merged_count) = _merge_prep(
         tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
-        width=width, wr_cap=wr_cap,
+        width=width, wr_cap=wr_cap, search=search, search_stride=search_stride,
     )
     merged_keys, merged_vers = _compact_to(
         torch.cat([pos_old, pos_new]), torch.cat([keep_old, new_valid_s]),
@@ -692,14 +703,16 @@ def _evict_rule(merged_vers, merged_count, new_oldest, width):
 
 
 def _merge_evict_plain(tkeys, tvers, tcount, ub, ue, seg_valid, now_rel,
-                       new_oldest, do_evict, *, width, wr_cap, evict=True):
+                       new_oldest, do_evict, *, width, wr_cap, evict=True,
+                       search="", search_stride=512):
     """Phases 5+6 of the non-kernel step: the sort-by-target merge, then
     the eviction rule's compaction sort, unless ``evict`` is False
     (``noevict``).  With ``do_evict`` (a 0-dim tensor: amortized eviction)
     the merged rows are kept where it is 0, as the reference's cond keeps
     them; the select runs on the device, without a host sync."""
     merged_keys, merged_vers, merged_count = _merge_new_segments(
-        tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, width=width, wr_cap=wr_cap)
+        tkeys, tvers, tcount, ub, ue, seg_valid, now_rel, width=width, wr_cap=wr_cap,
+        search=search, search_stride=search_stride)
     if not evict:
         return merged_keys, merged_vers, merged_count
     keep, rank, out_count = _evict_rule(merged_vers, merged_count, new_oldest, width)
@@ -750,15 +763,16 @@ def _witness_vectors(m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old,
 
 class Decision(NamedTuple):
     """The decide half of one step: the verdicts in the reference's enum,
-    the fixpoint's undecided count and iterations, the witness vectors, and
-    the committed-write segments (ub, ue, seg_valid) the commit half
-    merges.  Nothing in it changes the history."""
+    the fixpoint's undecided count and iterations, the witness vectors
+    (None in the witness-free step), and the committed-write segments (ub,
+    ue, seg_valid) the commit half merges.  Nothing in it changes the
+    history."""
 
     status: torch.Tensor
     undecided: torch.Tensor
     iters: torch.Tensor
-    w_ver: torch.Tensor
-    w_rng: torch.Tensor
+    w_ver: Optional[torch.Tensor]
+    w_rng: Optional[torch.Tensor]
     ub: torch.Tensor
     ue: torch.Tensor
     seg_valid: torch.Tensor
@@ -766,9 +780,9 @@ class Decision(NamedTuple):
 
 def _decide(m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
             t_has_reads, t_valid, oldest, now_rel, *, txn_cap, rr_cap, wr_cap,
-            on_sync, ablate=frozenset()):
-    """Phases 2-4 and the witness, from phase 1's per-range history max `m`
-    and flags `r_hist`."""
+            on_sync, ablate=frozenset(), witness=True):
+    """Phases 2-4 and, with `witness`, the witness, from phase 1's
+    per-range history max `m` and flags `r_hist`."""
     TXN = txn_cap
     hist_conf = _agg_txn(r_hist, r_txn, TXN)
     too_old = t_valid & t_has_reads & (t_snap < oldest)
@@ -780,13 +794,15 @@ def _decide(m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
         _resolve_batch(
             r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_valid, status0,
             txn_cap=TXN, rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
-            ablate=ablate,
+            ablate=ablate, witness=witness,
         )
     )
-    w_ver, w_rng = _witness_vectors(
-        m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old, status,
-        now_rel, txn_cap=TXN, rr_cap=rr_cap,
-    )
+    w_ver = w_rng = None
+    if witness:
+        w_ver, w_rng = _witness_vectors(
+            m, r_hist, hist_conf, ib_flag, r_txn, t_valid, too_old, status,
+            now_rel, txn_cap=TXN, rr_cap=rr_cap,
+        )
     return Decision(_out_status(too_old, status), undecided_left, iters,
                     w_ver, w_rng, ub, ue, seg_valid)
 
@@ -798,11 +814,12 @@ def decide_flat(
     t_snap, t_has_reads, t_valid,
     now_rel,
     *, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int, on_sync=None,
-    ablate=frozenset(),
+    ablate=frozenset(), witness=True, search="", search_stride=512,
 ) -> Decision:
     """The decide half of the flat step: phase 1 against the history, then
-    phases 2-4 and the witness.  `ablate` takes the seams of ABLATIONS
-    (module docstring); phase 1 reads ``nosearch`` and ``nokernel``."""
+    phases 2-4 and, with `witness`, the witness.  `ablate` takes the seams
+    of ABLATIONS (module docstring); phase 1 reads ``nosearch`` and
+    ``nokernel``, whose plain searches run in the ``search`` mode."""
     H = h_cap
     r_nonempty = lex_less(r_begin, r_end)
     r_valid = r_txn < txn_cap
@@ -813,8 +830,10 @@ def decide_flat(
         i0 = ((r_begin[0].to(torch.int64) + 2**31) % H).to(I32)
         j1 = i0
     elif "nokernel" in ablate:
-        i0 = searchsorted_words(hkeys, r_begin, "right") - 1
-        j1 = searchsorted_words(hkeys, r_end, "left") - 1
+        i0 = searchsorted_words(hkeys, r_begin, "right", mode=search,
+                                stride=search_stride) - 1
+        j1 = searchsorted_words(hkeys, r_end, "left", mode=search,
+                                stride=search_stride) - 1
     else:
         i0, j1 = phase1_search(hkeys, r_begin, r_end)
     maxtab = build_max_table(hvers)
@@ -824,12 +843,13 @@ def decide_flat(
         m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
         t_has_reads, t_valid, oldest, now_rel, txn_cap=txn_cap,
         rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync, ablate=ablate,
+        witness=witness,
     )
 
 
 def commit_flat(hkeys, hvers, hcount, oldest, dec: Decision, now_rel,
                 new_oldest_rel, undecided, *, h_cap: int, wr_cap: int,
-                ablate=frozenset(), do_evict=None):
+                ablate=frozenset(), do_evict=None, search="", search_stride=512):
     """The commit half of the flat step: phases 5-6 (merge + removeBefore
     eviction, one kernel) and the divergence guard.  `undecided` is the
     count the guard reads: the step's own, or the sum over the shards of a
@@ -839,7 +859,8 @@ def commit_flat(hkeys, hvers, hcount, oldest, dec: Decision, now_rel,
     eviction) is the blob's 0-dim flag: where it is 0 the batch evicts
     nothing.  `ablate` takes ``nomerge`` (the history comes back unchanged
     and the window advances without the guard), ``noevict`` and
-    ``nokernel``.  Returns (keys, vers, count, oldest)."""
+    ``nokernel``.  The merge prep searches in the ``search`` mode.
+    Returns (keys, vers, count, oldest)."""
     if "nomerge" in ablate:
         return hkeys, hvers, hcount, torch.maximum(oldest, new_oldest_rel).to(I32)
     new_oldest = torch.maximum(oldest, new_oldest_rel)
@@ -847,7 +868,7 @@ def commit_flat(hkeys, hvers, hcount, oldest, dec: Decision, now_rel,
         out_keys, out_vers, out_count = _merge_evict_plain(
             hkeys, hvers, hcount, dec.ub, dec.ue, dec.seg_valid, now_rel,
             new_oldest, do_evict, width=h_cap, wr_cap=wr_cap,
-            evict="noevict" not in ablate,
+            evict="noevict" not in ablate, search=search, search_stride=search_stride,
         )
     else:
         # Eviction is the window: FLOOR_REL keeps every row.
@@ -859,7 +880,8 @@ def commit_flat(hkeys, hvers, hcount, oldest, dec: Decision, now_rel,
             window = new_oldest
         out_keys, out_vers, out_count = _merge_evict_fused(
             hkeys, hvers, hcount, dec.ub, dec.ue, dec.seg_valid, now_rel,
-            window, width=h_cap, wr_cap=wr_cap,
+            window, width=h_cap, wr_cap=wr_cap, search=search,
+            search_stride=search_stride,
         )
     ok = undecided == 0
     return (
@@ -877,26 +899,36 @@ def detect_core(
     t_snap, t_has_reads, t_valid,
     now_rel, new_oldest_rel, do_evict=None,
     *, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int, on_sync=None,
-    ablate=frozenset(),
+    ablate=frozenset(), witness=True, search="", search_stride=512,
 ):
-    """The flat conflict step (the reference detect_core with kernels on
-    and witness on): decide_flat then commit_flat.  Key words are in the
-    device encoding; scalars are 0-dim int32 tensors.  ``do_evict`` None
-    evicts every batch; a 0-dim tensor is amortized eviction's flag.
-    `ablate` is a subset of ABLATIONS (module docstring; the default runs
-    the step as served).  Returns (out_keys, out_vers, out_count,
-    new_oldest, out_status, undecided_left, iters, w_ver, w_rng).
-    `on_sync` is called before each host sync the fixpoint makes."""
+    """The flat conflict step (the reference detect_core with kernels on):
+    decide_flat then commit_flat.  Key words are in the device encoding;
+    scalars are 0-dim int32 tensors.  ``do_evict`` None evicts every
+    batch; a 0-dim tensor is amortized eviction's flag.  `ablate` is a
+    subset of ABLATIONS (module docstring; the default runs the step as
+    served).  Returns (out_keys, out_vers, out_count, new_oldest,
+    out_status, undecided_left, iters) + (w_ver, w_rng) with `witness`
+    (the witness-free step returns neither, as the reference's).  The
+    merge prep, and the ``nokernel`` arm's phase 1, search in the
+    ``search`` mode with ``search_stride``.  `on_sync` is called before
+    each host sync the fixpoint makes."""
+    srch = dict(search=search, search_stride=search_stride)
     dec = decide_flat(
         hkeys, hvers, oldest, r_begin, r_end, r_txn, r_snap, w_begin, w_end,
         w_txn, t_snap, t_has_reads, t_valid, now_rel, txn_cap=txn_cap,
         rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap, on_sync=on_sync,
-        ablate=ablate,
+        ablate=ablate, witness=witness, **srch,
     )
     state = commit_flat(hkeys, hvers, hcount, oldest, dec, now_rel,
                         new_oldest_rel, dec.undecided, h_cap=h_cap, wr_cap=wr_cap,
-                        ablate=ablate, do_evict=do_evict)
-    return state + (dec.status, dec.undecided, dec.iters, dec.w_ver, dec.w_rng)
+                        ablate=ablate, do_evict=do_evict, **srch)
+    return state + (dec.status, dec.undecided, dec.iters) + _witness_out(dec)
+
+
+def _witness_out(dec: Decision) -> tuple:
+    """A step's trailing witness outputs: (w_ver, w_rng), or () from the
+    witness-free step."""
+    return () if dec.w_ver is None else (dec.w_ver, dec.w_rng)
 
 
 # ---------------------------------------------------------------------------
@@ -915,7 +947,7 @@ def detect_core(
 # ---------------------------------------------------------------------------
 
 
-def _major_compact_inputs(hk, hv, hc, dk, dv, dc, *, H, D):
+def _major_compact_inputs(hk, hv, hc, dk, dv, dc, *, H, D, search="", search_stride=512):
     """fused_merge_evict's arguments for a major compaction (A = the base,
     B = the delta), before the window: (hk, hv, keep_base, pos_base, dk,
     dvals, keep_delta, pos_delta, merged_count).
@@ -925,12 +957,12 @@ def _major_compact_inputs(hk, hv, hc, dk, dv, dc, *, H, D):
     their base rows; a floor-valued delta row re-anchors the base's value
     at its key (dropped when an equal-key base row already provides it).
     Every per-row quantity comes by rank inversion: delta-sized searches
-    into the base turned into per-base-row values by histograms (slot H is
-    the dump) and cumsums."""
+    into the base (in the ``search`` mode) turned into per-base-row values
+    by histograms (slot H is the dump) and cumsums."""
     dev = hk.device
     dvalid = _arange(D, dev) < dc
-    dl = searchsorted_words(hk, dk, "left")
-    dr = searchsorted_words(hk, dk, "right")
+    dl = searchsorted_words(hk, dk, "left", mode=search, stride=search_stride)
+    dr = searchsorted_words(hk, dk, "right", mode=search, stride=search_stride)
     covered = dvalid & (dv > FLOOR_REL)
     # Delta interval j spans base ranks [dl[j], dl[j+1]); the last valid
     # row's interval extends to the end of the live base.
@@ -960,12 +992,14 @@ def _major_compact_inputs(hk, hv, hc, dk, dv, dc, *, H, D):
             pos_delta, merged_count)
 
 
-def _major_compact(hk, hv, hc, dk, dv, dc, new_oldest, *, H, D):
+def _major_compact(hk, hv, hc, dk, dv, dc, new_oldest, *, H, D, search="",
+                   search_stride=512):
     """Merge base + delta into a new base tier and evict below the window
     ``new_oldest``, in one fused_merge_evict call; rows past the new count
     are INF / FLOOR_REL."""
     k_keys, k_vers, out_count = fused_merge_evict(
-        *_major_compact_inputs(hk, hv, hc, dk, dv, dc, H=H, D=D),
+        *_major_compact_inputs(hk, hv, hc, dk, dv, dc, H=H, D=D, search=search,
+                               search_stride=search_stride),
         new_oldest, width=H,
     )
     live = _arange(H, hk.device) < out_count
@@ -988,11 +1022,11 @@ def decide_tiered(
     t_snap, t_has_reads, t_valid,
     now_rel,
     *, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int, d_cap: int,
-    on_sync=None,
+    on_sync=None, witness=True,
 ) -> Decision:
     """The decide half of the two-tier step: phase 1 over both tiers with
     one query sort (merged max = max of the per-tier maxima), then phases
-    2-4 and the witness."""
+    2-4 and, with `witness`, the witness."""
     H, D = h_cap, d_cap
     r_nonempty = lex_less(r_begin, r_end)
     r_valid = r_txn < txn_cap
@@ -1005,25 +1039,29 @@ def decide_tiered(
     return _decide(
         m, r_hist, r_begin, r_end, r_txn, w_begin, w_end, w_txn, t_snap,
         t_has_reads, t_valid, oldest, now_rel, txn_cap=txn_cap,
-        rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync,
+        rr_cap=rr_cap, wr_cap=wr_cap, on_sync=on_sync, witness=witness,
     )
 
 
 def commit_tiered(hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
                   dec: Decision, now_rel, new_oldest_rel, undecided, *,
-                  do_major: bool, h_cap: int, d_cap: int, wr_cap: int):
+                  do_major: bool, h_cap: int, d_cap: int, wr_cap: int,
+                  search="", search_stride=512):
     """The commit half of the two-tier step: phases 5-6 into the delta only
     (one kernel at width D), the divergence guard on `undecided` (as in
-    commit_flat), then the major compaction on the host's flag.  Returns
+    commit_flat), then the major compaction on the host's flag; the delta
+    merge prep and the compaction's searches run in the ``search`` mode.
+    Returns
     (base keys, base vers, base count, max table, delta keys, delta vers,
     delta count, new_oldest); on a minor batch the base tensors and the
     table are the very ones passed in."""
     kw1 = hkeys.shape[0]
     H, D = h_cap, d_cap
     new_oldest = torch.maximum(oldest, new_oldest_rel)
+    srch = dict(search=search, search_stride=search_stride)
     d_keys, d_vers, d_count = _merge_evict_fused(
         dkeys, dvers, dcount, dec.ub, dec.ue, dec.seg_valid, now_rel, new_oldest,
-        width=D, wr_cap=wr_cap,
+        width=D, wr_cap=wr_cap, **srch,
     )
     # Divergence guard: the delta merge and the window advance revert
     # BEFORE the compaction, so the host can re-run the batch on the CPU
@@ -1039,7 +1077,7 @@ def commit_tiered(hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
     # logical step function, so the host's bounds stay true ----
     if do_major:
         hkeys, hvers, hcount = _major_compact(
-            hkeys, hvers, hcount, d_keys, d_vers, d_count, new_oldest, H=H, D=D,
+            hkeys, hvers, hcount, d_keys, d_vers, d_count, new_oldest, H=H, D=D, **srch,
         )
         maxtab = build_max_table(hvers)
         d_keys, d_vers, d_count = _empty_delta(kw1, D, hkeys.device)
@@ -1053,27 +1091,29 @@ def detect_core_tiered(
     t_snap, t_has_reads, t_valid,
     now_rel, new_oldest_rel,
     *, do_major: bool, txn_cap: int, rr_cap: int, wr_cap: int, h_cap: int,
-    d_cap: int, on_sync=None,
+    d_cap: int, on_sync=None, witness=True, search="", search_stride=512,
 ):
     """The two-tier conflict step (the reference detect_core_tiered with
-    kernels on and witness on); decision-identical to detect_core.  A minor
-    batch does no H-wide sort and no H-wide table build: its base work is
-    the phase-1 search against the frozen base and the carried max table.
+    kernels on); decision-identical to detect_core.  A minor batch does no
+    H-wide sort and no H-wide table build: its base work is the phase-1
+    search against the frozen base and the carried max table.
     ``do_major`` is the host's compaction flag.  Returns (base keys, base
     vers, base count, max table, delta keys, delta vers, delta count,
-    new_oldest, out_status, undecided_left, iters, w_ver, w_rng)."""
+    new_oldest, out_status, undecided_left, iters) + (w_ver, w_rng) with
+    `witness`; ``search`` as detect_core's."""
     dec = decide_tiered(
         hkeys, maxtab, dkeys, dvers, oldest, r_begin, r_end, r_txn, r_snap,
         w_begin, w_end, w_txn, t_snap, t_has_reads, t_valid, now_rel,
         txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap,
-        d_cap=d_cap, on_sync=on_sync,
+        d_cap=d_cap, on_sync=on_sync, witness=witness,
     )
     state = commit_tiered(
         hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest, dec,
         now_rel, new_oldest_rel, dec.undecided, do_major=do_major,
-        h_cap=h_cap, d_cap=d_cap, wr_cap=wr_cap,
+        h_cap=h_cap, d_cap=d_cap, wr_cap=wr_cap, search=search,
+        search_stride=search_stride,
     )
-    return state + (dec.status, dec.undecided, dec.iters, dec.w_ver, dec.w_rng)
+    return state + (dec.status, dec.undecided, dec.iters) + _witness_out(dec)
 
 
 def blob_words(pb: PackedBatch) -> int:
@@ -1146,29 +1186,32 @@ def _unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1):
 
 def _blob_core(hkeys, hvers, hcount, oldest, blob, *, txn_cap, rr_cap,
                wr_cap, h_cap, kw1, on_sync=None, amortized=False,
-               ablate=frozenset()):
+               ablate=frozenset(), witness=True, search="", search_stride=512):
     """The flat step on one blob.  ``amortized`` reads the blob's last
     word, the host's flag, as do_evict (the reference reads it only then);
-    `ablate` as detect_core."""
+    `ablate`, `witness` and ``search`` as detect_core."""
     return detect_core(
         hkeys, hvers, hcount, oldest,
         *_unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1),
         blob[-1] if amortized else None,
         txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap,
-        on_sync=on_sync, ablate=ablate,
+        on_sync=on_sync, ablate=ablate, witness=witness, search=search,
+        search_stride=search_stride,
     )
 
 
 def _tiered_blob_core(hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount,
                       oldest, blob, *, do_major, txn_cap, rr_cap, wr_cap,
-                      h_cap, d_cap, kw1, on_sync=None):
+                      h_cap, d_cap, kw1, on_sync=None, witness=True, search="",
+                      search_stride=512):
     """The tiered step on one blob (the flat layout; its third scalar
     carries ``do_major``)."""
     return detect_core_tiered(
         hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
         *_unpack_blob(blob, txn_cap, rr_cap, wr_cap, kw1),
         do_major=do_major, txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap,
-        h_cap=h_cap, d_cap=d_cap, on_sync=on_sync,
+        h_cap=h_cap, d_cap=d_cap, on_sync=on_sync, witness=witness, search=search,
+        search_stride=search_stride,
     )
 
 
@@ -1263,6 +1306,17 @@ class TorchConflictSet:
     dispatch with those seams cut, as the reference's FDB_TPU_ABLATE does;
     phase_attribution.attribute_phases passes its arms per call instead.
 
+    ``witness`` (the reference's FDB_TPU_WITNESS, on by default) makes the
+    step compute the per-txn abort witness and the readback decode it into
+    ``last_witness``; off, the step runs without the witness's stabbing and
+    vectors, the readback is ``_HEAD + txn_cap`` words, and
+    ``last_witness`` stays ``[]`` (after a CPU fallback too).  ``search``
+    and ``search_stride`` (FDB_TPU_SEARCH, FDB_TPU_SEARCH_STRIDE) pick the
+    form of the step's plain multiword searches (ops/rangequery.py
+    SEARCH_MODES): the merge prep's, the major compaction's and the
+    ``nokernel`` arm's phase 1; the kernels and their plain twins are not
+    affected.
+
     Counters live in ``metrics``, a registry named ``TorchConflict`` with
     the reference engine's counter names; ``batches``, ``fixpoint_rounds``,
     ``cpu_fallbacks``, ``host_syncs``, ``grows`` and ``rebases`` read them.
@@ -1304,11 +1358,17 @@ class TorchConflictSet:
         evict_every: int = 1,
         pipeline_depth: int = 2,
         ablate=frozenset(),
+        witness: bool = True,
+        search: str = "",
+        search_stride: int = 512,
     ):
         if history not in ("flat", "tiered"):
             raise ValueError(f"unknown history mode {history!r}")
         if evict_every < 1:
             raise ValueError(f"evict_every must be at least 1, got {evict_every}")
+        check_search(search, search_stride)
+        self.witness = witness
+        self.search, self.search_stride = search, search_stride
         self.ablate = check_ablate(ablate)
         if history == "tiered" and self.ablate:
             raise ValueError("ablate is not supported with history='tiered' (the "
@@ -1656,25 +1716,29 @@ class TorchConflictSet:
                 self._batches_since_evict = 0
         blob = self._pack_blob(pb, now, new_oldest_version, flag)
         caps = dict(txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
-                    h_cap=self.h_cap, kw1=kw1, on_sync=self._sync)
+                    h_cap=self.h_cap, kw1=kw1, on_sync=self._sync,
+                    witness=self.witness, search=self.search,
+                    search_stride=self.search_stride)
         try:
             blob_dev = self._upload(blob)
             if self.tiered:
-                (hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
-                 statuses, undecided, iters, w_ver, w_rng) = _tiered_blob_core(
+                outs = _tiered_blob_core(
                     self._hkeys, self._hvers, self._hcount, self._maxtab,
                     self._dkeys, self._dvers, self._dcount, self._oldest,
                     blob_dev, do_major=bool(do_major), d_cap=self.d_cap, **caps,
                 )
+                (hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
+                 statuses, undecided, iters), wit = outs[:11], outs[11:]
             else:
-                (hkeys, hvers, hcount, oldest, statuses, undecided, iters,
-                 w_ver, w_rng) = _blob_core(
+                outs = _blob_core(
                     self._hkeys, self._hvers, self._hcount, self._oldest,
                     blob_dev, amortized=amortized, ablate=self.ablate, **caps,
                 )
+                (hkeys, hvers, hcount, oldest, statuses, undecided, iters), wit = (
+                    outs[:7], outs[7:])
                 dcount = self._no_delta
             out = torch.cat([torch.stack([undecided, iters, hcount, dcount]),
-                             statuses, w_ver, w_rng])
+                             statuses, *wit])
         except torch.OutOfMemoryError as e:
             raise DeviceOOM(f"cuda: {e}", site="dispatch") from e
         self._hkeys, self._hvers, self._hcount, self._oldest = hkeys, hvers, hcount, oldest
@@ -1724,7 +1788,8 @@ class TorchConflictSet:
         (on CUDA, a wait for the copy enqueued at dispatch).  Records
         iters, the boundary gauges and the histograms, tightens the host
         bounds, and returns the statuses (None if the fixpoint diverged),
-        with the witness decoded into last_witness."""
+        with the witness decoded into last_witness (``[]`` when the witness
+        is off)."""
         self._sync()
         if ticket.ready is not None:
             ticket.ready.synchronize()
@@ -1762,7 +1827,7 @@ class TorchConflictSet:
             self.last_witness = decode_witness(
                 ticket.pb, statuses, arr[_HEAD + tc : _HEAD + 2 * tc],
                 arr[_HEAD + 2 * tc :], ticket.base,
-            )
+            ) if self.witness else []
         if ticket.host is not None:
             self._readback_pool.setdefault(arr.shape[0], []).append((ticket.host, ticket.ready))
             ticket.host = ticket.ready = None
@@ -1819,7 +1884,7 @@ class TorchConflictSet:
         self.load_from(cpu)
         # _unpack_transactions preserves read-range order, so the CPU
         # witness ordinals (and its absolute versions) adopt directly.
-        self.last_witness = cpu.last_witness
+        self.last_witness = cpu.last_witness if self.witness else []
         out = np.full((pb.txn_cap,), COMMITTED, np.int32)
         out[: pb.n_txn] = statuses
         return out

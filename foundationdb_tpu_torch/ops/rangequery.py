@@ -7,6 +7,7 @@ signed comparisons give the unsigned word order).  These helpers answer,
 fully vectorized:
 
   - searchsorted_words: rank of each query key among sorted history keys
+    (flat, or the reference's coarse-then-fine "2level" form)
   - range_max over a sparse table: max version within a contiguous index
     span
 
@@ -61,19 +62,30 @@ def _search_steps(n: int) -> int:
     return max(1, math.ceil(math.log2(max(n, 2))) + 1)
 
 
-def searchsorted_words(keys: torch.Tensor, q: torch.Tensor, side: str) -> torch.Tensor:
-    """Insertion ranks of q [W, M] into sorted keys [W, N], int32.
+# Search strategies of searchsorted_words (the reference's FDB_TPU_SEARCH,
+# with FDB_TPU_SEARCH_STRIDE as ``stride``); ranks are identical:
+#   ""        flat binary search (the default)
+#   "2level"  a bracket in a sampled table (one column every ``stride``
+#             rows), then log2(stride) + 1 fine steps in the full table;
+#             only on tables of at least _2LEVEL_MIN rows (below it the
+#             flat search runs)
+SEARCH_MODES = ("", "2level")
+_2LEVEL_MIN = 1 << 16
 
-    side='left':  count of keys strictly < q
-    side='right': count of keys <= q
-    Fixed log2(N)+1 binary-search iterations of vectorized gathers.
-    """
-    _w, n = keys.shape
-    m = q.shape[1]
-    lo = torch.zeros((m,), dtype=torch.int32, device=q.device)
-    hi = torch.full((m,), n, dtype=torch.int32, device=q.device)
-    cmp = lex_less if side == "left" else lex_leq
-    for _ in range(_search_steps(n)):
+
+def check_search(mode: str, stride: int) -> None:
+    """Raise ValueError unless (mode, stride) is a search strategy."""
+    if mode not in SEARCH_MODES:
+        raise ValueError(f"unknown search mode {mode!r}; known: {list(SEARCH_MODES)}")
+    if stride < 1:
+        raise ValueError(f"search stride must be at least 1, got {stride}")
+
+
+def _bisect(keys, q, cmp, lo, hi, steps):
+    """`steps` rounds of the masked binary search of q [W, M] over the
+    columns [lo, hi) of keys [W, N]; returns lo."""
+    n = keys.shape[1]
+    for _ in range(steps):
         active = lo < hi
         mid = torch.div(lo + hi, 2, rounding_mode="floor")
         kmid = keys[:, mid.clamp(0, n - 1).long()]
@@ -81,6 +93,45 @@ def searchsorted_words(keys: torch.Tensor, q: torch.Tensor, side: str) -> torch.
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
     return lo
+
+
+def _searchsorted_words_2level(keys, q, side, stride):
+    """Coarse then fine: each query's rank among the sampled table (every
+    ``stride``-th key) brackets its rank in the full table to
+    [(clo - 1) * stride, clo * stride], which log2(stride) + 1 fine steps
+    resolve."""
+    n = keys.shape[1]
+    m = q.shape[1]
+    coarse = keys[:, ::stride]
+    nc = coarse.shape[1]
+    cmp = lex_less if side == "left" else lex_leq
+    clo = _bisect(coarse, q, cmp, torch.zeros((m,), dtype=torch.int32, device=q.device),
+                  torch.full((m,), nc, dtype=torch.int32, device=q.device),
+                  _search_steps(nc))
+    lo = torch.clamp((clo - 1) * stride, 0, n).to(torch.int32)
+    hi = torch.clamp(clo * stride, max=n).to(torch.int32)
+    return _bisect(keys, q, cmp, lo, hi, max(1, math.ceil(math.log2(stride)) + 1))
+
+
+def searchsorted_words(keys: torch.Tensor, q: torch.Tensor, side: str, *,
+                       mode: str = "", stride: int = 512) -> torch.Tensor:
+    """Insertion ranks of q [W, M] into sorted keys [W, N], int32.
+
+    side='left':  count of keys strictly < q
+    side='right': count of keys <= q
+    Fixed log2(N)+1 binary-search iterations of vectorized gathers, or
+    with ``mode="2level"`` on a table of at least _2LEVEL_MIN rows the
+    coarse-then-fine form (see SEARCH_MODES); the ranks are the same.
+    """
+    check_search(mode, stride)
+    _w, n = keys.shape
+    if mode == "2level" and n >= _2LEVEL_MIN:
+        return _searchsorted_words_2level(keys, q, side, stride)
+    m = q.shape[1]
+    lo = torch.zeros((m,), dtype=torch.int32, device=q.device)
+    hi = torch.full((m,), n, dtype=torch.int32, device=q.device)
+    return _bisect(keys, q, lex_less if side == "left" else lex_leq, lo, hi,
+                   _search_steps(n))
 
 
 def searchsorted_1d(keys: torch.Tensor, q: torch.Tensor, side: str) -> torch.Tensor:

@@ -27,6 +27,8 @@ two cross-shard reductions need the step split in two here:
            convergence gate: if any active shard diverged, every active
            shard reverts) and the witness combined over the active shards
            (losing range = minimum, version = maximum among its holders);
+           with the witness off, neither the vectors nor their combine
+           run, as in the reference's step compiled without them;
   commit   phases 5-6 of every active shard against the combined count;
            a masked shard keeps its slice.
 
@@ -48,7 +50,9 @@ maps none).
 
 The reference's environment knobs are constructor arguments with its
 defaults: ``history`` (FDB_TPU_HISTORY), ``delta_cap`` (FDB_TPU_DELTA_CAP),
-``evict_every`` (FDB_TPU_EVICT_EVERY) and ``witness`` (FDB_TPU_WITNESS).
+``evict_every`` (FDB_TPU_EVICT_EVERY), ``witness`` (FDB_TPU_WITNESS), and
+``search`` and ``search_stride`` (FDB_TPU_SEARCH, FDB_TPU_SEARCH_STRIDE;
+see engine_torch.TorchConflictSet).
 The device takes keys of at most ``min(MAX_DEVICE_KEY_BYTES, 4 *
 key_words)`` bytes; a batch with a longer key runs on the mirrors, and a
 long-key write pins authority there until the mirrors fit again and a
@@ -86,7 +90,7 @@ from ..conflict.keys import uniform_int_split_keys
 from ..conflict.types import COMMITTED, CONFLICT, TransactionConflictInfo
 from ..device import resolve_device
 from ..metrics import MetricsRegistry
-from ..ops.rangequery import build_max_table_np, lex_less
+from ..ops.rangequery import build_max_table_np, check_search, lex_less
 
 __all__ = ["ShardedTorchConflictSet", "uniform_int_split_keys"]
 
@@ -118,19 +122,22 @@ def _clip_batch(lo, hi, r_begin, r_end, r_txn, w_begin, w_end, txn_cap):
 
 
 def _sharded_step(lo, hi, active, state, batch, do_major, *, allowed, txn_cap,
-                  rr_cap, wr_cap, h_cap, d_cap, on_sync):
+                  rr_cap, wr_cap, h_cap, d_cap, on_sync, witness, search,
+                  search_stride):
     """One batch over every shard: decide every shard (a masked one
     included: its iteration count enters iters, as the reference's
-    shard_map runs every body), combine the undecided counts and the
-    witness over the ACTIVE shards (`active` on the device, `allowed` its
-    host copy), commit each active shard against the combined count.  The
-    stacked `state` tensors are updated IN PLACE, shard slice by slice,
-    which keeps one copy of the history on the device.  Returns
-    (undecided, iters, statuses [S, txn_cap], w_ver, w_rng)."""
+    shard_map runs every body), combine the undecided counts and, with
+    `witness`, the witness over the ACTIVE shards (`active` on the device,
+    `allowed` its host copy), commit each active shard against the
+    combined count.  The stacked `state` tensors are updated IN PLACE,
+    shard slice by slice, which keeps one copy of the history on the
+    device.  Returns (undecided, iters, statuses [S, txn_cap]) + (w_ver,
+    w_rng) with `witness`."""
     tiered = len(state) == 8
     (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
      now_rel, new_oldest_rel) = batch
     caps = dict(txn_cap=txn_cap, rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap)
+    srch = dict(search=search, search_stride=search_stride)
     if tiered:
         hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest = state
     else:
@@ -144,17 +151,21 @@ def _sharded_step(lo, hi, active, state, batch, do_major, *, allowed, txn_cap,
         if tiered:
             decs.append(et.decide_tiered(
                 hkeys[s], maxtab[s], dkeys[s], dvers[s], oldest[s], *shard_batch,
-                d_cap=d_cap, on_sync=on_sync, **caps))
+                d_cap=d_cap, on_sync=on_sync, witness=witness, **caps))
         else:
             decs.append(et.decide_flat(
-                hkeys[s], hvers[s], oldest[s], *shard_batch, on_sync=on_sync, **caps))
+                hkeys[s], hvers[s], oldest[s], *shard_batch, on_sync=on_sync,
+                witness=witness, **caps))
     undecided = torch.where(active, torch.stack([d.undecided for d in decs]), 0).sum().to(I32)
     iters = torch.stack([d.iters for d in decs]).max()
-    # Witness combine over the active shards.
-    w_rng = torch.stack([d.w_rng for d in decs])
-    w_ver = torch.stack([d.w_ver for d in decs])
-    rng = torch.where(active[:, None], w_rng, et.WITNESS_NONE_RANGE).amin(0)
-    ver = torch.where(active[:, None] & (w_rng == rng), w_ver, FLOOR_REL).amax(0)
+    wit = ()
+    if witness:
+        # Witness combine over the active shards.
+        w_rng = torch.stack([d.w_rng for d in decs])
+        w_ver = torch.stack([d.w_ver for d in decs])
+        rng = torch.where(active[:, None], w_rng, et.WITNESS_NONE_RANGE).amin(0)
+        ver = torch.where(active[:, None] & (w_rng == rng), w_ver, FLOOR_REL).amax(0)
+        wit = (ver.to(I32), rng.to(I32))
     for s in range(lo.shape[0]):
         if not allowed[s]:
             continue  # a masked shard keeps its slice
@@ -162,21 +173,21 @@ def _sharded_step(lo, hi, active, state, batch, do_major, *, allowed, txn_cap,
         if tiered:
             new = et.commit_tiered(*views, decs[s], now_rel, new_oldest_rel, undecided,
                                    do_major=bool(do_major), h_cap=h_cap,
-                                   d_cap=d_cap, wr_cap=wr_cap)
+                                   d_cap=d_cap, wr_cap=wr_cap, **srch)
         else:
             new = et.commit_flat(*views, decs[s], now_rel, new_oldest_rel, undecided,
-                                 h_cap=h_cap, wr_cap=wr_cap)
+                                 h_cap=h_cap, wr_cap=wr_cap, **srch)
         for view, t in zip(views, new):
             if t is not view:
                 view.copy_(t)
-    return (undecided, iters.to(I32), torch.stack([d.status for d in decs]),
-            ver.to(I32), rng.to(I32))
+    return (undecided, iters.to(I32), torch.stack([d.status for d in decs])) + wit
 
 
 def sharded_step(lo, hi, active, hkeys, hvers, hcount, oldest,
                  r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn,
                  t_snap, t_valid, now_rel, new_oldest_rel, *, allowed,
-                 txn_cap, rr_cap, wr_cap, h_cap, on_sync=None):
+                 txn_cap, rr_cap, wr_cap, h_cap, on_sync=None, witness=True,
+                 search="", search_stride=512):
     """The flat sharded step (the reference's sharded_step_kernels, one
     device): the batch's fields are unpacked on the device, every state
     tensor is stacked [S, ...] and updated in place.  See _sharded_step."""
@@ -184,21 +195,23 @@ def sharded_step(lo, hi, active, hkeys, hvers, hcount, oldest,
         lo, hi, active, (hkeys, hvers, hcount, oldest),
         (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
          now_rel, new_oldest_rel), 0, allowed=allowed, txn_cap=txn_cap, rr_cap=rr_cap,
-        wr_cap=wr_cap, h_cap=h_cap, d_cap=0, on_sync=on_sync)
+        wr_cap=wr_cap, h_cap=h_cap, d_cap=0, on_sync=on_sync, witness=witness,
+        search=search, search_stride=search_stride)
 
 
 def sharded_step_tiered(lo, hi, active, hkeys, hvers, hcount, maxtab, dkeys, dvers,
                         dcount, oldest, r_begin, r_end, r_txn, r_snap, w_begin,
                         w_end, w_txn, t_snap, t_valid, now_rel, new_oldest_rel,
                         do_major, *, allowed, txn_cap, rr_cap, wr_cap, h_cap, d_cap,
-                        on_sync=None):
+                        on_sync=None, witness=True, search="", search_stride=512):
     """The tiered sharded step (the reference's sharded_step_tiered):
     ``do_major`` is the host's compaction flag.  See _sharded_step."""
     return _sharded_step(
         lo, hi, active, (hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest),
         (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
          now_rel, new_oldest_rel), do_major, allowed=allowed, txn_cap=txn_cap,
-        rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap, d_cap=d_cap, on_sync=on_sync)
+        rr_cap=rr_cap, wr_cap=wr_cap, h_cap=h_cap, d_cap=d_cap, on_sync=on_sync,
+        witness=witness, search=search, search_stride=search_stride)
 
 
 def _translate_witness(wit, rmap):
@@ -273,6 +286,8 @@ class ShardedTorchConflictSet:
         delta_cap: int = 0,
         evict_every: int = 1,
         witness: bool = True,
+        search: str = "",
+        search_stride: int = 512,
     ):
         if devices is not None:
             distinct = {str(resolve_device(d)) for d in devices}
@@ -288,6 +303,8 @@ class ShardedTorchConflictSet:
         if history == "flat" and evict_every > 1:
             raise ValueError("evict_every > 1 (amortized eviction) is supported "
                              "only with history='tiered'")
+        check_search(search, search_stride)
+        self.search, self.search_stride = search, search_stride
         self.device = resolve_device(device)
         self.n_shards = len(split_keys) + 1
         self.max_shards = max(self.n_shards, int(max_shards or self.n_shards))
@@ -907,20 +924,23 @@ class ShardedTorchConflictSet:
         batch = (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
                  now_rel, new_oldest_rel)
         caps = dict(allowed=allowed, txn_cap=TXN, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
-                    h_cap=self.h_cap, on_sync=self._sync)
+                    h_cap=self.h_cap, on_sync=self._sync, witness=self._witness,
+                    search=self.search, search_stride=self.search_stride)
         if self.tiered:
-            undecided, iters, status, ver, rng = sharded_step_tiered(
+            undecided, iters, status, *wit = sharded_step_tiered(
                 self._lo, self._hi, act, self._hkeys, self._hvers, self._hcount,
                 self._maxtab, self._dkeys, self._dvers, self._dcount, self._oldest,
                 *batch, do_major, d_cap=self.d_cap, **caps)
         else:
-            undecided, iters, status, ver, rng = sharded_step(
+            undecided, iters, status, *wit = sharded_step(
                 self._lo, self._hi, act, self._hkeys, self._hvers, self._hcount,
                 self._oldest, *batch, **caps)
         dcount = self._dcount if self.tiered else torch.zeros_like(self._hcount)
+        # The head, the statuses and, with the witness on, its combined
+        # vectors (w_ver, w_rng), in one readback.
         out = torch.cat([
             torch.stack([undecided, iters]), self._hcount, dcount, self._oldest,
-            status.reshape(-1), ver, rng,
+            status.reshape(-1), *wit,
         ])
         self._sync()
         arr = out.cpu().numpy()
@@ -930,8 +950,9 @@ class ShardedTorchConflictSet:
         self._oldest_host = arr[2 + 2 * S : head].astype(np.int64)
         self.last_iters = int(arr[1])
         statuses = arr[head : head + S * TXN].reshape(S, TXN)
-        self._last_witness_dev = (arr[head + S * TXN : head + (S + 1) * TXN],
-                                  arr[head + (S + 1) * TXN :])
+        if self._witness:
+            self._last_witness_dev = (arr[head + S * TXN : head + (S + 1) * TXN],
+                                      arr[head + (S + 1) * TXN :])
         m.counter("device_batches").add()
         if self.tiered:
             if do_major:

@@ -685,3 +685,72 @@ def test_program_table_on_the_card(dev):
                  "sharded_step_kernels", "sharded_step_tiered"):
         assert table[name]["memory"]["temp"] > 0, name
     assert programs.cached_program_costs(dev) == table
+
+
+@pytest.mark.parametrize("history", ["flat", "tiered"])
+def test_witness_free_engine_on_the_card_matches_the_cpu(dev, history):
+    """TorchConflictSet(witness=False) on the GPU and the CPU: identical
+    verdicts, iterations and exported state, last_witness [] and a readback
+    of _HEAD + txn_cap words, through growth and one residual overflow
+    (the CPU fallback); both kernels launch once a batch (tiered: the
+    two-tier search twice, the merge once plus its compactions)."""
+    stream = _stream(61, 400, batches=10, txns_per_batch=30)
+    now = stream[4][1]
+    chain = [TT(read_snapshot=now, read_ranges=[(_k(t), _k(t) + b"\x00")],
+                write_ranges=[(_k(t + 1), _k(t + 1) + b"\x00")]) for t in range(70)]
+    stream.insert(5, (chain, now + 1, 0))
+    for i in range(6, len(stream)):
+        txns, n_, nov = stream[i]
+        stream[i] = (txns, n_ + 1, nov)
+    kw = dict(key_words=3, h_cap=160, bucket_mins=BUCKETS, witness=False)
+    if history == "tiered":
+        kw.update(history="tiered", delta_cap=128, evict_every=3)
+    gpu = et.TorchConflictSet(**kw)
+    cpu = et.TorchConflictSet(device="cpu", **kw)
+    before = dict(tk.LAUNCHES)
+    for txns, now, nov in stream:
+        ticket = gpu.dispatch_txns(txns, now, nov)
+        assert ticket.out.shape[0] == et._HEAD + ticket.pb.txn_cap
+        g = gpu.readback_packed(ticket)
+        assert list(g[: len(txns)]) == cpu.detect(txns, now, nov)
+        assert gpu.last_witness == cpu.last_witness == []
+        assert gpu.last_iters == cpu.last_iters
+        for x, y in zip(gpu.export_state(), cpu.export_state()):
+            assert np.array_equal(x, y)
+    assert gpu.cpu_fallbacks == cpu.cpu_fallbacks == 1 and gpu.grows >= 1
+    assert tk.LAUNCHES["phase1_ranks"] > before["phase1_ranks"]
+    assert tk.LAUNCHES["fused_merge_evict"] > before["fused_merge_evict"]
+    assert tk.merge_contract_faults(dev) == 0
+
+
+@pytest.mark.parametrize("history", ["flat", "tiered"])
+def test_two_level_engine_on_the_card_matches_the_cpu(dev, history):
+    """TorchConflictSet(search="2level") at h_cap 1 << 16 (the 2level
+    form's least width) on the GPU and the CPU, and the flat search on the
+    GPU: identical verdicts, witnesses, iterations and exported state;
+    and searchsorted_words' two forms bit for bit on the card."""
+    from foundationdb_tpu_torch.ops import rangequery as rq
+
+    stream = _stream(67, 3000, batches=8, txns_per_batch=30)
+    kw = dict(key_words=3, h_cap=1 << 16, bucket_mins=BUCKETS)
+    if history == "tiered":
+        kw.update(history="tiered", delta_cap=256, evict_every=2)
+    two = et.TorchConflictSet(search="2level", search_stride=64, **kw)
+    cpu = et.TorchConflictSet(device="cpu", search="2level", search_stride=64, **kw)
+    flat = et.TorchConflictSet(**kw)
+    for txns, now, nov in stream:
+        want = flat.detect(txns, now, nov)
+        assert two.detect(txns, now, nov) == want == cpu.detect(txns, now, nov)
+        assert two.last_witness == cpu.last_witness == flat.last_witness
+        assert two.last_iters == cpu.last_iters
+        for x, y, z in zip(two.export_state(), cpu.export_state(), flat.export_state()):
+            assert np.array_equal(x, y) and np.array_equal(x, z)
+    keys = two._hkeys
+    q = torch.cat([keys[:, :: 3], torch.randint(-(2**31), 2**31 - 1, (4, 5000),
+                                                dtype=torch.int32, device=dev)], 1)
+    for side in ("left", "right"):
+        for stride in (8, 512, 1024):
+            assert torch.equal(rq.searchsorted_words(keys, q, side),
+                               rq.searchsorted_words(keys, q, side, mode="2level",
+                                                     stride=stride))
+    assert tk.merge_contract_faults(dev) == 0
