@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole check, about sixteen minutes
+    python3 chip_smoke.py            # the whole check, ten to fifteen minutes
     python3 chip_smoke.py --profile  # also a host/device time split and a
                                      # torch.profiler table of batches of
                                      # the main paths (flat, amortized and
@@ -10,7 +10,8 @@
     python3 chip_smoke.py --stamps   # also the search kernel's time by phase,
                                      # block by block (a -DPHASE1_STAMPS build)
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero; each group logs its host
+seconds (`phase <name>: ...`):
 
   1. card      nvidia-smi's name and power limit, torch and CUDA versions
   2. build     nvcc both kernels from foundationdb_tpu_torch/conflict/csrc
@@ -64,6 +65,21 @@ Phases, in order; any failure exits non-zero:
                FIXPOINT_CHUNK) on four more batches from one carried
                state: host checks and device span a batch for each, and
                equal outputs.
+  4o. spans    inside phase 4: its 8 timed batches run with the port's own
+               SpanHub, TraceCollector and FlightRecorder installed, in
+               blocks of 2 that take turns between a disabled hub
+               (SpanHub(enabled=False), first) and an enabled one, so the
+               engine's last dispatch span is recorded, the pipeline drained
+               at each block's end (phase 4's checks and 8 + 8 launches
+               hold over them; the later paths hold every batch's verdicts
+               and witnesses to phase 4's).  One encode, dispatch, device,
+               sync, readback, apply and mirror_apply span a batch of the
+               enabled arm, every device span closed and unmarked, device
+               spans overlapping on the seq and wall axes, nothing recorded
+               by the disabled hub, no trace event or capture.  Prints the
+               span counts, each stage's wall extent a batch (median and
+               range) beside phase 4's own timers, the overlap,
+               host_phase_seq a turn and each arm's txn/s with their ratio
   4a. attribution  attribute_phases on phase 4's engine (its ~2.7 M-row
                history at h_cap 3,145,728) with one of phase 4's extra
                batches of 65,536 transactions, every arm (full, nosearch,
@@ -78,7 +94,10 @@ Phases, in order; any failure exits non-zero:
                step, and the kernels' ms against the plain step's per
                phase.  Each arm's device busy time under torch.profiler
                waits for the end of the script (7.), because the profiler
-               slows the host's launches for the rest of the process
+               slows the host's launches for the rest of the process.  On a
+               fresh span hub the attribution leaves exactly one
+               phase.<name> span a phase, each a child of the engine's last
+               dispatch span
   4g. 2level   three TorchConflictSets loaded from phase 4's end state (its
                mirror's snapshot, through load_from): search "" and
                search "2level" at strides 512 and 1024.  One of phase 4's
@@ -129,7 +148,9 @@ Phases, in order; any failure exits non-zero:
                for the mirrors, the committed-write clip, the per-shard
                mirror applies and the witness decode,
                the host syncs a batch, and each shard's device span (CUDA
-               events around its decide and commit halves)
+               events around its decide and commit halves); on fresh port
+               hubs, one device and one apply span a batch (their wall
+               extents printed), no rehydrate span, event or capture
   4r. resharded  phase 4s's set (built with max_shards=16), resharded live
                on the bench stream after its timed batches: split point 3
                (10,000,000) moves to 8,750,000 — live, shards 3 and 4
@@ -146,7 +167,10 @@ Phases, in order; any failure exits non-zero:
                (total and encoded), txn/s over the last 3 batches, host
                ms a batch of unpack, clip, mirror applies and witness
                decode, host syncs a batch, the device span of a batch and
-               of a shard, and the occupancy before and after
+               of a shard, and the occupancy before and after.  On fresh
+               port hubs each step gives one ShardReshard event, one
+               reshard marker span and one reshard capture, rehydrate
+               spans for exactly the shards that rehydrate
   5. vs cpu    TorchConflictSet on a reduced stream on the GPU and on the
                CPU (plain twins): verdicts, witnesses and exported state
                identical
@@ -194,6 +218,14 @@ Phases, in order; any failure exits non-zero:
                after batches 8 and 10; verdicts, witnesses, the move log,
                the injected log, every breaker walk, the counters, h_cap
                and d_cap equal on cuda and cpu
+  6o. spans vs cpu  phase 6's reduced stream through ConflictSet at
+               depths 1 and 2 and through 2 shards, on cuda and on cpu,
+               each on fresh port hubs whose clock is the batch index:
+               dispatch faults open and close the breaker, a device edit
+               planted after batch 7 diverges (mirror_check: the breaker
+               opens again and recovers); spans_json() and host_phase_seq
+               after every batch, the trace events and every capture's
+               artifact_json byte-identical on the two devices
   6c. chaos    (a) phase 4's ConflictSet, stream and seed (52 + 8 batches
                of 65,536 transactions at h_cap 3,145,728, depth 2) under
                the injector's random mode (the port's buggify armed on a
@@ -208,6 +240,12 @@ Phases, in order; any failure exits non-zero:
                coverage, the degraded batches, each rehydration's
                CUDA-event and host ms and keys, a degraded turn's host ms
                against a device-served one's, and txn/s (not a claim).
+               On fresh port hubs whose clock is the batch index: one
+               DeviceBackendStateChange event and one breaker.<to> marker
+               span a transition, a breaker_open capture for each open
+               the 5 s cooldown admits (each with its transition and a
+               span window), one device span a dispatch, all closed, the
+               replayed ones marked.
                (b) the random mode at phase 6's shape (12 batches of
                4,096 transactions) for ConflictSet and a 4-shard
                ShardedTorchConflictSet (per-shard sites), the same seeds
@@ -1090,7 +1128,8 @@ def path_mode(mode: str):
     }[mode]
 
 
-def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=None):
+def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=None,
+              obs=None):
     """The bench stream through ConflictSet at depth 2, as a Resolver
     serves it, in one of path_mode's modes, on the bench stream's
     `batches` (bench_batches).  Every mode but the flat one must give
@@ -1098,7 +1137,9 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
     too where the witness is on (a witness-free mode's are all []).
     Returns a dict: launches of the timed batches, txn/s, every batch's
     digest (verdicts and witness) and verdict digest, the set, the 4
-    extra batches, and the stats its log line prints."""
+    extra batches, and the stats its log line prints.  With `obs` (the
+    spans, trace and flight_recorder modules), the timed batches are phase
+    4o's (SpanArms)."""
     depth = 2
     tiered, amortized = mode == "tiered", mode == "amortized"
     label, settings = path_mode(mode)
@@ -1138,8 +1179,12 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
         pauses = GcPauses()
         for name in tk.LAUNCHES:
             tk.LAUNCHES[name] = 0
+        arms = SpanArms(*obs) if obs is not None else None
         t0 = time.perf_counter()
-        drive(cs, timed, depth, sink=sink)
+        if arms is not None:
+            arms.drive(torch, cs, timed, depth, sink)
+        else:
+            drive(cs, timed, depth, sink=sink)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = dict(tk.LAUNCHES)
@@ -1257,6 +1302,8 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
     if want is not None:
         what = "verdicts and witnesses" if witness else "verdicts"
         log(f"{label}: all {len(pairs)} batches' {what} equal the flat path's")
+    if arms is not None:
+        arms.report(torch, stats)
     packed = [(eng._pack(t), now, nov) for t, now, nov in extra]
     if mode == "flat":
         first_chunk_sweep(torch, et, eng, packed)
@@ -1429,13 +1476,15 @@ ARM_LAUNCHES = {
 }
 
 
-def attribution_path(torch, et, tk, pa, eng, txns):
+def attribution_path(torch, et, tk, pa, spans, eng, txns):
     """Phase 4a: attribute_phases on phase 4's engine (its full-width
     history) with one of phase 4's extra batches, every arm measured.  The
     full arm must equal the engine's own dispatch of that batch, the plain
     arm the kernel arm; the engine's history must be unchanged; each arm
-    must launch the kernels it keeps once a run.  Returns the kernels'
-    launches in the attribution and attribution_busy's arguments."""
+    must launch the kernels it keeps once a run; on a fresh hub it must
+    leave exactly one phase.<name> span a phase, each a child of the
+    engine's last dispatch span.  Returns the kernels' launches in the
+    attribution and attribution_busy's arguments."""
     gc.collect()
 
     def history():
@@ -1445,10 +1494,23 @@ def attribution_path(torch, et, tk, pa, eng, txns):
     before = history()
     for name in tk.LAUNCHES:
         tk.LAUNCHES[name] = 0
-    t0 = time.perf_counter()
-    rep = pa.attribute_phases(eng, txns, measure=True, repeats=ATTRIBUTION_REPEATS)
-    dt = time.perf_counter() - t0
+    hub, saved = spans.SpanHub(), spans.global_span_hub()
+    spans.set_global_span_hub(hub)
+    try:
+        t0 = time.perf_counter()
+        rep = pa.attribute_phases(eng, txns, measure=True, repeats=ATTRIBUTION_REPEATS)
+        dt = time.perf_counter() - t0
+    finally:
+        spans.set_global_span_hub(saved)
     launches = dict(tk.LAUNCHES)
+    parent = eng.last_dispatch_span
+    phase_spans = hub.spans()
+    if (parent is None or parent.span_id is None
+            or [sp.name for sp in phase_spans] != [f"phase.{p['phase']}" for p in rep["phases"]]
+            or any(sp.parent_id != parent.span_id for sp in phase_spans)
+            or [sp.attrs["ablate"] for sp in phase_spans] != [p["ablate"] for p in rep["phases"]]):
+        raise AssertionError(f"attribution: phase spans {[sp.to_dict() for sp in phase_spans]} "
+                             f"under dispatch span {parent.span_id}")
     if history() != before:
         raise AssertionError("attribution: the engine's history changed")
     if not rep["kernel_ab"]["identical"]:
@@ -1489,6 +1551,9 @@ def attribution_path(torch, et, tk, pa, eng, txns):
         f"engine, {before[0]} rows at h_cap {eng.h_cap}, {len(arms)} arms x {runs} runs in "
         f"{dt:.3f} s; full arm == the engine's dispatch, plain == kernel arm, history "
         f"unchanged, launches {launches}; card {torch.cuda.get_device_name(0)}")
+    log(f"attribution spans: {[sp.name for sp in phase_spans]}, one a phase, each a child of "
+        f"the engine's last dispatch span (id {parent.span_id}); attrs "
+        f"{[sp.attrs for sp in phase_spans]}")
     for name, blk in arms.items():
         lo, hi = m["arm_device_ms_range"][name]
         log(f"attribution arm {name} (ablate {blk['ablate']}): CUDA-event "
@@ -2005,12 +2070,17 @@ class ShardSpans:
         return per_shard, batch
 
 
-def sharded_path(torch, sr, tk, et, keylib):
+def sharded_path(torch, sr, tk, et, keylib, obs):
     """Phase 4s: the bench stream through ShardedTorchConflictSet(detect_packed)
     at the multichip arm's shape, 8 shards on the one card (room for 16, the
-    scale-up of phase 4r).  Returns the launches of the timed batches, the
-    set and the stream's generator, which phase 4r continues."""
+    scale-up of phase 4r), on fresh port hubs (`obs`: the spans, trace and
+    flight_recorder modules): one device and one apply span a batch, no
+    rehydrate span (the slices start in step with their empty mirrors), no
+    trace event, no capture.  Returns the launches of
+    the timed batches, the set and the stream's generator, which phase 4r
+    continues."""
     gc.collect()
+    hubs = PortHubs(*obs)
     rng = np.random.default_rng(2026)
     split = keylib.uniform_int_split_keys(SHARDS, KEYSPACE, KEY_BYTES)
     cs = sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=SHARD_H_CAP,
@@ -2071,6 +2141,22 @@ def sharded_path(torch, sr, tk, et, keylib):
     check_s = time.perf_counter() - t1
     if report["status"] != "ok" or any(r["status"] != "ok" for r in report["shards"].values()):
         raise AssertionError(f"sharded: mirror_check: {report}")
+    hubs.restore()
+    hub = hubs.hub
+    reh = hub.spans(name="rehydrate")
+    dev, app = hub.spans(name="device"), hub.spans(name="apply")
+    if (reh or len(dev) != WARM + TIMED or len(app) != WARM + TIMED
+            or any(set(sp.attrs) != {"version"} for sp in dev)
+            or hubs.col.events or hubs.rec.captures):
+        raise AssertionError(f"sharded: spans rehydrate {[sp.attrs for sp in reh]}, device "
+                             f"{len(dev)}, apply {len(app)}; events {hubs.col.events}, "
+                             f"captures {len(hubs.rec.captures)}")
+    dev_ms = [(sp.wall_end - sp.wall_start) * 1e3 for sp in dev[-TIMED:]]
+    app_ms = [(sp.wall_end - sp.wall_start) * 1e3 for sp in app[-TIMED:]]
+    log(f"sharded spans: device {len(dev)} and apply {len(app)} in {WARM + TIMED} batches, "
+        f"no rehydrate span, trace event or capture; timed batches' wall extent: device median {np.median(dev_ms):.3f} ms "
+        f"({min(dev_ms):.3f}-{max(dev_ms):.3f}), apply median {np.median(app_ms):.3f} ms "
+        f"({min(app_ms):.3f}-{max(app_ms):.3f})")
     tps = TIMED * PER_BATCH / dt
     log(f"sharded: {TIMED} timed batches x {PER_BATCH} txns through ShardedTorchConflictSet"
         f".detect_packed ({SHARDS} shards, h_cap {SHARD_H_CAP} each) in {dt:.6f} s: "
@@ -2087,13 +2173,32 @@ def sharded_path(torch, sr, tk, et, keylib):
     return launches, cs, rng
 
 
-def resharded_path(torch, tk, et, cs, rng):
+def resharded_path(torch, tk, et, cs, rng, obs):
     """Phase 4r: phase 4s's set, after its timed batches, resharded live on
     the bench stream.  A boundary move (split point 3, 10,000,000, to the
     middle of shard 3) and 4 batches, then the scale-up to 16 shards along
-    balance_split_keys(16) and 5 batches, the last 3 timed.  Returns the
-    launches of those 9 batches."""
+    balance_split_keys(16) and 5 batches, the last 3 timed.  On fresh port
+    hubs each step gives one ShardReshard event, one reshard marker span
+    and one reshard capture, and only the shards that rehydrate leave a
+    rehydrate span.  Returns the launches of those 9 batches."""
     m = cs.metrics
+    hubs = PortHubs(*obs)
+
+    def step_obs(what, n_steps, rehydrated_shards):
+        hub = hubs.hub
+        events = [e for e in hubs.col.events if e["Type"].startswith("ShardReshard")]
+        caps = [c for c in hubs.rec.captures if c["trigger"] == "reshard"]
+        marks = hub.spans(name="reshard")
+        reh = [sp.attrs["shard"] for sp in hub.spans(name="rehydrate")]
+        if ([e["Type"] for e in events] != ["ShardReshard"] * n_steps or len(caps) != n_steps
+                or len(marks) != n_steps or reh != rehydrated_shards
+                or any(not c["spans"] or not c["transitions"] for c in caps)):
+            raise AssertionError(f"resharded: after the {what}: events {events}, "
+                                 f"{len(caps)} captures, marks {[sp.attrs for sp in marks]}, "
+                                 f"rehydrate spans {reh}")
+        log(f"resharded spans after the {what}: events {events}; reshard captures "
+            f"{[c['detail'] for c in caps]}; marker spans {[sp.attrs for sp in marks]}; "
+            f"rehydrate spans for shards {reh}")
     next_batch = [WARM + TIMED]
 
     def counters():
@@ -2155,6 +2260,7 @@ def resharded_path(torch, tk, et, cs, rng):
     keys_total = c1["rehydrate_keys_total"] - c0["rehydrate_keys_total"]
     keys_encoded = c1["rehydrate_keys_encoded"] - c0["rehydrate_keys_encoded"]
     check_move_s = check_mirrors(SHARDS, "move")
+    step_obs("move", 1, [3, 4])
     occ1 = cs.shard_occupancy()
     log(f"resharded move: split point 3 {old[3].hex()} -> {new[3].hex()} (live, moved "
         f"{entry['moved']}, {entry['reused_mirrors']} mirrors kept) in {move_ms:.3f} ms of host; "
@@ -2197,6 +2303,10 @@ def resharded_path(torch, tk, et, cs, rng):
         raise AssertionError(f"resharded: the merge found {faults} order faults")
     launches = dict(tk.LAUNCHES)
     check_scale_s = check_mirrors(2 * SHARDS, "scale-up")
+    step_obs("scale-up", 2, [3, 4] + list(range(2 * SHARDS)))
+    hubs.restore()
+    if len(hubs.hub.spans(name="device")) != 9 or len(hubs.hub.spans(name="apply")) != 9:
+        raise AssertionError("resharded: not one device and one apply span a batch")
 
     def per_batch_ms(name):
         if wall[name]["count"] - wall0[name]["count"] != 3:
@@ -2359,6 +2469,210 @@ def resharded_vs_cpu(torch, sr, faults, keylib):
 # With the open-ended dispatch outage over batches 54-56 (inside the timed
 # window 52-59) it fires a handful of faults, two of them when the window
 # is full, and lets the breaker close by the last batch.
+# Phase 4o: the batches of phase 4's timed window a hub's block runs before
+# the pipeline drains (the arms taking turns, half the batches each), and
+# the stages counted.
+SPAN_BLOCK = 2
+SPAN_STAGES = ("encode", "dispatch", "device", "sync", "readback", "apply", "mirror_apply")
+
+
+class PortHubs:
+    """Fresh port SpanHub, TraceCollector and FlightRecorder installed as
+    the port's globals (restored by restore()), all three on `clock` when
+    one is given."""
+
+    def __init__(self, spans, trace, fr, clock=None, hub=None):
+        self.mods = (spans, trace, fr)
+        self.saved = (spans.global_span_hub(), trace.global_collector(),
+                      trace._global_clock, fr.global_flight_recorder())
+        self.hub = hub if hub is not None else spans.SpanHub(clock=clock)
+        self.col = trace.TraceCollector(clock=clock)
+        self.rec = fr.FlightRecorder(clock=clock)
+        spans.set_global_span_hub(self.hub)
+        trace.set_global_collector(self.col)
+        fr.set_global_flight_recorder(self.rec)
+
+    def restore(self):
+        spans, trace, fr = self.mods
+        spans.set_global_span_hub(self.saved[0])
+        trace.set_global_collector(self.saved[1], clock=self.saved[2])
+        fr.set_global_flight_recorder(self.saved[3])
+
+
+class SpanArms:
+    """Phase 4o inside phase 4: its timed batches run in blocks of
+    SPAN_BLOCK that take turns between a disabled SpanHub(enabled=False)
+    and the port's own SpanHub, with a fresh TraceCollector and
+    FlightRecorder installed; the pipeline drains at each block's end, so no
+    span straddles a swap.  report() checks and prints the record."""
+
+    def __init__(self, spans, trace, fr):
+        self.spans = spans
+        self.hubs = PortHubs(spans, trace, fr)
+        self.on, self.off = self.hubs.hub, spans.SpanHub(enabled=False)
+        self.arms = {"enabled": dict(hub=self.on, s=0.0, n=0, seq=[]),
+                     "disabled": dict(hub=self.off, s=0.0, n=0, seq=[])}
+
+    def drive(self, torch, cs, timed, depth, sink):
+        """The timed batches, block by block; each block's host seconds go
+        to its arm, and host_phase_seq is read after every turn."""
+        try:
+            for b in range(len(timed) // SPAN_BLOCK):
+                # The disabled arm first, so that the engine's last dispatch
+                # span (phase 4a's parent) is a recorded one.
+                arm = self.arms[("disabled", "enabled")[b % 2]]
+                self.spans.set_global_span_hub(arm["hub"])
+                turns = [cs.host_phase_seq]
+                t0 = time.perf_counter()
+                drive(cs, timed[b * SPAN_BLOCK : (b + 1) * SPAN_BLOCK], depth, sink=sink,
+                      tick=lambda _e: turns.append(cs.host_phase_seq))
+                torch.cuda.synchronize()
+                arm["s"] += time.perf_counter() - t0
+                arm["n"] += SPAN_BLOCK
+                turns.append(cs.host_phase_seq)
+                arm["seq"].append([y - x for x, y in zip(turns, turns[1:])])
+        finally:
+            self.hubs.restore()
+
+    def report(self, torch, stats):
+        """Each stage leaves one span a batch of the enabled arm, every
+        device span closes clean, the device spans overlap at depth 2 on
+        both axes, the disabled hub records nothing and adds nothing to
+        host_phase_seq, no trace event or capture appears.  Prints the span
+        counts, each stage's wall extent a batch beside phase 4's own timers
+        (`stats`), the overlap, host_phase_seq a turn and each arm's txn/s."""
+        on, arms, spans = self.on, self.arms, self.spans
+        n_on = arms["enabled"]["n"]
+        counts = {name: len(on.spans(name=name)) for name in SPAN_STAGES}
+        if counts != {name: n_on for name in SPAN_STAGES}:
+            raise AssertionError(f"spans: span counts {counts} in {n_on} enabled batches")
+        dev = on.spans(name="device")
+        if not all(d.done for d in dev) or any(set(d.attrs) != {"version"} for d in dev):
+            raise AssertionError(f"spans: a device span is open or marked: "
+                                 f"{[d.attrs for d in dev]}")
+        overlap = {axis: spans.overlap_efficiency(dev, axis=axis) for axis in ("seq", "wall")}
+        if not all(v > 0 for v in overlap.values()):
+            raise AssertionError(f"spans: no device overlap at depth 2: {overlap}")
+        if self.off.rings or self.off.begun or any(any(x) for x in arms["disabled"]["seq"]):
+            raise AssertionError("spans: the disabled hub recorded spans or host phases")
+        if self.hubs.col.events or self.hubs.rec.captures:
+            raise AssertionError(f"spans: events {self.hubs.col.events}, captures "
+                                 f"{len(self.hubs.rec.captures)}")
+        card = torch.cuda.get_device_name(0)
+        tps = {k: a["n"] * PER_BATCH / a["s"] for k, a in arms.items()}
+        log(f"spans: phase 4's {2 * n_on} timed batches in blocks of {SPAN_BLOCK}, a disabled "
+            f"and an enabled hub taking turns; span counts a batch (enabled) "
+            f"{ {k: v / n_on for k, v in counts.items()} }, every device span closed and "
+            f"unmarked, no trace event or capture; card {card}")
+        for name in SPAN_STAGES:
+            ms = [(sp.wall_end - sp.wall_start) * 1e3 for sp in on.spans(name=name)]
+            log(f"spans timeline {name}: wall extent a batch median {np.median(ms):.3f} ms, "
+                f"range {min(ms):.3f}-{max(ms):.3f} ms ({len(ms)} spans)")
+        log(f"spans timeline beside phase 4's own timers: readback holds the witness decode "
+            f"({stats['decode_ms']:.3f} ms a batch), mirror_apply is apply_batch "
+            f"({stats['apply_ms']:.3f} ms), dispatch holds the device span's enqueue "
+            f"({stats['span_ms']:.3f} ms)")
+        log(f"spans overlap of the device spans: seq {overlap['seq']:.4f}, wall "
+            f"{overlap['wall']:.4f}; host_phase_seq a turn, enabled blocks "
+            f"{arms['enabled']['seq']}, disabled blocks {arms['disabled']['seq']}")
+        log(f"spans cost: enabled {tps['enabled']:.1f} txn/s "
+            f"({arms['enabled']['s'] / n_on * 1e3:.3f} ms/batch), disabled "
+            f"{tps['disabled']:.1f} txn/s ({arms['disabled']['s'] / arms['disabled']['n'] * 1e3:.3f}"
+            f" ms/batch), ratio disabled/enabled {tps['disabled'] / tps['enabled']:.4f}; "
+            f"card {card}")
+
+
+# Phase 6o's fault script: the single set's dispatch down for 3 checks (the
+# breaker opens, probes and closes), the sharded set's shard 1 likewise; a
+# device edit planted after batch SPANS_PLANT, which mirror_check finds.
+SPANS_PLANT = 7
+
+
+def spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr):
+    """Phase 6o: phase 6's reduced stream through ConflictSet at depths 1
+    and 2 and through 2 shards, on cuda and on cpu, each on fresh port hubs
+    whose clock is the batch index: dispatch faults open and close the
+    breaker, and a device edit planted after batch SPANS_PLANT diverges
+    (mirror_check; the breaker opens again and recovers).  spans_json() and
+    host_phase_seq after every batch, the trace events and every capture's
+    artifact_json must be byte-identical on the two devices."""
+    n_txn, batches, window, keyspace = 4096, 12, 4, 200_000
+    rng = np.random.default_rng(7)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=keyspace), i + window, i)
+              for i in range(batches)]
+    split = keylib.uniform_int_split_keys(2, keyspace, KEY_BYTES)
+
+    def run(config, device):
+        t = [0.0]
+        hubs = PortHubs(spans, trace, fr, clock=lambda: t[0])
+        try:
+            inj = faults.DeviceFaultInjector()
+            if config == "2 shards":
+                cs = sr.ShardedTorchConflictSet(split, key_words=KEY_WORDS, h_cap=1 << 14,
+                                                device=device, fault_injector=inj)
+                inj.script("dispatch", at=3, persist=3, shard=1)
+            else:
+                depth = int(config[-1])
+                cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 16, device=device,
+                                     pipeline_depth=depth, fault_injector=inj)
+                inj.script("dispatch", at=3, persist=3)
+            per, out = [], []
+            for i, (txns, now, nov) in enumerate(stream):
+                t[0] = float(i)
+                if config == "2 shards":
+                    out.append((list(cs.detect(txns, now, nov)), list(cs.last_witness)))
+                else:
+                    out.append(cs.pipeline_submit(txns, now, nov))
+                    while cs.pipeline_inflight > depth - 1:
+                        cs.pipeline_complete_oldest()
+                if i == SPANS_PLANT:
+                    if config == "2 shards":
+                        cs._hvers[0, 1] += 1
+                    else:
+                        cs.pipeline_drain()
+                        cs._dev._hvers[1] += 1
+                    check = cs.mirror_check()
+                    if check["status"] != "diverged":
+                        raise AssertionError(f"spans {config} on {device}: the plant: {check}")
+                per.append((hubs.hub.spans_json(), getattr(cs, "host_phase_seq", 0)))
+            if config != "2 shards":
+                cs.pipeline_drain()
+                per.append((hubs.hub.spans_json(), cs.host_phase_seq))
+                out = [(list(e.statuses), list(e.witness)) for e in out]
+            walks = ([b.transitions for b in cs._breakers] if config == "2 shards"
+                     else [cs._breaker.transitions])
+            arts = [fr.artifact_json(a) for a in hubs.rec.captures]
+            return dict(verdicts=out, per=per, events=json.dumps(hubs.col.events),
+                        artifacts=arts, walks=json.loads(json.dumps(walks)),
+                        types=[e["Type"] for e in hubs.col.events],
+                        triggers=[a["trigger"] for a in hubs.rec.captures])
+        finally:
+            hubs.restore()
+
+    for config in ("depth 1", "depth 2", "2 shards"):
+        runs = {device: run(config, device) for device in ("cuda", "cpu")}
+        a, b = runs["cuda"], runs["cpu"]
+        for key in ("verdicts", "per", "events", "artifacts", "walks"):
+            if a[key] != b[key]:
+                raise AssertionError(f"spans {config}: cuda and cpu differ in {key}")
+        walk = [(f, to) for w in a["walks"] for _s, f, to, _r in w]
+        if walk.count(("ok", "degraded")) != 2 or walk_end(f"spans {config}", sum(a["walks"], [])) \
+                != "ok":
+            raise AssertionError(f"spans {config}: breaker walk {a['walks']}")
+        if a["types"].count("DeviceBackendStateChange") != len(walk) or \
+                a["types"].count("MirrorDivergence") != 1:
+            raise AssertionError(f"spans {config}: events {a['types']}")
+        if a["triggers"].count("mirror_divergence") != 1 or "breaker_open" not in a["triggers"]:
+            raise AssertionError(f"spans {config}: captures {a['triggers']}")
+        last = json.loads(a["per"][-1][0])["spans"]
+        log(f"spans {config} vs cpu: {batches} batches x {n_txn} txns under dispatch faults and "
+            f"a planted divergence after batch {SPANS_PLANT}: spans_json and host_phase_seq after "
+            f"every batch, {len(a['types'])} trace events and {len(a['artifacts'])} captures "
+            f"byte-identical on cuda and cpu; breaker walk {walk}; events {a['types']}; captures "
+            f"{a['triggers']}; spans by role "
+            f"{ {r: len(v) for r, v in sorted(last.items())} }; host_phase_seq {a['per'][-1][1]}")
+
+
 CHAOS_BUGGIFY_SEED = 6
 CHAOS_INJECTOR_SEED = 7
 CHAOS_FIRE = 0.05
@@ -2408,7 +2722,7 @@ class RehydrateSpans:
         return [(a.elapsed_time(b), host * 1e3, k) for a, b, host, k in self.spans]
 
 
-def chaos_path(torch, api, batches, tk, faults, buggify, DR, want):
+def chaos_path(torch, api, batches, tk, faults, buggify, DR, want, obs):
     """Phase 6c(a): phase 4's set, stream and seed under the port's random
     faults at full width.  The buggify sites are armed (activated
     probability 1.0) on a DeterministicRandom, the injector runs in random
@@ -2416,16 +2730,24 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want):
     Every batch's verdicts and witnesses must equal phase 4's (`want`), the
     breaker must walk legally back to ok, each fault must be counted, the
     mirror must check ok, and each kernel must launch once in every batch
-    whose submit dispatched it and never in a batch the mirror served.
-    Returns the kernels' launches in the run."""
+    whose submit dispatched it and never in a batch the mirror served.  On
+    fresh port hubs whose clock is the batch index: one
+    DeviceBackendStateChange event and one breaker.<to> marker span a
+    transition, a breaker_open capture for every open the cooldown admits
+    (each holding its transition and a span window), every device span
+    closed, the replayed ones marked.  Returns the kernels' launches in the
+    run."""
     depth = 2
     gc.collect()
+    vt = [0.0]
+    hubs = PortHubs(*obs, clock=lambda: vt[0])
     buggify.set_buggify_enabled(True, DR(CHAOS_BUGGIFY_SEED), activated_probability=1.0)
     inj = faults.DeviceFaultInjector(rng=DR(CHAOS_INJECTOR_SEED), fire_probability=CHAOS_FIRE)
     cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth,
                          fault_injector=inj)
     def stream():
         for i in range(WARM + TIMED):
+            vt[0] = float(i)
             if i == CHAOS_OUTAGE.start:
                 inj.begin_outage("dispatch")
             if i == CHAOS_OUTAGE.stop:
@@ -2455,6 +2777,7 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want):
     reh = spans.remove()
     buggify_cov = buggify.coverage()
     buggify.set_buggify_enabled(False)
+    hubs.restore()
 
     if digests != want:
         first = next(i for i, (a, b) in enumerate(zip(digests, want)) if a != b)
@@ -2489,6 +2812,7 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want):
     check_s = time.perf_counter() - t1
     if report["status"] != "ok":
         raise AssertionError(f"chaos: mirror_check {report}")
+    obs_line = chaos_observed(hubs, transitions, counters)
 
     by_site = {}
     for _seq, site, kind in injected:
@@ -2523,7 +2847,51 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want):
         f"{len(degraded_ms)} turns); each turn "
         + ", ".join(f"{i} {k} {s * 1e3:.0f}" for i, k, s, _l, _r in turns))
     log(f"chaos: mirror_check ok ({report['boundaries']} boundaries, {check_s:.3f} s)")
+    log(obs_line)
     return launches
+
+
+def chaos_observed(hubs, transitions, counters) -> str:
+    """Phase 6c(a)'s span, event and capture checks; returns its log line."""
+    events = [e for e in hubs.col.events if e["Type"] == "DeviceBackendStateChange"]
+    if [[e["seq"], e["from"], e["to"], e["reason"]] for e in events] != transitions:
+        raise AssertionError(f"chaos: DeviceBackendStateChange events {events} against the "
+                             f"transitions {transitions}")
+    marks = hubs.hub.spans(role="DeviceBreaker")
+    if [sp.name for sp in marks] != [f"breaker.{t[2]}" for t in transitions]:
+        raise AssertionError(f"chaos: breaker marker spans {[sp.name for sp in marks]}")
+    # The opens the cooldown admits, on the batch-index clock.
+    admitted, last = [], None
+    for e in events:
+        if (e["from"], e["to"]) == ("ok", "degraded"):
+            if last is None or not 0 <= e["Time"] - last < hubs.rec.cooldown:
+                admitted.append(e["seq"])
+                last = e["Time"]
+    caps = [c for c in hubs.rec.captures if c["trigger"] == "breaker_open"]
+    if [c["detail"]["seq"] for c in caps] != admitted[-hubs.rec.captures.maxlen:]:
+        raise AssertionError(f"chaos: breaker_open captures {[c['detail'] for c in caps]}, "
+                             f"admitted opens {admitted}")
+    for c in caps:
+        if (c["transitions"][-1][0] != c["detail"]["seq"]
+                or c["transitions"][-1][1:3] != ["ok", "degraded"]
+                or not any(c["spans"].values())):
+            raise AssertionError(f"chaos: a capture lacks its transition or spans: {c['detail']}")
+    dev = hubs.hub.spans(name="device")
+    replayed = sum("replayed" in sp.attrs for sp in dev)
+    faulted = sum("fault" in sp.attrs for sp in dev)
+    if (not all(sp.done for sp in dev) or len(dev) != counters["pipeline_dispatches"]
+            or replayed != counters["pipeline_replayed_batches"]):
+        raise AssertionError(f"chaos: {len(dev)} device spans ({replayed} replayed) against "
+                             f"{counters['pipeline_dispatches']} dispatches "
+                             f"({counters['pipeline_replayed_batches']} replayed)")
+    return (f"chaos spans and events: {len(events)} DeviceBackendStateChange events and "
+            f"breaker marker spans, one a transition; breaker_open captures at breaker seqs "
+            f"{[c['detail']['seq'] for c in caps]} (opens admitted by the {hubs.rec.cooldown} s "
+            f"cooldown on the batch-index clock: {admitted}), each with its transition and "
+            f"{sum(len(v) for v in caps[0]['spans'].values()) if caps else 0} spans in the first; "
+            f"device spans {len(dev)}, all closed: {replayed} replayed (a parked batch behind a "
+            f"faulted dispatch), {faulted} with fault (a dispatch fault raises before its "
+            f"batch's device span opens)")
 
 
 def chaos_vs_cpu(torch, api, sr, T, faults, buggify, DR, keylib):
@@ -2601,12 +2969,23 @@ def main(argv) -> int:
     from foundationdb_tpu_torch.conflict import phase_attribution as pa
     from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
     from foundationdb_tpu_torch.flow import buggify
+    from foundationdb_tpu_torch.flow import flight_recorder as fr
+    from foundationdb_tpu_torch.flow import spans
+    from foundationdb_tpu_torch.flow import trace
     from foundationdb_tpu_torch.flow.rng import DeterministicRandom as DR
     from foundationdb_tpu_torch.ops import rangequery as rq
     from foundationdb_tpu_torch.parallel import sharded_resolver as sr
 
     profile = "--profile" in argv
     stamps = "--stamps" in argv
+    clock = [time.perf_counter()] * 2
+
+    def phase_done(name):
+        """Log a phase's host seconds and the script's so far."""
+        now = time.perf_counter()
+        log(f"phase {name}: {now - clock[1]:.1f} s ({now - clock[0]:.1f} s in all)")
+        clock[1] = now
+
     # 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2649,18 +3028,22 @@ def main(argv) -> int:
             log_shape(r["name"], "tiered", t, f"{kind}, {smi}")
         for t in r["sharded"]:
             log_shape(r["name"], "sharded", t, f"{kind}, {smi}")
+    phase_done("1-3")
 
     # 4. the main path, flat; 4a. its step attributed by phase; 4g. the
     # 2level search from its end state; then 4w (witness-free), 4c
     # (witness-free, coalesced mirror apply), 4e (amortized flat eviction)
     # and 4t (tiered)
     batches = bench_batches(T)
-    main = main_path(torch, api, batches, tk, rq, et, profile)
+    obs = (spans, trace, fr)
+    main = main_path(torch, api, batches, tk, rq, et, profile, obs=obs)
     launches, digests = main["launches"], main["digests"]
-    launches_attribution, busy = attribution_path(torch, et, tk, pa, main["cs"]._dev,
+    phase_done("4 and 4o")
+    launches_attribution, busy = attribution_path(torch, et, tk, pa, spans, main["cs"]._dev,
                                                   main["extra"][0][0])
     search_path(torch, et, tk, rq, main["cs"], *main["extra"][1])
     del main["cs"], main["extra"]
+    phase_done("4a and 4g")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
         run = main_path(torch, api, batches, tk, rq, et, profile, mode=mode, want=main)
@@ -2673,10 +3056,14 @@ def main(argv) -> int:
             log_beside(label, stats[label], stats, "witness-free")
         others[mode] = run["launches"]
         del run
+        phase_done({"witness_free": "4w", "coalesced": "4c", "amortized": "4e",
+                    "tiered": "4t"}[mode])
     # 4s. the sharded resolver's main path; 4r. resharded live
-    launches_sharded, sharded_set, rng = sharded_path(torch, sr, tk, et, keylib)
-    launches_resharded = resharded_path(torch, tk, et, sharded_set, rng)
+    launches_sharded, sharded_set, rng = sharded_path(torch, sr, tk, et, keylib, obs)
+    phase_done("4s")
+    launches_resharded = resharded_path(torch, tk, et, sharded_set, rng, obs)
     del sharded_set
+    phase_done("4r")
     # 5-6. held against the CPU
     versus_cpu(torch, et)
     conflictset_vs_cpu(torch, api, T, faults)
@@ -2685,13 +3072,18 @@ def main(argv) -> int:
     settings_vs_cpu(torch, api, et, sr, tk, T, keylib)
     sharded_vs_cpu(torch, sr, faults, keylib)
     resharded_vs_cpu(torch, sr, faults, keylib)
+    phase_done("5-6r")
+    spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr)
+    phase_done("6o")
     # 6c. chaos on the card: random faults at full width, then replayed
     # on cuda and cpu at the reduced shape
-    launches_chaos = chaos_path(torch, api, batches, tk, faults, buggify, DR, digests)
+    launches_chaos = chaos_path(torch, api, batches, tk, faults, buggify, DR, digests, obs)
     del batches
     chaos_vs_cpu(torch, api, sr, T, faults, buggify, DR, keylib)
+    phase_done("6c")
     # 4a's device busy under the profiler, after every timed phase
     attribution_busy(torch, et, pa, *busy)
+    phase_done("busy")
     del busy
 
     # 7. result

@@ -17,6 +17,9 @@ easy to find:
                              and circuit breakers
   ops/rangequery.py          multiword search + sparse-table range max/min
   ops/stabbing.py            dyadic segment-tree interval stabbing
+  flow/spans.py, trace.py, flight_recorder.py  the span layer, trace
+                             events and the flight recorder the conflict
+                             sets report to (module globals)
   metrics.py                 counters and gauges (MetricsRegistry)
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.

@@ -27,6 +27,16 @@ dispatches a batch without reading it back; ``pipeline_complete_oldest``
 reads the oldest one back, applies it to the mirror and records the synced
 snapshot.  The breaker is credited at that sync, never at dispatch.
 
+Observability, as the reference's: spans (``flow/spans.py``) for each
+stage of a device-served batch — the engine's encode, dispatch and
+readback; here the device in-flight window (``device``, open from dispatch
+to sync and closed on every path, with ``fault``, ``diverged`` or
+``replayed`` when the batch was not verified), ``sync``, ``apply`` with
+its ``mirror_apply`` and ``rehydrate`` — parented to the caller's batch
+span; the host phases' seq extent as ``host_phase_seq``; a
+``MirrorDivergence`` trace event and a ``mirror_divergence`` flight-
+recorder capture on a confirmed divergence.
+
 Settings the reference reads from environment knobs are constructor
 arguments here, with the reference's defaults (``history``, ``delta_cap``
 and ``evict_every`` select and size the tiered history, or in flat mode
@@ -55,6 +65,9 @@ import time
 from collections import deque
 from typing import List, Optional
 
+from ..flow.flight_recorder import maybe_trigger
+from ..flow.spans import begin_span, current_span
+from ..flow.trace import TraceEvent
 from .device_faults import DeviceCircuitBreaker, DeviceFault
 from .engine_cpu import CpuConflictSet
 from .engine_cpu_flat import FLOOR_VERSION
@@ -119,7 +132,7 @@ class InflightBatch:
     mirror replay.  CPU-served batches come back already completed."""
 
     __slots__ = ("txns", "ticket", "now", "new_oldest_version",
-                 "statuses", "degraded", "witness")
+                 "statuses", "degraded", "span", "device_span", "witness")
 
     def __init__(self, txns, ticket, now, new_oldest_version):
         self.txns = txns
@@ -131,6 +144,11 @@ class InflightBatch:
         # Per-txn abort witness, (version, read-range ordinal) or None per
         # txn; [] when witness emission is off.
         self.witness: list = []
+        # The owning batch span (the caller's, from the hub's stack at
+        # dispatch) and the device in-flight span [dispatch done -> sync
+        # returned], whose overlap with its siblings is the pipeline's.
+        self.span = None
+        self.device_span = None
 
     @classmethod
     def completed(cls, statuses: List[int], degraded: bool = False,
@@ -321,7 +339,7 @@ class ConflictSet:
             self._long_key_version = now
         return batch_fits and not self._history_long_keys
 
-    def _apply_to_mirror(self, txns, statuses, now, new_oldest_version) -> None:
+    def _apply_to_mirror(self, txns, statuses, now, new_oldest_version, parent=None) -> None:
         """Apply a device-decided batch to the mirror, then, unless the
         mirror still holds queued (coalesced) batches, record the
         post-batch snapshot as the device's synced point (pre-encoding the
@@ -330,15 +348,20 @@ class ConflictSet:
         would fold early: with a window of K the synced point moves once
         every K batches, as the reference's does.  Both steps' wall seconds
         go to the engine registry's wall namespace (note_synced_seconds
-        only when it ran)."""
+        only when it ran).  Both run under an "apply" span (a child of
+        `parent`, else of the hub's current span), the mirror's apply under
+        its "mirror_apply" (a host phase)."""
         m = self._dev.metrics
-        t0 = time.perf_counter()
-        self._cpu.apply_batch(txns, statuses, now, new_oldest_version)
-        t1 = time.perf_counter()
-        m.record_wall("mirror_apply_seconds", t1 - t0)
-        if self._cpu.pending_batches == 0:
-            self._dev.note_synced(self._cpu.snapshot(), self._cpu.take_fresh_chunks())
-            m.record_wall("note_synced_seconds", time.perf_counter() - t1)
+        with begin_span("apply", parent=parent, attrs={"version": now, "n_txn": len(txns)}):
+            t0 = time.perf_counter()
+            with begin_span("mirror_apply", attrs={"n_txn": len(txns)}) as msp:
+                self._cpu.apply_batch(txns, statuses, now, new_oldest_version)
+            t1 = time.perf_counter()
+            m.record_wall("mirror_apply_seconds", t1 - t0)
+            self._dev._note_host_span(msp)
+            if self._cpu.pending_batches == 0:
+                self._dev.note_synced(self._cpu.snapshot(), self._cpu.take_fresh_chunks())
+                m.record_wall("note_synced_seconds", time.perf_counter() - t1)
 
     def _device_serve(self, txns, now, new_oldest_version):
         """One device attempt under the breaker.  Returns the statuses, or
@@ -349,15 +372,21 @@ class ConflictSet:
         if not self._breaker.allows_device():
             self._degraded_last = True
             return None
+        # A device span on the synchronous path too (dispatch and sync in
+        # one detect): depth 1 carries the pipelined path's span names,
+        # with no overlap by construction.
+        dspan = begin_span("device", attrs={"version": now})
         try:
             if self._device_stale:
                 self._rehydrate_from_mirror()
             statuses = self._dev.detect(txns, now, new_oldest_version)
         except DeviceFault as e:
+            dspan.end(attrs={"fault": 1})
             self._breaker.on_failure(e)
             self._device_stale = True
             self._degraded_last = True
             return None
+        dspan.end()
         self._breaker.on_success()
         self._apply_to_mirror(txns, statuses, now, new_oldest_version)
         return statuses
@@ -366,7 +395,8 @@ class ConflictSet:
         """Rebuild the device history from a mirror snapshot, for both
         serve paths.  load_from can itself fault (grow); the caller's
         except block then fails the attempt."""
-        self._dev.load_from(self._cpu.snapshot())
+        with begin_span("rehydrate"):
+            self._dev.load_from(self._cpu.snapshot())
         # load_from encoded every live chunk: the fresh backlog is moot.
         self._cpu.take_fresh_chunks()
         self._breaker.note_rehydrate()
@@ -522,6 +552,11 @@ class ConflictSet:
         # at dispatch would keep the circuit from ever opening.
         self._dev.metrics.counter("pipeline_dispatches").add()
         entry = InflightBatch(txns, ticket, now, new_oldest_version)
+        # The owning batch span (the caller pushed it for this synchronous
+        # submit), so that the deferred completion's spans parent to it,
+        # and the device in-flight span, closed at the sync.
+        entry.span = current_span()
+        entry.device_span = begin_span("device", attrs={"version": now})
         self._pipe.append(entry)
         return entry
 
@@ -532,14 +567,23 @@ class ConflictSet:
         whole pipeline onto the mirror instead — identical verdicts either
         way, device marked stale for the next submit."""
         entry = self._pipe[0]
+        # The sync span under the owning batch span; the device span closes
+        # when the sync returns, on every path.
+        sspan = begin_span("sync", parent=entry.span, attrs={"version": entry.now})
         try:
             statuses, diverged = self._dev.sync_ticket(entry.ticket)
         except DeviceFault as e:
+            sspan.end(attrs={"error": type(e).__name__})
+            if entry.device_span is not None:
+                entry.device_span.end(attrs={"fault": 1})
             self._breaker.on_failure(e)
             self._device_stale = True
             self._degraded_last = True
             self._pipeline_replay_on_mirror()
             return
+        sspan.end()
+        if entry.device_span is not None:
+            entry.device_span.end(attrs={"diverged": 1} if diverged else None)
         if diverged:
             # The fixpoint left this batch undecided and the device history
             # unchanged for it, so every later dispatch decided against
@@ -553,7 +597,8 @@ class ConflictSet:
         self._breaker.on_success()
         self._pipe.popleft()
         statuses_list = [int(s) for s in statuses[: len(entry.txns)]]
-        self._apply_to_mirror(entry.txns, statuses_list, entry.now, entry.new_oldest_version)
+        self._apply_to_mirror(entry.txns, statuses_list, entry.now, entry.new_oldest_version,
+                              parent=entry.span)
         self.last_witness = self._witness_of(self._dev)
         entry._resolve(statuses_list, degraded=False, witness=self.last_witness)
 
@@ -565,6 +610,9 @@ class ConflictSet:
         (whose reply tag must not depend on depth)."""
         while self._pipe:
             entry = self._pipe.popleft()
+            if entry.device_span is not None:
+                # The parked batch never reached its sync.
+                entry.device_span.end(attrs={"replayed": 1})
             self._dev.metrics.counter("pipeline_replayed_batches").add()
             if degraded:
                 statuses = self._cpu_detect_fallback(entry.txns, entry.now, entry.new_oldest_version)
@@ -580,6 +628,14 @@ class ConflictSet:
         CPU serve, teardown)."""
         while self._pipe:
             self.pipeline_complete_oldest()
+
+    @property
+    def host_phase_seq(self) -> int:
+        """The seq extent of the host-phase spans (encode, mirror_apply,
+        readback): hub sequence numbers, never wall time, so the Resolver's
+        host_fraction gauge is deterministic.  0 for the host-only
+        backend."""
+        return self._dev.host_phase_seq if self._dev is not None else 0
 
     def backend_signal(self) -> dict:
         """O(1) admission-control probe: the breaker's state plus the
@@ -604,8 +660,9 @@ class ConflictSet:
         """Diff a mirror snapshot against the device's exported state.
         Returns None for the host-only backend, else a report
         ({status: ok|diverged|skipped, ...}).  A confirmed divergence is a
-        device fault: counted, and the breaker opens (the mirror stays
-        authoritative; the device is marked stale).  O(H) host decode, so
+        device fault: counted, traced (MirrorDivergence), the breaker opens
+        (the mirror stays authoritative; the device is marked stale) and
+        the flight recorder captures.  O(H) host decode, so
         callers run it on a period, never per batch.
 
         Tiered history evicts its base only at major compactions, and flat
@@ -665,7 +722,21 @@ class ConflictSet:
         if mismatch:
             m.counter("mirror_divergence").add()
             m.counter("mirror_mismatch_keys").add(mismatch)
-            self._breaker.on_divergence(f"mismatch_keys={mismatch}")
+            TraceEvent("MirrorDivergence", severity=40).detail(
+                "mismatch_keys", mismatch).detail("mirror_boundaries", len(mk)).detail(
+                "device_boundaries", len(dk)).detail("mirror_oldest", s.oldest_version).detail(
+                "device_oldest", d_oldest).log()
+            breaker = self._breaker
+            breaker.on_divergence(f"mismatch_keys={mismatch}")
+            # After on_divergence, so the capture's transitions hold the
+            # breaker open this divergence caused.
+            maybe_trigger(
+                "mirror_divergence",
+                detail={"mismatch_keys": mismatch, "mirror_boundaries": len(mk),
+                        "device_boundaries": len(dk)},
+                transitions=lambda: [list(t) for t in breaker.transitions],
+                source=breaker.breaker_id,
+            )
             # The device state is suspect: rehydrate from a snapshot before
             # it serves again (after the breaker's backoff).
             self._device_stale = True

@@ -1,9 +1,9 @@
 """Device-fault injection and the degraded-mode circuit breaker.
 
-A copy of the reference package's ``conflict/device_faults.py`` without its
-trace-event, span and flight-recorder hooks (the breaker's
-``DeviceBackendStateChange`` event, its ``breaker.*`` marker spans and the
-flight-recorder capture at a breaker open).  Two pieces:
+A copy of the reference package's ``conflict/device_faults.py``, its
+observability hooks included: each breaker transition is a ``breaker.*``
+marker span, a ``DeviceBackendStateChange`` trace event and, when the
+circuit opens, a ``breaker_open`` flight-recorder capture.  Two pieces:
 
 ``DeviceFaultInjector``
     makes ``TorchConflictSet`` raise the failures a GPU can produce at its
@@ -45,6 +45,9 @@ import itertools
 from typing import Dict, List, Optional
 
 from ..flow.buggify import buggify_with_prob
+from ..flow.flight_recorder import maybe_trigger
+from ..flow.spans import instant
+from ..flow.trace import TraceEvent
 
 
 class DeviceFault(Exception):
@@ -288,10 +291,39 @@ class DeviceCircuitBreaker:
             self.metrics.counter(f"{self._prefix}{name}").add()
 
     def _transition(self, to: str, reason: str) -> None:
+        """Record one state change: the transition log and gauge, a
+        ``breaker.<to>`` marker span on the DeviceBreaker track, a
+        DeviceBackendStateChange trace event and, when the circuit opens
+        (ok -> degraded), a ``breaker_open`` flight-recorder capture.  The
+        label (a shard's domain) rides on all three."""
         frm, self.state = self.state, to
         self.transitions.append([self.seq, frm, to, reason])
         if self.metrics is not None:
             self.metrics.gauge(f"{self._prefix}backend_state").set(_STATE_GAUGE[to])
+        attrs = {"from": frm, "reason": reason, "seq": self.seq}
+        if self.label:
+            attrs["domain"] = self.label
+        instant(f"breaker.{to}", role="DeviceBreaker", attrs=attrs)
+        ev = TraceEvent("DeviceBackendStateChange", severity=20).detail(
+            "from", frm).detail("to", to).detail("reason", reason).detail("seq", self.seq)
+        if self.label:
+            ev.detail("domain", self.label)
+        ev.log()
+        if frm == STATE_OK and to == STATE_DEGRADED:
+            # After the event, so the capture's recent events hold it.  A
+            # failed probe re-opening a degraded circuit is no new open.
+            detail = {"reason": reason, "seq": self.seq}
+            if self.label:
+                detail["domain"] = self.label
+            maybe_trigger(
+                "breaker_open",
+                detail=detail,
+                # Copied only if the cooldown admits the capture.
+                transitions=lambda: [list(t) for t in self.transitions],
+                # Two breakers opening at once are two incidents: each has
+                # its own cooldown (construction-order id).
+                source=self.breaker_id,
+            )
 
     def snapshot(self) -> dict:
         """Replayable view for device_metrics()."""

@@ -78,6 +78,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..flow.spans import begin_span
+from ..flow.trace import TraceEvent
 from ..metrics import MetricsRegistry
 from ..ops.rangequery import (
     build_max_table,
@@ -1404,6 +1406,14 @@ class TorchConflictSet:
         self.fault_injector = None
         # Padding occupancy of the last dispatch (live rows / capacity).
         self.last_occupancy: dict = {}
+        # The last completed "dispatch" span: the parent phase attribution
+        # hangs its per-phase spans from.  None until the first dispatch.
+        self.last_dispatch_span = None
+        # The seq extent of this engine's host-phase spans (encode,
+        # readback, and the ConflictSet's mirror_apply): hub sequence
+        # numbers, never wall time, so the Resolver's host_fraction gauge
+        # is deterministic.
+        self.host_phase_seq = 0
         # Stamp of the MirrorSnapshot this device state equals.
         self._synced_stamp = None
         # Blob staging rings by blob length, the ring and slot of the blob
@@ -1632,10 +1642,21 @@ class TorchConflictSet:
         return [int(s) for s in statuses[: len(transactions)]]
 
     def _pack(self, transactions) -> PackedBatch:
+        """The batch as a PackedBatch, under an "encode" span (a host
+        phase)."""
         mt, mr, mw = self.bucket_mins
-        return PackedBatch.from_transactions(
-            transactions, self.key_words, min_txn=mt, min_rr=mr, min_wr=mw,
-        )
+        with begin_span("encode", attrs={"n_txn": len(transactions)}) as esp:
+            pb = PackedBatch.from_transactions(
+                transactions, self.key_words, min_txn=mt, min_rr=mr, min_wr=mw,
+            )
+        self._note_host_span(esp)
+        return pb
+
+    def _note_host_span(self, sp) -> None:
+        """Fold a host-phase span into host_phase_seq: its seq extent only
+        (a disabled hub's NULL_SPAN adds nothing)."""
+        if sp.seq is not None and sp.end_seq is not None:
+            self.host_phase_seq += sp.end_seq - sp.seq
 
     def _staging_blob(self, nwords: int) -> np.ndarray:
         """The next staging buffer for a blob of nwords (see _StagingRing),
@@ -1715,6 +1736,11 @@ class TorchConflictSet:
             if flag:
                 self._batches_since_evict = 0
         blob = self._pack_blob(pb, now, new_oldest_version, flag)
+        # The dispatch span: the upload and the step's enqueue, with the
+        # fixpoint's host checks (no readback).  It parents to the batch
+        # span on the hub's stack, and phase attribution's spans to it.
+        dspan = begin_span("dispatch", attrs={"n_txn": pb.n_txn, "version": now,
+                                              "first_dispatch": int(first_dispatch)})
         caps = dict(txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
                     h_cap=self.h_cap, kw1=kw1, on_sync=self._sync,
                     witness=self.witness, search=self.search,
@@ -1740,7 +1766,10 @@ class TorchConflictSet:
             out = torch.cat([torch.stack([undecided, iters, hcount, dcount]),
                              statuses, *wit])
         except torch.OutOfMemoryError as e:
+            dspan.end(attrs={"error": "OutOfMemoryError"})
             raise DeviceOOM(f"cuda: {e}", site="dispatch") from e
+        dspan.end()
+        self.last_dispatch_span = dspan
         self._hkeys, self._hvers, self._hcount, self._oldest = hkeys, hvers, hcount, oldest
         if self.tiered:
             self._maxtab, self._dkeys, self._dvers, self._dcount = maxtab, dkeys, dvers, dcount
@@ -1840,14 +1869,21 @@ class TorchConflictSet:
     def readback_packed(self, ticket: DispatchTicket):
         """The host half of detect_packed for the batch just dispatched:
         one readback; re-decide on the CPU engine if the fixpoint diverged,
-        else the verdicts (the witness goes to last_witness)."""
-        statuses = self._readback(ticket, pipelined=False)
-        if statuses is None:
-            # The step left the logical history untouched: re-decide the
-            # batch on the CPU engine against that state and adopt its
-            # result.
-            return self._fallback_cpu(ticket.pb, ticket.now, ticket.new_oldest_version)
-        return statuses
+        else the verdicts (the witness goes to last_witness).  A "readback"
+        span (a host phase) holds the wait, the witness decode and a
+        fallback."""
+        rsp = begin_span("readback", attrs={"n_txn": ticket.pb.n_txn})
+        try:
+            statuses = self._readback(ticket, pipelined=False)
+            if statuses is None:
+                # The step left the logical history untouched: re-decide
+                # the batch on the CPU engine against that state and adopt
+                # its result.
+                return self._fallback_cpu(ticket.pb, ticket.now, ticket.new_oldest_version)
+            return statuses
+        finally:
+            rsp.end()
+            self._note_host_span(rsp)
 
     # -- pipelined dispatch --
     def dispatch_txns(
@@ -1860,22 +1896,34 @@ class TorchConflictSet:
         sync_ticket does that later.  The carried history advances in
         dispatch order, so the next dispatch already decides against this
         batch's committed writes."""
-        return self.dispatch_packed(self._pack(transactions), now, new_oldest_version)
+        pb = self._pack(transactions)
+        return self.dispatch_packed(pb, now, new_oldest_version)
 
     def sync_ticket(self, ticket: DispatchTicket):
         """Read one dispatched batch back.  Returns (statuses ndarray
         [txn_cap], diverged): diverged=True means the fixpoint left the
         batch undecided — the step left the logical history UNCHANGED for
         it, so the caller must re-decide this batch (and any dispatched
-        after it) on an authoritative CPU engine."""
-        statuses = self._readback(ticket, pipelined=True)
-        if statuses is None:
-            self.metrics.counter("cpu_fallbacks").add()
-            return None, True
-        return statuses, False
+        after it) on an authoritative CPU engine.  A "readback" span (a host
+        phase) holds the wait and the witness decode."""
+        rsp = begin_span("readback", attrs={"n_txn": ticket.pb.n_txn})
+        try:
+            statuses = self._readback(ticket, pipelined=True)
+            if statuses is None:
+                self.metrics.counter("cpu_fallbacks").add()
+                TraceEvent("ConflictFixpointDiverged", severity=30).detail(
+                    "n_txn", ticket.pb.n_txn).detail("now", ticket.now).detail(
+                    "pipelined", 1).log()
+                return None, True
+            return statuses, False
+        finally:
+            rsp.end()
+            self._note_host_span(rsp)
 
     def _fallback_cpu(self, pb: PackedBatch, now: int, new_oldest_version: int):
         self.metrics.counter("cpu_fallbacks").add()
+        TraceEvent("ConflictFixpointDiverged", severity=30).detail(
+            "n_txn", pb.n_txn).detail("now", now).log()
         cpu = FlatCpuConflictSet()
         self.store_to(cpu)
         statuses = cpu.detect(

@@ -45,8 +45,14 @@ sit inside the step, so an arm's CUDA-event span includes the device
 idling while the host decides to go on: the fixpoint phase is its rounds
 plus their checks.
 ``kernel_ab`` then carries the kernel and plain ms of the full step and
-of each phase.  The reference's ``record=`` (phase spans under the
-dispatch span) waits for the port's span layer.
+of each phase.
+
+``record=True`` (the default, as the reference's) records one
+``phase.<name>`` span a phase as a child of the engine's
+``last_dispatch_span``, with deterministic attributes only: where the
+reference puts XLA's ``flops`` and ``share``, the port puts the ablated
+arm's ``ablate`` token, its kernel ``launches`` and its fixpoint
+``host_checks``.  Wall and CUDA-event times stay in the report.
 
 Tiered engines raise, as in the reference, and so does an engine built
 with a non-empty ``ablate`` (the twin of the reference's check that its
@@ -64,6 +70,7 @@ import numpy as np
 import torch
 
 from ..flow.rng import DeterministicRandom
+from ..flow.spans import begin_span
 from . import engine_torch as et
 from . import kernels
 from .types import TransactionConflictInfo
@@ -128,11 +135,12 @@ def split_phases(times: dict, prefix: str = "") -> dict:
 
 
 def attribute_phases(engine, transactions=None, *, measure: bool = False,
-                     repeats: int = 3) -> dict:
+                     repeats: int = 3, record: bool = True) -> dict:
     """Attribute one step of a flat TorchConflictSet across its phases (see
     the module docstring).  The batch is `transactions` (default
     _synthetic_txns()) at now = the engine's oldest version + 8, evicting
-    below its oldest version, as the reference picks them."""
+    below its oldest version, as the reference picks them.  With `record`,
+    the phases become spans under the engine's last dispatch span."""
     if engine.tiered:
         raise ValueError(
             "phase attribution needs the flat engine: the ablation seams live "
@@ -241,4 +249,19 @@ def attribute_phases(engine, transactions=None, *, measure: bool = False,
                 ph: {"kernels": k, "plain": p}
                 for (ph, k), p in zip(split_phases(device_ms).items(),
                                       split_phases(device_ms, "plain_").values())}
+    if record:
+        _record_phase_spans(engine, phases)
     return report
+
+
+def _record_phase_spans(engine, phases) -> None:
+    """One span a phase under the engine's last dispatch span, with the
+    ablated arm's deterministic fields (never a time)."""
+    parent = getattr(engine, "last_dispatch_span", None)
+    for p in phases:
+        begin_span(
+            f"phase.{p['phase']}",
+            parent=parent,
+            attrs={"ablate": p["ablate"], "launches": dict(p["launches"]),
+                   "host_checks": p["host_checks"]},
+        ).end()

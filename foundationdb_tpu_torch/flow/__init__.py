@@ -1,6 +1,7 @@
-"""Simulation randomness for the port (the part of the reference package's
-``flow`` that fault injection needs): ``rng.DeterministicRandom`` and the
-BUGGIFY sites of ``buggify``."""
+"""The parts of the reference package's ``flow`` layer the port's conflict
+sets call: simulation randomness (``rng.DeterministicRandom`` and the
+BUGGIFY sites of ``buggify``) and observability (``spans``, ``trace`` and
+``flight_recorder``, each reached through its module globals)."""
 
 from .rng import DeterministicRandom
 

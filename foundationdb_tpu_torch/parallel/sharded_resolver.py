@@ -68,6 +68,14 @@ stale slice rehydrates from its mirror at its next device batch.  The
 ``reshard`` fault site is checked on every moved shard before anything
 mutates, and a fault defers the whole move.  Not ported: shards on
 several GPUs.
+
+Observability, as the reference's: a ``device`` span around the step and
+its readback, an ``apply`` span around the mirrors' applies, a
+``rehydrate`` span a shard; ``ConflictFixpointDiverged`` (``sharded``),
+``MirrorDivergence`` (with the shard) and its ``mirror_divergence``
+capture; and at a reshard a ``reshard`` marker span on the ShardedConflict
+track, ``ShardReshard`` (or ``ShardReshardDeferred``) and a ``reshard``
+capture holding the move log.
 """
 
 from __future__ import annotations
@@ -89,6 +97,9 @@ from ..conflict.engine_cpu_flat import FLOOR_VERSION
 from ..conflict.keys import uniform_int_split_keys
 from ..conflict.types import COMMITTED, CONFLICT, TransactionConflictInfo
 from ..device import resolve_device
+from ..flow.flight_recorder import maybe_trigger
+from ..flow.spans import begin_span, instant
+from ..flow.trace import TraceEvent
 from ..metrics import MetricsRegistry
 from ..ops.rangequery import build_max_table_np, check_search, lex_less
 
@@ -672,29 +683,30 @@ class ShardedTorchConflictSet:
         self._check_fault("grow", s)
         m = self.metrics
         mir = self._mirrors[s]
-        snap = mir.snapshot()
-        n = snap.boundary_count
-        if n + 8 > self.h_cap:
-            self._grow(et._next_pow2(n + 8, self.h_cap * 2))
-        ents = []
-        encoded = 0
-        for ch in snap.chunks:
-            ent, k = chunk_encoding(ch, self.key_words)
-            ents.append(ent)
-            encoded += k
-        m.counter("rehydrate_keys_total").add(n)
-        m.counter("rehydrate_keys_encoded").add(encoded)
-        kw1 = self.key_words + 1
-        hk = np.full((kw1, self.h_cap), keylib.INF_WORD, np.uint32)
-        hv = np.full((self.h_cap,), FLOOR_REL, np.int32)
-        keys_enc = np.concatenate([e[0] for e in ents], axis=0)
-        vers_abs = np.concatenate([e[1] for e in ents])
-        hk[:, :n] = keys_enc.T
-        rel = np.clip(vers_abs - self._base, FLOOR_REL, 2**31 - 2)
-        rel[vers_abs == FLOOR_VERSION] = FLOOR_REL
-        hv[:n] = rel.astype(np.int32)
-        oldest_rel = int(np.clip(snap.oldest_version - self._base, 0, 2**31 - 2))
-        self._write_shard_slice(s, hk, hv, n, oldest_rel)
+        with begin_span("rehydrate", attrs={"shard": s}):
+            snap = mir.snapshot()
+            n = snap.boundary_count
+            if n + 8 > self.h_cap:
+                self._grow(et._next_pow2(n + 8, self.h_cap * 2))
+            ents = []
+            encoded = 0
+            for ch in snap.chunks:
+                ent, k = chunk_encoding(ch, self.key_words)
+                ents.append(ent)
+                encoded += k
+            m.counter("rehydrate_keys_total").add(n)
+            m.counter("rehydrate_keys_encoded").add(encoded)
+            kw1 = self.key_words + 1
+            hk = np.full((kw1, self.h_cap), keylib.INF_WORD, np.uint32)
+            hv = np.full((self.h_cap,), FLOOR_REL, np.int32)
+            keys_enc = np.concatenate([e[0] for e in ents], axis=0)
+            vers_abs = np.concatenate([e[1] for e in ents])
+            hk[:, :n] = keys_enc.T
+            rel = np.clip(vers_abs - self._base, FLOOR_REL, 2**31 - 2)
+            rel[vers_abs == FLOOR_VERSION] = FLOOR_REL
+            hv[:n] = rel.astype(np.int32)
+            oldest_rel = int(np.clip(snap.oldest_version - self._base, 0, 2**31 - 2))
+            self._write_shard_slice(s, hk, hv, n, oldest_rel)
         self._breakers[s].note_rehydrate()
         self._stale[s] = False
         self._synced_stamp[s] = snap.stamp
@@ -863,14 +875,15 @@ class ShardedTorchConflictSet:
             self._degraded_last = True
         device_shards = [s for s in range(S) if allowed[s]]
         if device_shards:
-            t0 = time.perf_counter()
-            per = self._committed_writes_per_shard(txns, rows, device_shards)
-            t1 = time.perf_counter()
-            for s in device_shards:
-                self._apply_shard_writes(s, per[s], now, new_oldest_version)
-                self._note_synced_shard(s)
-            m.record_wall("clip_seconds", t1 - t0)
-            m.record_wall("mirror_apply_seconds", time.perf_counter() - t1)
+            with begin_span("apply", attrs={"version": now, "n_txn": pb.n_txn}):
+                t0 = time.perf_counter()
+                per = self._committed_writes_per_shard(txns, rows, device_shards)
+                t1 = time.perf_counter()
+                for s in device_shards:
+                    self._apply_shard_writes(s, per[s], now, new_oldest_version)
+                    self._note_synced_shard(s)
+                m.record_wall("clip_seconds", t1 - t0)
+                m.record_wall("mirror_apply_seconds", time.perf_counter() - t1)
         combined = np.min(np.stack(rows, axis=0), axis=0).astype(np.int32)
         if self._witness:
             # The device's combined witness (over the active shards) joined
@@ -926,24 +939,26 @@ class ShardedTorchConflictSet:
         caps = dict(allowed=allowed, txn_cap=TXN, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
                     h_cap=self.h_cap, on_sync=self._sync, witness=self._witness,
                     search=self.search, search_stride=self.search_stride)
-        if self.tiered:
-            undecided, iters, status, *wit = sharded_step_tiered(
-                self._lo, self._hi, act, self._hkeys, self._hvers, self._hcount,
-                self._maxtab, self._dkeys, self._dvers, self._dcount, self._oldest,
-                *batch, do_major, d_cap=self.d_cap, **caps)
-        else:
-            undecided, iters, status, *wit = sharded_step(
-                self._lo, self._hi, act, self._hkeys, self._hvers, self._hcount,
-                self._oldest, *batch, **caps)
-        dcount = self._dcount if self.tiered else torch.zeros_like(self._hcount)
-        # The head, the statuses and, with the witness on, its combined
-        # vectors (w_ver, w_rng), in one readback.
-        out = torch.cat([
-            torch.stack([undecided, iters]), self._hcount, dcount, self._oldest,
-            status.reshape(-1), *wit,
-        ])
-        self._sync()
-        arr = out.cpu().numpy()
+        # The device span: every shard's step and the one readback.
+        with begin_span("device", attrs={"version": now}):
+            if self.tiered:
+                undecided, iters, status, *wit = sharded_step_tiered(
+                    self._lo, self._hi, act, self._hkeys, self._hvers, self._hcount,
+                    self._maxtab, self._dkeys, self._dvers, self._dcount, self._oldest,
+                    *batch, do_major, d_cap=self.d_cap, **caps)
+            else:
+                undecided, iters, status, *wit = sharded_step(
+                    self._lo, self._hi, act, self._hkeys, self._hvers, self._hcount,
+                    self._oldest, *batch, **caps)
+            dcount = self._dcount if self.tiered else torch.zeros_like(self._hcount)
+            # The head, the statuses and, with the witness on, its combined
+            # vectors (w_ver, w_rng), in one readback.
+            out = torch.cat([
+                torch.stack([undecided, iters]), self._hcount, dcount, self._oldest,
+                status.reshape(-1), *wit,
+            ])
+            self._sync()
+            arr = out.cpu().numpy()
         head = 2 + 3 * S
         self._hcount_host = arr[2 : 2 + S].astype(np.int64)
         self._dcount_host = arr[2 + S : 2 + 2 * S].astype(np.int64)
@@ -961,6 +976,8 @@ class ShardedTorchConflictSet:
             else:
                 self._batches_since_major += 1
         if int(arr[0]) != 0:
+            TraceEvent("ConflictFixpointDiverged", severity=30).detail(
+                "n_txn", pb.n_txn).detail("sharded", True).log()
             return True
         for s in range(S):
             if allowed[s]:
@@ -1086,7 +1103,18 @@ class ShardedTorchConflictSet:
                 diverged += 1
                 m.counter("mirror_divergence").add()
                 m.counter("mirror_mismatch_keys").add(mismatch)
-                self._breakers[s].on_divergence(f"mismatch_keys={mismatch}")
+                TraceEvent("MirrorDivergence", severity=40).detail(
+                    "mismatch_keys", mismatch).detail("shard", s).detail(
+                    "mirror_boundaries", len(mk)).detail("device_boundaries", len(dk)).log()
+                breaker = self._breakers[s]
+                breaker.on_divergence(f"mismatch_keys={mismatch}")
+                maybe_trigger(
+                    "mirror_divergence",
+                    detail={"shard": s, "mismatch_keys": mismatch,
+                            "mirror_boundaries": len(mk), "device_boundaries": len(dk)},
+                    transitions=lambda b=breaker: [list(t) for t in b.transitions],
+                    source=breaker.breaker_id,
+                )
                 self._stale[s] = True
                 self._degraded_last = True
             shards_report[f"shard{s}"] = {
@@ -1298,6 +1326,8 @@ class ShardedTorchConflictSet:
                 entry["action"] = "deferred"
                 entry["fault_shard"] = s
                 self.move_log.append(entry)
+                TraceEvent("ShardReshardDeferred", severity=20).detail(
+                    "shard", s).detail("reason", reason).log()
                 return entry
         degraded = [s for s in moved if s < self.n_shards and self._breakers[s].state != "ok"]
         entry["action"] = "degraded_on_mirror" if degraded else "live"
@@ -1356,6 +1386,21 @@ class ShardedTorchConflictSet:
         m.counter("reshard_moved_shards").add(len(moved))
         entry["reused_mirrors"] = reused
         self.move_log.append(entry)
+        instant("reshard", role="ShardedConflict",
+                attrs={"seq": entry["seq"], "reason": reason, "moved": len(moved),
+                       "shards": n_new})
+        TraceEvent("ShardReshard", severity=20).detail("seq", entry["seq"]).detail(
+            "reason", reason).detail("action", entry["action"]).detail(
+            "moved", len(moved)).detail("shards", n_new).log()
+        # A committed move freezes the telemetry window with the move log
+        # (a deferred one is a fault: the breaker's capture has it).
+        maybe_trigger(
+            "reshard",
+            detail={"seq": entry["seq"], "reason": reason, "action": entry["action"],
+                    "moved": moved, "shards": n_new},
+            transitions=lambda: [dict(e) for e in self.move_log],
+            source="resharder",
+        )
         return entry
 
 

@@ -754,3 +754,82 @@ def test_two_level_engine_on_the_card_matches_the_cpu(dev, history):
                                rq.searchsorted_words(keys, q, side, mode="2level",
                                                      stride=stride))
     assert tk.merge_contract_faults(dev) == 0
+
+
+def _observed_on(device, config, stream):
+    """One stream through a ConflictSet at depth 2 ("set") or 2 shards
+    ("shards") on fresh port hubs whose clock is the batch index, under a
+    dispatch outage that opens and closes the breaker and a device edit
+    after batch 6 that mirror_check finds.  Returns (verdicts and
+    witnesses, spans_json and host_phase_seq after every batch, the events,
+    every capture's artifact_json)."""
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.conflict.device_faults import DeviceFaultInjector
+    from foundationdb_tpu_torch.flow import flight_recorder as fr
+    from foundationdb_tpu_torch.flow import spans, trace
+    from foundationdb_tpu_torch.parallel import sharded_resolver as sr
+
+    t = [0.0]
+    saved = (spans.global_span_hub(), trace.global_collector(), trace._global_clock,
+             fr.global_flight_recorder())
+    hub = spans.SpanHub(clock=lambda: t[0])
+    col = trace.TraceCollector(clock=lambda: t[0])
+    rec = fr.FlightRecorder(clock=lambda: t[0])
+    spans.set_global_span_hub(hub)
+    trace.set_global_collector(col)
+    fr.set_global_flight_recorder(rec)
+    try:
+        inj = DeviceFaultInjector()
+        if config == "shards":
+            cs = sr.ShardedTorchConflictSet([_k(200)], key_words=3, h_cap=1 << 10,
+                                            bucket_mins=BUCKETS, device=device,
+                                            fault_injector=inj)
+            inj.script("dispatch", at=2, persist=3, shard=1)
+        else:
+            cs = ConflictSet(key_words=3, bucket_mins=BUCKETS, h_cap=1 << 10, device=device,
+                             fault_injector=inj)
+            inj.script("dispatch", at=2, persist=3)
+        out, per = [], []
+        for i, (txns, now, nov) in enumerate(stream):
+            t[0] = float(i)
+            if config == "shards":
+                out.append((list(cs.detect(txns, now, nov)), list(cs.last_witness)))
+            else:
+                out.append(cs.pipeline_submit(txns, now, nov))
+                while cs.pipeline_inflight > 1:
+                    cs.pipeline_complete_oldest()
+            if i == 6:
+                if config == "shards":
+                    cs._hvers[0, 1] += 1
+                else:
+                    cs.pipeline_drain()
+                    cs._dev._hvers[1] += 1
+                assert cs.mirror_check()["status"] == "diverged"
+            per.append((hub.spans_json(), getattr(cs, "host_phase_seq", 0)))
+        if config != "shards":
+            cs.pipeline_drain()
+            out = [(list(e.statuses), list(e.witness)) for e in out]
+        return out, per, list(col.events), [fr.artifact_json(a) for a in rec.captures]
+    finally:
+        spans.set_global_span_hub(saved[0])
+        trace.set_global_collector(saved[1], clock=saved[2])
+        fr.set_global_flight_recorder(saved[3])
+
+
+@pytest.mark.parametrize("config", ["set", "shards"])
+def test_spans_events_and_captures_on_the_card_match_the_cpu(dev, config):
+    """The span record, host_phase_seq, trace events and flight-recorder
+    captures of a faulted stream with a planted divergence are
+    byte-identical on the card and on the CPU, for the single set at depth
+    2 and for 2 shards."""
+    stream = _stream(41, 400, batches=12, txns_per_batch=30)
+    gpu = _observed_on(dev, config, stream)
+    cpu = _observed_on("cpu", config, stream)
+    assert gpu[0] == cpu[0]
+    for i, (g, c) in enumerate(zip(gpu[1], cpu[1])):
+        assert g == c, f"batch {i}"
+    assert gpu[2] == cpu[2] and gpu[3] == cpu[3]
+    types = [e["Type"] for e in gpu[2]]
+    assert types.count("MirrorDivergence") == 1 and types.count("DeviceBackendStateChange") >= 4
+    assert any('"trigger":"mirror_divergence"' in a for a in gpu[3])
+    assert any('"trigger":"breaker_open"' in a for a in gpu[3])

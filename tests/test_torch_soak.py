@@ -18,13 +18,16 @@ The soak's device arms import the reference's ``DeviceFaultInjector`` by
 name when a fault starts; the port's sets absorb only the port's faults,
 so the port's class stands in for that name (``monkeypatch``).
 
-Each report equals the reference's same-seed report, ``json.dumps(
-sort_keys=True)``, except for what needs the reference's ``flow`` layers
-(spans, trace events, the flight recorder's breaker hook, the engine
-registry's time series), which the port does not have yet; EXCLUDED lists
-each with its reason.  Twins of tests/test_soak.py:133 (device outage),
-:192 (shard kill, 4 shards) and :243 (same seed, same report), and one
-soak with a ``shard_move`` fault.
+The builder also installs the run's own span hub, trace collector and
+flight recorder (the reference's, which ``run_soak`` swaps in before it
+builds the cluster) into the port's globals, with the event loop's clock
+for the port's trace events, and the run restores the port's afterwards:
+the port's spans, events and captures then land where the reference's
+would.  Each report equals the reference's same-seed report, ``json.dumps(
+sort_keys=True)``, whole: spans, trace events, captures and the engine
+registry's time series included (EXCLUDED is empty).  Twins of
+tests/test_soak.py:133 (device outage), :192 (shard kill, 4 shards) and
+:243 (same seed, same report), and one soak with a ``shard_move`` fault.
 """
 
 import copy
@@ -32,7 +35,13 @@ import json
 
 import pytest
 
+import foundationdb_tpu.flow.flight_recorder as ref_fr
+import foundationdb_tpu.flow.spans as ref_spans
+import foundationdb_tpu.flow.trace as ref_trace
 import foundationdb_tpu.workloads.soak as soak
+import foundationdb_tpu_torch.flow.flight_recorder as port_fr
+import foundationdb_tpu_torch.flow.spans as port_spans
+import foundationdb_tpu_torch.flow.trace as port_trace
 from foundationdb_tpu.conflict import device_faults as ref_faults
 from foundationdb_tpu.flow import set_event_loop
 from foundationdb_tpu.flow.knobs import g_knobs
@@ -49,76 +58,16 @@ def _clean_loop():
     set_event_loop(None)
 
 
-# Report parts the port cannot produce yet, each with its reason.  Every
-# other key of the report must equal the reference's.
-EXCLUDED = {
-    # The span layer (flow/spans.py): the reference's device engine opens
-    # host-phase and device spans that the port does not, so span ids and
-    # sequence numbers shift too.
-    "spans": "span layer",
-    "flight_recorder.captures[].spans": "span layer",
-    # The Resolver's host_fraction gauge divides host-phase extents that
-    # the reference's engine accumulates from those spans.
-    "flight_recorder.captures[].timeseries[Resolver.*].gauges.host_fraction": "span layer",
-    # The Resolver samples the device engine's registry as
-    # JaxConflict.<process>: the reference engine's own counters, gauges
-    # and histograms.
-    "flight_recorder.captures[].timeseries[JaxConflict.*]": "engine registry",
-    # The reference's breaker captures the flight recorder when it opens
-    # (conflict/device_faults.py:361-383), and its sharded set when it
-    # reshards (parallel/sharded_resolver.py:1871); the port has neither
-    # hook.  The reference's report is read without those captures, its
-    # other captures renumbered and the recorder's status counted without
-    # them.
-    "flight_recorder.captures[trigger=breaker_open|reshard]": "flight recorder",
-    # The reference's breaker logs a DeviceBackendStateChange trace event
-    # at each transition (conflict/device_faults.py:341-357), its sharded
-    # set ShardReshard and ShardReshardDeferred at a reshard
-    # (parallel/sharded_resolver.py:1780, :1862).  A capture's ring of
-    # recent events then holds them; the port's ring holds older events in
-    # their place, so it is compared on the reference's others.
-    "flight_recorder.captures[].recent_events[Type=DeviceBackendStateChange|ShardReshard*]":
-        "trace events",
-}
-REFERENCE_ONLY_TRIGGERS = ("breaker_open", "reshard")
-REFERENCE_ONLY_EVENTS = ("DeviceBackendStateChange", "ShardReshard", "ShardReshardDeferred")
+# Report parts the port cannot produce, each with its reason: none.  The
+# port's span layer, trace events and flight-recorder hooks fill every part
+# of the report the reference's do.
+EXCLUDED: dict = {}
 
 
-def comparable(report: dict, port: bool) -> dict:
-    """The report less EXCLUDED: the reference's read as the port's would
-    be without those layers."""
-    rep = copy.deepcopy(report)
-    rep.pop("spans")
-    fr = rep["flight_recorder"]
-    dropped = 0
-    kept = []
-    for c in fr["captures"]:
-        if c["trigger"] in REFERENCE_ONLY_TRIGGERS:
-            dropped += 1
-            continue
-        c["capture_seq"] -= dropped
-        c.pop("spans")
-        for name, series in list(c["timeseries"].items()):
-            if name.startswith("JaxConflict."):
-                del c["timeseries"][name]
-            elif name.startswith("Resolver."):
-                for sample in series:
-                    sample["gauges"].pop("host_fraction", None)
-        kept.append(c)
-    fr["captures"] = kept
-    if not port:
-        st = fr["status"]
-        st["capture_seq"] -= dropped
-        st["captures"] -= dropped
-        for trigger in REFERENCE_ONLY_TRIGGERS:
-            st["total_triggers"].pop(trigger, None)
-        if kept:
-            last = kept[-1]
-            st["last_capture"] = {k: last[k] for k in ("capture_seq", "time", "trigger")}
-        for c in kept:
-            c["recent_events"] = [e for e in c["recent_events"]
-                                  if e.get("Type") not in REFERENCE_ONLY_EVENTS]
-    return rep
+def comparable(report: dict) -> dict:
+    """The report less EXCLUDED: the whole report."""
+    assert not EXCLUDED
+    return copy.deepcopy(report)
 
 
 def first_difference(want, got, path="report"):
@@ -174,18 +123,31 @@ def _port_cluster(config):
 
 
 def run_port_soak(config):
-    """run_soak with the port's conflict set; returns (report, set)."""
+    """run_soak with the port's conflict set; returns (report, set).  The
+    builder installs the run's span hub, trace collector and flight
+    recorder into the port's globals (trace events on the loop's clock);
+    the port's own are restored after the run."""
     built = []
+    saved = (port_spans.global_span_hub(), port_trace.global_collector(),
+             port_trace._global_clock, port_fr.global_flight_recorder())
 
     def build(cfg):
         out = _port_cluster(cfg)
+        port_spans.set_global_span_hub(ref_spans.global_span_hub())
+        port_trace.set_global_collector(ref_trace.global_collector(), clock=out[0].loop.now)
+        port_fr.set_global_flight_recorder(ref_fr.global_flight_recorder())
         built.append(out[0].port_conflict_set)
         return out
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(soak, "_build_cluster", build)
-        mp.setattr(ref_faults, "DeviceFaultInjector", DeviceFaultInjector)
-        report = soak.run_soak(copy.deepcopy(config))
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(soak, "_build_cluster", build)
+            mp.setattr(ref_faults, "DeviceFaultInjector", DeviceFaultInjector)
+            report = soak.run_soak(copy.deepcopy(config))
+    finally:
+        port_spans.set_global_span_hub(saved[0])
+        port_trace.set_global_collector(saved[1], clock=saved[2])
+        port_fr.set_global_flight_recorder(saved[3])
     (cs,) = built
     return report, cs
 
@@ -263,13 +225,7 @@ def _legal_walk(transitions):
 
 
 def _assert_equal_less_excluded(got, want):
-    g, w = comparable(got, port=True), comparable(want, port=False)
-    # A capture's ring of recent events: the port's holds, at its end,
-    # exactly the reference's events less the breaker's (see EXCLUDED).
-    for gc, wc in zip(g["flight_recorder"]["captures"], w["flight_recorder"]["captures"]):
-        n = len(wc["recent_events"])
-        assert len(gc["recent_events"]) >= n
-        gc["recent_events"] = gc["recent_events"][len(gc["recent_events"]) - n:]
+    g, w = comparable(got), comparable(want)
     diff = first_difference(w, g)
     assert diff is None, diff
     assert json.dumps(g, sort_keys=True) == json.dumps(w, sort_keys=True)
