@@ -20,6 +20,14 @@ seconds (`phase <name>: ...`):
                canonical shapes on a valid empty history; its block, the
                bytes it allocates above its arguments and outputs (temp)
                and the run's wall ms
+  2g. torchcheck  tools/lint/torchir.py over every registered program on
+               the card and on the CPU: a program's findings on the card,
+               its host syncs and op count beside the CPU's, and how many
+               fingerprint lines differ (printed, not gated: the card's
+               torch is not the one the committed baselines come from); a
+               kernel program's kernel regions on the card hold its
+               launches and their allocations and none of the plain
+               twin's ops
   3. kernels   each kernel at the bench shape (history h_cap = 3,145,728
                rows, 65,536-transaction batches, key_words=2) against its
                plain PyTorch twin on the same CUDA tensors, bit for bit;
@@ -79,7 +87,9 @@ seconds (`phase <name>: ...`):
                by the disabled hub, no trace event or capture.  Prints the
                span counts, each stage's wall extent a batch (median and
                range) beside phase 4's own timers, the overlap,
-               host_phase_seq a turn and each arm's txn/s with their ratio
+               host_phase_seq a turn and each arm's txn/s with their ratio,
+               and the enabled hub's perfetto_json: its bytes and host ms,
+               the schema valid, the device spans on 2 lanes
   4a. attribution  attribute_phases on phase 4's engine (its ~2.7 M-row
                history at h_cap 3,145,728) with one of phase 4's extra
                batches of 65,536 transactions, every arm (full, nosearch,
@@ -108,6 +118,18 @@ seconds (`phase <name>: ...`):
                merge prep's two searches; and searchsorted_words alone on
                the merge prep's own inputs (3,145,728 rows, 2 x 65,536
                segment endpoints), flat against 2level, bit for bit
+  4v. guard    the transfer guard at full width: phase 4's state after its
+               warm-up (its mirror's snapshot) in a ConflictSet(
+               transfer_guard=True) and an unguarded one at depth 2, each
+               rehydrating from it; phase 4's first 4 timed batches on
+               both, the sets taking turns: verdicts and witnesses equal
+               phase 4's, no TransferGuardError, host syncs a batch
+               equal; prints each set's ms a batch (no
+               claim), which calls the sync debug mode refuses, and the
+               planted reads: np.asarray of a parked ticket's out and host
+               raises TransferGuardError, an .item() planted in the guarded
+               dispatch raises torch's error (the mode restored), the same
+               .item() passes unguarded
   4w. witness-free  phase 4's stream, seed and scale through ConflictSet(
                witness=False): every batch's verdicts equal phase 4's and
                every witness is [], decode_witness never runs (a counter
@@ -140,7 +162,9 @@ seconds (`phase <name>: ...`):
                bench's multichip shape (bench.py:547-606) on the one card:
                8 shards split by uniform_int_split_keys(8, 2e7, 4), each
                a history of 1,048,576 rows, driven through detect_packed
-               (synchronous), 52 warm-up and 8 timed batches.  Each kernel
+               (synchronous), 12 warm-up (SHARD_WARM: under a quarter of the
+               window, so the timed batches evict nothing) and 8 timed
+               batches.  Each kernel
                must launch exactly 64 times (once a shard a batch), with
                no growth, no CPU fallback, no degraded shard, no merge
                order fault, and mirror_check "ok" on all 8 shards.
@@ -225,7 +249,14 @@ seconds (`phase <name>: ...`):
                planted after batch 7 diverges (mirror_check: the breaker
                opens again and recovers); spans_json() and host_phase_seq
                after every batch, the trace events and every capture's
-               artifact_json byte-identical on the two devices
+               artifact_json byte-identical on the two devices, and so
+               are perfetto_json and the lines of the CLI's trace-export,
+               flightrec and latency
+  6v. guard vs cpu  ConflictSet(transfer_guard=True) at depths 1-3 on
+               phase 6's stream under a dispatch outage, on cuda and cpu:
+               verdicts, witnesses, injected log, breaker walk, mirror and
+               device export equal to the unguarded cuda run; at depths 2
+               and 3 a parked ticket's read raises TransferGuardError on both
   6c. chaos    (a) phase 4's ConflictSet, stream and seed (52 + 8 batches
                of 65,536 transactions at h_cap 3,145,728, depth 2) under
                the injector's random mode (the port's buggify armed on a
@@ -269,6 +300,7 @@ Imports nothing of JAX and nothing of the foundationdb_tpu package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -304,6 +336,10 @@ SHARDS = 8
 SHARD_H_CAP = 1 << 20
 SHARD_LIVE = LIVE // SHARDS  # steady-state boundaries of one shard
 SHARD_NEW_ROWS = NEW_ROWS // SHARDS  # new boundaries one shard takes a batch
+# Phase 4s's warm-up, cut from WARM to keep the script inside its time
+# limit: its timed batches meet a history of SHARD_WARM batches' writes
+# (under a quarter of the window's) and evict nothing.
+SHARD_WARM = 12
 
 
 def log(msg: str) -> None:
@@ -1169,6 +1205,9 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
         torch.cuda.synchronize()
         log(f"{label}: {WARM} warm-up batches through ConflictSet in "
             f"{time.perf_counter() - t0:.3f} s, boundaries (bound) {eng.boundary_count_bound}")
+        # The mirror at the end of the warm-up (drained, so current): phase
+        # 4v starts its sets from it.
+        warm_snapshot = cs._cpu.snapshot() if mode == "flat" else None
         timed, extra = stream[WARM : WARM + TIMED], stream[WARM + TIMED :]
         syncs0, allocs0, rounds0 = eng.host_syncs, eng.host_allocs, eng.fixpoint_rounds
         decodes0 = (decodes.calls, decodes.seconds)
@@ -1310,7 +1349,7 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
     if profile:
         profile_batches(torch, eng, packed, label)
     return dict(launches=launches, tps=tps, digests=digests, verdicts=verdicts, cs=cs,
-                extra=extra, stats=stats)
+                extra=extra, stats=stats, warm_snapshot=warm_snapshot)
 
 
 def log_beside(label, mine, stats, other):
@@ -1631,13 +1670,18 @@ def first_chunk_sweep(torch, et, eng, batches):
         for first in (1, 2, et.FIXPOINT_CHUNK):
             et.FIXPOINT_FIRST_CHUNK = first
             checks, spans, rounds = [0], [], 0
+
+            def on_sync():
+                checks[0] += 1
+                return contextlib.nullcontext()
+
             for j, (pb, blob) in enumerate(blobs):
                 torch.cuda.synchronize()
                 a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 a.record()
                 out = et._blob_core(*state, blob, txn_cap=pb.txn_cap, rr_cap=pb.rr_cap,
                                     wr_cap=pb.wr_cap, h_cap=eng.h_cap, kw1=kw1,
-                                    on_sync=lambda: checks.__setitem__(0, checks[0] + 1))
+                                    on_sync=on_sync)
                 b.record()
                 b.synchronize()
                 spans.append(a.elapsed_time(b))
@@ -2089,13 +2133,13 @@ def sharded_path(torch, sr, tk, et, keylib, obs):
         raise AssertionError("SHARD_H_CAP is not the multichip arm's shard history")
     m = cs.metrics
     t0 = time.perf_counter()
-    for i in range(WARM):
+    for i in range(SHARD_WARM):
         cs.detect_packed(gen_packed(et, rng, PER_BATCH, i), i + WINDOW, i)
     torch.cuda.synchronize()
-    log(f"sharded: {WARM} warm-up batches through ShardedTorchConflictSet ({SHARDS} shards) "
-        f"in {time.perf_counter() - t0:.3f} s, boundaries {cs.shard_occupancy()}")
+    log(f"sharded: {SHARD_WARM} warm-up batches through ShardedTorchConflictSet ({SHARDS} "
+        f"shards) in {time.perf_counter() - t0:.3f} s, boundaries {cs.shard_occupancy()}")
     timed = [(gen_packed(et, rng, PER_BATCH, i), i + WINDOW, i)
-             for i in range(WARM, WARM + TIMED)]
+             for i in range(SHARD_WARM, SHARD_WARM + TIMED)]
     syncs0 = cs.host_syncs
     wall0 = m.snapshot(include_wall=True)["wall"]
     gc.collect()
@@ -2116,7 +2160,7 @@ def sharded_path(torch, sr, tk, et, keylib, obs):
     for name in ("cpu_fallbacks", "cpu_fallback_txns", "degraded_shard_serves", "grows"):
         if counters[name] != 0:
             raise AssertionError(f"sharded: {name} = {counters[name]}")
-    if counters["device_batches"] != WARM + TIMED:
+    if counters["device_batches"] != SHARD_WARM + TIMED:
         raise AssertionError(f"sharded: {counters['device_batches']} device batches")
     if cs.backend_signal()["shards_degraded"] != 0 or cs.h_cap != SHARD_H_CAP:
         raise AssertionError(f"sharded: {cs.backend_signal()}, h_cap {cs.h_cap}")
@@ -2145,7 +2189,7 @@ def sharded_path(torch, sr, tk, et, keylib, obs):
     hub = hubs.hub
     reh = hub.spans(name="rehydrate")
     dev, app = hub.spans(name="device"), hub.spans(name="apply")
-    if (reh or len(dev) != WARM + TIMED or len(app) != WARM + TIMED
+    if (reh or len(dev) != SHARD_WARM + TIMED or len(app) != SHARD_WARM + TIMED
             or any(set(sp.attrs) != {"version"} for sp in dev)
             or hubs.col.events or hubs.rec.captures):
         raise AssertionError(f"sharded: spans rehydrate {[sp.attrs for sp in reh]}, device "
@@ -2153,7 +2197,7 @@ def sharded_path(torch, sr, tk, et, keylib, obs):
                              f"captures {len(hubs.rec.captures)}")
     dev_ms = [(sp.wall_end - sp.wall_start) * 1e3 for sp in dev[-TIMED:]]
     app_ms = [(sp.wall_end - sp.wall_start) * 1e3 for sp in app[-TIMED:]]
-    log(f"sharded spans: device {len(dev)} and apply {len(app)} in {WARM + TIMED} batches, "
+    log(f"sharded spans: device {len(dev)} and apply {len(app)} in {SHARD_WARM + TIMED} batches, "
         f"no rehydrate span, trace event or capture; timed batches' wall extent: device median {np.median(dev_ms):.3f} ms "
         f"({min(dev_ms):.3f}-{max(dev_ms):.3f}), apply median {np.median(app_ms):.3f} ms "
         f"({min(app_ms):.3f}-{max(app_ms):.3f})")
@@ -2199,7 +2243,7 @@ def resharded_path(torch, tk, et, cs, rng, obs):
         log(f"resharded spans after the {what}: events {events}; reshard captures "
             f"{[c['detail'] for c in caps]}; marker spans {[sp.attrs for sp in marks]}; "
             f"rehydrate spans for shards {reh}")
-    next_batch = [WARM + TIMED]
+    next_batch = [SHARD_WARM + TIMED]
 
     def counters():
         return m.snapshot()["counters"]
@@ -2575,6 +2619,19 @@ class SpanArms:
         log(f"spans overlap of the device spans: seq {overlap['seq']:.4f}, wall "
             f"{overlap['wall']:.4f}; host_phase_seq a turn, enabled blocks "
             f"{arms['enabled']['seq']}, disabled blocks {arms['disabled']['seq']}")
+        from foundationdb_tpu_torch.flow import trace_export
+
+        t0 = time.perf_counter()
+        blob = trace_export.perfetto_json(on)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        doc = json.loads(blob)
+        errors = trace_export.validate_perfetto(doc)
+        lanes = {e["tid"] for e in doc["traceEvents"] if e["ph"] == "B" and e["name"] == "device"}
+        if errors or len(lanes) != 2:
+            raise AssertionError(f"spans export: {errors[:3]}, device spans on lanes {lanes}")
+        log(f"spans export: perfetto_json of the enabled arm's hub {len(blob)} B, "
+            f"{doc['otherData']['spans']} spans, in {export_ms:.3f} ms of host; schema valid, "
+            f"device spans on {len(lanes)} lanes at depth 2; card {card}")
         log(f"spans cost: enabled {tps['enabled']:.1f} txn/s "
             f"({arms['enabled']['s'] / n_on * 1e3:.3f} ms/batch), disabled "
             f"{tps['disabled']:.1f} txn/s ({arms['disabled']['s'] / arms['disabled']['n'] * 1e3:.3f}"
@@ -2595,7 +2652,12 @@ def spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr):
     breaker, and a device edit planted after batch SPANS_PLANT diverges
     (mirror_check; the breaker opens again and recovers).  spans_json() and
     host_phase_seq after every batch, the trace events and every capture's
-    artifact_json must be byte-identical on the two devices."""
+    artifact_json must be byte-identical on the two devices, and so must
+    perfetto_json of the hub and the lines of the CLI's trace-export,
+    flightrec and latency over the run's globals."""
+    from foundationdb_tpu_torch.flow import trace_export
+    from foundationdb_tpu_torch.tools.cli import CliProcessor
+
     n_txn, batches, window, keyspace = 4096, 12, 4, 200_000
     rng = np.random.default_rng(7)
     stream = [(gen_txns(T, rng, n_txn, i, keyspace=keyspace), i + window, i)
@@ -2642,8 +2704,12 @@ def spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr):
             walks = ([b.transitions for b in cs._breakers] if config == "2 shards"
                      else [cs._breaker.transitions])
             arts = [fr.artifact_json(a) for a in hubs.rec.captures]
+            cli = CliProcessor()
+            lines = {cmd: cli.run_command(cmd) for cmd in ("trace-export", "flightrec",
+                                                           "latency")}
             return dict(verdicts=out, per=per, events=json.dumps(hubs.col.events),
                         artifacts=arts, walks=json.loads(json.dumps(walks)),
+                        export=trace_export.perfetto_json(hubs.hub), cli=lines,
                         types=[e["Type"] for e in hubs.col.events],
                         triggers=[a["trigger"] for a in hubs.rec.captures])
         finally:
@@ -2652,9 +2718,12 @@ def spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr):
     for config in ("depth 1", "depth 2", "2 shards"):
         runs = {device: run(config, device) for device in ("cuda", "cpu")}
         a, b = runs["cuda"], runs["cpu"]
-        for key in ("verdicts", "per", "events", "artifacts", "walks"):
+        for key in ("verdicts", "per", "events", "artifacts", "walks", "export", "cli"):
             if a[key] != b[key]:
                 raise AssertionError(f"spans {config}: cuda and cpu differ in {key}")
+        doc = json.loads(a["export"])
+        if trace_export.validate_perfetto(doc) or a["cli"]["trace-export"] != [a["export"]]:
+            raise AssertionError(f"spans {config}: the export is not valid, or not the CLI's")
         walk = [(f, to) for w in a["walks"] for _s, f, to, _r in w]
         if walk.count(("ok", "degraded")) != 2 or walk_end(f"spans {config}", sum(a["walks"], [])) \
                 != "ok":
@@ -2671,6 +2740,279 @@ def spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr):
             f"byte-identical on cuda and cpu; breaker walk {walk}; events {a['types']}; captures "
             f"{a['triggers']}; spans by role "
             f"{ {r: len(v) for r, v in sorted(last.items())} }; host_phase_seq {a['per'][-1][1]}")
+        log(f"spans {config} export and CLI: perfetto_json {len(a['export'])} B "
+            f"({doc['otherData']['spans']} spans, schema valid) and the lines of trace-export, "
+            f"flightrec ({len(a['cli']['flightrec'])}) and latency ({len(a['cli']['latency'])}) "
+            f"byte-identical on cuda and cpu; flightrec: {a['cli']['flightrec'][0]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 2g, 4v and 6v: the structural check and the transfer guard
+# ---------------------------------------------------------------------------
+
+# The aten ops a kernel wrapper's region may hold on the card beside its
+# launch: the allocations of its outputs and scratch.
+KERNEL_REGION_ALLOCS = frozenset({"empty", "empty_strided", "zeros", "zero_", "new_empty",
+                                  "new_zeros", "fill_"})
+
+
+def torchir_path(torch):
+    """Phase 2g: torchcheck (tools/lint/torchir.py) over every registered
+    program on cuda and on cpu.  Prints, a program, its findings on the
+    card, its syncs and op count beside the CPU's and how many of its
+    fingerprint's lines differ from the CPU run's (the card's torch differs
+    from the one the committed baselines were made with, so neither
+    difference is gated).  A kernel program's kernel regions on the card
+    must hold a launch of each kernel and nothing else but allocations:
+    none of the plain twin's ops; no other program may have a kernel
+    region, and the CPU runs launch nothing."""
+    from foundationdb_tpu_torch.tools.lint import torchfingerprint as tfp
+    from foundationdb_tpu_torch.tools.lint import torchir
+
+    reg = torchir.default_registry()
+    t0 = time.perf_counter()
+    runs = {dev: {n: torchir.walk_program(reg[n], dev) for n in sorted(reg)}
+            for dev in ("cuda", "cpu")}
+    found = {dev: torchir.run_torchcheck(reg, device=dev, runs=runs[dev]) for dev in runs}
+    dt = time.perf_counter() - t0
+    card = torch.cuda.get_device_name(0)
+    for name in sorted(reg):
+        fps = {dev: tfp.fingerprint(reg[name], runs[dev][name]) for dev in runs}
+        in_kernel = [r.op for r in runs["cuda"][name].rows if r.in_kernel]
+        launches = sorted(op for op in in_kernel if op.startswith("launch:"))
+        others = sorted(set(in_kernel) - set(launches) - KERNEL_REGION_ALLOCS)
+        if reg[name].kernel and (not launches or others):
+            raise AssertionError(f"torchir {name}: kernel region on cuda holds launches "
+                                 f"{launches} and other ops {others}")
+        if not reg[name].kernel and in_kernel:
+            raise AssertionError(f"torchir {name}: a kernel region in a plain program")
+        if any(r.op.startswith("launch:") for r in runs["cpu"][name].rows):
+            raise AssertionError(f"torchir {name}: a launch on the cpu")
+        diff = tfp.diff_fingerprints(fps["cpu"], fps["cuda"])
+        mine = [f"{f.rule}{' (suppressed)' if f.suppressed else ''}: {f.message}"
+                for f in found["cuda"] if f.entry == name]
+        log(f"torchir {name} on cuda: findings {mine or 'none'}; syncs cuda "
+            f"{json.dumps(fps['cuda']['syncs'], sort_keys=True)}, cpu "
+            f"{json.dumps(fps['cpu']['syncs'], sort_keys=True)}; ops cuda "
+            f"{fps['cuda']['op_count']}, cpu {fps['cpu']['op_count']}; kernel region on cuda: "
+            f"{launches} and {len(in_kernel) - len(launches)} allocations; "
+            f"{len(diff)} fingerprint lines differ from the cpu run")
+        outside = [ln for ln in diff if "|kernel" not in ln]
+        for ln in outside[:8]:
+            log(f"torchir {name} cuda vs cpu (outside kernel regions): {ln}")
+    problems = tfp.check_baselines(reg, runs=runs["cpu"])
+    unsup = {dev: [f.format() for f in found[dev] if not f.suppressed] for dev in found}
+    log(f"torchir: {len(reg)} programs on cuda and cpu in {dt:.3f} s; unsuppressed findings "
+        f"cuda {len(unsup['cuda'])}, cpu {len(unsup['cpu'])}; the cpu runs against the "
+        f"committed baselines: {len(problems)} lines differ (torch {torch.__version__}); "
+        f"card {card}")
+    for ln in problems[:6]:
+        log(f"torchir baseline difference on this host's cpu: {ln}")
+
+
+def sync_debug_probe(torch, hotpath):
+    """Which CUDA calls torch.cuda.set_sync_debug_mode("error") refuses on
+    this card and torch: name -> True when the call raised."""
+    dev = torch.device("cuda")
+    pinned = torch.empty((1 << 16,), dtype=torch.int32, pin_memory=True)
+    on_dev = torch.ones((1 << 16,), dtype=torch.int32, device=dev)
+    ev = torch.cuda.Event()
+    calls = {
+        "Event.synchronize (the staging ring's wait)": lambda: (ev.record(), ev.synchronize()),
+        "Event.query": lambda: (ev.record(), ev.query()),
+        "pinned non-blocking upload (the blob)": lambda: pinned.to(dev, non_blocking=True),
+        "pinned non-blocking readback (the ticket)": lambda: pinned.copy_(on_dev,
+                                                                          non_blocking=True),
+        "pageable upload (torch.tensor(..., device=cuda))": lambda: torch.tensor([1, 2], device=dev),
+        "Tensor.item()": lambda: on_dev[0].item(),
+        "blocking readback (.cpu())": lambda: on_dev.cpu(),
+        "torch.cuda.synchronize()": lambda: torch.cuda.synchronize(),
+    }
+    seen = {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        try:
+            with hotpath.cuda_sync_debug_mode("error"):
+                call()
+            seen[name] = False
+        except RuntimeError:
+            seen[name] = True
+        if torch.cuda.get_sync_debug_mode() != 0:
+            raise AssertionError(f"guard probe: the sync debug mode stayed on after {name}")
+    torch.cuda.synchronize()
+    return seen
+
+
+# Phase 4v's batches: the first of phase 4's timed batches.
+GUARD_BATCHES = 4
+
+
+def guard_path(torch, api, et, ecpu, hotpath, T, batches, main):
+    """Phase 4v: the transfer guard at full width.  Phase 4's state at the
+    end of its warm-up (its mirror's snapshot then; each set rehydrates
+    from it at its first batch, as 4g's engines load_from phase 4's end
+    state) in a guarded and an unguarded ConflictSet at depth 2; phase
+    4's first GUARD_BATCHES timed batches through both, the sets taking
+    turns batch by batch.  Every batch's verdicts and witnesses equal
+    phase 4's, no TransferGuardError, host syncs a batch equal between the
+    sets; prints each set's host ms a batch (no claim).  Then what the
+    card's sync debug mode refuses, and the planted reads: np.asarray of a
+    parked ticket's out and host raises TransferGuardError, and an .item()
+    planted in the guarded dispatch raises torch's error, with the mode
+    restored after it; the same .item() in the unguarded set's dispatch
+    passes."""
+    gc.collect()
+    snap = main["warm_snapshot"]
+    sets = {}
+    for label, guard in (("guarded", True), ("unguarded", False)):
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=2,
+                             transfer_guard=guard)
+        cs._cpu = ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
+                                           key_words=KEY_WORDS)
+        sets[label] = cs
+    if sets["guarded"]._cpu.snapshot().to_flat() != snap.to_flat():
+        raise AssertionError("guard: the loaded mirror differs from phase 4's")
+    stream = [(batches[i], i + WINDOW, i) for i in range(WARM, WARM + GUARD_BATCHES)]
+    parked = {k: [] for k in sets}
+    secs = {k: 0.0 for k in sets}
+    syncs0 = {k: cs._dev.host_syncs for k, cs in sets.items()}
+    for txns, now, nov in stream:
+        for label, cs in sets.items():
+            t0 = time.perf_counter()
+            parked[label].append(cs.pipeline_submit(txns, now, nov))
+            while cs.pipeline_inflight > 1:
+                cs.pipeline_complete_oldest()
+            torch.cuda.synchronize()
+            secs[label] += time.perf_counter() - t0
+    for label, cs in sets.items():
+        t0 = time.perf_counter()
+        cs.pipeline_drain()
+        torch.cuda.synchronize()
+        secs[label] += time.perf_counter() - t0
+    n = len(stream)
+    want = main["digests"][WARM:WARM + n]
+    for label, cs in sets.items():
+        got = [digest(e.statuses, e.witness) for e in parked[label]]
+        if got != want:
+            first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"guard {label}: batch {WARM + first}'s verdicts or "
+                                 f"witnesses differ from phase 4's")
+        c = cs.device_metrics()["counters"]
+        if c["rehydrates"] != 1 or c["device_faults"] or c["degraded_batches"]:
+            raise AssertionError(f"guard {label}: counters {c}")
+        if cs.mirror_check()["status"] != "ok":
+            raise AssertionError(f"guard {label}: mirror_check")
+    syncs = {k: (cs._dev.host_syncs - syncs0[k]) / n for k, cs in sets.items()}
+    if syncs["guarded"] != syncs["unguarded"]:
+        raise AssertionError(f"guard: host syncs a batch {syncs}")
+    card = torch.cuda.get_device_name(0)
+    log(f"guard: phase 4's batches {WARM}-{WARM + n - 1} x {PER_BATCH} txns from phase 4's "
+        f"state after its warm-up ({snap.boundary_count} keys) through a guarded and an "
+        f"unguarded ConflictSet at depth 2 (each rehydrating once), taking turns: verdicts "
+        f"and witnesses equal phase 4's, no TransferGuardError; host syncs a batch "
+        f"{syncs}; host ms a batch (the first with the rehydration) "
+        + ", ".join(f"{k} {secs[k] / n * 1e3:.3f}" for k in sets) + f"; card {card}")
+    seen = sync_debug_probe(torch, hotpath)
+    log(f"guard: the sync debug mode \"error\" refuses: "
+        f"{sorted(k for k, v in seen.items() if v)}; lets pass: "
+        f"{sorted(k for k, v in seen.items() if not v)}; card {card}")
+    # The planted reads, on small batches after the stream.
+    rng = np.random.default_rng(99)
+    g, u = sets["guarded"], sets["unguarded"]
+    now, nov = stream[-1][1] + 1, stream[-1][2] + 1
+    entry = g.pipeline_submit(gen_txns(T, rng, 256, now - WINDOW), now, nov)
+    if entry.done or g.pipeline_inflight != 1:
+        raise AssertionError("guard: the planted batch is not parked")
+    for field in ("out", "host"):
+        try:
+            np.asarray(getattr(entry.ticket, field))
+        except hotpath.TransferGuardError as e:
+            if f"DispatchTicket.{field}" not in str(e):
+                raise AssertionError(f"guard: the planted read's error names {e}") from e
+        else:
+            raise AssertionError(f"guard: np.asarray(ticket.{field}) of a parked batch passed")
+    g.pipeline_drain()
+    real = et._blob_core
+
+    def planted(*args, **kwargs):
+        args[4][0].item()  # a hidden host read of the blob inside the dispatch
+        return real(*args, **kwargs)
+
+    et._blob_core = planted
+    try:
+        entry = u.pipeline_submit(gen_txns(T, rng, 256, now - WINDOW), now + 1, nov + 1)
+        u.pipeline_drain()
+        try:
+            g.pipeline_submit(gen_txns(T, rng, 256, now - WINDOW), now + 1, nov + 1)
+        except RuntimeError as e:
+            if isinstance(e, hotpath.TransferGuardError):
+                raise
+            message = str(e).splitlines()[0]
+        else:
+            raise AssertionError("guard: an .item() planted in the armed dispatch passed")
+    finally:
+        et._blob_core = real
+    if torch.cuda.get_sync_debug_mode() != 0 or not entry.done:
+        raise AssertionError("guard: the sync debug mode stayed armed, or the unguarded "
+                             "set's planted batch did not complete")
+    log(f"guard: planted np.asarray(ticket.out) and (ticket.host) of a parked batch raised "
+        f"TransferGuardError; an .item() planted in the guarded dispatch raised "
+        f"RuntimeError({message!r}), the mode back at 0 after it; the same .item() passed "
+        f"in the unguarded set; card {card}")
+
+
+def guard_vs_cpu(torch, api, T, faults, hotpath):
+    """Phase 6v: the guard at phase 6's reduced shape: ConflictSet(
+    transfer_guard=True) at depths 1-3 under phase 6o's dispatch fault, on
+    cuda and on cpu, against the same run unguarded on cuda: verdicts,
+    witnesses, the injected log, the breaker walk and the exported state
+    equal; at depths 2 and 3 np.asarray of the first parked ticket's out
+    raises TransferGuardError on both devices."""
+    n_txn, batches, window, keyspace = 4096, 12, 4, 200_000
+    rng = np.random.default_rng(7)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=keyspace), i + window, i)
+              for i in range(batches)]
+
+    def run(device, depth, guard):
+        inj = faults.DeviceFaultInjector()
+        inj.script("dispatch", at=3, persist=3)
+        cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 16, device=device,
+                             pipeline_depth=depth, fault_injector=inj, transfer_guard=guard)
+        entries, raised = [], 0
+        for txns, now, nov in stream:
+            entries.append(cs.pipeline_submit(txns, now, nov))
+            if guard and not raised and not entries[-1].done:
+                try:
+                    np.asarray(entries[-1].ticket.out)
+                except hotpath.TransferGuardError:
+                    raised = 1
+            while cs.pipeline_inflight > depth - 1:
+                cs.pipeline_complete_oldest()
+        cs.pipeline_drain()
+        keys, vers = cs._dev._merged_host_state()
+        return dict(verdicts=[(list(e.statuses), list(e.witness), e.degraded) for e in entries],
+                    injected=inj.injected, walk=cs._breaker.transitions,
+                    state=(list(cs._cpu.keys), list(cs._cpu.vers), keys, vers,
+                           cs._dev.oldest_version),
+                    raised=raised)
+
+    for depth in (1, 2, 3):
+        want = run("cuda", depth, False)
+        for device in ("cuda", "cpu"):
+            got = run(device, depth, True)
+            for key in ("verdicts", "injected", "walk", "state"):
+                if got[key] != want[key]:
+                    raise AssertionError(f"guard depth {depth} on {device}: {key} differs "
+                                         f"from the unguarded cuda run")
+            if got["raised"] != (depth > 1):
+                raise AssertionError(f"guard depth {depth} on {device}: the planted read "
+                                     f"raised {got['raised']} times")
+        planted = ("np.asarray of the first parked ticket's out raised TransferGuardError on "
+                   "both" if depth > 1 else "no ticket is parked at depth 1")
+        log(f"guard vs cpu depth {depth}: {batches} batches x {n_txn} txns under a dispatch "
+            f"outage, transfer_guard on cuda and cpu equal to the unguarded cuda run "
+            f"(verdicts, witnesses, injected {want['injected']}, breaker walk "
+            f"{[t[1:3] for t in want['walk']]}, mirror and device export); {planted}")
 
 
 CHAOS_BUGGIFY_SEED = 6
@@ -2963,6 +3305,7 @@ def main(argv) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from foundationdb_tpu_torch.conflict import _build, api
     from foundationdb_tpu_torch.conflict import device_faults as faults
+    from foundationdb_tpu_torch.conflict import engine_cpu as ecpu
     from foundationdb_tpu_torch.conflict import engine_torch as et
     from foundationdb_tpu_torch.conflict import keys as keylib
     from foundationdb_tpu_torch.conflict import kernels as tk
@@ -2970,6 +3313,7 @@ def main(argv) -> int:
     from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as T
     from foundationdb_tpu_torch.flow import buggify
     from foundationdb_tpu_torch.flow import flight_recorder as fr
+    from foundationdb_tpu_torch.flow import hotpath
     from foundationdb_tpu_torch.flow import spans
     from foundationdb_tpu_torch.flow import trace
     from foundationdb_tpu_torch.flow.rng import DeterministicRandom as DR
@@ -3001,8 +3345,9 @@ def main(argv) -> int:
     for name, text in logs.items():
         log(f"build {name}:\n{text.strip()}")
     log(f"build: {secs:.3f} s")
-    # 2c. the program table on the card
+    # 2c. the program table on the card; 2g. the structural check there
     program_table(torch, et)
+    torchir_path(torch)
 
     # 3. kernels
     gen = torch.Generator(device="cuda")
@@ -3044,6 +3389,9 @@ def main(argv) -> int:
     search_path(torch, et, tk, rq, main["cs"], *main["extra"][1])
     del main["cs"], main["extra"]
     phase_done("4a and 4g")
+    guard_path(torch, api, et, ecpu, hotpath, T, batches, main)
+    del main["warm_snapshot"]
+    phase_done("4v")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
         run = main_path(torch, api, batches, tk, rq, et, profile, mode=mode, want=main)
@@ -3075,6 +3423,8 @@ def main(argv) -> int:
     phase_done("5-6r")
     spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr)
     phase_done("6o")
+    guard_vs_cpu(torch, api, T, faults, hotpath)
+    phase_done("6v")
     # 6c. chaos on the card: random faults at full width, then replayed
     # on cuda and cpu at the reduced shape
     launches_chaos = chaos_path(torch, api, batches, tk, faults, buggify, DR, digests, obs)

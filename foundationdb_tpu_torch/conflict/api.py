@@ -52,6 +52,14 @@ device takes keys of at most ``min(MAX_DEVICE_KEY_BYTES, key_words * 4)``
 bytes, the reference knob's default.  Only injected faults and out-of-memory errors reach the breaker;
 any other error, CUDA errors included, propagates.
 
+The transfer guard (``transfer_guard=True``, the reference's
+FDB_TPU_TRANSFER_GUARD, off by default): the engine's tickets carry their
+buffers in GuardedDeviceValue proxies (flow/hotpath.py) that raise
+TransferGuardError on a host read outside a sanctioned sync, and on CUDA
+the pipelined dispatch runs under ``torch.cuda.set_sync_debug_mode(
+"error")`` (``_dispatch_guard``), so an unsanctioned synchronizing call in
+it raises torch's error.  Depth 1 is not armed, as in the reference.
+
 Usage mirrors the reference ABI:
     cs = ConflictSet(backend="hybrid")
     batch = cs.new_batch()
@@ -63,9 +71,11 @@ from __future__ import annotations
 
 import time
 from collections import deque
+from contextlib import nullcontext
 from typing import List, Optional
 
 from ..flow.flight_recorder import maybe_trigger
+from ..flow.hotpath import cuda_sync_debug_mode, hot_path
 from ..flow.spans import begin_span, current_span
 from ..flow.trace import TraceEvent
 from .device_faults import DeviceCircuitBreaker, DeviceFault
@@ -196,6 +206,7 @@ class ConflictSet:
         mirror_coalesce=1,
         search: str = "",
         search_stride: int = 512,
+        transfer_guard: bool = False,
     ):
         if backend not in ("cpu", "torch", "hybrid"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -229,6 +240,7 @@ class ConflictSet:
                 witness=witness,
                 search=search,
                 search_stride=search_stride,
+                transfer_guard=transfer_guard,
             )
             for name in ("device_faults", "breaker_opens", "breaker_probes",
                          "breaker_closes", "degraded_batches", "rehydrates",
@@ -523,6 +535,19 @@ class ConflictSet:
             statuses, degraded=self.consume_degraded(), witness=self.last_witness,
         )
 
+    def _dispatch_guard(self):
+        """The transfer guard's arming of the dispatch: on CUDA with
+        ``transfer_guard`` on, ``torch.cuda.set_sync_debug_mode("error")``
+        for the dispatch call, so a synchronizing call in it raises unless
+        a sanctioned sync scope of the engine allows it, as the reference
+        arms ``jax.transfer_guard_device_to_host("disallow")``.  The mode is
+        process-global and is restored on every exit, a DeviceFault's
+        included.  On the CPU only the ticket's proxies act."""
+        if self._dev.arms_cuda_guard:
+            return cuda_sync_debug_mode("error")
+        return nullcontext()
+
+    @hot_path(bound="batch")
     def _pipeline_dispatch(self, txns, now, new_oldest_version) -> Optional[InflightBatch]:
         """One device dispatch under the breaker without a sync — the
         pipelined twin of _device_serve.  Returns the parked entry, or None
@@ -540,7 +565,8 @@ class ConflictSet:
                 # batches, so nothing is parked.
                 assert not self._pipe, "rehydrating around parked batches"
                 self._rehydrate_from_mirror()
-            ticket = self._dev.dispatch_txns(txns, now, new_oldest_version)
+            with self._dispatch_guard():
+                ticket = self._dev.dispatch_txns(txns, now, new_oldest_version)
         except DeviceFault as e:
             self._breaker.on_failure(e)
             self._device_stale = True
@@ -560,6 +586,7 @@ class ConflictSet:
         self._pipe.append(entry)
         return entry
 
+    @hot_path(bound="batch")
     def pipeline_complete_oldest(self) -> None:
         """Sync and retire the OLDEST in-flight batch: read its verdicts
         back, apply its committed writes to the mirror, record the synced

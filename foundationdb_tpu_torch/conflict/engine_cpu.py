@@ -53,6 +53,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..flow.hotpath import hot_path
 from . import keys as keylib
 from .engine_cpu_flat import FLOOR_VERSION, _IntervalSet
 from .types import CONFLICT, COMMITTED, TOO_OLD, TransactionConflictInfo
@@ -312,6 +313,7 @@ class CpuConflictSet:
     def _new_chunk_cols(self, ek, va, pfx, mx=None, mp=None) -> _Chunk:
         return self._track_fresh(_Chunk.from_cols(ek, va, pfx, self._kw, mx, mp))
 
+    @hot_path(bound="const")
     def take_fresh_chunks(self):
         """(chunks created since the last take, complete): the device's
         incremental-sync hint.  complete=False means the backlog overflowed
@@ -323,6 +325,7 @@ class CpuConflictSet:
         return fresh, not overflow
 
     # -- snapshots --
+    @hot_path(bound="const")
     def snapshot(self) -> MirrorSnapshot:
         """O(1): the chunk tuple is already immutable."""
         self._settle()
@@ -589,6 +592,7 @@ class CpuConflictSet:
                 witness[t] = (int(m[q]), ridx[q])
         return True
 
+    @hot_path(bound="chunks")
     def apply_batch(
         self,
         transactions: List[TransactionConflictInfo],
@@ -639,6 +643,7 @@ class CpuConflictSet:
                 return
         self._apply_intervals_py(begins, ends, now)
 
+    @hot_path(bound="chunks")
     def _apply_intervals_cols(self, begins: list, ends: list, be: np.ndarray, now: int) -> None:
         """The whole union as one vectorized assembly.  Writing [b, e)
         deletes every boundary in [bisect_left(b), bisect_right(e)) and

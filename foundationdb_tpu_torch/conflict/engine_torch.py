@@ -72,12 +72,15 @@ from __future__ import annotations
 
 import math
 from bisect import bisect_left
+from contextlib import ExitStack, nullcontext
+from functools import partial
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..flow.hotpath import GuardedDeviceValue, cuda_sync_debug_mode, g_hostguard, hot_path
 from ..flow.spans import begin_span
 from ..flow.trace import TraceEvent
 from ..metrics import MetricsRegistry
@@ -99,6 +102,7 @@ from .device_faults import DeviceOOM
 from .engine_cpu import chunk_encoding
 from .engine_cpu_flat import FLOOR_VERSION, FlatCpuConflictSet
 from .kernels import fused_merge_evict, phase1_search, phase1_search_tiers
+from .regions import region
 from .types import COMMITTED, CONFLICT, TOO_OLD, TransactionConflictInfo
 
 FLOOR_REL = -(2**30)  # below every representable snapshot
@@ -254,6 +258,7 @@ class PackedBatch:
         self.n_w = 0
 
     @classmethod
+    @hot_path(bound="batch")
     def from_transactions(
         cls,
         txns: List[TransactionConflictInfo],
@@ -470,7 +475,10 @@ def _resolve_batch(
 def _fixpoint(status2, r_res, w_res, rb_idx, re_idx, r_txn, wb_idx, we_idx,
               w_txn, *, txn_cap, rcap, on_sync):
     """Phase 3's residual fixpoint at compact width, from round 2's
-    statuses: returns (status, iters)."""
+    statuses: returns (status, iters).  After each chunk of rounds it
+    reads one flag back to the host, inside the scope ``on_sync()`` gives
+    (the engine's sanctioned sync): a sync of the port's own, where the
+    reference runs its rounds in a device while_loop."""
     dev = status2.device
     TXN, RCAP = txn_cap, rcap
     RP = 4 * RCAP
@@ -539,9 +547,9 @@ def _fixpoint(status2, r_res, w_res, rb_idx, re_idx, r_txn, wb_idx, we_idx,
     status, it = rounds(status2, torch.full((), 2, dtype=I32, device=dev),
                         FIXPOINT_FIRST_CHUNK)
     while True:
-        if on_sync is not None:
-            on_sync()
-        if not bool(looping(status, it)):
+        with on_sync() if on_sync is not None else nullcontext():
+            go = bool(looping(status, it))
+        if not go:
             break
         status, it = rounds(status, it, FIXPOINT_CHUNK)
     return status, it
@@ -912,8 +920,9 @@ def detect_core(
     out_status, undecided_left, iters) + (w_ver, w_rng) with `witness`
     (the witness-free step returns neither, as the reference's).  The
     merge prep, and the ``nokernel`` arm's phase 1, search in the
-    ``search`` mode with ``search_stride``.  `on_sync` is called before
-    each host sync the fixpoint makes."""
+    ``search`` mode with ``search_stride``.  `on_sync` is a zero-argument
+    callable giving the context (a sanctioned sync scope) that each of the
+    fixpoint's host checks runs in."""
     srch = dict(search=search, search_stride=search_stride)
     dec = decide_flat(
         hkeys, hvers, oldest, r_begin, r_end, r_txn, r_snap, w_begin, w_end,
@@ -1078,11 +1087,12 @@ def commit_tiered(hkeys, hvers, hcount, maxtab, dkeys, dvers, dcount, oldest,
     # diverged batch compacts the reverted delta, which rewrites the same
     # logical step function, so the host's bounds stay true ----
     if do_major:
-        hkeys, hvers, hcount = _major_compact(
-            hkeys, hvers, hcount, d_keys, d_vers, d_count, new_oldest, H=H, D=D, **srch,
-        )
-        maxtab = build_max_table(hvers)
-        d_keys, d_vers, d_count = _empty_delta(kw1, D, hkeys.device)
+        with region("compaction", "major"):
+            hkeys, hvers, hcount = _major_compact(
+                hkeys, hvers, hcount, d_keys, d_vers, d_count, new_oldest, H=H, D=D, **srch,
+            )
+            maxtab = build_max_table(hvers)
+            d_keys, d_vers, d_count = _empty_delta(kw1, D, hkeys.device)
     return hkeys, hvers, hcount.to(I32), maxtab, d_keys, d_vers, d_count, new_oldest
 
 
@@ -1327,6 +1337,13 @@ class TorchConflictSet:
     exports) and each wait on a staging buffer's upload that had not
     finished; ``host_allocs`` counts the host buffers the staging ring and
     the readback pool allocate, and stays flat once both are populated.
+    Every such read runs in ``_sanctioned_sync``'s scope.
+
+    ``transfer_guard`` (the reference's FDB_TPU_TRANSFER_GUARD, off by
+    default) wraps each ticket's ``out`` and ``host`` in GuardedDeviceValue
+    proxies that raise TransferGuardError on a host read outside a
+    sanctioned scope; on CUDA the sanctioned scopes also turn the sync
+    debug mode off inside ConflictSet's armed dispatch.
 
     Device faults.  ``fault_injector`` (device_faults.DeviceFaultInjector)
     is consulted at the reference's choke points, in its order, before any
@@ -1363,6 +1380,7 @@ class TorchConflictSet:
         witness: bool = True,
         search: str = "",
         search_stride: int = 512,
+        transfer_guard: bool = False,
     ):
         if history not in ("flat", "tiered"):
             raise ValueError(f"unknown history mode {history!r}")
@@ -1370,6 +1388,7 @@ class TorchConflictSet:
             raise ValueError(f"evict_every must be at least 1, got {evict_every}")
         check_search(search, search_stride)
         self.witness = witness
+        self.transfer_guard = transfer_guard
         self.search, self.search_stride = search, search_stride
         self.ablate = check_ablate(ablate)
         if history == "tiered" and self.ablate:
@@ -1485,19 +1504,19 @@ class TorchConflictSet:
         """(hkeys uint32 (kw1, h_cap), hvers int32 (h_cap,), hcount, oldest
         (relative), base) — the numpy form the reference engine holds; in
         tiered mode the base tier."""
-        self._sync()
-        return (
-            keylib.from_device_words(self._hkeys.cpu().numpy()),
-            self._hvers.cpu().numpy().copy(),
-            int(self._hcount),
-            int(self._oldest),
-            self._base,
-        )
+        with self._sanctioned_sync("export"):
+            return (
+                keylib.from_device_words(self._hkeys.cpu().numpy()),
+                self._hvers.cpu().numpy().copy(),
+                int(self._hcount),
+                int(self._oldest),
+                self._base,
+            )
 
     @property
     def oldest_version(self) -> int:
-        self._sync()
-        return int(self._oldest) + self._base
+        with self._sanctioned_sync("oldest"):
+            return int(self._oldest) + self._base
 
     @property
     def boundary_count(self) -> int:
@@ -1505,22 +1524,38 @@ class TorchConflictSet:
         O(rows) host fold — a diagnostic, not a hot path)."""
         if self.tiered:
             return len(self._merged_host_state()[0])
-        self._sync()
-        return int(self._hcount)
+        with self._sanctioned_sync("boundary count"):
+            return int(self._hcount)
 
     @property
     def boundary_count_bound(self) -> int:
         """A cheap upper bound on the logical boundary count (exact in flat
         mode and right after a major compaction)."""
-        self._sync()
-        if self.tiered:
-            hc, dc = torch.stack([self._hcount, self._dcount]).tolist()
-            return hc + dc - 1
-        return int(self._hcount)
+        with self._sanctioned_sync("boundary count bound"):
+            if self.tiered:
+                hc, dc = torch.stack([self._hcount, self._dcount]).tolist()
+                return hc + dc - 1
+            return int(self._hcount)
 
-    def _sync(self):
-        """Count one blocking device->host read."""
+    def _sanctioned_sync(self, op: str):
+        """The scope of one declared blocking device->host read (`op` names
+        it), as the reference's: it counts ``host_syncs`` and opens
+        ``g_hostguard.allowed()``, the only place a guarded ticket value may
+        be read.  On CUDA with ``transfer_guard`` on it also turns the sync
+        debug mode off inside the dispatch's armed window, restoring the
+        previous mode on exit, an exception's included."""
         self.metrics.counter("host_syncs").add()
+        scope = ExitStack()
+        scope.enter_context(g_hostguard.allowed())
+        if self.arms_cuda_guard:
+            scope.enter_context(cuda_sync_debug_mode(0))
+        return scope
+
+    @property
+    def arms_cuda_guard(self) -> bool:
+        """Whether the transfer guard uses CUDA's sync debug mode: on, on
+        a CUDA device."""
+        return self.transfer_guard and self.device.type == "cuda"
 
     def _check_fault(self, site: str):
         if self.fault_injector is not None:
@@ -1532,8 +1567,8 @@ class TorchConflictSet:
 
     def _maybe_grow_or_rebase(self, now: int, wr_cap: int):
         if now - self._base > REBASE_THRESHOLD:
-            self._sync()
-            d = int(self._oldest)
+            with self._sanctioned_sync("rebase oldest"):
+                d = int(self._oldest)
             if d > 0:
                 self._check_fault("rebase")
                 self.metrics.counter("rebases").add()
@@ -1552,8 +1587,8 @@ class TorchConflictSet:
             return  # tiered growth is decided by _plan_tiered_batch
         # Must-fit guard: this batch's merge adds at most 2*wr_cap rows.
         if self._hcount_bound + 2 * wr_cap + 2 > self.h_cap:
-            self._sync()
-            self._hcount_bound = int(self._hcount)
+            with self._sanctioned_sync("must-fit count"):
+                self._hcount_bound = int(self._hcount)
             if self._hcount_bound + 2 * wr_cap + 2 > self.h_cap:
                 self._grow(max(self.h_cap * 2, self.h_cap + 4 * wr_cap))
 
@@ -1571,8 +1606,8 @@ class TorchConflictSet:
         # may not fit although the fill trigger below never fired, and the
         # merge runs before the compaction: sync the true count and grow.
         if self._dcount_bound + add + 2 > self.d_cap:
-            self._sync()
-            self._dcount_bound = int(self._dcount)
+            with self._sanctioned_sync("delta count"):
+                self._dcount_bound = int(self._dcount)
             if self._dcount_bound + add + 2 > self.d_cap:
                 self._grow_delta(_next_pow2(self._dcount_bound + add + 2, self.d_cap * 2))
         do_major = 0
@@ -1585,9 +1620,10 @@ class TorchConflictSet:
         if do_major:
             need = self._hcount_bound + self._dcount_bound + add + 2
             if need > self.h_cap:
-                self._sync()  # the true counts, once, before paying a grow
-                self._hcount_bound, self._dcount_bound = (
-                    torch.stack([self._hcount, self._dcount]).tolist())
+                # The true counts, once, before paying a grow.
+                with self._sanctioned_sync("tier counts"):
+                    self._hcount_bound, self._dcount_bound = (
+                        torch.stack([self._hcount, self._dcount]).tolist())
                 need = self._hcount_bound + self._dcount_bound + add + 2
                 if need > self.h_cap:
                     self._grow(max(self.h_cap * 2, _next_pow2(need, self.h_cap)))
@@ -1606,9 +1642,9 @@ class TorchConflictSet:
             hvers = _grow_core(self._hvers, pad=pad, fill=FLOOR_REL)
             maxtab = None
             if self.tiered and rebuild_maxtab:
-                self._sync()
-                maxtab = torch.from_numpy(
-                    build_max_table_np(hvers.cpu().numpy())).to(self.device)
+                with self._sanctioned_sync("max table rebuild"):
+                    maxtab = torch.from_numpy(
+                        build_max_table_np(hvers.cpu().numpy())).to(self.device)
         except torch.OutOfMemoryError as e:
             raise DeviceOOM(f"cuda: {e}", site="grow") from e
         self._hkeys, self._hvers = hkeys, hvers
@@ -1658,6 +1694,7 @@ class TorchConflictSet:
         if sp.seq is not None and sp.end_seq is not None:
             self.host_phase_seq += sp.end_seq - sp.seq
 
+    @hot_path(bound="const")
     def _staging_blob(self, nwords: int) -> np.ndarray:
         """The next staging buffer for a blob of nwords (see _StagingRing),
         populating the ring on first use.  On CUDA, a buffer whose last
@@ -1671,8 +1708,8 @@ class TorchConflictSet:
         slot = ring.pos
         ring.pos = (slot + 1) % len(ring.views)
         if ring.events is not None and not ring.events[slot].query():
-            self._sync()
-            ring.events[slot].synchronize()
+            with self._sanctioned_sync("staging buffer"):
+                ring.events[slot].synchronize()
         self._staged = (ring, slot)
         return ring.views[slot]
 
@@ -1687,6 +1724,7 @@ class TorchConflictSet:
         ring.events[slot].record()
         return blob_dev
 
+    @hot_path(bound="batch")
     def _pack_blob(self, pb: PackedBatch, now: int, new_oldest_version: int,
                    flag: int = 1) -> np.ndarray:
         """Single contiguous uint32 blob for one-copy dispatch (fill_blob),
@@ -1742,7 +1780,8 @@ class TorchConflictSet:
         dspan = begin_span("dispatch", attrs={"n_txn": pb.n_txn, "version": now,
                                               "first_dispatch": int(first_dispatch)})
         caps = dict(txn_cap=pb.txn_cap, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
-                    h_cap=self.h_cap, kw1=kw1, on_sync=self._sync,
+                    h_cap=self.h_cap, kw1=kw1,
+                    on_sync=partial(self._sanctioned_sync, "fixpoint check"),
                     witness=self.witness, search=self.search,
                     search_stride=self.search_stride)
         try:
@@ -1796,7 +1835,10 @@ class TorchConflictSet:
     def _ticket(self, pb, now, new_oldest_version, out) -> DispatchTicket:
         """The ticket of the batch just dispatched.  On CUDA its readback
         buffer's copy into a pinned host buffer (from the free pool, or a
-        new one) is enqueued here, behind the step."""
+        new one) is enqueued here, behind the step.  With the transfer
+        guard on, ``out`` and ``host`` are GuardedDeviceValue proxies, read
+        only in a sanctioned scope: ``host`` is in flight until ``ready``
+        fires, so an early read of it would be stale, not merely a sync."""
         host = ready = None
         if self.device.type == "cuda":
             pool = self._readback_pool.setdefault(out.shape[0], [])
@@ -1808,9 +1850,14 @@ class TorchConflictSet:
                 ready = torch.cuda.Event()
             host.copy_(out, non_blocking=True)
             ready.record()
+        if self.transfer_guard:
+            out = GuardedDeviceValue(out, "DispatchTicket.out")
+            if host is not None:
+                host = GuardedDeviceValue(host, "DispatchTicket.host")
         return DispatchTicket(pb, now, new_oldest_version, out, host, ready,
                               self._base, self.d_cap, self._bound_added, self._epoch)
 
+    @hot_path(bound="batch")
     def _readback(self, ticket: DispatchTicket, pipelined: bool):
         """THE blocking readback of one dispatched batch, shared by
         readback_packed and sync_ticket: one copy of the ticket's buffer
@@ -1819,12 +1866,12 @@ class TorchConflictSet:
         bounds, and returns the statuses (None if the fixpoint diverged),
         with the witness decoded into last_witness (``[]`` when the witness
         is off)."""
-        self._sync()
-        if ticket.ready is not None:
-            ticket.ready.synchronize()
-            arr = ticket.host.numpy()
-        else:
-            arr = ticket.out.numpy()
+        with self._sanctioned_sync("ticket readback"):
+            if ticket.ready is not None:
+                ticket.ready.synchronize()
+                arr = np.asarray(ticket.host)
+            else:
+                arr = np.asarray(ticket.out)
         undecided, iters, hcount, dcount = (int(x) for x in arr[:_HEAD])
         m = self.metrics
         self.last_iters = iters
@@ -1858,7 +1905,10 @@ class TorchConflictSet:
                 arr[_HEAD + 2 * tc :], ticket.base,
             ) if self.witness else []
         if ticket.host is not None:
-            self._readback_pool.setdefault(arr.shape[0], []).append((ticket.host, ticket.ready))
+            host = ticket.host
+            if isinstance(host, GuardedDeviceValue):
+                host = host.unwrap()
+            self._readback_pool.setdefault(arr.shape[0], []).append((host, ticket.ready))
             ticket.host = ticket.ready = None
         return statuses
 
@@ -1886,6 +1936,7 @@ class TorchConflictSet:
             self._note_host_span(rsp)
 
     # -- pipelined dispatch --
+    @hot_path(bound="batch")
     def dispatch_txns(
         self,
         transactions: List[TransactionConflictInfo],
@@ -1899,6 +1950,7 @@ class TorchConflictSet:
         pb = self._pack(transactions)
         return self.dispatch_packed(pb, now, new_oldest_version)
 
+    @hot_path(bound="batch")
     def sync_ticket(self, ticket: DispatchTicket):
         """Read one dispatched batch back.  Returns (statuses ndarray
         [txn_cap], diverged): diverged=True means the fixpoint left the
@@ -1938,6 +1990,7 @@ class TorchConflictSet:
         return out
 
     # -- state exchange with the CPU mirror --
+    @hot_path(bound="chunks")
     def note_synced(self, snap, fresh=None) -> None:
         """Record that this device state now equals MirrorSnapshot `snap`
         (ConflictSet calls it after every device-served batch), encoding
@@ -2023,11 +2076,12 @@ class TorchConflictSet:
         keys, vers, _oldest = self._host_state()
         if not self.tiered:
             return keys, vers
-        self._sync()
-        nd = int(self._dcount)
-        dk = keylib.from_device_words(self._dkeys[:, :nd].cpu().numpy())
+        with self._sanctioned_sync("delta export"):
+            nd = int(self._dcount)
+            dk = keylib.from_device_words(self._dkeys[:, :nd].cpu().numpy())
+            dvers = self._dvers[:nd].cpu().numpy()
         dkeys = keylib.decode_keys(np.ascontiguousarray(dk.T), self.key_words)
-        return fold_delta_over_base(keys, vers, dkeys, self._dvers[:nd].cpu().numpy(), self._base)
+        return fold_delta_over_base(keys, vers, dkeys, dvers, self._base)
 
     def store_to(self, cpu) -> None:
         """Write the logical history into a flat CPU engine (keys as bytes,

@@ -11,7 +11,8 @@ buffer, and launches on PyTorch's current stream:
 The rule that picks the path is fixed: a CUDA tensor launches the kernel,
 a CPU tensor takes the plain PyTorch twin (``*_reference``, same
 signature, same results).  There is no fallback: a kernel that fails to
-build or launch raises.  ``LAUNCHES`` counts kernel launches only;
+build or launch raises.  Each wrapper marks its region (regions.py) for
+the structural check.  ``LAUNCHES`` counts kernel launches only;
 ``merge_contract_faults`` reads the merge kernel's count of inputs that
 broke the order it relies on.
 
@@ -25,6 +26,7 @@ import functools
 import torch
 
 from ..ops.rangequery import lex_argsort, searchsorted_words
+from .regions import note_launch, region
 
 LAUNCHES = {"phase1_ranks": 0, "fused_merge_evict": 0}
 # Per CUDA device, the merge kernel's count of order-contract faults
@@ -83,24 +85,26 @@ def phase1_ranks(h_keys, q_keys, q_side):
     < q), 1: right rank (count of rows <= q).  Returns ranks (M,) int32 in
     the sorted order, equal to searchsorted_words over the full width.
     """
-    kw1, n = h_keys.shape
-    m = q_keys.shape[1]
-    _check("h_keys", h_keys, torch.int32, (kw1, n))
-    _check("q_keys", q_keys, torch.int32, (kw1, m))
-    _check("q_side", q_side, torch.int32, (m,))
-    if not _on_cuda(h_keys, q_keys, q_side):
-        return phase1_ranks_reference(h_keys, q_keys, q_side)
-    from . import _build
+    with region("kernel", "phase1_ranks"):
+        kw1, n = h_keys.shape
+        m = q_keys.shape[1]
+        _check("h_keys", h_keys, torch.int32, (kw1, n))
+        _check("q_keys", q_keys, torch.int32, (kw1, m))
+        _check("q_side", q_side, torch.int32, (m,))
+        if not _on_cuda(h_keys, q_keys, q_side):
+            return phase1_ranks_reference(h_keys, q_keys, q_side)
+        from . import _build
 
-    lib = _build.load("phase1_search")
-    ranks = torch.empty((m,), dtype=torch.int32, device=h_keys.device)
-    err = lib.phase1_ranks_launch(
-        h_keys.data_ptr(), n, q_keys.data_ptr(), q_side.data_ptr(),
-        ranks.data_ptr(), m, kw1, _stream(h_keys.device),
-    )
-    _raise_on(err, "phase1_ranks")
-    LAUNCHES["phase1_ranks"] += 1
-    return ranks
+        lib = _build.load("phase1_search")
+        ranks = torch.empty((m,), dtype=torch.int32, device=h_keys.device)
+        err = lib.phase1_ranks_launch(
+            h_keys.data_ptr(), n, q_keys.data_ptr(), q_side.data_ptr(),
+            ranks.data_ptr(), m, kw1, _stream(h_keys.device),
+        )
+        _raise_on(err, "phase1_ranks")
+        LAUNCHES["phase1_ranks"] += 1
+        note_launch("phase1_ranks")
+        return ranks
 
 
 def phase1_search_tiers(tiers, r_begin, r_end):
@@ -195,44 +199,46 @@ def fused_merge_evict(
     int32); rows at and past out_count are UNDEFINED — the caller masks
     them.
     """
-    kw1, na = a_keys.shape
-    nb = b_keys.shape[1]
-    _check("a_keys", a_keys, torch.int32, (kw1, na))
-    for name, t in (("a_vers", a_vers), ("a_keep", a_keep), ("a_pos", a_pos)):
-        _check(name, t, torch.int32, (na,))
-    _check("b_keys", b_keys, torch.int32, (kw1, nb))
-    for name, t in (("b_vers", b_vers), ("b_keep", b_keep), ("b_pos", b_pos)):
-        _check(name, t, torch.int32, (nb,))
-    _check("merged_count", merged_count, torch.int32, ())
-    _check("window", window, torch.int32, ())
-    args = (a_keys, a_vers, a_keep, a_pos, b_keys, b_vers, b_keep, b_pos,
-            merged_count, window)
-    if not _on_cuda(*args):
-        return fused_merge_evict_reference(*args, width=width)
-    from . import _build
+    with region("kernel", "fused_merge_evict"):
+        kw1, na = a_keys.shape
+        nb = b_keys.shape[1]
+        _check("a_keys", a_keys, torch.int32, (kw1, na))
+        for name, t in (("a_vers", a_vers), ("a_keep", a_keep), ("a_pos", a_pos)):
+            _check(name, t, torch.int32, (na,))
+        _check("b_keys", b_keys, torch.int32, (kw1, nb))
+        for name, t in (("b_vers", b_vers), ("b_keep", b_keep), ("b_pos", b_pos)):
+            _check(name, t, torch.int32, (nb,))
+        _check("merged_count", merged_count, torch.int32, ())
+        _check("window", window, torch.int32, ())
+        args = (a_keys, a_vers, a_keep, a_pos, b_keys, b_vers, b_keep, b_pos,
+                merged_count, window)
+        if not _on_cuda(*args):
+            return fused_merge_evict_reference(*args, width=width)
+        from . import _build
 
-    lib = _build.load("merge_evict")
-    dev = a_keys.device
-    # Counters, look-back status words, A's chunk prefix and the dense copy
-    # of B's kept rows; the launch clears what needs clearing.
-    scratch = torch.empty((_merge_scratch_bytes(na, nb, kw1, width),),
-                          dtype=torch.uint8, device=dev)
-    out_keys = torch.empty((kw1, width), dtype=torch.int32, device=dev)
-    out_vers = torch.empty((width,), dtype=torch.int32, device=dev)
-    out_count = torch.empty((), dtype=torch.int32, device=dev)
-    faults = _MERGE_FAULTS.get(dev)
-    if faults is None:
-        faults = _MERGE_FAULTS[dev] = torch.zeros((), dtype=torch.int32, device=dev)
-    err = lib.fused_merge_evict_launch(
-        *(t.data_ptr() for t in (a_keys, a_vers, a_keep)), na,
-        *(t.data_ptr() for t in (b_keys, b_vers, b_keep, b_pos)), nb,
-        merged_count.data_ptr(), window.data_ptr(), kw1, width,
-        scratch.data_ptr(), out_keys.data_ptr(), out_vers.data_ptr(),
-        out_count.data_ptr(), faults.data_ptr(), _stream(dev),
-    )
-    _raise_on(err, "fused_merge_evict")
-    LAUNCHES["fused_merge_evict"] += 1
-    return out_keys, out_vers, out_count
+        lib = _build.load("merge_evict")
+        dev = a_keys.device
+        # Counters, look-back status words, A's chunk prefix and the dense copy
+        # of B's kept rows; the launch clears what needs clearing.
+        scratch = torch.empty((_merge_scratch_bytes(na, nb, kw1, width),),
+                              dtype=torch.uint8, device=dev)
+        out_keys = torch.empty((kw1, width), dtype=torch.int32, device=dev)
+        out_vers = torch.empty((width,), dtype=torch.int32, device=dev)
+        out_count = torch.empty((), dtype=torch.int32, device=dev)
+        faults = _MERGE_FAULTS.get(dev)
+        if faults is None:
+            faults = _MERGE_FAULTS[dev] = torch.zeros((), dtype=torch.int32, device=dev)
+        err = lib.fused_merge_evict_launch(
+            *(t.data_ptr() for t in (a_keys, a_vers, a_keep)), na,
+            *(t.data_ptr() for t in (b_keys, b_vers, b_keep, b_pos)), nb,
+            merged_count.data_ptr(), window.data_ptr(), kw1, width,
+            scratch.data_ptr(), out_keys.data_ptr(), out_vers.data_ptr(),
+            out_count.data_ptr(), faults.data_ptr(), _stream(dev),
+        )
+        _raise_on(err, "fused_merge_evict")
+        LAUNCHES["fused_merge_evict"] += 1
+        note_launch("fused_merge_evict")
+        return out_keys, out_vers, out_count
 
 
 @functools.lru_cache(maxsize=64)

@@ -28,6 +28,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..flow.hotpath import hot_path
+
 # Sentinel "plus infinity" key (greater than any real key: real length word
 # is < 2**31 and the sentinel is the max uint32).
 INF_WORD = np.uint32(0xFFFFFFFF)
@@ -37,6 +39,7 @@ INF_DEV = 2**31 - 1  # INF_WORD in the device encoding
 ZERO_DEV = -(2**31)  # word 0 in the device encoding
 
 
+@hot_path(bound="batch")
 def encode_keys(keys: Sequence[bytes], key_words: int) -> np.ndarray:
     """[N, key_words+1] uint32; words most-significant-FIRST, length last."""
     width = key_words * 4

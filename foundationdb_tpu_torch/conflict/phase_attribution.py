@@ -69,6 +69,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..flow.hotpath import g_hostguard
 from ..flow.rng import DeterministicRandom
 from ..flow.spans import begin_span
 from . import engine_torch as et
@@ -165,8 +166,12 @@ def attribute_phases(engine, transactions=None, *, measure: bool = False,
     caps = {k: v for k, v in shapes.items() if k != "amortized"}
 
     def run(ablate, checks=None):
-        on_sync = None if checks is None else (lambda: checks.__setitem__(0, checks[0] + 1))
-        return et._blob_core(*state, blob, on_sync=on_sync, ablate=ablate, **caps)
+        def on_sync():
+            checks[0] += 1
+            return g_hostguard.allowed()
+
+        return et._blob_core(*state, blob, on_sync=None if checks is None else on_sync,
+                             ablate=ablate, **caps)
 
     arms = _arm_names()
     blocks, digests = {}, {}

@@ -21,6 +21,14 @@ same program, with the reference's argument names and its ``carried``
 The reference's XLA-only ``tiered_step`` and ``sharded_step`` (its
 non-kernel tiered and sharded programs) have no port program.
 
+Each registration also carries the reference's structural metadata for
+the same entry, with the same values: ``size_classes`` (named dimension
+thresholds, descending), ``h_threshold`` (the history's width),
+``compaction_gated`` (history-wide work belongs in the major compaction
+only), ``work_bound`` (the widest a work op may be) and ``bucket_dims``
+(static dim -> (canonical value, bucket floor)).  tools/lint/torchir.py
+checks the programs against them.
+
 A registration records a factory and costs nothing at import.  A cost
 block holds shape math (``carried_bytes``, ``carried_bytes_total``,
 ``pinned_bytes_total``, ``argument_bytes_total``), ``"kernel": True`` on
@@ -50,6 +58,7 @@ from ..metrics import Histogram
 # Canonical shapes of the registered programs: the reference's.
 EP_TXN, EP_RR, EP_WR = 32, 128, 64
 EP_H, EP_D, EP_KW1 = 4096, 256, 4
+EP_BUCKET_MIN = 8  # PackedBatch's bucket floor (bucket_mins default)
 
 
 class DeviceEntryPoint:
@@ -59,16 +68,24 @@ class DeviceEntryPoint:
     runs the program once on tensors that ``factory`` makes on `device`
     (a valid empty history and a canonical batch).  ``arg_names`` name
     ``args`` in order; ``carried`` and ``pinned`` are subsets of them;
-    ``kernel`` marks a program that launches a hand-written kernel."""
+    ``kernel`` marks a program that launches a hand-written kernel.  The
+    structural metadata (module docstring) defaults to none."""
 
     def __init__(self, name: str, factory: Callable, *, arg_names, carried=(),
-                 pinned=(), kernel: bool = False):
+                 pinned=(), kernel: bool = False, size_classes=(), h_threshold: int = 0,
+                 compaction_gated: bool = False, work_bound: Optional[int] = None,
+                 bucket_dims=None):
         self.name = name
         self.factory = factory
         self.arg_names = tuple(arg_names)
         self.carried = tuple(carried)
         self.pinned = tuple(pinned)
         self.kernel = kernel
+        self.size_classes = tuple(size_classes)
+        self.h_threshold = h_threshold
+        self.compaction_gated = compaction_gated
+        self.work_bound = work_bound
+        self.bucket_dims = dict(bucket_dims or {})
 
     def arg_nbytes(self) -> Dict[str, int]:
         """arg name -> bytes, from the canonical arguments' shapes and
@@ -85,6 +102,8 @@ class DeviceEntryPoint:
 
 
 def _nbytes(x) -> int:
+    if not isinstance(x, torch.Tensor):
+        return 4  # a host flag, the reference's int32 scalar argument
     return int(x.numel()) * x.element_size()
 
 
@@ -272,7 +291,7 @@ def _ep_flat_step_kernels(dev):
     return et._blob_core, _flat_args(dev), dict(_STEP_STATICS)
 
 
-def _ep_flat_step(dev):
+def _ep_flat_step(dev):  # torchcheck: ignore[TGX004]: torch.sort has no int32 indices; the nokernel arm's merge sort over H + 2 * wr_cap, a measurement arm
     from . import engine_torch as et
 
     return et._blob_core, _flat_args(dev), dict(_STEP_STATICS, ablate=frozenset({"nokernel"}))
@@ -317,17 +336,39 @@ def _ep_grow_body(dev):
 _FLAT_ARGS = ("hkeys", "hvers", "hcount", "oldest", "blob")
 _TIERED_ARGS = ("hkeys", "hvers", "hcount", "maxtab", "dkeys", "dvers", "dcount",
                 "oldest", "blob")
+_EP_BUCKETS = {
+    "txn_cap": (EP_TXN, EP_BUCKET_MIN),
+    "rr_cap": (EP_RR, EP_BUCKET_MIN),
+    "wr_cap": (EP_WR, EP_BUCKET_MIN),
+    "h_cap": (EP_H, 64),
+}
+_P = 2 * (EP_RR + EP_WR)
 
 register_entry_point("flat_step_kernels", _ep_flat_step_kernels, arg_names=_FLAT_ARGS,
-                     carried=_FLAT_ARGS[:4], kernel=True)
+                     carried=_FLAT_ARGS[:4], kernel=True,
+                     size_classes=(("H", EP_H), ("P", _P), ("batch", EP_TXN)),
+                     h_threshold=EP_H, work_bound=EP_H + 4 * EP_WR, bucket_dims=_EP_BUCKETS)
 register_entry_point("flat_step", _ep_flat_step, arg_names=_FLAT_ARGS,
-                     carried=_FLAT_ARGS[:4])
+                     carried=_FLAT_ARGS[:4],
+                     size_classes=(("H", EP_H), ("P", _P), ("batch", EP_TXN)),
+                     h_threshold=EP_H, work_bound=EP_H + 4 * EP_WR, bucket_dims=_EP_BUCKETS)
+# Steady state is delta-bounded: history-wide work only in the compaction.
 register_entry_point("tiered_step_kernels", _ep_tiered_step_kernels,
-                     arg_names=_TIERED_ARGS, carried=_TIERED_ARGS[:8], kernel=True)
+                     arg_names=_TIERED_ARGS, carried=_TIERED_ARGS[:8], kernel=True,
+                     size_classes=(("H", EP_H), ("P", _P), ("D", EP_D), ("batch", EP_TXN)),
+                     h_threshold=EP_H, compaction_gated=True,
+                     work_bound=EP_H + EP_D + 4 * EP_WR,
+                     bucket_dims=dict(_EP_BUCKETS, d_cap=(EP_D, 64)))
 # Runs only inside the tiered step, which owns its state.
 register_entry_point("compact_body", _ep_compact_body,
                      arg_names=("hk", "hv", "hc", "dk", "dv", "dc", "new_oldest"),
-                     kernel=True)
+                     kernel=True, size_classes=(("H", EP_H), ("D", EP_D), ("batch", EP_TXN)),
+                     h_threshold=EP_H, work_bound=EP_H + EP_D,
+                     bucket_dims=dict(h_cap=(EP_H, 64), d_cap=(EP_D, 64)))
 register_entry_point("rebase_body", _ep_rebase_body, arg_names=("vers", "d"),
-                     carried=("vers",))
-register_entry_point("grow_body", _ep_grow_body, arg_names=("buf",), carried=("buf",))
+                     carried=("vers",), size_classes=(("H", EP_H),), h_threshold=EP_H,
+                     work_bound=EP_H, bucket_dims=dict(h_cap=(EP_H, 64)))
+# The reallocation's output is old + pad rows.
+register_entry_point("grow_body", _ep_grow_body, arg_names=("buf",), carried=("buf",),
+                     size_classes=(("H", EP_H),), h_threshold=EP_H, work_bound=2 * EP_H,
+                     bucket_dims=dict(h_cap=(EP_H, 64)))

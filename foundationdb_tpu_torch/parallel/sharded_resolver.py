@@ -83,12 +83,14 @@ from __future__ import annotations
 import time
 from bisect import bisect_left, bisect_right
 from collections import deque
+from functools import partial
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..conflict import engine_torch as et
+from ..conflict import programs
 from ..conflict import keys as keylib
 from ..conflict.api import MAX_DEVICE_KEY_BYTES, ConflictBatch, _above_window
 from ..conflict.device_faults import DeviceCircuitBreaker, DeviceFault
@@ -98,6 +100,7 @@ from ..conflict.keys import uniform_int_split_keys
 from ..conflict.types import COMMITTED, CONFLICT, TransactionConflictInfo
 from ..device import resolve_device
 from ..flow.flight_recorder import maybe_trigger
+from ..flow.hotpath import g_hostguard, hot_path
 from ..flow.spans import begin_span, instant
 from ..flow.trace import TraceEvent
 from ..metrics import MetricsRegistry
@@ -446,9 +449,12 @@ class ShardedTorchConflictSet:
         self._stale = [False] * self.n_shards
         self._synced_stamp = [m.stamp for m in self._mirrors]
 
-    def _sync(self):
-        """Count one blocking device-to-host read."""
+    def _sanctioned_sync(self, op: str):
+        """The scope of one blocking device-to-host read (`op` names it):
+        counted in ``host_syncs``, inside ``g_hostguard.allowed()``.  The
+        sharded set takes no transfer guard, as the reference's has none."""
         self.host_syncs += 1
+        return g_hostguard.allowed()
 
     # -- fault plumbing --
     def install_fault_injector(self, injector) -> None:
@@ -555,10 +561,10 @@ class ShardedTorchConflictSet:
         if self.tiered:
             # The carried table's level count follows h_cap: rebuild each
             # shard's from its grown versions.
-            self._sync()
-            hv = self._hvers.cpu().numpy()
-            self._maxtab = torch.from_numpy(
-                np.stack([build_max_table_np(hv[s]) for s in range(S)])).to(dev)
+            with self._sanctioned_sync("max table rebuild"):
+                hv = self._hvers.cpu().numpy()
+                self._maxtab = torch.from_numpy(
+                    np.stack([build_max_table_np(hv[s]) for s in range(S)])).to(dev)
         self._steps.clear()
 
     def _grow_delta(self, new_cap: int):
@@ -593,6 +599,7 @@ class ShardedTorchConflictSet:
         """[(lo, hi_or_None)] per shard — the one definition."""
         return list(zip([b""] + self.split_keys, self.split_keys + [None]))
 
+    @hot_path(bound="batch")
     def _clip_txns_for(self, txns, s: int, with_read_map: bool = False):
         """Shard s's view of the batch on the host: every range clipped to
         [lo_s, hi_s), empty clips dropped (TooOld then applies only where
@@ -622,6 +629,7 @@ class ShardedTorchConflictSet:
             return out, rmap
         return out
 
+    @hot_path(bound="batch")
     def _committed_writes_per_shard(self, txns, rows, shards):
         """Per-shard clipped COMMITTED write ranges, judged by each shard's
         LOCAL verdict row; ranges go to shards by a bisect over the split
@@ -655,6 +663,7 @@ class ShardedTorchConflictSet:
         self._mirrors[s].apply_batch(txn, [COMMITTED] if ranges else [], now,
                                      new_oldest_version)
 
+    @hot_path(bound="chunks")
     def _note_synced_shard(self, s: int) -> None:
         """Record that shard s's slice now equals its mirror, encoding the
         chunks created this batch so that a later rehydration pays only
@@ -909,8 +918,8 @@ class ShardedTorchConflictSet:
         slot = ring.pos
         ring.pos = (slot + 1) % len(ring.views)
         if cuda and not ring.events[slot].query():
-            self._sync()
-            ring.events[slot].synchronize()
+            with self._sanctioned_sync("staging buffer"):
+                ring.events[slot].synchronize()
         blob = et.fill_blob(ring.views[slot], pb, self._base, now, new_oldest_version, 1)
         if not cuda:
             return torch.from_numpy(blob.view(np.int32))
@@ -937,8 +946,9 @@ class ShardedTorchConflictSet:
         batch = (r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn, t_snap, t_valid,
                  now_rel, new_oldest_rel)
         caps = dict(allowed=allowed, txn_cap=TXN, rr_cap=pb.rr_cap, wr_cap=pb.wr_cap,
-                    h_cap=self.h_cap, on_sync=self._sync, witness=self._witness,
-                    search=self.search, search_stride=self.search_stride)
+                    h_cap=self.h_cap, witness=self._witness, search=self.search,
+                    search_stride=self.search_stride,
+                    on_sync=partial(self._sanctioned_sync, "fixpoint check"))
         # The device span: every shard's step and the one readback.
         with begin_span("device", attrs={"version": now}):
             if self.tiered:
@@ -957,8 +967,8 @@ class ShardedTorchConflictSet:
                 torch.stack([undecided, iters]), self._hcount, dcount, self._oldest,
                 status.reshape(-1), *wit,
             ])
-            self._sync()
-            arr = out.cpu().numpy()
+            with self._sanctioned_sync("readback"):
+                arr = out.cpu().numpy()
         head = 2 + 3 * S
         self._hcount_host = arr[2 : 2 + S].astype(np.int64)
         self._dcount_host = arr[2 + S : 2 + 2 * S].astype(np.int64)
@@ -1136,10 +1146,10 @@ class ShardedTorchConflictSet:
         """The stacked state on the host, from one readback: (keys uint32
         [S, kw1, H], vers, counts, oldest, delta keys, delta vers, delta
         counts) — the delta entries None in flat mode."""
-        self._sync()
-        out = [keylib.from_device_words(self._hkeys.cpu().numpy()),
-               self._hvers.cpu().numpy(), self._hcount.cpu().numpy(),
-               self._oldest.cpu().numpy()]
+        with self._sanctioned_sync("export"):
+            out = [keylib.from_device_words(self._hkeys.cpu().numpy()),
+                   self._hvers.cpu().numpy(), self._hcount.cpu().numpy(),
+                   self._oldest.cpu().numpy()]
         if self.tiered:
             out += [keylib.from_device_words(self._dkeys.cpu().numpy()),
                     self._dvers.cpu().numpy(), self._dcount.cpu().numpy()]
@@ -1413,8 +1423,6 @@ EP_SHARDS, EP_SHARD_H, EP_SHARD_D = 2, 2048, 256
 
 
 def _ep_sharded_args(dev, tiered: bool):
-    from ..conflict import programs
-
     S, kw1 = EP_SHARDS, programs.EP_KW1
     cs = ShardedTorchConflictSet(uniform_int_split_keys(S, 1 << 16, 4), key_words=kw1 - 1,
                                  h_cap=EP_SHARD_H, device=dev,
@@ -1436,8 +1444,9 @@ def _ep_sharded_args(dev, tiered: bool):
     statics = dict(allowed=[True] * S, txn_cap=pb.txn_cap, rr_cap=pb.rr_cap,
                    wr_cap=pb.wr_cap, h_cap=EP_SHARD_H)
     if tiered:
-        # The host's compaction flag: a compaction batch.
-        args += (torch.ones((), dtype=torch.int32),)
+        # The host's compaction flag, a Python int as the live path passes
+        # it: a compaction batch.
+        args += (1,)
         statics["d_cap"] = EP_SHARD_D
     return args, statics
 
@@ -1455,14 +1464,28 @@ def _ep_sharded_step_tiered(dev):
 _SHARDED_BATCH_ARGS = ("r_begin", "r_end", "r_txn", "r_snap", "w_begin", "w_end", "w_txn",
                        "t_snap", "t_valid", "now_rel", "new_oldest_rel")
 
+_TXN, _RR, _WR, _BMIN = (programs.EP_TXN, programs.EP_RR, programs.EP_WR,
+                         programs.EP_BUCKET_MIN)
+_SHARDED_BUCKETS = {"txn_cap": (_TXN, _BMIN), "rr_cap": (_RR, _BMIN), "wr_cap": (_WR, _BMIN),
+                    "h_cap": (EP_SHARD_H, 64)}
+_SHARDED_CLASSES = (("H", EP_SHARD_H), ("P", 2 * (_RR + _WR)), ("batch", _TXN))
+
+# Per-shard width bounds: the flat step's full-width merge at ONE shard's
+# h_cap; wider work would touch every shard's rows at once.
 et.register_entry_point(
     "sharded_step_kernels", _ep_sharded_step_kernels,
     arg_names=("lo", "hi", "active", "hkeys", "hvers", "hcount", "oldest")
     + _SHARDED_BATCH_ARGS,
-    carried=("hkeys", "hvers", "hcount", "oldest"), pinned=("lo", "hi"), kernel=True)
+    carried=("hkeys", "hvers", "hcount", "oldest"), pinned=("lo", "hi"), kernel=True,
+    size_classes=_SHARDED_CLASSES, h_threshold=EP_SHARD_H, work_bound=EP_SHARD_H + 4 * _WR,
+    bucket_dims=_SHARDED_BUCKETS)
 et.register_entry_point(
     "sharded_step_tiered", _ep_sharded_step_tiered,
     arg_names=("lo", "hi", "active", "hkeys", "hvers", "hcount", "maxtab", "dkeys",
                "dvers", "dcount", "oldest") + _SHARDED_BATCH_ARGS + ("do_major",),
     carried=("hkeys", "hvers", "hcount", "maxtab", "dkeys", "dvers", "dcount", "oldest"),
-    pinned=("lo", "hi"), kernel=True)
+    pinned=("lo", "hi"), kernel=True,
+    size_classes=_SHARDED_CLASSES[:2] + (("D", EP_SHARD_D), ("batch", _TXN)),
+    h_threshold=EP_SHARD_H, compaction_gated=True,
+    work_bound=EP_SHARD_H + EP_SHARD_D + 4 * _WR,
+    bucket_dims=dict(_SHARDED_BUCKETS, d_cap=(EP_SHARD_D, 64)))

@@ -833,3 +833,74 @@ def test_spans_events_and_captures_on_the_card_match_the_cpu(dev, config):
     assert types.count("MirrorDivergence") == 1 and types.count("DeviceBackendStateChange") >= 4
     assert any('"trigger":"mirror_divergence"' in a for a in gpu[3])
     assert any('"trigger":"breaker_open"' in a for a in gpu[3])
+
+
+def test_transfer_guard_on_the_card(dev, monkeypatch):
+    """ConflictSet(transfer_guard=True) at depth 2 on the card: the stream's
+    verdicts, witnesses and exported state equal the unguarded run's and
+    the CPU's, so no sanctioned read raises; np.asarray of a parked
+    ticket's out or host raises TransferGuardError; an .item() planted in
+    the armed dispatch raises torch's sync error, and the sync debug mode
+    is back at 0 after it; the default is off."""
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.flow.hotpath import TransferGuardError
+
+    stream = _stream(53, 400, batches=10, txns_per_batch=30)
+    kw = dict(key_words=3, h_cap=1 << 10, bucket_mins=BUCKETS, pipeline_depth=2)
+    assert ConflictSet(**kw)._dev.transfer_guard is False
+
+    def run(device, guard):
+        cs = ConflictSet(device=device, transfer_guard=guard, **kw)
+        entries = []
+        for txns, now, nov in stream:
+            entries.append(cs.pipeline_submit(txns, now, nov))
+            while cs.pipeline_inflight > 1:
+                cs.pipeline_complete_oldest()
+        cs.pipeline_drain()
+        return cs, [(list(e.statuses), list(e.witness)) for e in entries]
+
+    guarded, got = run(dev, True)
+    assert got == run(dev, False)[1] == run("cpu", True)[1]
+    assert guarded.mirror_check()["status"] == "ok"
+    txns, now, nov = stream[-1]
+    entry = guarded.pipeline_submit(txns, now + 1, nov + 1)
+    assert not entry.done
+    for field in ("out", "host"):
+        with pytest.raises(TransferGuardError, match=f"DispatchTicket.{field}"):
+            np.asarray(getattr(entry.ticket, field))
+    guarded.pipeline_drain()
+    real = et._blob_core
+
+    def planted(*args, **kwargs):
+        args[4][0].item()
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(et, "_blob_core", planted)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        guarded.pipeline_submit(txns, now + 2, nov + 2)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_torchcheck_on_the_card_kernel_programs(dev):
+    """The structural check's walker on the card: each kernel program's
+    kernel regions hold a launch of each kernel it runs and otherwise only
+    allocations (none of the plain twin's ops), every host read is in a
+    sanctioned scope, and no TGX001, TGX002 or TGX005 finding is
+    unsuppressed."""
+    from foundationdb_tpu_torch.tools.lint import torchir
+
+    reg = torchir.default_registry()
+    allocs = {"empty", "empty_strided", "zeros", "zero_", "new_empty", "new_zeros", "fill_"}
+    kernel_entries = [n for n in sorted(reg) if reg[n].kernel]
+    assert kernel_entries
+    runs = {}
+    for name in kernel_entries:
+        run = runs[name] = torchir.walk_program(reg[name], dev)
+        in_kernel = [r.op for r in run.rows if r.in_kernel]
+        launches = {op for op in in_kernel if op.startswith("launch:")}
+        assert launches, name
+        assert set(in_kernel) - launches <= allocs, (name, set(in_kernel) - launches)
+        assert all(r.sanctioned for r in run.rows if r.sync is not None), name
+    found = torchir.run_torchcheck({n: reg[n] for n in kernel_entries}, device=dev, runs=runs)
+    assert not [f for f in found if not f.suppressed and f.rule in ("TGX001", "TGX002",
+                                                                     "TGX005")]
