@@ -28,6 +28,19 @@ seconds (`phase <name>: ...`):
                kernel program's kernel regions on the card hold its
                launches and their allocations and none of the plain
                twin's ops
+  2h. perfcheck  tools/lint/hotpath.py (HOT001-HOT004) over the checkout's
+               foundationdb_tpu_torch/ on the card's host: counts by rule,
+               suppressed, seconds; any unsuppressed finding fails.  Then
+               a planted dispatch->sync window on one
+               TorchConflictSet(key_words=2, h_cap=1,024,
+               transfer_guard=True): a module written to a temporary file
+               calls dispatch_txns (both kernels launch) under torch's sync
+               debug mode "error", then a callee, then sync_ticket; the
+               callee is (a) torch.cuda.synchronize(), (b)
+               np.asarray(ticket.host) or (c) ticket.out.item().  Each
+               variant is linted (one HOT001 naming the chain "drive ->
+               _peek" is required) and run: prints whether the runtime
+               guard caught it; every batch's verdicts equal a CPU run's
   3. kernels   each kernel at the bench shape (history h_cap = 3,145,728
                rows, 65,536-transaction batches, key_words=2) against its
                plain PyTorch twin on the same CUDA tensors, bit for bit;
@@ -303,10 +316,12 @@ from __future__ import annotations
 import contextlib
 import gc
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2747,7 +2762,7 @@ def spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr):
 
 
 # ---------------------------------------------------------------------------
-# phases 2g, 4v and 6v: the structural check and the transfer guard
+# phases 2g, 2h, 4v and 6v: the structural check, perfcheck and the transfer guard
 # ---------------------------------------------------------------------------
 
 # The aten ops a kernel wrapper's region may hold on the card beside its
@@ -2841,6 +2856,127 @@ def sync_debug_probe(torch, hotpath):
             raise AssertionError(f"guard probe: the sync debug mode stayed on after {name}")
     torch.cuda.synchronize()
     return seen
+
+
+# Phase 2h's planted window: a callee between dispatch_txns and
+# sync_ticket, in three variants, and what perfcheck must name.
+PLANT_VARIANTS = {
+    "a": ("torch.cuda.synchronize()", "torch.cuda.synchronize()"),
+    "b": ("np.asarray(ticket.host)", "np.asarray() on 'ticket.host'"),
+    "c": ("ticket.out.item()", ".item() on 'ticket.out'"),
+}
+PLANT_SOURCE = '''\
+import numpy as np
+import torch
+
+from foundationdb_tpu_torch.flow.hotpath import cuda_sync_debug_mode
+
+
+def _peek(ticket):
+    return {callee}
+
+
+def drive(engine, txns, now, new_oldest_version, parked):
+    with cuda_sync_debug_mode("error"):
+        ticket = engine.dispatch_txns(txns, now, new_oldest_version)
+        parked.append(ticket)
+        _peek(ticket)
+    return engine.sync_ticket(ticket)
+'''
+PLANT_TXNS = 256
+PLANT_KEYSPACE = 4096
+
+
+def planted_window(torch, et, tk, T, lint_source):
+    """Phase 2h's plant: each variant of PLANT_SOURCE linted by perfcheck,
+    then imported from a temporary file and run on one
+    TorchConflictSet(key_words=2, h_cap=1 << 10, transfer_guard=True) on
+    the card, one batch a variant after a warm-up batch.  Returns, a
+    variant, the static finding's message (None if none), the guard's
+    error (None if the run passed), the batch's verdicts and the kernels'
+    launches; the verdicts are held to the same batches on the CPU."""
+    eng = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 10, device="cuda",
+                              transfer_guard=True)
+    cpu = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 10, device="cpu")
+    rng = np.random.default_rng(14)
+    txns = gen_txns(T, rng, PLANT_TXNS, 0, PLANT_KEYSPACE)
+    got = eng.sync_ticket(eng.dispatch_txns(txns, 10, 0))[0][:PLANT_TXNS].tolist()
+    if got != cpu.detect(txns, 10, 0):
+        raise AssertionError("perfcheck plant: the warm-up batch's verdicts differ from the cpu's")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (variant, (callee, _op)) in enumerate(sorted(PLANT_VARIANTS.items())):
+            src = PLANT_SOURCE.format(callee=callee)
+            found = [f for f in lint_source(src, "window.py") if not f.suppressed]
+            path = os.path.join(tmp, f"planted_{variant}.py")
+            with open(path, "w", encoding="utf-8") as fh:
+                fh.write(src)
+            spec = importlib.util.spec_from_file_location(f"planted_{variant}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            now = 11 + i
+            txns = gen_txns(T, rng, PLANT_TXNS, now - 2, PLANT_KEYSPACE)
+            before = dict(tk.LAUNCHES)
+            parked, error = [], None
+            try:
+                statuses, diverged = mod.drive(eng, txns, now, 0, parked)
+            except RuntimeError as e:
+                error = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+                statuses, diverged = eng.sync_ticket(parked[0])
+            if torch.cuda.get_sync_debug_mode() != 0:
+                raise AssertionError(f"perfcheck plant ({variant}): the sync debug mode "
+                                     "stayed armed")
+            verdicts = statuses[:PLANT_TXNS].tolist()
+            if diverged or verdicts != cpu.detect(txns, now, 0):
+                raise AssertionError(f"perfcheck plant ({variant}): the batch's verdicts "
+                                     "differ from the cpu's")
+            out[variant] = {
+                "findings": [f"{f.rule} {f.message}" for f in found],
+                "guard": error,
+                "aborted": sum(1 for v in verdicts if v != 0),
+                "launches": {k: tk.LAUNCHES[k] - before[k] for k in before},
+            }
+    return out
+
+
+def perfcheck_path(torch, et, tk, T):
+    """Phase 2h: perfcheck over the checkout's port, then the planted
+    window (planted_window).  Fails on an unsuppressed finding in the
+    port, on a variant the static check misses or whose finding does not
+    name the chain, and on a planted dispatch that does not launch both
+    kernels.  What the runtime guard catches is printed, not gated."""
+    from foundationdb_tpu_torch.tools.lint import runner
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "foundationdb_tpu_torch")
+    t0 = time.perf_counter()
+    found = runner.run_perfcheck(root)
+    dt = time.perf_counter() - t0
+    card = torch.cuda.get_device_name(0)
+    log(f"perfcheck: {runner.format_tool_counts({'perfcheck': found})[0]}; over "
+        f"foundationdb_tpu_torch/ in {dt:.3f} s on the card's host (torch "
+        f"{torch.__version__}); card {card}")
+    unsup = [f.format() for f in found if not f.suppressed]
+    if unsup:
+        raise AssertionError(f"perfcheck: {len(unsup)} unsuppressed finding(s): {unsup[:4]}")
+    t0 = time.perf_counter()
+    plant = planted_window(torch, et, tk, T, runner.lint_source)
+    dt = time.perf_counter() - t0
+    for variant, r in sorted(plant.items()):
+        callee, op = PLANT_VARIANTS[variant]
+        static = (len(r["findings"]) == 1 and r["findings"][0].startswith("HOT001 ")
+                  and op in r["findings"][0] and "(chain: drive -> _peek)" in r["findings"][0])
+        if not static:
+            raise AssertionError(f"perfcheck plant ({variant}) {callee}: static findings "
+                                 f"{r['findings']}")
+        if min(r["launches"].values()) < 1:
+            raise AssertionError(f"perfcheck plant ({variant}): launches {r['launches']}")
+        log(f"perfcheck plant ({variant}) {callee} between dispatch_txns and sync_ticket: "
+            f"static caught, chain drive -> _peek; runtime guard "
+            + (f"caught ({r['guard']})" if r["guard"] else "did not catch (the run passed)")
+            + f"; {r['aborted']} of {PLANT_TXNS} aborted, equal to the cpu's; launches "
+            f"{r['launches']}; card {card}")
+    log(f"perfcheck plant: 3 variants in {dt:.3f} s; card {card}")
+    return plant
 
 
 # Phase 4v's batches: the first of phase 4's timed batches.
@@ -3348,6 +3484,8 @@ def main(argv) -> int:
     # 2c. the program table on the card; 2g. the structural check there
     program_table(torch, et)
     torchir_path(torch)
+    # 2h. perfcheck over the port, and the planted window
+    perfcheck_path(torch, et, tk, T)
 
     # 3. kernels
     gen = torch.Generator(device="cuda")

@@ -677,9 +677,9 @@ class CpuConflictSet:
         h2 = nk + 2 * n_int
         out_kept = np.arange(nk) + 2 * np.searchsorted(rbl, kept_idx, "right")
         out_b = np.searchsorted(kept_idx, lbl, "left") + 2 * np.arange(n_int)
-        ek2 = np.empty((h2, be.shape[1]), np.uint32)
-        va2 = np.empty(h2, np.int64)
-        pfx2 = np.empty(h2, np.uint64)
+        ek2 = np.empty((h2, be.shape[1]), np.uint32)  # perfcheck: ignore[HOT003]: becomes the rebuilt span's chunk columns (retained), so the engine's staging ring (_StagingRing) cannot serve it
+        va2 = np.empty(h2, np.int64)  # perfcheck: ignore[HOT003]: retained as chunk columns, see ek2
+        pfx2 = np.empty(h2, np.uint64)  # perfcheck: ignore[HOT003]: retained as chunk columns, see ek2
         sk = kept_idx + g0
         ek2[out_kept] = ek_g[sk]
         va2[out_kept] = va_g[sk]

@@ -644,7 +644,7 @@ class ShardedTorchConflictSet:
                     continue
                 s0 = bisect_right(split, b)
                 s1 = bisect_left(split, e)
-                for s in range(s0, min(s1, last) + 1):
+                for s in range(s0, min(s1, last) + 1):  # perfcheck: ignore[HOT004]: iterates spanned SHARDS (bounded by the shard count, not rows); each reads one verdict scalar
                     lst = per.get(s)
                     if lst is None or int(rows[s][i]) != COMMITTED:
                         continue

@@ -40,8 +40,8 @@ measures the memory a program holds above its arguments and outputs.
 
 Pragmas: ``# torchcheck: ignore[TGX00n]: reason`` on the factory's def
 lines suppresses that rule for exactly that entry.  A pragma with no
-reason still suppresses and adds PRG001; one that suppresses nothing adds
-PRG002.  Fingerprints (``torchfingerprint.py``) are the companion gate:
+reason still suppresses and adds PRG001; one that suppresses nothing or
+names an unknown rule adds PRG002 (``base.apply_pragmas``, as perfcheck).  Fingerprints (``torchfingerprint.py``) are the companion gate:
 one committed file an entry under ``tests/torch_fingerprints/``.
 
 CLI: ``python -m foundationdb_tpu_torch.tools.lint.torchir
@@ -57,11 +57,12 @@ import ast
 import inspect
 import json
 import os
-import re
 import sys
 import textwrap
-from dataclasses import asdict, dataclass, field
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
+
+from .base import Finding, apply_pragmas, parse_pragmas
 
 TORCH_RULES: Dict[str, str] = {
     "TGX001": "work op at or above the history's width outside the compaction region / "
@@ -91,7 +92,6 @@ SYNC_OPS = frozenset({
 _64BIT = frozenset({"torch.int64", "torch.uint64", "torch.float64", "torch.complex128"})
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_PRAGMA = re.compile(r"#\s*torchcheck:\s*ignore\[([A-Z0-9_,\s]+)\](?::\s*(.*))?")
 
 
 # ---------------------------------------------------------------------------
@@ -257,23 +257,6 @@ def walk_program(entry, device="cpu") -> ProgramRun:
 # ---------------------------------------------------------------------------
 
 
-@dataclass
-class Finding:
-    rule: str
-    path: str
-    line: int
-    entry: str
-    message: str
-    suppressed: bool = False
-    reason: str = ""
-
-    def format(self) -> str:
-        return f"{self.path}:{self.line}: {self.rule} [{self.entry}] {self.message}"
-
-    def to_dict(self) -> dict:
-        return asdict(self)
-
-
 def _where(entry) -> Tuple[str, int, List[int]]:
     """(path, def line, the def's line numbers) of an entry's factory."""
     fn = entry.factory
@@ -300,7 +283,7 @@ def run_rules(run: ProgramRun, path: str, line: int) -> List[Finding]:
     out: List[Finding] = []
 
     def add(rule, msg):
-        out.append(Finding(rule, path, line, ep.name, msg))
+        out.append(Finding(rule, path, line, 0, msg, entry=ep.name))
 
     for r in run.rows:  # TGX001
         if r.op not in WORK_OPS or r.in_kernel:
@@ -338,35 +321,18 @@ def run_rules(run: ProgramRun, path: str, line: int) -> List[Finding]:
     return out
 
 
-def _pragmas(src: str, def_lines: List[int]) -> List[Tuple[int, List[str], str]]:
-    """(line, rules, reason) of each torchcheck pragma on the def lines."""
-    lines = src.splitlines()
-    out = []
-    for ln in def_lines:
-        if ln - 1 >= len(lines):
-            continue
-        m = _PRAGMA.search(lines[ln - 1])
-        if m:
-            rules = [r.strip() for r in m.group(1).split(",") if r.strip()]
-            out.append((ln, rules, (m.group(2) or "").strip()))
-    return out
-
-
-def apply_pragmas(findings: List[Finding], entry, path: str, line: int, def_lines,
-                  src: str) -> List[Finding]:
-    """Suppress findings by the entry's pragmas; police the pragmas."""
-    out = list(findings)
-    for ln, rules, reason in _pragmas(src, def_lines):
-        for rule in rules:
-            hits = [f for f in out if f.rule == rule and not f.suppressed]
-            for f in hits:
-                f.suppressed, f.reason = True, reason or "(no reason)"
-            if not hits:
-                out.append(Finding("PRG002", path, ln, entry.name,
-                                   f"ignore[{rule}] suppresses nothing (stale)"))
-        if not reason:
-            out.append(Finding("PRG001", path, ln, entry.name,
-                               f"ignore[{','.join(rules)}] carries no reason"))
+def _police(findings: List[Finding], entry, path: str, def_lines: List[int],
+            src: str) -> List[Finding]:
+    """Suppress an entry's findings by the torchcheck pragmas on its
+    factory's def lines, and police those pragmas (PRG001, PRG002), as
+    perfcheck does its own."""
+    found = parse_pragmas(src, tool="torchcheck")
+    pragmas = {ln: found[ln] for ln in def_lines if ln in found}
+    for f in findings:
+        f.end_line = def_lines[-1]  # every finding sits on the def line
+    out = apply_pragmas(findings, pragmas, path, rules=TORCH_RULES)
+    for f in out:
+        f.entry = entry.name
     return out
 
 
@@ -391,7 +357,7 @@ def run_torchcheck(registry=None, device="cpu",
         path, line, def_lines = _where(ep)
         with open(inspect.getsourcefile(ep.factory), encoding="utf-8") as fh:
             src = fh.read()
-        out.extend(apply_pragmas(run_rules(run, path, line), ep, path, line, def_lines, src))
+        out.extend(_police(run_rules(run, path, line), ep, path, def_lines, src))
     out.sort(key=lambda f: (f.path, f.line, f.entry, f.rule, f.message))
     return out
 

@@ -904,3 +904,32 @@ def test_torchcheck_on_the_card_kernel_programs(dev):
     found = torchir.run_torchcheck({n: reg[n] for n in kernel_entries}, device=dev, runs=runs)
     assert not [f for f in found if not f.suppressed and f.rule in ("TGX001", "TGX002",
                                                                      "TGX005")]
+
+
+def test_perfcheck_planted_window_on_the_card(dev):
+    """chip_smoke's phase 2h plant on the card: between dispatch_txns
+    (both kernels launch, torch's sync debug mode armed) and sync_ticket,
+    a callee runs (a) torch.cuda.synchronize(), (b) np.asarray(ticket.host)
+    or (c) ticket.out.item().  perfcheck flags each with one HOT001 naming
+    the chain drive -> _peek; the transfer guard raises TransferGuardError
+    on (b) and (c); every batch's verdicts equal the CPU's (planted_window
+    checks them)."""
+    import importlib.util
+    import pathlib
+
+    from foundationdb_tpu_torch.tools.lint import runner
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.planted_window(torch, et, tk, TT, runner.lint_source)
+    assert sorted(got) == ["a", "b", "c"]
+    for variant, r in got.items():
+        (finding,) = r["findings"]
+        assert finding.startswith("HOT001 ") and "(chain: drive -> _peek)" in finding
+        assert smoke.PLANT_VARIANTS[variant][1] in finding
+        assert min(r["launches"].values()) >= 1, (variant, r["launches"])
+    for variant in ("b", "c"):
+        assert got[variant]["guard"].startswith("TransferGuardError: "), got[variant]
+    assert torch.cuda.get_sync_debug_mode() == 0

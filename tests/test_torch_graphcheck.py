@@ -189,7 +189,7 @@ def test_pragma_without_reason_is_prg001_and_stale_is_prg002(tmp_path):
     assert ("wide64", "PRG002") in _unsuppressed(found)
     assert ("wide64", "TGX004") in _unsuppressed(found)
     (stale,) = [f for f in found if f.rule == "PRG002"]
-    assert stale.message == "ignore[TGX002] suppresses nothing (stale)"
+    assert stale.message == "pragma for ['TGX002'] suppresses nothing here"
 
 
 # ---------------------------------------------------------------------------
