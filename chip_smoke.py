@@ -28,19 +28,25 @@ seconds (`phase <name>: ...`):
                kernel program's kernel regions on the card hold its
                launches and their allocations and none of the plain
                twin's ops
-  2h. perfcheck  tools/lint/hotpath.py (HOT001-HOT004) over the checkout's
-               foundationdb_tpu_torch/ on the card's host: counts by rule,
-               suppressed, seconds; any unsuppressed finding fails.  Then
-               a planted dispatch->sync window on one
+  2h. source gate  fdblint (tools/lint/local.py and det101.py: DET001-003,
+               DET101, IO001, TRC001, SPN001, ERR001, ENV001) and
+               perfcheck (tools/lint/hotpath.py, HOT001-HOT004) from one
+               load of the checkout's foundationdb_tpu_torch/ on the
+               card's host: counts by rule, suppressed, seconds; any
+               unsuppressed finding fails.  Then a planted dispatch->sync
+               window on one
                TorchConflictSet(key_words=2, h_cap=1,024,
                transfer_guard=True): a module written to a temporary file
                calls dispatch_txns (both kernels launch) under torch's sync
                debug mode "error", then a callee, then sync_ticket; the
                callee is (a) torch.cuda.synchronize(), (b)
-               np.asarray(ticket.host) or (c) ticket.out.item().  Each
-               variant is linted (one HOT001 naming the chain "drive ->
-               _peek" is required) and run: prints whether the runtime
-               guard caught it; every batch's verdicts equal a CPU run's
+               np.asarray(ticket.host) or (c) ticket.out.item(), for
+               fdblint (d) time.time(), (e) random.random() or (f)
+               os.environ.get("FDB_TPU_X").  Each variant is linted ((a)-(c):
+               one HOT001 naming the chain "drive -> _peek"; (d) DET001
+               and (e) DET002 with a DET101 naming that chain; (f) ENV001)
+               and run: prints whether the runtime guard caught it; every
+               batch's verdicts equal a CPU run's
   3. kernels   each kernel at the bench shape (history h_cap = 3,145,728
                rows, 65,536-transaction batches, key_words=2) against its
                plain PyTorch twin on the same CUDA tensors, bit for bit;
@@ -270,6 +276,12 @@ seconds (`phase <name>: ...`):
                verdicts, witnesses, injected log, breaker walk, mirror and
                device export equal to the unguarded cuda run; at depths 2
                and 3 a parked ticket's read raises TransferGuardError on both
+  6d. determinism  two fresh ConflictSets with phase 4's settings over the
+               first 4 batches of phase 4's stream, each under fresh port
+               hubs on a clock that counts its own reads: verdicts and
+               witnesses, the export (keys, versions, count, oldest),
+               metrics.snapshot() (no wall namespace) and spans_json()
+               (no wall stamps) equal; one launch of each kernel a batch
   6c. chaos    (a) phase 4's ConflictSet, stream and seed (52 + 8 batches
                of 65,536 transactions at h_cap 3,145,728, depth 2) under
                the injector's random mode (the port's buggify armed on a
@@ -317,6 +329,7 @@ import contextlib
 import gc
 import hashlib
 import importlib.util
+import itertools
 import json
 import os
 import subprocess
@@ -2859,16 +2872,22 @@ def sync_debug_probe(torch, hotpath):
 
 
 # Phase 2h's planted window: a callee between dispatch_txns and
-# sync_ticket, in three variants, and what perfcheck must name.
+# sync_ticket, in six variants: {variant: (imports, callee, the rules the
+# source tools must give, sorted; the operation the HOT001 finding must
+# name, or None)}.  Every HOT001 and DET101 finding names the chain
+# drive -> _peek.
 PLANT_VARIANTS = {
-    "a": ("torch.cuda.synchronize()", "torch.cuda.synchronize()"),
-    "b": ("np.asarray(ticket.host)", "np.asarray() on 'ticket.host'"),
-    "c": ("ticket.out.item()", ".item() on 'ticket.out'"),
+    "a": ("", "torch.cuda.synchronize()", ("HOT001",), "torch.cuda.synchronize()"),
+    "b": ("", "np.asarray(ticket.host)", ("HOT001",), "np.asarray() on 'ticket.host'"),
+    "c": ("", "ticket.out.item()", ("HOT001",), ".item() on 'ticket.out'"),
+    "d": ("import time", "time.time()", ("DET001", "DET101"), None),
+    "e": ("import random", "random.random()", ("DET002", "DET002", "DET101"), None),
+    "f": ("import os", 'os.environ.get("FDB_TPU_X")', ("ENV001",), None),
 }
 PLANT_SOURCE = '''\
 import numpy as np
 import torch
-
+{imports}
 from foundationdb_tpu_torch.flow.hotpath import cuda_sync_debug_mode
 
 
@@ -2887,12 +2906,23 @@ PLANT_TXNS = 256
 PLANT_KEYSPACE = 4096
 
 
-def planted_window(torch, et, tk, T, lint_source):
-    """Phase 2h's plant: each variant of PLANT_SOURCE linted by perfcheck,
-    then imported from a temporary file and run on one
+def plant_caught(variant, findings):
+    """Whether a variant's unsuppressed findings ("RULE message") are
+    exactly its own: its rules, the chain named, its operation named."""
+    _imports, _callee, rules, op = PLANT_VARIANTS[variant]
+    chained = [m for m in findings if m.split()[0] in ("HOT001", "DET101")]
+    return (tuple(sorted(m.split()[0] for m in findings)) == rules
+            and all("(chain: drive -> _peek)" in m for m in chained)
+            and (op is None or all(op in m for m in chained)))
+
+
+def planted_window(torch, et, tk, T, lint_source, variants):
+    """Phase 2h's plant: each of `variants` (keys of PLANT_VARIANTS) in
+    PLANT_SOURCE, linted by the source tools, then imported from a
+    temporary file and run on one
     TorchConflictSet(key_words=2, h_cap=1 << 10, transfer_guard=True) on
     the card, one batch a variant after a warm-up batch.  Returns, a
-    variant, the static finding's message (None if none), the guard's
+    variant, the unsuppressed findings ("RULE message"), the guard's
     error (None if the run passed), the batch's verdicts and the kernels'
     launches; the verdicts are held to the same batches on the CPU."""
     eng = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 10, device="cuda",
@@ -2902,11 +2932,12 @@ def planted_window(torch, et, tk, T, lint_source):
     txns = gen_txns(T, rng, PLANT_TXNS, 0, PLANT_KEYSPACE)
     got = eng.sync_ticket(eng.dispatch_txns(txns, 10, 0))[0][:PLANT_TXNS].tolist()
     if got != cpu.detect(txns, 10, 0):
-        raise AssertionError("perfcheck plant: the warm-up batch's verdicts differ from the cpu's")
+        raise AssertionError("plant: the warm-up batch's verdicts differ from the cpu's")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (variant, (callee, _op)) in enumerate(sorted(PLANT_VARIANTS.items())):
-            src = PLANT_SOURCE.format(callee=callee)
+        for i, variant in enumerate(sorted(variants)):
+            imports, callee, _rules, _op = PLANT_VARIANTS[variant]
+            src = PLANT_SOURCE.format(imports=imports, callee=callee)
             found = [f for f in lint_source(src, "window.py") if not f.suppressed]
             path = os.path.join(tmp, f"planted_{variant}.py")
             with open(path, "w", encoding="utf-8") as fh:
@@ -2924,11 +2955,11 @@ def planted_window(torch, et, tk, T, lint_source):
                 error = f"{type(e).__name__}: {str(e).splitlines()[0]}"
                 statuses, diverged = eng.sync_ticket(parked[0])
             if torch.cuda.get_sync_debug_mode() != 0:
-                raise AssertionError(f"perfcheck plant ({variant}): the sync debug mode "
+                raise AssertionError(f"plant ({variant}): the sync debug mode "
                                      "stayed armed")
             verdicts = statuses[:PLANT_TXNS].tolist()
             if diverged or verdicts != cpu.detect(txns, now, 0):
-                raise AssertionError(f"perfcheck plant ({variant}): the batch's verdicts "
+                raise AssertionError(f"plant ({variant}): the batch's verdicts "
                                      "differ from the cpu's")
             out[variant] = {
                 "findings": [f"{f.rule} {f.message}" for f in found],
@@ -2939,47 +2970,49 @@ def planted_window(torch, et, tk, T, lint_source):
     return out
 
 
-def perfcheck_path(torch, et, tk, T):
-    """Phase 2h: perfcheck over the checkout's port, then the planted
-    window (planted_window).  Fails on an unsuppressed finding in the
-    port, on a variant the static check misses or whose finding does not
-    name the chain, and on a planted dispatch that does not launch both
-    kernels.  What the runtime guard catches is printed, not gated."""
+def source_gate_path(torch, et, tk, T):
+    """Phase 2h: the whole source gate (fdblint and perfcheck, one load of
+    the tree) over the checkout's port, then the planted window
+    (planted_window) in all six variants.  Fails on an unsuppressed
+    finding in the port, on a variant whose findings are not its own
+    (plant_caught), and on a planted dispatch that does not launch both
+    kernels.  What the
+    runtime guard catches is printed, not gated."""
     from foundationdb_tpu_torch.tools.lint import runner
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "foundationdb_tpu_torch")
     t0 = time.perf_counter()
-    found = runner.run_perfcheck(root)
+    by_tool = runner.run_source_tools(root)
     dt = time.perf_counter() - t0
     card = torch.cuda.get_device_name(0)
-    log(f"perfcheck: {runner.format_tool_counts({'perfcheck': found})[0]}; over "
-        f"foundationdb_tpu_torch/ in {dt:.3f} s on the card's host (torch "
-        f"{torch.__version__}); card {card}")
-    unsup = [f.format() for f in found if not f.suppressed]
+    for line in runner.format_tool_counts(by_tool):
+        log(f"source gate: {line}")
+    log(f"source gate: fdblint and perfcheck over foundationdb_tpu_torch/ in {dt:.3f} s on "
+        f"the card's host (torch {torch.__version__}); card {card}")
+    unsup = [f"[{tool}] {f.format()}" for tool, fs in sorted(by_tool.items())
+             for f in fs if not f.suppressed]
     if unsup:
-        raise AssertionError(f"perfcheck: {len(unsup)} unsuppressed finding(s): {unsup[:4]}")
+        raise AssertionError(f"source gate: {len(unsup)} unsuppressed finding(s): {unsup[:4]}")
     t0 = time.perf_counter()
-    plant = planted_window(torch, et, tk, T, runner.lint_source)
+    plant = planted_window(torch, et, tk, T, runner.lint_source, PLANT_VARIANTS)
     dt = time.perf_counter() - t0
     for variant, r in sorted(plant.items()):
-        callee, op = PLANT_VARIANTS[variant]
-        static = (len(r["findings"]) == 1 and r["findings"][0].startswith("HOT001 ")
-                  and op in r["findings"][0] and "(chain: drive -> _peek)" in r["findings"][0])
-        if not static:
-            raise AssertionError(f"perfcheck plant ({variant}) {callee}: static findings "
-                                 f"{r['findings']}")
+        _imports, callee, rules, _op = PLANT_VARIANTS[variant]
+        if not plant_caught(variant, r["findings"]):
+            raise AssertionError(f"plant ({variant}) {callee}: findings {r['findings']}")
+        chain = any(m.split()[0] in ("HOT001", "DET101") for m in r["findings"])
+        what = " ".join(rules) + (", chain drive -> _peek" if chain else "")
         if min(r["launches"].values()) < 1:
-            raise AssertionError(f"perfcheck plant ({variant}): launches {r['launches']}")
-        log(f"perfcheck plant ({variant}) {callee} between dispatch_txns and sync_ticket: "
-            f"static caught, chain drive -> _peek; runtime guard "
+            raise AssertionError(f"plant ({variant}): launches {r['launches']}")
+        log(f"plant ({variant}) {callee} between dispatch_txns and sync_ticket: static "
+            f"caught ({what}); runtime guard "
             + (f"caught ({r['guard']})" if r["guard"] else "did not catch (the run passed)")
             + f"; {r['aborted']} of {PLANT_TXNS} aborted, equal to the cpu's; launches "
             f"{r['launches']}; card {card}")
-    log(f"perfcheck plant: 3 variants in {dt:.3f} s; card {card}")
+    log(f"plant: {len(plant)} variants in {dt:.3f} s; card {card}")
     return plant
 
 
-# Phase 4v's batches: the first of phase 4's timed batches.
 GUARD_BATCHES = 4
 
 
@@ -3149,6 +3182,67 @@ def guard_vs_cpu(torch, api, T, faults, hotpath):
             f"outage, transfer_guard on cuda and cpu equal to the unguarded cuda run "
             f"(verdicts, witnesses, injected {want['injected']}, breaker walk "
             f"{[t[1:3] for t in want['walk']]}, mirror and device export); {planted}")
+
+
+DETERMINISM_BATCHES = 4
+
+
+def determinism_run(torch, api, tk, spans, trace, fr, stream, settings):
+    """One fresh ConflictSet(**settings) at depth 2 over `stream`, driven
+    as a Resolver drives it, under fresh port hubs on a clock that counts
+    its own reads.  Returns every batch's digest (verdicts and witness),
+    the export's digest (keys, versions, count, oldest), the metrics
+    snapshot (no wall namespace), spans_json() (no wall stamps) and each
+    kernel's launches."""
+    ticks = itertools.count()
+    hubs = PortHubs(spans, trace, fr, clock=lambda: float(next(ticks)))
+    try:
+        cs = api.ConflictSet(pipeline_depth=2, **settings)
+        for name in tk.LAUNCHES:
+            tk.LAUNCHES[name] = 0
+        batches = [digest(st, w) for st, w in drive(cs, stream, 2)]
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        keys, vers, n, oldest, base = cs._dev.export_state()
+        h = hashlib.sha256(np.ascontiguousarray(keys[:, :n]).tobytes())
+        h.update(np.ascontiguousarray(vers[:n]).tobytes())
+        h.update(repr((n, oldest, base)).encode())
+        return {"batches": batches, "export": h.hexdigest(),
+                "snapshot": cs._dev.metrics.snapshot(), "spans": hubs.hub.spans_json(),
+                "launches": launches, "rows": n}
+    finally:
+        hubs.restore()
+
+
+def determinism_path(torch, api, tk, spans, trace, fr, batches):
+    """Phase 6d: two fresh ConflictSets with phase 4's settings over the
+    first DETERMINISM_BATCHES full-width batches of phase 4's stream must
+    give equal verdicts and witnesses, export, metrics snapshot and spans
+    (the wall namespace and span wall stamps left out), with one launch of
+    each kernel a batch in each run."""
+    card = torch.cuda.get_device_name(0)
+    stream = [(batches[i], i + WINDOW, i) for i in range(DETERMINISM_BATCHES)]
+    settings = dict(key_words=KEY_WORDS, **path_mode("flat")[1])
+    t0 = time.perf_counter()
+    runs = [determinism_run(torch, api, tk, spans, trace, fr, stream, settings)
+            for _ in range(2)]
+    dt = time.perf_counter() - t0
+    expect = {name: DETERMINISM_BATCHES for name in tk.LAUNCHES}
+    for r in runs:
+        if r["launches"] != expect:
+            raise AssertionError(f"determinism: launches {r['launches']}, expected {expect}")
+    a, b = runs
+    for key in ("batches", "export", "snapshot", "spans"):
+        if a[key] != b[key]:
+            raise AssertionError(f"determinism: the two runs' {key} differ")
+    n_spans = a["spans"].count('"name"')
+    log(f"determinism: two fresh ConflictSets over phase 4's first {DETERMINISM_BATCHES} "
+        f"batches of {PER_BATCH} txns equal: verdicts and witnesses, export ({a['rows']} rows), "
+        f"metrics snapshot ({len(a['snapshot']['counters'])} counters, "
+        f"{len(a['snapshot']['histograms'])} histograms), spans_json ({n_spans} spans, "
+        f"{len(a['spans'])} B); launches {a['launches']} a run; {dt:.3f} s for both; "
+        f"card {card}")
+    return runs
 
 
 CHAOS_BUGGIFY_SEED = 6
@@ -3484,8 +3578,9 @@ def main(argv) -> int:
     # 2c. the program table on the card; 2g. the structural check there
     program_table(torch, et)
     torchir_path(torch)
-    # 2h. perfcheck over the port, and the planted window
-    perfcheck_path(torch, et, tk, T)
+    # 2h. the source gate (fdblint and perfcheck) over the port, and the
+    # planted window
+    source_gate_path(torch, et, tk, T)
 
     # 3. kernels
     gen = torch.Generator(device="cuda")
@@ -3563,6 +3658,9 @@ def main(argv) -> int:
     phase_done("6o")
     guard_vs_cpu(torch, api, T, faults, hotpath)
     phase_done("6v")
+    # 6d. two runs of one stream on the card give equal records
+    determinism_path(torch, api, tk, spans, trace, fr, batches)
+    phase_done("6d")
     # 6c. chaos on the card: random faults at full width, then replayed
     # on cuda and cpu at the reduced shape
     launches_chaos = chaos_path(torch, api, batches, tk, faults, buggify, DR, digests, obs)

@@ -19,8 +19,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from ..metrics import wall_now
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -123,8 +124,8 @@ def load(name: str) -> ctypes.CDLL:
 def timed_build():
     """Build (if stale) and load every library; returns (seconds taken,
     {name: compiler log} of the libraries built)."""
-    t0 = time.perf_counter()
+    t0 = wall_now()
     logs = build_all()
     for name in SOURCES:
         load(name)
-    return time.perf_counter() - t0, logs
+    return wall_now() - t0, logs

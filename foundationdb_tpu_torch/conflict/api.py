@@ -69,7 +69,6 @@ Usage mirrors the reference ABI:
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from contextlib import nullcontext
 from typing import List, Optional
@@ -78,6 +77,7 @@ from ..flow.flight_recorder import maybe_trigger
 from ..flow.hotpath import cuda_sync_debug_mode, hot_path
 from ..flow.spans import begin_span, current_span
 from ..flow.trace import TraceEvent
+from ..metrics import wall_now
 from .device_faults import DeviceCircuitBreaker, DeviceFault
 from .engine_cpu import CpuConflictSet
 from .engine_cpu_flat import FLOOR_VERSION
@@ -365,15 +365,15 @@ class ConflictSet:
         its "mirror_apply" (a host phase)."""
         m = self._dev.metrics
         with begin_span("apply", parent=parent, attrs={"version": now, "n_txn": len(txns)}):
-            t0 = time.perf_counter()
+            t0 = wall_now()
             with begin_span("mirror_apply", attrs={"n_txn": len(txns)}) as msp:
                 self._cpu.apply_batch(txns, statuses, now, new_oldest_version)
-            t1 = time.perf_counter()
+            t1 = wall_now()
             m.record_wall("mirror_apply_seconds", t1 - t0)
             self._dev._note_host_span(msp)
             if self._cpu.pending_batches == 0:
                 self._dev.note_synced(self._cpu.snapshot(), self._cpu.take_fresh_chunks())
-                m.record_wall("note_synced_seconds", time.perf_counter() - t1)
+                m.record_wall("note_synced_seconds", wall_now() - t1)
 
     def _device_serve(self, txns, now, new_oldest_version):
         """One device attempt under the breaker.  Returns the statuses, or
@@ -417,10 +417,10 @@ class ConflictSet:
     def _cpu_detect_fallback(self, txns, now, new_oldest_version):
         """Mirror detect for a DEGRADED device-eligible batch, timed on the
         wall clock for backend_signal's throughput estimate."""
-        t0 = time.perf_counter()
+        t0 = wall_now()
         statuses = self._cpu.detect(txns, now, new_oldest_version)
         self._cpu_fallback_txns += len(txns)
-        self._cpu_fallback_recent.append((len(txns), time.perf_counter() - t0))
+        self._cpu_fallback_recent.append((len(txns), wall_now() - t0))
         if self._dev is not None:
             self._dev.metrics.counter("cpu_fallback_txns").add(len(txns))
         return statuses

@@ -63,7 +63,6 @@ from __future__ import annotations
 
 import gc
 import hashlib
-import time
 from typing import List
 
 import numpy as np
@@ -72,6 +71,7 @@ import torch
 from ..flow.hotpath import g_hostguard
 from ..flow.rng import DeterministicRandom
 from ..flow.spans import begin_span
+from ..metrics import wall_now
 from . import engine_torch as et
 from . import kernels
 from .types import TransactionConflictInfo
@@ -202,12 +202,12 @@ def attribute_phases(engine, transactions=None, *, measure: bool = False,
                         torch.cuda.synchronize(dev)
                         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                         a.record()
-                    t0 = time.perf_counter()
+                    t0 = wall_now()
                     out = run(ablate)
                     if cuda:
                         b.record()
                         torch.cuda.synchronize(dev)
-                    host[name].append(time.perf_counter() - t0)
+                    host[name].append(wall_now() - t0)
                     if cuda:
                         dms[name].append(a.elapsed_time(b))
                     del out

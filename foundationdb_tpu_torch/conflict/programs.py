@@ -46,14 +46,13 @@ kernels, then once measured; that run's wall seconds appear only in the
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..metrics import Histogram
+from ..metrics import Histogram, wall_now
 
 # Canonical shapes of the registered programs: the reference's.
 EP_TXN, EP_RR, EP_WR = 32, 128, 64
@@ -162,11 +161,11 @@ def _cost_block(ep: DeviceEntryPoint, dev: torch.device):
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
+    t0 = wall_now()
     out = _outputs(fn(*args, **statics))
     if cuda:
         torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
+    wall = wall_now() - t0
     # New outputs: a program may hand back an argument (a minor batch's
     # base tier) or update one in place (the sharded steps).
     fresh = {}

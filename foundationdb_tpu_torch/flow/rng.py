@@ -8,7 +8,7 @@ stream draw for draw, ``split`` chains included.
 
 from __future__ import annotations
 
-import random as _pyrandom
+import random as _pyrandom  # fdblint: ignore[DET002]: this module is the seeded wrapper; it only ever builds seeded Random instances
 
 
 class DeterministicRandom:
@@ -16,7 +16,7 @@ class DeterministicRandom:
 
     def __init__(self, seed: int):
         self.seed = seed
-        self._r = _pyrandom.Random(seed)
+        self._r = _pyrandom.Random(seed)  # fdblint: ignore[DET002]: a private Random seeded by the caller is the determinism mechanism itself
 
     def random01(self) -> float:
         return self._r.random()

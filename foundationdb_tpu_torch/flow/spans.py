@@ -21,7 +21,7 @@ Two clocks:
   The seq pair is the interleaving clock: host phases take no virtual
   time, and the counter still shows batch N+1's encode inside batch N's
   device window.
-* ``wall_start``/``wall_end`` are ``time.perf_counter`` reads for real-mode
+* ``wall_start``/``wall_end`` are ``metrics.wall_now()`` reads for real-mode
   timing.  ``to_dict()`` / ``spans_json()`` leave them out by default.
 
 Parenting uses an explicit argument or the hub's current-span stack.  The
@@ -46,9 +46,10 @@ is None unless the hub is given one.
 from __future__ import annotations
 
 import json
-import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
+
+from ..metrics import wall_now
 
 
 class Span:
@@ -71,7 +72,7 @@ class Span:
         self.stop = None
         self.end_seq = None
         self.attrs: dict = attrs if attrs is not None else {}
-        self.wall_start = time.perf_counter()
+        self.wall_start = wall_now()
         self.wall_end = None
 
     @property
@@ -200,7 +201,7 @@ class SpanHub:
         self._seq += 1
         span.end_seq = self._seq
         span.stop = self._now()
-        span.wall_end = time.perf_counter()
+        span.wall_end = wall_now()
         ring = self.rings.get(span.role)
         if ring is None:
             ring = self.rings[span.role] = deque(maxlen=self.per_role)

@@ -48,7 +48,7 @@ class TraceCollector:
         self.path = path
         self.min_severity = min_severity
         self.clock = clock
-        self._fh = open(path, "a") if path else None
+        self._fh = open(path, "a") if path else None  # fdblint: ignore[IO001]: a file sink writes a real file by definition; simulated runs use the in-memory collector (path=None)
         self.counts: dict[str, int] = {}
         self.recent_maxlen = max(1, recent)
         self.recent: deque = deque(maxlen=self.recent_maxlen)
@@ -136,7 +136,7 @@ class TraceEvent:
         self._emitted = True
         if now is None:
             clock = getattr(self._collector, "clock", None) or _global_clock
-            now = clock() if clock is not None else time.time()
+            now = clock() if clock is not None else time.time()  # fdblint: ignore[DET001]: fallback with no clock installed; a simulated run installs its loop's clock on the collector or through set_global_collector(c, clock=loop.now)
         ev = {"Type": self.type, "Severity": self.severity, "Time": now}
         ev.update(self.fields)
         self._collector.emit(ev)

@@ -16,7 +16,24 @@ of the same stream give equal snapshots.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
+
+
+def wall_now() -> float:
+    """The port's one wall-clock read, for the wall namespace
+    (``record_wall``), span wall stamps and timers that report seconds.
+
+    One value derived from it does reach a decision: the mirror fallback
+    timers (``_cpu_fallback_recent`` in ``conflict/api.py`` and
+    ``parallel/sharded_resolver.py``) give ``backend_signal()``'s
+    ``cpu_mirror_tps``, which the reference's ratekeeper clamps admission
+    to in degraded mode when ``ratekeeper_use_measured_cpu_tps`` is set
+    (off in simulation).  Nothing else read here feeds a verdict, a
+    deterministic snapshot or a simulator's virtual time.  This funnel's
+    pragma ends every DET101 chain through it, so a new caller that makes
+    a decision on its value is not flagged: keep such callers out."""
+    return time.perf_counter()  # fdblint: ignore[DET001]: wall namespace, span wall stamps and reported timings; the one decision input is backend_signal's cpu_mirror_tps, read by the ratekeeper only in degraded mode with ratekeeper_use_measured_cpu_tps set (off in simulation)
 
 
 class Counter:

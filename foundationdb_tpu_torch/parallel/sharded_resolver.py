@@ -80,7 +80,6 @@ capture holding the move log.
 
 from __future__ import annotations
 
-import time
 from bisect import bisect_left, bisect_right
 from collections import deque
 from functools import partial
@@ -103,7 +102,7 @@ from ..flow.flight_recorder import maybe_trigger
 from ..flow.hotpath import g_hostguard, hot_path
 from ..flow.spans import begin_span, instant
 from ..flow.trace import TraceEvent
-from ..metrics import MetricsRegistry
+from ..metrics import MetricsRegistry, wall_now
 from ..ops.rangequery import build_max_table_np, check_search, lex_less
 
 __all__ = ["ShardedTorchConflictSet", "uniform_int_split_keys"]
@@ -775,9 +774,9 @@ class ShardedTorchConflictSet:
 
     def detect_packed(self, pb, now: int, new_oldest_version: int):
         """One packed batch; returns numpy statuses [txn_cap]."""
-        t0 = time.perf_counter()
+        t0 = wall_now()
         txns = et._unpack_transactions(pb)  # the mirrors take byte keys
-        self.metrics.record_wall("unpack_seconds", time.perf_counter() - t0)
+        self.metrics.record_wall("unpack_seconds", wall_now() - t0)
         if self._pinned:
             # The mirrors hold the authoritative history during the pin.
             self._short_streak += 1
@@ -868,7 +867,7 @@ class ShardedTorchConflictSet:
         if mirror_shards:
             # Degraded serving, scoped to the sick shards: each re-runs only
             # its slice of the batch on its mirror.
-            t0 = time.perf_counter()
+            t0 = wall_now()
             for s in mirror_shards:
                 row = np.full((pb.txn_cap,), COMMITTED, np.int32)
                 clipped, rmap = self._clip_txns_for(txns, s, with_read_map=True)
@@ -878,33 +877,33 @@ class ShardedTorchConflictSet:
                 if self._witness:
                     mirror_wit.append(_translate_witness(self._mirrors[s].last_witness, rmap))
             self._cpu_fallback_txns += len(txns)
-            self._cpu_fallback_recent.append((len(txns), time.perf_counter() - t0))
+            self._cpu_fallback_recent.append((len(txns), wall_now() - t0))
             m.counter("cpu_fallback_txns").add(len(txns))
             m.counter("degraded_shard_serves").add(len(mirror_shards))
             self._degraded_last = True
         device_shards = [s for s in range(S) if allowed[s]]
         if device_shards:
             with begin_span("apply", attrs={"version": now, "n_txn": pb.n_txn}):
-                t0 = time.perf_counter()
+                t0 = wall_now()
                 per = self._committed_writes_per_shard(txns, rows, device_shards)
-                t1 = time.perf_counter()
+                t1 = wall_now()
                 for s in device_shards:
                     self._apply_shard_writes(s, per[s], now, new_oldest_version)
                     self._note_synced_shard(s)
                 m.record_wall("clip_seconds", t1 - t0)
-                m.record_wall("mirror_apply_seconds", time.perf_counter() - t1)
+                m.record_wall("mirror_apply_seconds", wall_now() - t1)
         combined = np.min(np.stack(rows, axis=0), axis=0).astype(np.int32)
         if self._witness:
             # The device's combined witness (over the active shards) joined
             # with each mirror-served shard's under the one combine rule.
-            t0 = time.perf_counter()
+            t0 = wall_now()
             parts = list(mirror_wit)
             if device_shards:
                 wv, wr = self._last_witness_dev
                 parts.append(et.decode_witness(pb, combined, wv, wr, self._base))
             self.last_witness = _combine_witness(
                 parts, [int(v) for v in combined[: pb.n_txn]])
-            m.record_wall("witness_decode_seconds", time.perf_counter() - t0)
+            m.record_wall("witness_decode_seconds", wall_now() - t0)
         return combined
 
     def _upload(self, pb, now: int, new_oldest_version: int) -> torch.Tensor:

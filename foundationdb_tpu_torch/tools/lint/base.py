@@ -1,12 +1,12 @@
-"""Shared lint infrastructure of the port's static checks: findings,
-pragmas and name resolution.
+"""Shared lint infrastructure of the port's static checks: the fdblint
+rule registry, findings, pragmas, the per-rule allowlist and name
+resolution.
 
-The port's own copy of the pieces of the reference package's
-``tools/lint/base.py`` that perfcheck (``hotpath.py``) and its call graph
+The port's own copy of the reference package's ``tools/lint/base.py``,
+cut to what fdblint's families that apply to the port (``local.py``,
+``det101.py``), perfcheck (``hotpath.py``) and their call graph
 (``graphs.py``) read; torchcheck (``torchir.py``) reports its findings
-and polices its pragmas with the same code.  The determinism family's
-clock and entropy machinery stays in the reference: the port has no
-simulator-executed code to police.
+and polices its pragmas with the same code.
 """
 
 from __future__ import annotations
@@ -19,9 +19,111 @@ import tokenize
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
 
-# The linter's own modules are never on the hot path: the one module
-# exemption, for every rule.
-SKIP_MODULE_GLOBS = ("tools/lint/*.py",)
+# ---------------------------------------------------------------------------
+# fdblint's rule registry
+# ---------------------------------------------------------------------------
+
+# The families of the reference's fdblint that apply to the port.  The
+# actor, await, promise and race families police coroutines the port does
+# not have, JAX001 traced code it does not have, ENV002 a knob registry it
+# does not have.
+RULES: Dict[str, str] = {
+    "DET001": "wall-clock read in simulator-executed code (take the caller's clock, or metrics.wall_now() for the wall namespace)",
+    "DET002": "global entropy source (use a seeded DeterministicRandom, flow/rng.py)",
+    "DET003": "threading/asyncio/multiprocessing primitive in simulator-executed code",
+    "DET101": "function reachable from sim-executed code transitively hits wall clock/entropy",
+    "IO001": "direct open()/socket outside the port's operational programs (tools/)",
+    "TRC001": "TraceEvent constructed but never .log()ed nor used as a context manager (dropped event)",
+    "SPN001": "begin_span() result neither context-managed, .end()ed, nor stored (leaked open span)",
+    "ERR001": "broad except that neither re-raises, TraceEvents, nor propagates the error (silent swallow)",
+    "ENV001": "any FDB_TPU_* environment read: the port has no flags",
+    "PRG001": "fdblint ignore pragma carries no reason string",
+    "PRG002": "fdblint ignore pragma suppresses nothing (stale)",
+}
+
+# Canonical dotted names that read the wall clock.  Referencing one as a
+# value (``clock = time.monotonic``) is flagged like calling it: binding
+# the function is how wall time gets smuggled past a call-site check.
+WALL_CLOCK = {
+    "time.time", "time.time_ns",
+    "time.monotonic", "time.monotonic_ns",
+    "time.perf_counter", "time.perf_counter_ns",
+    "time.process_time", "time.process_time_ns",
+    "time.sleep",
+    "datetime.datetime.now", "datetime.datetime.utcnow",
+    "datetime.datetime.today", "datetime.date.today",
+}
+
+# Entropy: exact names plus whole-module prefixes.
+ENTROPY_EXACT = {"os.urandom", "uuid.uuid1", "uuid.uuid4"}
+ENTROPY_MODULES = {"random", "secrets"}
+
+
+def classify_clock_ref(path: str) -> Optional[str]:
+    """'wall' / 'entropy' / None for a canonical dotted path: the one
+    classifier behind both DET001/DET002's direct sites (local.py) and
+    DET101's taint sources (graphs.py), so the two cannot drift."""
+    if path in WALL_CLOCK:
+        return "wall"
+    if path in ENTROPY_EXACT or path.split(".")[0] in ENTROPY_MODULES:
+        return "entropy"
+    return None
+
+
+class ClockRefVisitorMixin:
+    """visit_Attribute/visit_Name for wall-clock and entropy references
+    whose chain is rooted at an import binding.  Subclasses provide
+    ``self.aliases`` (an Aliases) and ``_on_clock_ref(node, path, kind)``;
+    mix in BEFORE ast.NodeVisitor."""
+
+    def visit_Attribute(self, node: ast.Attribute):
+        path = self.aliases.resolve(node)
+        if path is not None:
+            # Pure Name/Attribute chain: check it once, don't recurse
+            # (recursing would re-report each prefix of a.b.c).
+            if self.aliases.root_bound(node):
+                kind = classify_clock_ref(path)
+                if kind is not None:
+                    self._on_clock_ref(node, path, kind)
+        else:
+            # The chain holds calls or subscripts: keep walking to them.
+            self.generic_visit(node)
+
+    def visit_Name(self, node: ast.Name):
+        # A bare name bound by `from time import monotonic` style imports.
+        path = self.aliases.resolve(node)
+        if path is not None and path != node.id and self.aliases.root_bound(node):
+            kind = classify_clock_ref(path)
+            if kind is not None:
+                self._on_clock_ref(node, path, kind)
+
+
+THREADING_MODULES = {
+    "threading", "_thread", "asyncio", "multiprocessing", "concurrent.futures",
+}
+
+IO_CALLS = {"open", "os.open", "os.fdopen", "io.open"}
+IO_MODULES = {"socket", "ssl"}
+
+ENV_FLAG_PREFIX = "FDB_TPU_"
+
+# Per-rule allowlist: package-relative globs of modules where the rule does
+# not apply.  tools/ holds the port's operational programs (the CLI, the
+# linters), which never run under a simulator: exempt where the
+# reference exempts its own tools/, and nowhere else.
+DEFAULT_ALLOW: Dict[str, Tuple[str, ...]] = {
+    "DET001": ("tools/*.py",),
+    "DET003": ("tools/*.py",),
+    # DET101 roots only in simulator-executed modules; tools/ still CARRY
+    # taint into any caller outside them.
+    "DET101": ("tools/*.py",),
+    "ERR001": ("tools/*.py",),
+    "IO001": ("tools/*.py",),  # tools/cli.py's trace-export writes a file
+}
+
+# The linter's own modules are never on the hot path nor simulator-
+# executed: the one module exemption, for every rule.
+SKIP_MODULE_GLOBS = ("tools/fdblint.py", "tools/lint/*.py")
 
 
 def _match_any(relpath: str, globs) -> bool:
@@ -31,6 +133,11 @@ def _match_any(relpath: str, globs) -> bool:
     parts = relpath.split("/")
     tails = ["/".join(parts[i:]) for i in range(len(parts))]
     return any(fnmatch.fnmatch(t, g) for t in tails for g in globs)
+
+
+def allows(rule: str, relpath: str) -> bool:
+    """Whether DEFAULT_ALLOW exempts `relpath` from fdblint's `rule`."""
+    return _match_any(relpath, DEFAULT_ALLOW.get(rule, ()))
 
 
 @dataclass
@@ -63,8 +170,9 @@ class Finding:
 # Pragmas
 # ---------------------------------------------------------------------------
 
-# One pragma grammar, one namespace a tool (`# perfcheck: ignore[...]`,
-# `# torchcheck: ignore[...]`), so that no tool polices another's pragmas.
+# One pragma grammar, one namespace a tool (`# fdblint: ignore[...]`,
+# `# perfcheck: ignore[...]`, `# torchcheck: ignore[...]`), so that no tool
+# polices another's pragmas.
 _PRAGMA_RES: Dict[str, "re.Pattern"] = {}
 
 
@@ -103,6 +211,16 @@ def parse_pragmas(source: str, tool: str) -> Dict[int, Pragma]:
         rules = {r.strip() for r in m.group("rules").split(",") if r.strip()}
         pragmas[line] = Pragma(line, rules, (m.group("reason") or "").strip())
     return pragmas
+
+
+def pragma_sanctions(
+    pragmas: Dict[int, Pragma], line: int, rules: Tuple[str, ...]
+) -> bool:
+    """True when `line` carries a pragma for any of `rules`: DET101 treats
+    a reasoned suppression of a source as a sanctioned boundary (the
+    reason asserts the site is fine, so its callers are fine too)."""
+    p = pragmas.get(line)
+    return p is not None and bool(p.rules & set(rules))
 
 
 def apply_pragmas(

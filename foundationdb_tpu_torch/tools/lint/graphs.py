@@ -1,10 +1,10 @@
 """Module graph + call graph over per-file summaries.
 
-The port's own copy of the reference package's ``tools/lint/graphs.py``,
-less the wall-clock and entropy facts that only its determinism family
-reads.  Each file is reduced to a ModuleSummary (functions, classes,
-import table, per-function call sites); the linker (CallGraph) resolves
-cross-module edges over the whole scan.
+The port's own copy of the reference package's ``tools/lint/graphs.py``.
+Each file is reduced to a ModuleSummary (functions, classes, import
+table, per-function call sites and direct wall-clock/entropy references,
+DET101's taint sources); the linker (CallGraph) resolves cross-module
+edges over the whole scan.
 
 Resolution is name-based and deliberately modest: module-level functions,
 classes (instantiation edges go to __init__ through the MRO), self/cls
@@ -20,7 +20,13 @@ import ast
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
-from .base import SIMPLE_STMTS, attr_chain, innermost_simple_stmt_end
+from .base import (
+    Aliases,
+    ClockRefVisitorMixin,
+    SIMPLE_STMTS,
+    attr_chain,
+    innermost_simple_stmt_end,
+)
 
 
 def _name_chain(node: ast.AST) -> Optional[tuple]:
@@ -48,6 +54,10 @@ def module_name_of(relpath: str) -> str:
 @dataclass
 class FuncSummary:
     qualname: str                      # "f" or "Class.m"
+    # (dotted, line, kind, span_end) per wall-clock/entropy reference;
+    # span_end is the enclosing simple statement's last line, so a
+    # sanctioning pragma works on any physical line of it, as suppression.
+    refs: List[Tuple[str, int, str, int]] = field(default_factory=list)
     # ((line, end_line), descriptor) per call site; end_line is the
     # enclosing simple statement's last line.
     calls: List[Tuple[Tuple[int, int], tuple]] = field(default_factory=list)
@@ -83,14 +93,23 @@ def _resolve_relative(relpath: str, level: int, module: Optional[str]) -> str:
     return ".".join(base + tail)
 
 
-class _FuncCollector(ast.NodeVisitor):
-    """Per-function facts: call sites + local instance types.  Nested defs
-    and lambdas FOLD into the enclosing function: their bodies execute (or
-    are scheduled) from its context, so their calls are its calls."""
+class _FuncCollector(ClockRefVisitorMixin, ast.NodeVisitor):
+    """Per-function facts: direct wall/entropy references, call sites and
+    local instance types.  Nested defs and lambdas FOLD into the enclosing
+    function: their bodies execute (or are scheduled) from its context, so
+    their clock reads and calls are its own."""
 
-    def __init__(self, func: FuncSummary, stmt_spans: List[Tuple[int, int]] = ()):
+    def __init__(self, aliases: Aliases, func: FuncSummary,
+                 stmt_spans: List[Tuple[int, int]] = ()):
+        self.aliases = aliases
         self.func = func
         self.stmt_spans = stmt_spans
+
+    def _on_clock_ref(self, node: ast.AST, path: str, kind: str):
+        # The same walk and classifier (base.classify_clock_ref) as
+        # DET001/DET002's direct sites in local.py.
+        end = innermost_simple_stmt_end(node, self.stmt_spans)
+        self.func.refs.append((path, node.lineno, kind, end))
 
     def visit_Call(self, node: ast.Call):
         f = node.func
@@ -127,6 +146,12 @@ class _FuncCollector(ast.NodeVisitor):
 
 def collect_summary(relpath: str, tree: ast.Module, root_pkg: Optional[str]) -> ModuleSummary:
     ms = ModuleSummary(relpath=relpath, module=module_name_of(relpath))
+    aliases = Aliases()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            aliases.add_import(node)
+        elif isinstance(node, ast.ImportFrom):
+            aliases.add_import_from(node)
 
     def norm(dotted: str) -> str:
         if root_pkg and (dotted == root_pkg or dotted.startswith(root_pkg + ".")):
@@ -156,7 +181,7 @@ def collect_summary(relpath: str, tree: ast.Module, root_pkg: Optional[str]) -> 
             for s in ast.walk(node)
             if isinstance(s, SIMPLE_STMTS)
         ]
-        fc = _FuncCollector(fs, spans)
+        fc = _FuncCollector(aliases, fs, spans)
         for stmt in node.body:
             fc.visit(stmt)
         return fs

@@ -923,13 +923,63 @@ def test_perfcheck_planted_window_on_the_card(dev):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    got = smoke.planted_window(torch, et, tk, TT, runner.lint_source)
+    got = smoke.planted_window(torch, et, tk, TT, runner.lint_source, ["a", "b", "c"])
     assert sorted(got) == ["a", "b", "c"]
     for variant, r in got.items():
-        (finding,) = r["findings"]
-        assert finding.startswith("HOT001 ") and "(chain: drive -> _peek)" in finding
-        assert smoke.PLANT_VARIANTS[variant][1] in finding
+        assert smoke.plant_caught(variant, r["findings"]), (variant, r["findings"])
         assert min(r["launches"].values()) >= 1, (variant, r["launches"])
     for variant in ("b", "c"):
         assert got[variant]["guard"].startswith("TransferGuardError: "), got[variant]
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_fdblint_planted_window_on_the_card(dev):
+    """chip_smoke's phase 2h fdblint plants on the card: between
+    dispatch_txns and sync_ticket a callee reads (d) time.time(), (e)
+    random.random() or (f) os.environ.get("FDB_TPU_X"); fdblint gives
+    each variant's rules, the DET101 finding naming drive -> _peek; each
+    planted dispatch launches both kernels and its verdicts equal the
+    CPU's (planted_window checks them)."""
+    from foundationdb_tpu_torch.tools.lint import runner
+
+    smoke = _chip_smoke()
+    got = smoke.planted_window(torch, et, tk, TT, runner.lint_source, ["d", "e", "f"])
+    assert sorted(got) == ["d", "e", "f"]
+    for variant, r in got.items():
+        assert smoke.plant_caught(variant, r["findings"]), (variant, r["findings"])
+        assert r["guard"] is None
+        assert min(r["launches"].values()) >= 1, (variant, r["launches"])
+
+
+def test_two_runs_on_the_card_give_equal_records(dev):
+    """chip_smoke's phase 6d at a small size: two fresh ConflictSets over
+    one stream, each under fresh port hubs on a counting clock, give equal
+    verdicts and witnesses, export, metrics snapshot (no wall namespace)
+    and spans_json (no wall stamps), with one launch of each kernel a
+    batch."""
+    from foundationdb_tpu_torch.conflict import api
+    from foundationdb_tpu_torch.flow import flight_recorder, spans, trace
+
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(15)
+    stream = [(smoke.gen_txns(TT, rng, 256, i, keyspace=50_000), i + smoke.WINDOW, i)
+              for i in range(6)]
+    settings = dict(key_words=2, h_cap=1 << 12)
+    a, b = (smoke.determinism_run(torch, api, tk, spans, trace, flight_recorder, stream,
+                                  settings) for _ in range(2))
+    for key in ("batches", "export", "snapshot", "spans"):
+        assert a[key] == b[key], key
+    assert a["launches"] == {name: len(stream) for name in tk.LAUNCHES}
+    assert "wall" not in a["snapshot"] and "wall_start" not in a["spans"]
+    assert a["snapshot"]["counters"]["pipeline_dispatches"] == len(stream)

@@ -264,13 +264,15 @@ def test_runner_text_counts_every_hot_rule(capsys):
     err = capsys.readouterr().err
     assert ("[perfcheck] 0 finding(s), 8 suppressed; per-rule (flagged+suppressed): "
             "HOT001=0+0s HOT002=0+0s HOT003=0+7s HOT004=0+1s") in err
-    assert "lint: 0 finding(s), 8 suppressed across 1 tool(s)" in err
+    # The gate runs fdblint beside perfcheck: its 5 suppressions join the 8.
+    assert "lint: 0 finding(s), 13 suppressed across 2 tool(s)" in err
 
 
 def test_runner_sarif_and_pragma_inventory(capsys):
     assert runner.main(["--format=sarif", "--show-suppressed"]) == 0
-    (run,) = json.loads(capsys.readouterr().out)["runs"]
-    assert run["tool"]["driver"]["name"] == "perfcheck"
+    runs = json.loads(capsys.readouterr().out)["runs"]
+    assert [r["tool"]["driver"]["name"] for r in runs] == ["fdblint", "perfcheck"]
+    run = runs[1]
     assert len(run["results"]) == 8
     assert all(r["suppressions"][0]["justification"] for r in run["results"])
     assert runner.main(["--pragma-inventory"]) == 0
