@@ -34,19 +34,23 @@ seconds (`phase <name>: ...`):
                load of the checkout's foundationdb_tpu_torch/ on the
                card's host: counts by rule, suppressed, seconds; any
                unsuppressed finding fails.  Then a planted dispatch->sync
-               window on one
-               TorchConflictSet(key_words=2, h_cap=1,024,
-               transfer_guard=True): a module written to a temporary file
-               calls dispatch_txns (both kernels launch) under torch's sync
-               debug mode "error", then a callee, then sync_ticket; the
+               window on a TorchConflictSet(key_words=2, h_cap=1,024),
+               with transfer_guard=True for (a)-(f) and without it for
+               (g)-(j): a module written to a temporary file calls
+               dispatch_txns (both kernels launch), then a callee under
+               torch's sync debug mode "error", then sync_ticket; the
                callee is (a) torch.cuda.synchronize(), (b)
                np.asarray(ticket.host) or (c) ticket.out.item(), for
                fdblint (d) time.time(), (e) random.random() or (f)
-               os.environ.get("FDB_TPU_X").  Each variant is linted ((a)-(c):
-               one HOT001 naming the chain "drive -> _peek"; (d) DET001
-               and (e) DET002 with a DET101 naming that chain; (f) ENV001)
-               and run: prints whether the runtime guard caught it; every
-               batch's verdicts equal a CPU run's
+               os.environ.get("FDB_TPU_X"), and the hidden syncs (g) `if
+               ticket.out[0]:`, (h) `while (ticket.out > 0).any():`, (i)
+               a host tensor's copy_(ticket.out) and (j)
+               torch.cuda.current_stream().synchronize().  Each variant is
+               linted ((a)-(c), (g)-(j): one HOT001 naming the chain
+               "drive -> _peek"; (d) DET001 and (e) DET002 with a DET101
+               naming that chain; (f) ENV001) and run: prints whether the
+               runtime guard (for (g)-(j) the sync debug mode alone)
+               caught it; every batch's verdicts equal a CPU run's
   3. kernels   each kernel at the bench shape (history h_cap = 3,145,728
                rows, 65,536-transaction batches, key_words=2) against its
                plain PyTorch twin on the same CUDA tensors, bit for bit;
@@ -227,6 +231,12 @@ seconds (`phase <name>: ...`):
                ok -> degraded -> probing -> degraded -> probing -> ok, and
                the injected log and transitions equal the same script's run
                with device="cpu"
+  6l. lost card  the lost-card classifier (device.is_lost_device) over
+               every cudaError_t code 0-999 the card's runtime names, as
+               the launcher's CudaError and as a torch.AcceleratorError
+               with and without its error_code: exactly the four codes of
+               device.LOST_DEVICE_CODES classify; prints their names and
+               strings
   6t. tiered set vs cpu  the same at depths 1-3 with history="tiered",
                evict_every=3 and an 8,192-row delta (it grows at the first
                batch and compacts every third); under dispatch faults 3-6
@@ -1806,6 +1816,60 @@ def versus_cpu(torch, et):
         f"grows {gpu.grows}, cpu_fallbacks {gpu.cpu_fallbacks}")
 
 
+# What torch's CUDA check appends to its "CUDA error: <string>" line.
+TORCH_CUDA_SUFFIX = ("\nCUDA kernel errors might be asynchronously reported at some other "
+                     "API call, so the stacktrace below might be incorrect.\nFor debugging "
+                     "consider passing CUDA_LAUNCH_BLOCKING=1\n")
+
+
+def lost_card_codes(torch):
+    """Phase 6l: the lost-card classifier (device.is_lost_device) over every
+    cudaError_t code from 0 to 999 that the card's runtime names (its
+    string differs from an unassigned code's), each as the three errors
+    the port can see: the kernel launcher's CudaError, and a
+    torch.AcceleratorError with torch's message for the code, with its
+    error_code set and without one.  Exactly device.LOST_DEVICE_CODES must
+    classify in each form, and the runtime's names of those codes must be
+    the table's.  Returns {code: (name, string)} of the four and the
+    count of named codes."""
+    from foundationdb_tpu_torch import device
+
+    t0 = time.perf_counter()
+    unassigned = device.cuda_error_string(1_000_000)
+    if unassigned is None:
+        raise AssertionError("lost card: the card's runtime gives no error strings")
+    named = {c: device.cuda_error_string(c) for c in range(1000)}
+    named = {c: text for c, text in named.items() if text != unassigned}
+    forms = {}
+    for form in ("launcher CudaError", "AcceleratorError with error_code",
+                 "AcceleratorError, its message alone"):
+        lost = []
+        for c, text in sorted(named.items()):
+            if form.startswith("launcher"):
+                e = device.CudaError(f"phase1_ranks: CUDA error {c} at launch", c)
+            else:
+                e = torch.AcceleratorError(f"CUDA error: {text}{TORCH_CUDA_SUFFIX}")
+                if form.endswith("error_code"):
+                    e.error_code = c
+            if device.is_lost_device(e):
+                lost.append(c)
+        forms[form] = lost
+    want = sorted(device.LOST_DEVICE_CODES)
+    if any(lost != want for lost in forms.values()):
+        raise AssertionError(f"lost card: classified {forms}, want {want}")
+    names = {c: device.cuda_error_name(c) for c in want}
+    if None not in names.values() and names != device.LOST_DEVICE_CODES:
+        raise AssertionError(f"lost card: the runtime names {names}")
+    dt = time.perf_counter() - t0
+    four = {c: (names[c], named[c]) for c in want}
+    log(f"lost card: {len(named)} of the cudaError_t codes 0-999 named by the card's runtime "
+        f"(unassigned: {unassigned!r}); exactly {want} classify as a lost card in each form "
+        f"({', '.join(forms)}): "
+        + "; ".join(f"{c} {n or 'name not read'} {t!r}" for c, (n, t) in four.items())
+        + f"; {dt * 1e3:.3f} ms; card {torch.cuda.get_device_name(0)}")
+    return {"named": len(named), "lost": four}
+
+
 def conflictset_vs_cpu(torch, api, T, faults):
     """ConflictSet on the GPU against ConflictSet(backend="cpu") on the
     reduced stream, at depths 1-3 and under a scripted fault plan."""
@@ -2843,11 +2907,24 @@ def sync_debug_probe(torch, hotpath):
     this card and torch: name -> True when the call raised."""
     dev = torch.device("cuda")
     pinned = torch.empty((1 << 16,), dtype=torch.int32, pin_memory=True)
+    pageable = torch.empty((1 << 16,), dtype=torch.int32)
     on_dev = torch.ones((1 << 16,), dtype=torch.int32, device=dev)
+    other = torch.empty_like(on_dev)
     ev = torch.cuda.Event()
+
+    def truth_if():
+        if on_dev[0]:
+            return 1
+        return 0
+
+    def truth_while():
+        while (on_dev > 0).any():
+            break
+
     calls = {
         "Event.synchronize (the staging ring's wait)": lambda: (ev.record(), ev.synchronize()),
         "Event.query": lambda: (ev.record(), ev.query()),
+        "Event.wait (a stream waits on the device)": lambda: (ev.record(), ev.wait()),
         "pinned non-blocking upload (the blob)": lambda: pinned.to(dev, non_blocking=True),
         "pinned non-blocking readback (the ticket)": lambda: pinned.copy_(on_dev,
                                                                           non_blocking=True),
@@ -2855,6 +2932,13 @@ def sync_debug_probe(torch, hotpath):
         "Tensor.item()": lambda: on_dev[0].item(),
         "blocking readback (.cpu())": lambda: on_dev.cpu(),
         "torch.cuda.synchronize()": lambda: torch.cuda.synchronize(),
+        # The hidden syncs HOT001 flags as truth tests, copy_ and stream syncs:
+        "truth test (if t[0]:)": truth_if,
+        "truth test (while (t > 0).any():)": truth_while,
+        "copy_ to pageable host memory (dst.copy_(t))": lambda: pageable.copy_(on_dev),
+        "torch.cuda.current_stream().synchronize()":
+            lambda: torch.cuda.current_stream().synchronize(),
+        "copy_ on the device (other.copy_(t))": lambda: other.copy_(on_dev),
     }
     seen = {}
     for name, call in calls.items():
@@ -2872,17 +2956,30 @@ def sync_debug_probe(torch, hotpath):
 
 
 # Phase 2h's planted window: a callee between dispatch_txns and
-# sync_ticket, in six variants: {variant: (imports, callee, the rules the
-# source tools must give, sorted; the operation the HOT001 finding must
-# name, or None)}.  Every HOT001 and DET101 finding names the chain
-# drive -> _peek.
+# sync_ticket, in ten variants: {variant: (imports, the callee's body, the
+# rules the source tools must give, sorted; the operation the HOT001
+# finding must name, or None; whether it runs on the guarded set, whose
+# ticket fields are GuardedDeviceValue proxies, or on an unguarded one,
+# where only CUDA's sync debug mode can catch it)}.  Every HOT001 and
+# DET101 finding names the chain drive -> _peek.  (g)-(j) are the hidden
+# syncs HOT001 flags as truth tests, copy_ and stream syncs.
 PLANT_VARIANTS = {
-    "a": ("", "torch.cuda.synchronize()", ("HOT001",), "torch.cuda.synchronize()"),
-    "b": ("", "np.asarray(ticket.host)", ("HOT001",), "np.asarray() on 'ticket.host'"),
-    "c": ("", "ticket.out.item()", ("HOT001",), ".item() on 'ticket.out'"),
-    "d": ("import time", "time.time()", ("DET001", "DET101"), None),
-    "e": ("import random", "random.random()", ("DET002", "DET002", "DET101"), None),
-    "f": ("import os", 'os.environ.get("FDB_TPU_X")', ("ENV001",), None),
+    "a": ("", "return torch.cuda.synchronize()", ("HOT001",), "torch.cuda.synchronize()", True),
+    "b": ("", "return np.asarray(ticket.host)", ("HOT001",), "np.asarray() on 'ticket.host'",
+          True),
+    "c": ("", "return ticket.out.item()", ("HOT001",), ".item() on 'ticket.out'", True),
+    "d": ("import time", "return time.time()", ("DET001", "DET101"), None, True),
+    "e": ("import random", "return random.random()", ("DET002", "DET002", "DET101"), None,
+          True),
+    "f": ("import os", 'return os.environ.get("FDB_TPU_X")', ("ENV001",), None, True),
+    "g": ("", "if ticket.out[0]: return 1", ("HOT001",), "truth test (if) on 'ticket.out[0]'",
+          False),
+    "h": ("", "while (ticket.out > 0).any(): break", ("HOT001",),
+          "truth test (while) on '(ticket.out > 0).any()'", False),
+    "i": ("", 'return torch.empty_like(ticket.out, device="cpu").copy_(ticket.out)',
+          ("HOT001",), ".copy_() on 'ticket.out'", False),
+    "j": ("", "return torch.cuda.current_stream().synchronize()", ("HOT001",),
+          "torch.cuda.current_stream().synchronize() waits", False),
 }
 PLANT_SOURCE = '''\
 import numpy as np
@@ -2892,13 +2989,13 @@ from foundationdb_tpu_torch.flow.hotpath import cuda_sync_debug_mode
 
 
 def _peek(ticket):
-    return {callee}
+    {body}
 
 
 def drive(engine, txns, now, new_oldest_version, parked):
+    ticket = engine.dispatch_txns(txns, now, new_oldest_version)
+    parked.append(ticket)
     with cuda_sync_debug_mode("error"):
-        ticket = engine.dispatch_txns(txns, now, new_oldest_version)
-        parked.append(ticket)
         _peek(ticket)
     return engine.sync_ticket(ticket)
 '''
@@ -2909,7 +3006,7 @@ PLANT_KEYSPACE = 4096
 def plant_caught(variant, findings):
     """Whether a variant's unsuppressed findings ("RULE message") are
     exactly its own: its rules, the chain named, its operation named."""
-    _imports, _callee, rules, op = PLANT_VARIANTS[variant]
+    _imports, _body, rules, op, _guarded = PLANT_VARIANTS[variant]
     chained = [m for m in findings if m.split()[0] in ("HOT001", "DET101")]
     return (tuple(sorted(m.split()[0] for m in findings)) == rules
             and all("(chain: drive -> _peek)" in m for m in chained)
@@ -2919,25 +3016,30 @@ def plant_caught(variant, findings):
 def planted_window(torch, et, tk, T, lint_source, variants):
     """Phase 2h's plant: each of `variants` (keys of PLANT_VARIANTS) in
     PLANT_SOURCE, linted by the source tools, then imported from a
-    temporary file and run on one
-    TorchConflictSet(key_words=2, h_cap=1 << 10, transfer_guard=True) on
-    the card, one batch a variant after a warm-up batch.  Returns, a
-    variant, the unsuppressed findings ("RULE message"), the guard's
-    error (None if the run passed), the batch's verdicts and the kernels'
-    launches; the verdicts are held to the same batches on the CPU."""
-    eng = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 10, device="cuda",
-                              transfer_guard=True)
-    cpu = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 10, device="cpu")
+    temporary file and run on the card, one batch a variant after a
+    warm-up batch, on a TorchConflictSet(key_words=2, h_cap=1 << 10) with
+    transfer_guard=True or without it, as the variant says.  The callee
+    runs under torch's sync debug mode "error".  Returns, a variant, the
+    unsuppressed findings ("RULE message"), the guard's error (None if the
+    run passed), the batch's verdicts and the kernels' launches; the
+    verdicts are held to the same batches of a CPU twin of each set."""
     rng = np.random.default_rng(14)
-    txns = gen_txns(T, rng, PLANT_TXNS, 0, PLANT_KEYSPACE)
-    got = eng.sync_ticket(eng.dispatch_txns(txns, 10, 0))[0][:PLANT_TXNS].tolist()
-    if got != cpu.detect(txns, 10, 0):
-        raise AssertionError("plant: the warm-up batch's verdicts differ from the cpu's")
+    sets = {}
+    for guarded in sorted({PLANT_VARIANTS[v][4] for v in variants}):
+        eng = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 10, device="cuda",
+                                  transfer_guard=guarded)
+        cpu = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=1 << 10, device="cpu")
+        txns = gen_txns(T, rng, PLANT_TXNS, 0, PLANT_KEYSPACE)
+        got = eng.sync_ticket(eng.dispatch_txns(txns, 10, 0))[0][:PLANT_TXNS].tolist()
+        if got != cpu.detect(txns, 10, 0):
+            raise AssertionError("plant: the warm-up batch's verdicts differ from the cpu's")
+        sets[guarded] = (eng, cpu)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, variant in enumerate(sorted(variants)):
-            imports, callee, _rules, _op = PLANT_VARIANTS[variant]
-            src = PLANT_SOURCE.format(imports=imports, callee=callee)
+            imports, body, _rules, _op, guarded = PLANT_VARIANTS[variant]
+            eng, cpu = sets[guarded]
+            src = PLANT_SOURCE.format(imports=imports, body=body)
             found = [f for f in lint_source(src, "window.py") if not f.suppressed]
             path = os.path.join(tmp, f"planted_{variant}.py")
             with open(path, "w", encoding="utf-8") as fh:
@@ -2973,7 +3075,7 @@ def planted_window(torch, et, tk, T, lint_source, variants):
 def source_gate_path(torch, et, tk, T):
     """Phase 2h: the whole source gate (fdblint and perfcheck, one load of
     the tree) over the checkout's port, then the planted window
-    (planted_window) in all six variants.  Fails on an unsuppressed
+    (planted_window) in all ten variants.  Fails on an unsuppressed
     finding in the port, on a variant whose findings are not its own
     (plant_caught), and on a planted dispatch that does not launch both
     kernels.  What the
@@ -2997,15 +3099,16 @@ def source_gate_path(torch, et, tk, T):
     plant = planted_window(torch, et, tk, T, runner.lint_source, PLANT_VARIANTS)
     dt = time.perf_counter() - t0
     for variant, r in sorted(plant.items()):
-        _imports, callee, rules, _op = PLANT_VARIANTS[variant]
+        _imports, body, rules, _op, guarded = PLANT_VARIANTS[variant]
         if not plant_caught(variant, r["findings"]):
-            raise AssertionError(f"plant ({variant}) {callee}: findings {r['findings']}")
+            raise AssertionError(f"plant ({variant}) {body}: findings {r['findings']}")
         chain = any(m.split()[0] in ("HOT001", "DET101") for m in r["findings"])
         what = " ".join(rules) + (", chain drive -> _peek" if chain else "")
         if min(r["launches"].values()) < 1:
             raise AssertionError(f"plant ({variant}): launches {r['launches']}")
-        log(f"plant ({variant}) {callee} between dispatch_txns and sync_ticket: static "
-            f"caught ({what}); runtime guard "
+        guard = "runtime guard" if guarded else "sync debug mode (unguarded set)"
+        log(f"plant ({variant}) {body} between dispatch_txns and sync_ticket: static "
+            f"caught ({what}); {guard} "
             + (f"caught ({r['guard']})" if r["guard"] else "did not catch (the run passed)")
             + f"; {r['aborted']} of {PLANT_TXNS} aborted, equal to the cpu's; launches "
             f"{r['launches']}; card {card}")
@@ -3648,6 +3751,7 @@ def main(argv) -> int:
     # 5-6. held against the CPU
     versus_cpu(torch, et)
     conflictset_vs_cpu(torch, api, T, faults)
+    lost_card_codes(torch)
     tiered_conflictset_vs_cpu(torch, api, T, faults)
     ablation_vs_cpu(torch, api, et, pa, T, faults)
     settings_vs_cpu(torch, api, et, sr, tk, T, keylib)

@@ -49,8 +49,20 @@ writes of up to that many device-served batches and folds them together,
 at the window's end or at the next mirror read, whichever comes first; the
 device's synced point is recorded only when no fold is pending.  The
 device takes keys of at most ``min(MAX_DEVICE_KEY_BYTES, key_words * 4)``
-bytes, the reference knob's default.  Only injected faults and out-of-memory errors reach the breaker;
-any other error, CUDA errors included, propagates.
+bytes, the reference knob's default.
+
+Which real errors reach the breaker, as in the reference: out-of-memory
+errors (``DeviceOOM``), and a lost or reset card (``device.is_lost_device``:
+cudaErrorDevicesUnavailable, cudaErrorNoDevice, cudaErrorECCUncorrectable,
+cudaErrorLaunchTimeout) at the two sites where the reference maps a
+JaxRuntimeError — the engine's dispatch (``CompileFailed`` at a shape's
+first dispatch, else ``DeviceUnavailable``) and the pipelined sync
+(``DeviceUnavailable(site="sync")``, the parked batches replayed on the
+mirror).  Every other error propagates: any other CUDA error, a failed
+build, a bug.  So do errors where the reference maps nothing: the depth-1
+readback (the reference's synchronous serve catches only DeviceFault),
+``load_from`` and the rehydration; the sharded set walks a shard's breaker
+only on an injected fault.
 
 The transfer guard (``transfer_guard=True``, the reference's
 FDB_TPU_TRANSFER_GUARD, off by default): the engine's tickets carry their
@@ -78,7 +90,8 @@ from ..flow.hotpath import cuda_sync_debug_mode, hot_path
 from ..flow.spans import begin_span, current_span
 from ..flow.trace import TraceEvent
 from ..metrics import wall_now
-from .device_faults import DeviceCircuitBreaker, DeviceFault
+from ..device import is_lost_device
+from .device_faults import DeviceCircuitBreaker, DeviceFault, DeviceUnavailable
 from .engine_cpu import CpuConflictSet
 from .engine_cpu_flat import FLOOR_VERSION
 from .types import TransactionConflictInfo
@@ -599,11 +612,20 @@ class ConflictSet:
         sspan = begin_span("sync", parent=entry.span, attrs={"version": entry.now})
         try:
             statuses, diverged = self._dev.sync_ticket(entry.ticket)
-        except DeviceFault as e:
+        except (DeviceFault, RuntimeError) as e:
+            if isinstance(e, DeviceFault):
+                fault = e
+            elif is_lost_device(e):
+                # A lost or reset card at the readback, as the reference
+                # maps a JaxRuntimeError here; site "sync" keeps it apart
+                # from dispatch-time faults in the counters and reasons.
+                fault = DeviceUnavailable(f"sync: {e}", site="sync")
+            else:
+                raise  # a fault of the code propagates
             sspan.end(attrs={"error": type(e).__name__})
             if entry.device_span is not None:
                 entry.device_span.end(attrs={"fault": 1})
-            self._breaker.on_failure(e)
+            self._breaker.on_failure(fault)
             self._device_stale = True
             self._degraded_last = True
             self._pipeline_replay_on_mirror()

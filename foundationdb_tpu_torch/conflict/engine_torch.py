@@ -79,7 +79,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import is_lost_device, resolve_device
 from ..flow.hotpath import GuardedDeviceValue, cuda_sync_debug_mode, g_hostguard, hot_path
 from ..flow.spans import begin_span
 from ..flow.trace import TraceEvent
@@ -98,7 +98,7 @@ from ..ops.rangequery import (
 )
 from ..ops.stabbing import INF32, stabbing_min
 from . import keys as keylib
-from .device_faults import DeviceOOM
+from .device_faults import CompileFailed, DeviceOOM, DeviceUnavailable
 from .engine_cpu import chunk_encoding
 from .engine_cpu_flat import FLOOR_VERSION, FlatCpuConflictSet
 from .kernels import fused_merge_evict, phase1_search, phase1_search_tiers
@@ -1351,11 +1351,16 @@ class TorchConflictSet:
     rebase shifts the versions, ``grow`` first in _grow and _grow_delta
     (load_from's grow included), ``compile`` at the first dispatch of a
     shape.  Real device failures map into the same taxonomy: an
-    out-of-memory error at grow, rebase or dispatch is ``DeviceOOM``.  Any
-    other exception propagates unchanged: a failed kernel build, a kernel
-    launch error (no image for this card, a launch configuration it
-    refuses) and a CUDA error raised at a readback are faults of the code
-    or the build, and the breaker would hide them behind the CPU mirror."""
+    out-of-memory error at grow, rebase or dispatch is ``DeviceOOM``, and a
+    lost or reset card (``device.is_lost_device``: four cudaError_t codes)
+    in dispatch_packed's step, as the reference maps a JaxRuntimeError
+    there, is ``CompileFailed`` at a shape's first dispatch and
+    ``DeviceUnavailable`` after it.  Any other exception propagates
+    unchanged: a failed kernel build, a kernel launch error (no image for
+    this card, a launch configuration it refuses) and any other CUDA error
+    are faults of the code or the build, and the breaker would hide them
+    behind the CPU mirror.  The readbacks map nothing, as the reference's
+    do not: ConflictSet maps a lost card at the pipelined sync itself."""
 
     batches = _counter("batches")
     fixpoint_rounds = _counter("fixpoint_rounds")
@@ -1807,6 +1812,18 @@ class TorchConflictSet:
         except torch.OutOfMemoryError as e:
             dspan.end(attrs={"error": "OutOfMemoryError"})
             raise DeviceOOM(f"cuda: {e}", site="dispatch") from e
+        except RuntimeError as e:
+            # A lost or reset card (and only that: any other error is a
+            # fault of the code and propagates) in the step, its launches
+            # or the fixpoint's host checks: the reference's mapping of a
+            # JaxRuntimeError.  The carried tensors stay as they were; the
+            # caller marks the device stale and rehydrates before reuse.
+            if not is_lost_device(e):
+                raise
+            dspan.end(attrs={"error": type(e).__name__})
+            kind = CompileFailed if first_dispatch else DeviceUnavailable
+            raise kind(f"cuda: {e}", site="compile" if first_dispatch
+                       else "dispatch") from e
         dspan.end()
         self.last_dispatch_span = dspan
         self._hkeys, self._hvers, self._hcount, self._oldest = hkeys, hvers, hcount, oldest

@@ -11,7 +11,8 @@ buffer, and launches on PyTorch's current stream:
 The rule that picks the path is fixed: a CUDA tensor launches the kernel,
 a CPU tensor takes the plain PyTorch twin (``*_reference``, same
 signature, same results).  There is no fallback: a kernel that fails to
-build or launch raises.  Each wrapper marks its region (regions.py) for
+build or launch raises (a failed launch: ``device.CudaError``, carrying
+its cudaError_t as ``code``).  Each wrapper marks its region (regions.py) for
 the structural check.  ``LAUNCHES`` counts kernel launches only;
 ``merge_contract_faults`` reads the merge kernel's count of inputs that
 broke the order it relies on.
@@ -25,6 +26,7 @@ import functools
 
 import torch
 
+from ..device import CudaError
 from ..ops.rangequery import lex_argsort, searchsorted_words
 from .regions import note_launch, region
 
@@ -61,7 +63,7 @@ def _stream(dev) -> int:
 
 def _raise_on(err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise CudaError(f"{what}: CUDA error {err} at launch", err)
 
 
 # ---------------------------------------------------------------------------

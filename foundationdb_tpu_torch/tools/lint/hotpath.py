@@ -21,10 +21,27 @@ HOT001  implicit device->host transfer or blocking sync on values that
         ``float()`` / ``bool()`` / ``len()`` / iteration, torch's
         ``.cpu()`` / ``.numpy()`` / ``.to("cpu")`` /
         ``.to(device="cpu")`` and ``.synchronize()`` (a ticket's
-        ``ready`` event); and ``torch.cuda.synchronize()`` anywhere in the
-        window, tainted or not, since it waits for everything in flight.
-        ``Event.query()``, a ``non_blocking=True`` copy and ``.to()`` a
-        device other than the CPU are not syncs.  Outside the sanctioned
+        ``ready`` event); ``dst.copy_(src)`` from a tainted ``src``,
+        whatever ``dst`` is; and a truth test of a tainted tensor — the
+        test of an ``if``, ``while``, ``assert``, conditional expression
+        or comprehension ``if``, the operand of ``not`` and each operand
+        of ``and``/``or`` that is tested — on the tensor itself or on a
+        tensor computed from it (``t[0]``, ``t > 0``, ``(t > 0).any()``,
+        ``torch.any(t)``); an identity test (``is``/``is not``) reads no
+        value.  Device-wide, anywhere in the window, tainted or not:
+        ``torch.cuda.synchronize()``, which waits for everything in
+        flight, and ``.synchronize()`` on any stream or event
+        (``torch.cuda.current_stream()``, ``default_stream()``, a
+        ``Stream``, an ``Event``), which waits for the work queued before
+        it.  Not syncs: ``Event.query()``, ``.to()`` a device other than
+        the CPU, and ``Event.wait`` / ``Stream.wait_event`` /
+        ``wait_stream``, which make a stream wait on the device and never
+        block the host.  A ``non_blocking=True`` copy (``.to`` or
+        ``copy_``) is taken as the pinned-memory copy that does not block
+        (the engine's readback into its pinned pool is one): the static
+        pass cannot see whether the host buffer is pinned, and a
+        non-blocking copy into pageable memory is in neither half of the
+        guard.  Outside the sanctioned
         points: the functions of SANCTIONED_FNS and any block under
         ``with self._sanctioned_sync(...)`` or ``with on_sync()`` (the
         scopes the runtime guard allows; a call from inside one does not
@@ -90,6 +107,10 @@ NP_ROOTS = {"np", "numpy"}
 TORCH_ALLOC_FNS = {"empty", "zeros", "ones", "full", "cat", "stack", "tensor"}
 SCALAR_FNS = {"int", "float", "bool", "len"}
 DEVICE_SYNC = "torch.cuda.synchronize"
+# Tensor methods whose result is a host value, or a host copy HOT001
+# already flags: a truth test of their result reads nothing more.
+HOST_VALUED = {"item", "tolist", "cpu", "numpy", "synchronize", "query", "size", "dim",
+               "numel", "nelement", "stride", "is_contiguous", "data_ptr", "element_size"}
 
 # The declared sync points: functions whose job IS the blocking
 # device->host readback (each enters the engine's _sanctioned_sync scope
@@ -124,8 +145,9 @@ class HotFuncFacts:
     scopes: List[Tuple[int, int]] = field(default_factory=list)
     # (line, end_line, op, target) unsanctioned tainted host syncs
     syncs: List[Tuple[int, int, str, str]] = field(default_factory=list)
-    # (line, end_line) unsanctioned torch.cuda.synchronize() sites
-    device_syncs: List[Tuple[int, int]] = field(default_factory=list)
+    # (line, end_line, op) unsanctioned device-wide syncs:
+    # torch.cuda.synchronize() and untainted stream/event .synchronize()
+    device_syncs: List[Tuple[int, int, str]] = field(default_factory=list)
     # (line, end_line, kind, desc); kind in rows|chunks|const|other —
     # recorded only for decorated functions (HOT002 facts)
     loops: List[Tuple[int, int, str, str]] = field(default_factory=list)
@@ -210,12 +232,15 @@ def _is_cpu(e: ast.AST) -> bool:
     return False
 
 
+def _non_blocking(call: ast.Call) -> bool:
+    return any(kw.arg == "non_blocking" and isinstance(kw.value, ast.Constant)
+               and kw.value.value is True for kw in call.keywords)
+
+
 def _to_cpu(call: ast.Call) -> bool:
     """``.to("cpu")`` / ``.to(device="cpu")`` without non_blocking=True."""
-    for kw in call.keywords:
-        if (kw.arg == "non_blocking" and isinstance(kw.value, ast.Constant)
-                and kw.value.value is True):
-            return False
+    if _non_blocking(call):
+        return False
     if call.args and _is_cpu(call.args[0]):
         return True
     return any(kw.arg == "device" and _is_cpu(kw.value) for kw in call.keywords)
@@ -374,6 +399,11 @@ class _FuncAnalysis:
                     and self._tainted(sub.args[0])):
                 return f"np.{last}()", _desc(sub.args[0])
         fn = sub.func
+        if isinstance(fn, ast.Attribute) and fn.attr == "copy_" and not _non_blocking(sub):
+            src = sub.args[0] if sub.args else next(
+                (kw.value for kw in sub.keywords if kw.arg == "src"), None)
+            if src is not None and self._tainted(src):
+                return ".copy_()", _desc(src)
         if not (isinstance(fn, ast.Attribute) and self._tainted(fn.value)):
             return None
         if fn.attr in ("item", "tolist", "cpu", "numpy", "synchronize"):
@@ -381,6 +411,72 @@ class _FuncAnalysis:
         if fn.attr == "to" and _to_cpu(sub):
             return '.to("cpu")', _desc(fn.value)
         return None
+
+    def _device_sync(self, sub: ast.Call) -> Optional[str]:
+        """The operation when the call waits for device work whatever its
+        operands: torch.cuda.synchronize(), or .synchronize() on an
+        untainted stream or event (a tainted one is a _sync)."""
+        if self.aliases.root_bound(sub.func) and self.aliases.resolve(sub.func) == DEVICE_SYNC:
+            return "torch.cuda.synchronize()"
+        fn = sub.func
+        if (isinstance(fn, ast.Attribute) and fn.attr == "synchronize"
+                and not self._tainted(fn.value)):
+            return f"{_desc(fn.value)}.synchronize()"
+        return None
+
+    def _tensor_valued(self, e: ast.AST) -> bool:
+        """True when ``e`` is a tainted tensor or one computed from it, so
+        that its truth test reads device state back."""
+        if isinstance(e, (ast.Name, ast.Attribute, ast.Subscript, ast.Starred)):
+            return self._tainted(e)
+        if isinstance(e, ast.NamedExpr):
+            return self._tensor_valued(e.value)
+        if isinstance(e, ast.Compare):
+            if all(isinstance(op, (ast.Is, ast.IsNot)) for op in e.ops):
+                return False
+            return any(self._tensor_valued(x) for x in [e.left, *e.comparators])
+        if isinstance(e, ast.BinOp):
+            return self._tensor_valued(e.left) or self._tensor_valued(e.right)
+        if isinstance(e, ast.UnaryOp) and not isinstance(e.op, ast.Not):
+            return self._tensor_valued(e.operand)
+        if isinstance(e, ast.Call):
+            ch = attr_chain(e.func)
+            if ch is not None and len(ch) == 2 and ch[0] == "torch":
+                return any(self._tensor_valued(a) for a in e.args)
+            fn = e.func
+            return (isinstance(fn, ast.Attribute) and fn.attr not in HOST_VALUED
+                    and self._tensor_valued(fn.value))
+        return False
+
+    def _truth_tests(self):
+        """(construct, expression) of every truth test in the function: the
+        tests of if/while/assert/conditional expressions/comprehensions,
+        the operand of ``not`` and the operands of ``and``/``or`` before
+        the last (all of them when the BoolOp is itself tested)."""
+        tested = []
+        for sub in ast.walk(self.node):
+            if isinstance(sub, (ast.If, ast.While, ast.Assert)):
+                tested.append((type(sub).__name__.lower(), sub.test))
+            elif isinstance(sub, ast.IfExp):
+                tested.append(("conditional expression", sub.test))
+            elif isinstance(sub, ast.comprehension):
+                tested.extend(("comprehension if", t) for t in sub.ifs)
+            elif isinstance(sub, ast.UnaryOp) and isinstance(sub.op, ast.Not):
+                tested.append(("not", sub.operand))
+            elif isinstance(sub, ast.BoolOp):
+                tested.extend(("and/or", v) for v in sub.values[:-1])
+        seen = set()
+        while tested:
+            what, e = tested.pop(0)
+            if id(e) in seen:
+                continue
+            seen.add(id(e))
+            if isinstance(e, ast.BoolOp):
+                tested.extend((what, v) for v in e.values)
+            elif isinstance(e, ast.IfExp):
+                tested.extend([(what, e.body), (what, e.orelse)])
+            elif not (isinstance(e, ast.UnaryOp) and isinstance(e.op, ast.Not)):
+                yield what, e
 
     def _scan(self):
         f = self.facts
@@ -400,9 +496,9 @@ class _FuncAnalysis:
                 sync = None if sanctioned else self._sync(sub)
                 if sync is not None:
                     f.syncs.append(span + sync)
-                if (not sanctioned and self.aliases.root_bound(sub.func)
-                        and self.aliases.resolve(sub.func) == DEVICE_SYNC):
-                    f.device_syncs.append(span)
+                dsync = None if sanctioned else self._device_sync(sub)
+                if dsync is not None:
+                    f.device_syncs.append(span + (dsync,))
                 if hot and ch is not None and len(ch) == 2:
                     if ch[0] in NP_ROOTS and ch[1] in ALLOC_FNS:
                         f.allocs.append(span + (f"np.{ch[1]}",))
@@ -419,6 +515,10 @@ class _FuncAnalysis:
                     kind, desc = _classify_iter(sub.iter)
                     f.loops.append(span + (kind, desc))
                     self._scalar_index_loop(sub, span)
+        for what, e in self._truth_tests():
+            if not f.in_scope(e.lineno) and self._tensor_valued(e):
+                f.syncs.append(_stmt_span(e, self.parents)
+                               + (f"truth test ({what})", _desc(e)))
 
     def _scalar_index_loop(self, loop: ast.For, span):
         """for i in range(...): ... x[i] ... — a per-row python indexing
@@ -546,11 +646,12 @@ def run_hotpath_rules(
                     end_line=end,
                 ))
             if node in reach:
-                for line, end in ff.device_syncs:
+                for line, end, op in ff.device_syncs:
+                    waits = ("waits for all work in flight" if op == "torch.cuda.synchronize()"
+                             else "waits for the work queued before it")
                     findings.append(Finding(
                         "HOT001", rp, line, 0,
-                        f"'{qual}': torch.cuda.synchronize() waits for all "
-                        f"work in flight and blocks the host {window}; "
+                        f"'{qual}': {op} {waits} and blocks the host {window}; "
                         f"readbacks belong in a sanctioned sync point "
                         f"({_SANCTIONED_POINTS})",
                         end_line=end,

@@ -11,6 +11,8 @@ multiple of the merge tile, empty streams, one to eight key words, INF
 queries, long runs of dropped rows.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -908,7 +910,7 @@ def test_torchcheck_on_the_card_kernel_programs(dev):
 
 def test_perfcheck_planted_window_on_the_card(dev):
     """chip_smoke's phase 2h plant on the card: between dispatch_txns
-    (both kernels launch, torch's sync debug mode armed) and sync_ticket,
+    (both kernels launch) and sync_ticket, under torch's sync debug mode,
     a callee runs (a) torch.cuda.synchronize(), (b) np.asarray(ticket.host)
     or (c) ticket.out.item().  perfcheck flags each with one HOT001 naming
     the chain drive -> _peek; the transfer guard raises TransferGuardError
@@ -983,3 +985,151 @@ def test_two_runs_on_the_card_give_equal_records(dev):
     assert a["launches"] == {name: len(stream) for name in tk.LAUNCHES}
     assert "wall" not in a["snapshot"] and "wall_start" not in a["spans"]
     assert a["snapshot"]["counters"]["pipeline_dispatches"] == len(stream)
+
+
+# ---------------------------------------------------------------------------
+# a lost card (F6), and what CUDA's sync debug mode does with the hidden
+# syncs perfcheck learned
+# ---------------------------------------------------------------------------
+
+
+def test_lost_card_classifier_on_the_card_runtime(dev):
+    """chip_smoke's phase 6l: over every cudaError_t code 0-999 the card's
+    runtime names, exactly the four lost-card codes classify, as the
+    launcher's CudaError and as a torch.AcceleratorError with and without
+    its error_code; the runtime's names of the four are the table's."""
+    from foundationdb_tpu_torch import device as pdev
+
+    rec = _chip_smoke().lost_card_codes(torch)
+    assert sorted(rec["lost"]) == sorted(pdev.LOST_DEVICE_CODES)
+    assert rec["named"] > 50
+    for code, (name, text) in rec["lost"].items():
+        assert name == pdev.LOST_DEVICE_CODES[code]
+        assert text == pdev.cuda_error_string(code) and text
+
+
+# A device-side assert (an out-of-range index on the step's stream, after
+# the third batch's step) inside a pipelined window, in a child process: a
+# sticky error poisons the process's CUDA context.
+_STICKY = r'''
+import json
+import numpy as np
+import torch
+from foundationdb_tpu_torch import device as pdev
+from foundationdb_tpu_torch.conflict import engine_torch as et
+from foundationdb_tpu_torch.conflict.api import ConflictSet
+from foundationdb_tpu_torch.conflict.device_faults import DeviceFault
+from foundationdb_tpu_torch.conflict.types import TransactionConflictInfo as TT
+
+rng = np.random.default_rng(7)
+
+
+def batch(v):
+    out = []
+    for _ in range(16):
+        a = int(rng.integers(0, 400))
+        b = a + 1 + int(rng.integers(0, 8))
+        out.append(TT(v - 1, [(b"%08d" % a, b"%08d" % b)], [(b"%08d" % (a + 3), b"%08d" % (b + 3))]))
+    return out
+
+
+cs = ConflictSet(key_words=3, h_cap=1 << 10, bucket_mins=(32, 128, 64), pipeline_depth=2,
+                 device="cuda")
+real = et._blob_core
+calls = [0]
+
+
+def planted(*args, **kwargs):
+    out = real(*args, **kwargs)
+    calls[0] += 1
+    if calls[0] == 3:
+        h = args[0]
+        h[0][torch.full((1,), 1 << 30, dtype=torch.long, device=h.device)]
+    return out
+
+
+et._blob_core = planted
+rec = {"raised": None}
+try:
+    for i in range(8):
+        v = 10 + i
+        rec["where"] = "pipeline_submit"
+        cs.pipeline_submit(batch(v), v, 0)
+        while cs.pipeline_inflight > 1:
+            rec["where"] = "pipeline_complete_oldest"
+            cs.pipeline_complete_oldest()
+    rec["where"] = "pipeline_drain"
+    cs.pipeline_drain()
+except Exception as e:
+    rec.update(raised=type(e).__name__, mro=[c.__name__ for c in type(e).__mro__],
+               device_fault=isinstance(e, DeviceFault), lost=pdev.is_lost_device(e),
+               code=pdev.cuda_error_code(e), error_code=getattr(e, "error_code", "absent"),
+               attributes=sorted(getattr(e, "__dict__", {})), first_line=str(e).splitlines()[0])
+counters = cs._dev.metrics.snapshot()["counters"]
+rec["device_faults"] = counters.get("device_faults", 0)
+rec["transitions"] = cs._breaker.transitions
+rec["torch"] = torch.__version__
+print(json.dumps(rec, default=str), flush=True)
+'''
+
+
+def test_sticky_error_in_a_pipelined_window_propagates(dev):
+    """A real sticky CUDA error (a device-side assert, code 710) produced
+    inside a pipelined window is not a lost card: it propagates out of
+    ConflictSet, with device_faults 0 and no breaker transition.  Prints
+    what torch's AcceleratorError carries (its error_code, or none)."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    p = subprocess.run([sys.executable, "-c", _STICKY], cwd=str(repo), env=env,
+                       capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+    assert lines, (p.returncode, p.stdout[-2000:], p.stderr[-2000:])
+    rec = json.loads(lines[-1])
+    print(f"sticky error record: {json.dumps(rec)}")
+    assert rec["raised"] is not None and "RuntimeError" in rec["mro"], rec
+    assert not rec["device_fault"] and not rec["lost"], rec
+    assert rec["code"] in (None, 710), rec
+    assert rec["device_faults"] == 0 and rec["transitions"] == [], rec
+
+
+# What torch.cuda.set_sync_debug_mode("error") does with the four hidden
+# syncs HOT001 learned (sync_debug_probe's names): True where it refuses,
+# as read on an NVIDIA H100 with torch 2.11.
+HIDDEN_SYNCS_REFUSED = {
+    "truth test (if t[0]:)": True,
+    "truth test (while (t > 0).any():)": True,
+    "copy_ to pageable host memory (dst.copy_(t))": True,
+    "torch.cuda.current_stream().synchronize()": True,
+}
+# chip_smoke's plant variant of each.
+PLANT_OF = dict(zip("ghij", HIDDEN_SYNCS_REFUSED))
+
+
+def test_sync_debug_mode_and_the_hidden_syncs_on_the_card(dev):
+    """Which of the four hidden syncs CUDA's sync debug mode refuses, on
+    plain device tensors (chip_smoke's sync_debug_probe) and planted
+    between dispatch_txns and sync_ticket of an unguarded TorchConflictSet
+    (chip_smoke's plant (g)-(j)); perfcheck names each with one HOT001 and
+    the chain drive -> _peek, both kernels launch, every batch's verdicts
+    equal the CPU's, and the mode is back at 0."""
+    from foundationdb_tpu_torch.flow import hotpath
+    from foundationdb_tpu_torch.tools.lint import runner
+
+    smoke = _chip_smoke()
+    seen = smoke.sync_debug_probe(torch, hotpath)
+    print(f"sync debug mode refuses: {json.dumps(seen)}")
+    assert {k: seen[k] for k in HIDDEN_SYNCS_REFUSED} == HIDDEN_SYNCS_REFUSED
+    assert not seen["Event.wait (a stream waits on the device)"]
+    assert not seen["copy_ on the device (other.copy_(t))"]
+    got = smoke.planted_window(torch, et, tk, TT, runner.lint_source, list(PLANT_OF))
+    for variant, r in got.items():
+        assert smoke.plant_caught(variant, r["findings"]), (variant, r["findings"])
+        assert min(r["launches"].values()) >= 1, (variant, r["launches"])
+        assert (r["guard"] is not None) == HIDDEN_SYNCS_REFUSED[PLANT_OF[variant]], (variant, r)
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -437,12 +437,15 @@ def _smoke_constants():
 
 def test_chip_smoke_plants_give_their_rules():
     c = _smoke_constants()
-    assert sorted(c["PLANT_VARIANTS"]) == ["a", "b", "c", "d", "e", "f"]
-    for variant, (imports, callee, rules, op) in c["PLANT_VARIANTS"].items():
-        src = c["PLANT_SOURCE"].format(imports=imports, callee=callee)
+    assert sorted(c["PLANT_VARIANTS"]) == list("abcdefghij")
+    for variant, (imports, body, rules, op, _guarded) in c["PLANT_VARIANTS"].items():
+        src = c["PLANT_SOURCE"].format(imports=imports, body=body)
         found = [f for f in runner.lint_source(src, "window.py") if not f.suppressed]
         assert tuple(sorted(f.rule for f in found)) == rules, variant
         chained = [f for f in found if f.rule in ("HOT001", "DET101")]
         assert [_chain(f.message) for f in chained] == ["drive -> _peek"] * len(chained)
         assert op is None or all(op in f.message for f in chained), variant
-        assert _rows(found) == _rows(ref_lint_source(src, "window.py"))
+        # (g)-(j) are torch's hidden syncs (a truth test, copy_, a stream's
+        # synchronize), which the reference's perfcheck does not know.
+        want = [] if variant in "ghij" else _rows(found)
+        assert _rows(ref_lint_source(src, "window.py")) == want, variant

@@ -12,7 +12,11 @@ dispatch->sync chain).  Then torch's idioms, in
 tests/torch_lint_cases/hot_cases/ with ``# EXPECT: RULE`` markers: each
 new HOT001 sink fires with its chain and each non-sink stays silent, a
 sanctioned scope sanctions its body, a torch constructor in a
-``@hot_path`` function is HOT003.  The port's own tree reads no
+``@hot_path`` function is HOT003; the hidden syncs perfcheck learned for
+torch (truth tests of a tainted tensor, ``copy_`` from one, a stream's or
+an event's ``.synchronize()``), planted in test_hotpath.py's window, fire
+where the reference's perfcheck is silent: the differential's stated
+exceptions.  The port's own tree reads no
 unsuppressed finding; each suppression has a counterpart among the
 reference's, less the listed ones; every ``@hot_path`` bound read
 statically equals ``hot_registry()``'s.  The gate's CLI: exit codes, JSON
@@ -154,10 +158,65 @@ def test_torch_sinks_name_their_operation_and_chain():
         ("np.asarray(ticket.host)", "np.asarray() on 'ticket.host'", "_peek_asarray"),
         ("    torch.cuda.synchronize()", "torch.cuda.synchronize() waits", "_drain"),
         ("tc.synchronize()", "torch.cuda.synchronize() waits", "_drain_aliased"),
+        ("if ticket.out[0]:", "truth test (if) on 'ticket.out[0]'", "_truth_if"),
+        ("while (ticket.out > 0)", "truth test (while) on '(ticket.out > 0).any()'",
+         "_truth_while"),
+        ("assert torch.all", "truth test (assert) on 'torch.all(ticket.out >= 0)'",
+         "_truth_assert"),
+        ("not ticket.out", "truth test (not) on 'ticket.out'", "_truth_operators"),
+        ("ticket.out[1] and flag", "truth test (and/or) on 'ticket.out[1]'",
+         "_truth_operators"),
+        ("ticket.out.sum() else", "truth test (conditional expression) on 'ticket.out.sum()'",
+         "_truth_operators"),
+        ("if ticket.out[i] == 0", "truth test (comprehension if) on 'ticket.out[i] == 0'",
+         "_truth_operators"),
+        ("dst.copy_(ticket.out)", ".copy_() on 'ticket.out'", "_copy_back"),
+        ("current_stream().synchronize()",
+         "torch.cuda.current_stream().synchronize() waits for the work queued",
+         "_stream_syncs"),
+        ("default_stream().synchronize()",
+         "torch.cuda.default_stream().synchronize() waits", "_stream_syncs"),
+        ("    stream.synchronize()", "stream.synchronize() waits", "_stream_syncs"),
+        ("ev.synchronize()", "ev.synchronize() waits", "_stream_syncs"),
     ):
         msg = at(text)
         assert op in msg, (text, msg)
         assert _chain(msg) == f"drive -> {callee}", (text, msg)
+
+
+# The hidden syncs that neither perfcheck nor the reference's caught before
+# HOT001 learned torch's truth tests, copy_ and stream syncs, planted in
+# test_hotpath.py's window in place of _peek's np.asarray: {variant: (the
+# body of _peek, what the finding names, or None for a non-sink)}.  These
+# are the port's stated exceptions to the differential: torch-only sinks,
+# which the reference's perfcheck (JAX's syncs) has no counterpart of.
+HIDDEN_SYNCS = {
+    "if": ("if ticket.statuses[0]:\n        return 1", "truth test (if) on 'ticket.statuses[0]'"),
+    "while": ("while (ticket.statuses > 0).any():\n        break",
+              "truth test (while) on '(ticket.statuses > 0).any()'"),
+    "copy_": ("return torch.empty(3).copy_(ticket.statuses)", ".copy_() on 'ticket.statuses'"),
+    "stream": ("return torch.cuda.current_stream().synchronize()",
+               "torch.cuda.current_stream().synchronize() waits"),
+    "copy_ non-blocking": ("return torch.empty(3).copy_(ticket.statuses, non_blocking=True)",
+                           None),
+    "identity test": ("if ticket.statuses is None:\n        return 1", None),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(HIDDEN_SYNCS))
+def test_hidden_syncs_fire_where_the_reference_is_silent(variant):
+    body, op = HIDDEN_SYNCS[variant]
+    planted = _planted_window()
+    assert "    return np.asarray(ticket.statuses)\n" in planted
+    src = planted.replace("    return np.asarray(ticket.statuses)\n", f"    {body}\n")
+    assert ref_lint_source(src, "window.py", tools=("perfcheck",)) == []
+    got = lint_source(src, "window.py")
+    if op is None:
+        assert got == []
+        return
+    (f,) = got
+    assert f.rule == "HOT001" and not f.suppressed
+    assert op in f.message and _chain(f.message) == "drive -> _peek", f.message
 
 
 def test_sanctioned_scopes_cut_the_window():
