@@ -153,6 +153,25 @@ seconds (`phase <name>: ...`):
                raises TransferGuardError, an .item() planted in the guarded
                dispatch raises torch's error (the mode restored), the same
                .item() passes unguarded
+  4q. resolver the port's Resolver role on its own event loop: phase 4's
+               state after its warm-up in a ConflictSet with phase 4's
+               settings (it rehydrates from it at its first batch) behind
+               Resolver(n_proxies=2) on SimNetwork(deep_copy=False);
+               phase 4's first 4 timed batches as
+               ResolveTransactionBatchRequests from proxies p0 and p1 in
+               turn, each pair's later batch sent first (the prevVersion
+               chain parks it), batch 1 sent again while parked, a state
+               transaction in batches 1 and 2: every
+               reply's verdicts and witnesses equal phase 4's, the retry
+               gets the cached reply (cache_hits 1), the state mutations
+               reach the other proxy's next reply, stale_epoch and
+               degraded_batches 0, phase 4's launches a batch, 4
+               dispatches, queue depth 0, backend "ok", mirror_check "ok",
+               4 batches and 262,144 transactions counted.  Prints the wall seconds
+               from the first request to the last reply and txn/s through
+               the role beside phase 4's (no claim), one deep-copied
+               request's host ms, the pipeline gauges and stalls, the
+               virtual resolve_seconds p50/p99 and host syncs a batch
   4w. witness-free  phase 4's stream, seed and scale through ConflictSet(
                witness=False): every batch's verdicts equal phase 4's and
                every witness is [], decode_witness never runs (a counter
@@ -286,6 +305,10 @@ seconds (`phase <name>: ...`):
                verdicts, witnesses, injected log, breaker walk, mirror and
                device export equal to the unguarded cuda run; at depths 2
                and 3 a parked ticket's read raises TransferGuardError on both
+  6q. role vs cpu  phase 6's reduced stream (12 batches of 4,096) as 4q's
+               request script through the Resolver over ConflictSet on cuda
+               and on cpu at depths 1-3: every reply, its virtual time, the
+               role's registry snapshot and conflict_witness equal
   6d. determinism  two fresh ConflictSets with phase 4's settings over the
                first 4 batches of phase 4's stream, each under fresh port
                hubs on a clock that counts its own reads: verdicts and
@@ -327,7 +350,8 @@ seconds (`phase <name>: ...`):
                batches;
                launches_tiered: the tiered one's; launches_sharded:
                the sharded one's; launches_resharded: phase 4r's 9
-               batches; launches_chaos: phase 6c(a)'s 60 batches; tiered
+               batches; launches_chaos: phase 6c(a)'s 60 batches;
+               launches_resolver: phase 4q's 4 requests; tiered
                and sharded: those shapes' times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
@@ -336,6 +360,7 @@ Imports nothing of JAX and nothing of the foundationdb_tpu package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import hashlib
 import importlib.util
@@ -3233,6 +3258,266 @@ def guard_path(torch, api, et, ecpu, hotpath, T, batches, main):
         f"in the unguarded set; card {card}")
 
 
+# ---------------------------------------------------------------------------
+# phases 4q and 6q: the Resolver role on the port's event loop
+# ---------------------------------------------------------------------------
+
+# A role run's requests: proxies p0 and p1 take turns (batch j from
+# p{j % 2}), and within each pair the later batch is sent first, so the
+# prevVersion chain parks it.  The proxy of batch ROLE_RETRY_AT sends its
+# request a second time right after the original (a retry while parked),
+# and the batches of ROLE_STATE_AT carry one state transaction each, which
+# the other proxy's next reply must carry.  Sends are ROLE_SEND_GAP
+# virtual seconds apart, above the network's latency (at most 0.5 ms), so
+# they arrive in the order sent.
+ROLE_RETRY_AT = 1
+ROLE_STATE_AT = (1, 2)
+ROLE_SEND_GAP = 0.001
+# Phase 4q's requests: half of phase 4's timed batches, to keep the
+# script inside its time target.
+ROLE_BATCHES = TIMED // 2
+
+
+def role_requests(stream, epoch_begin):
+    """(send order, requests) of a role run over (txns, now, new_oldest)
+    batches: one ResolveTransactionBatchRequest a batch on the version
+    chain that starts at epoch_begin."""
+    from foundationdb_tpu_torch.client.types import Mutation, MutationType
+    from foundationdb_tpu_torch.server.interfaces import ResolveTransactionBatchRequest
+
+    reqs, prev = [], epoch_begin
+    for j, (txns, now, _nov) in enumerate(stream):
+        state = ([(0, [Mutation(MutationType.SET_VALUE, b"\xff/conf/role%d" % j, b"v%d" % j)])]
+                 if j in ROLE_STATE_AT else [])
+        reqs.append(ResolveTransactionBatchRequest(
+            prev_version=prev, version=now, last_received_version=epoch_begin,
+            transactions=txns, state_txns=state, proxy_id=f"p{j % 2}"))
+        prev = now
+    order = []
+    for j in range(0, len(reqs) - 1, 2):
+        order += [j + 1] * (2 if j + 1 == ROLE_RETRY_AT else 1) + [j]
+    if len(reqs) % 2:
+        order.append(len(reqs) - 1)
+    return order, reqs
+
+
+def role_run(cs, stream, epoch_begin, window, seed=17):
+    """Serve a stream's requests (role_requests) through the port's
+    Resolver(n_proxies=2) over `cs` on a fresh port EventLoop and
+    SimNetwork(deep_copy=False).  Returns the role, the requests, every
+    batch's reply, the retry's reply, each reply's virtual time, the wall
+    seconds from the first send to the last reply, and the role's
+    snapshot_json, conflict_witness and signal_snapshot at the end."""
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.metrics import wall_now
+    from foundationdb_tpu_torch.rpc.network import SimNetwork
+    from foundationdb_tpu_torch.server.resolver import Resolver
+
+    loop = el.EventLoop(seed)
+    el.set_event_loop(loop)
+    try:
+        net = SimNetwork(loop, deep_copy=False)
+        role = Resolver(net.process("resolver"), conflict_set=cs, n_proxies=2,
+                        epoch_begin_version=epoch_begin,
+                        max_write_transaction_life_versions=window)
+        proxies = net.process("proxies")
+        iface = role.interface()
+        order, reqs = role_requests(stream, epoch_begin)
+        futs, vt, last = {}, {}, [None]
+
+        async def send_all():
+            for j in order:
+                key = j if j not in futs else ("retry", j)
+                f = iface.resolve.get_reply(proxies, reqs[j])
+
+                def arrived(_f, key=key):
+                    vt[key] = loop.now()
+                    last[0] = wall_now()
+
+                f.add_callback(arrived)
+                futs[key] = f
+                await loop.delay(ROLE_SEND_GAP)
+            return [await futs[k] for k in sorted(futs, key=str)]
+
+        w0 = wall_now()
+        loop.run_until(proxies.spawn(send_all(), "proxies"), timeout_vt=60.0)
+        replies = [futs[j].get() for j in range(len(reqs))]
+        return dict(role=role, reqs=reqs, replies=replies,
+                    retry=futs[("retry", ROLE_RETRY_AT)].get(),
+                    vt=[vt[j] for j in range(len(reqs))] + [vt[("retry", ROLE_RETRY_AT)]],
+                    wall=last[0] - w0, snapshot=role.metrics.snapshot_json(),
+                    witness=json.dumps(role.conflict_witness(), sort_keys=True),
+                    signals=role.signal_snapshot())
+    finally:
+        el.set_event_loop(None)
+
+
+def role_checks(label, run, n_txn):
+    """The role's own records after a run: one cache hit (the retry got the
+    original's reply), the state transactions in the other proxy's next
+    reply and nowhere else, no stale epoch and no degraded batch, nothing
+    queued, the backend ok, and every batch and transaction counted."""
+    role, reqs, replies = run["role"], run["reqs"], run["replies"]
+    c = role.metrics.snapshot()["counters"]
+    n = len(reqs)
+    if run["retry"] is not replies[ROLE_RETRY_AT]:
+        raise AssertionError(f"{label}: the retry did not get the original's cached reply")
+    if c["cache_hits"] != 1 or c["stale_epoch"] or c["degraded_batches"]:
+        raise AssertionError(f"{label}: counters {c}")
+    if c["batches"] != n or c["transactions"] != n * n_txn:
+        raise AssertionError(f"{label}: the registry counts {c['batches']} batches and "
+                             f"{c['transactions']} transactions")
+    for j, rep in enumerate(replies):
+        want = []
+        for s in ROLE_STATE_AT:
+            if s + 1 < n and j == s + 1:
+                committed = int(replies[s].committed[0]) == 2
+                want.append((reqs[s].version, [(committed, reqs[s].state_txns[0][1])]))
+        if rep.state_mutations != want:
+            raise AssertionError(f"{label}: batch {j}'s state mutations {rep.state_mutations}, "
+                                 f"expected {want}")
+        if rep.degraded:
+            raise AssertionError(f"{label}: batch {j} came back degraded")
+    sig = run["signals"]
+    if role.queue_depth != 0 or sig.queue_depth != 0 or sig.backend_state != "ok":
+        raise AssertionError(f"{label}: queue depth {role.queue_depth}, signals {sig}")
+
+
+def resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
+    """Phase 4q: the Resolver role over phase 4's state and timed batches.
+    Phase 4's mirror at the end of its warm-up in one ConflictSet with
+    phase 4's settings (it rehydrates from it at its first batch), behind
+    the port's Resolver(n_proxies=2) on a port SimNetwork(deep_copy=False)
+    and EventLoop, on fresh port hubs.  Phase 4's first ROLE_BATCHES timed
+    batches arrive as ResolveTransactionBatchRequests from two proxies
+    (role_requests): every
+    reply's verdicts and witnesses equal phase 4's, the retry is answered
+    from the reply cache, the state transactions reach the other proxy,
+    both kernels launch as in phase 4 and the set dispatches every batch,
+    mirror_check reads "ok".  Prints the wall seconds and txn/s through the
+    role beside phase 4's (no claim), one deep-copied request's host ms,
+    the pipeline gauges and stalls, the virtual resolve_seconds
+    percentiles and the host syncs a batch.  Returns the launches."""
+    from foundationdb_tpu_torch.metrics import wall_now
+
+    gc.collect()
+    snap = main["warm_snapshot"]
+    cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=2)
+    cs._cpu = ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
+                                       key_words=KEY_WORDS)
+    n = ROLE_BATCHES
+    stream = [(batches[i], i + WINDOW, i) for i in range(WARM, WARM + n)]
+    epoch = WARM - 1 + WINDOW
+    _order, reqs = role_requests(stream[:1], epoch)
+    t0 = wall_now()
+    copy.deepcopy(reqs[0])
+    copy_ms = (wall_now() - t0) * 1e3
+    del reqs
+    gc.collect()
+    eng = cs._dev
+    syncs0, dispatches0 = eng.host_syncs, eng.metrics.counter("pipeline_dispatches").value
+    hubs = PortHubs(spans, trace, fr)
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    try:
+        run = role_run(cs, stream, epoch, WINDOW)
+        torch.cuda.synchronize()
+    finally:
+        hubs.restore()
+    launches = dict(tk.LAUNCHES)
+    label = "resolver"
+    expect = {k: v * n // TIMED for k, v in main["launches"].items()}
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches} in {n} batches, expected {expect} "
+                             f"(phase 4's {main['launches']} in {TIMED})")
+    role_checks(label, run, PER_BATCH)
+    got = [digest(rep.committed, rep.witnesses) for rep in run["replies"]]
+    want = main["digests"][WARM:WARM + n]
+    if got != want:
+        first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"{label}: batch {WARM + first}'s verdicts or witnesses differ "
+                             f"from phase 4's")
+    dispatches = eng.metrics.counter("pipeline_dispatches").value - dispatches0
+    c = cs.device_metrics()["counters"]
+    if dispatches != n or c["rehydrates"] != 1 or c["device_faults"] or c["degraded_batches"]:
+        raise AssertionError(f"{label}: {dispatches} dispatches, counters {c}")
+    if eng.cpu_fallbacks != 0:
+        raise AssertionError(f"{label}: cpu_fallbacks = {eng.cpu_fallbacks}")
+    if len(hubs.hub.spans(name="resolve_batch")) != n:
+        raise AssertionError(f"{label}: {len(hubs.hub.spans(name='resolve_batch'))} "
+                             f"resolve_batch spans")
+    report = cs.mirror_check()
+    if report["status"] != "ok":
+        raise AssertionError(f"{label}: mirror_check: {report}")
+    snap_role = run["role"].metrics.snapshot()
+    g, cn = snap_role["gauges"], snap_role["counters"]
+    rs = snap_role["histograms"]["resolve_seconds"]
+    rehy = sum(s.wall_end - s.wall_start for s in hubs.hub.spans(name="rehydrate"))
+    n_txn = n * PER_BATCH
+    card = torch.cuda.get_device_name(0)
+    log(f"{label}: {n} requests x {PER_BATCH} txns from 2 proxies (each pair's later "
+        f"batch sent first, one retry while parked, state transactions in batches "
+        f"{list(ROLE_STATE_AT)}) through Resolver(n_proxies=2) over ConflictSet(depth 2) from "
+        f"phase 4's state after its warm-up ({snap.boundary_count} keys) on "
+        f"SimNetwork(deep_copy=False): replies equal phase 4's verdicts and witnesses, cache "
+        f"hits {cn['cache_hits']}, state mutations in the other proxy's next reply, "
+        f"stale_epoch {cn['stale_epoch']}, degraded_batches {cn['degraded_batches']}, "
+        f"launches {launches}, pipeline_dispatches {dispatches}, mirror_check ok; "
+        f"card {card}")
+    log(f"{label}: wall {run['wall']:.6f} s from the first request to the last reply: "
+        f"{n_txn / run['wall']:.1f} txn/s through the role ({run['wall'] / n * 1e3:.3f} "
+        f"ms/request), {n_txn / (run['wall'] - rehy):.1f} txn/s less the first batch's "
+        f"rehydration ({rehy * 1e3:.3f} ms), beside phase 4's {main['tps']:.1f} txn/s "
+        f"(ConflictSet alone, its {TIMED} timed batches; no claim); one deep-copied request "
+        f"{copy_ms:.3f} ms on the host; pipeline_overlap_efficiency "
+        f"{g['pipeline_overlap_efficiency']}, host_fraction {g['host_fraction']}, device "
+        f"stalls {cn['pipeline_device_stalls']}, host stalls {cn['pipeline_host_stalls']}; "
+        f"resolve_seconds (virtual) p50 {rs['median']} p99 {rs['p99']}; host syncs/batch "
+        f"{(eng.host_syncs - syncs0) / n}; replies at virtual "
+        f"{[round(t, 6) for t in run['vt']]}; card {card}")
+    return launches
+
+
+def roles_vs_cpu(torch, api, T, spans, trace, fr):
+    """Phase 6q: phase 6's reduced stream (12 batches of 4,096
+    transactions) as role_requests through the port's Resolver over
+    ConflictSet on cuda and on cpu at depths 1-3, each on fresh port hubs
+    and a fresh loop of one seed: every reply, its virtual time, the
+    role's snapshot_json and conflict_witness equal on the two devices,
+    and role_checks on each."""
+    n_txn, n_batches, window = 4096, 12, 4
+    rng = np.random.default_rng(7)
+    stream = [(gen_txns(T, rng, n_txn, i, keyspace=200_000), i + window, i)
+              for i in range(n_batches)]
+    conflicts = 0
+    for depth in (1, 2, 3):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=1 << 16, pipeline_depth=depth,
+                                 device=device)
+            hubs = PortHubs(spans, trace, fr)
+            try:
+                run = role_run(cs, stream, window - 1, window)
+            finally:
+                hubs.restore()
+            role_checks(f"role depth {depth} on {device}", run, n_txn)
+            replies = [([int(x) for x in r.committed], list(r.witnesses), r.degraded,
+                        r.state_mutations) for r in run["replies"]]
+            runs[device] = (replies, run["vt"], run["snapshot"], run["witness"])
+        if runs["cuda"] != runs["cpu"]:
+            which = [k for k, a, b in zip(("replies", "virtual times", "snapshot",
+                                           "conflict_witness"), runs["cuda"], runs["cpu"])
+                     if a != b]
+            raise AssertionError(f"role depth {depth}: cuda and cpu differ in {which}")
+        conflicts = sum(r[0].count(0) for r in runs["cuda"][0])
+    if conflicts == 0:
+        raise AssertionError("role: the reduced stream produced no conflicts")
+    log(f"role vs cpu: {n_batches} requests x {n_txn} txns from 2 proxies (reordered pairs, a "
+        f"retry, 2 state transactions) through Resolver over ConflictSet at depths 1, 2, 3: "
+        f"replies, their virtual times, the registry's snapshot and conflict_witness equal on "
+        f"cuda and cpu ({conflicts} conflicts); card {torch.cuda.get_device_name(0)}")
+
+
 def guard_vs_cpu(torch, api, T, faults, hotpath):
     """Phase 6v: the guard at phase 6's reduced shape: ConflictSet(
     transfer_guard=True) at depths 1-3 under phase 6o's dispatch fault, on
@@ -3726,8 +4011,11 @@ def main(argv) -> int:
     del main["cs"], main["extra"]
     phase_done("4a and 4g")
     guard_path(torch, api, et, ecpu, hotpath, T, batches, main)
-    del main["warm_snapshot"]
     phase_done("4v")
+    # 4q. the Resolver role over phase 4's state and timed batches
+    launches_resolver = resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main)
+    del main["warm_snapshot"]
+    phase_done("4q")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
         run = main_path(torch, api, batches, tk, rq, et, profile, mode=mode, want=main)
@@ -3762,6 +4050,8 @@ def main(argv) -> int:
     phase_done("6o")
     guard_vs_cpu(torch, api, T, faults, hotpath)
     phase_done("6v")
+    roles_vs_cpu(torch, api, T, spans, trace, fr)
+    phase_done("6q")
     # 6d. two runs of one stream on the card give equal records
     determinism_path(torch, api, tk, spans, trace, fr, batches)
     phase_done("6d")
@@ -3792,6 +4082,7 @@ def main(argv) -> int:
              launches_sharded=launches_sharded[r["name"]],
              launches_resharded=launches_resharded[r["name"]],
              launches_chaos=launches_chaos[r["name"]],
+             launches_resolver=launches_resolver[r["name"]],
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..metrics import Histogram, wall_now
+from ..metrics import BoundedHistogram, wall_now
 
 # Canonical shapes of the registered programs: the reference's.
 EP_TXN, EP_RR, EP_WR = 32, 128, 64
@@ -127,7 +127,7 @@ _PROGRAM_COSTS: Dict[str, Dict[str, dict]] = {}
 # deterministic blocks.
 _PROGRAM_RUN_WALL: Dict[str, Dict[str, float]] = {}
 # Process-wide histogram of the measured runs' wall seconds.
-_RUN_WALL_HIST = Histogram("program_run_wall")
+_RUN_WALL_HIST = BoundedHistogram("program_run_wall")
 
 
 def _outputs(out) -> list:

@@ -11,20 +11,23 @@ trigger it freezes one deterministic artifact into a bounded ring:
      recent_events: the last ``window`` events of the global TraceCollector,
      spans:         the last ``window`` spans a role of the global SpanHub}
 
-Every key of the reference's artifact is kept.  The reference fills
-``timeseries`` from its global time-series hub, whose samplers are event
-loop actors the port does not have: here it reads ``{}`` unless the
+Every key of the reference's artifact is kept.  ``timeseries`` is the
+last ``window`` samples of each series of the port's global time-series
+hub (``flow/timeseries.py``, ``{}`` while no sampler has run), unless the
 recorder is given a zero-argument ``timeseries=`` source returning that
 section.
 
 Trigger sites of the port: a breaker opening (ok -> degraded,
-``breaker_open``), a confirmed mirror divergence (``mirror_divergence``)
-and a committed reshard (``reshard``).  Each calls ``maybe_trigger(kind,
+``breaker_open``), a confirmed mirror divergence (``mirror_divergence``),
+a committed reshard (``reshard``), and the Resolver's sustained pipeline
+stall (``pipeline_stall``) and contention spike (``contention_spike``).
+Each calls ``maybe_trigger(kind,
 detail=, transitions=, source=)``, which goes to the global recorder's
 ``trigger`` only, so any object with that method may be installed, the
 reference's included.  A trigger is gated by a per-(kind, source) cooldown
-on the recorder's ``clock``; without a clock there is none (the reference
-applies none without an event loop).  Explicit ``capture()`` calls bypass
+on the recorder's ``clock`` (default: the current port event loop's
+virtual time); without a clock or a loop there is none, as the reference
+applies none without an event loop.  Explicit ``capture()`` calls bypass
 the cooldown and the enable switch.
 
 Settings the reference reads from environment knobs are constructor
@@ -70,7 +73,11 @@ class FlightRecorder:
         self._last_trigger_time: Dict[tuple, float] = {}
 
     def _now(self) -> Optional[float]:
-        return self.clock() if self.clock is not None else None
+        if self.clock is not None:
+            return self.clock()
+        from .eventloop import _current_loop
+
+        return _current_loop.now() if _current_loop is not None else None
 
     # -- capture --
     def capture(self, trigger: str, detail=None, transitions=None,
@@ -79,6 +86,7 @@ class FlightRecorder:
         time-series window, the recent trace events, the recent span window,
         the caller's transition-log snapshot and the trigger context."""
         from .spans import global_span_hub
+        from .timeseries import global_timeseries
         from .trace import global_collector
 
         if now is None:
@@ -95,7 +103,8 @@ class FlightRecorder:
             "time": now,
             "detail": detail,
             "transitions": transitions,
-            "timeseries": self.timeseries() if self.timeseries is not None else {},
+            "timeseries": (self.timeseries() if self.timeseries is not None
+                           else global_timeseries().window_dict(last_n=self.window)),
             "recent_events": global_collector().recent_events()[-self.window:],
             "spans": global_span_hub().window_dict(last_n=self.window),
         }

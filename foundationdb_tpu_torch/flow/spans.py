@@ -15,8 +15,9 @@ reply children, and two overlapping device spans are the pipeline overlap.
 Two clocks:
 
 * ``start``/``stop`` come from the hub's ``clock`` (a zero-argument
-  callable; without one they read 0.0, as the reference's do with no event
-  loop) and ``seq``/``end_seq`` from the hub's event counter.  Both are
+  callable; without one, the current port event loop's virtual time, and
+  0.0 when no loop is set, as the reference's do) and ``seq``/``end_seq``
+  from the hub's event counter.  Both are
   deterministic, so the same stream gives byte-identical ``spans_json()``.
   The seq pair is the interleaving clock: host phases take no virtual
   time, and the counter still shows batch N+1's encode inside batch N's
@@ -39,8 +40,8 @@ Settings the reference reads from environment knobs are constructor
 arguments with the reference's defaults: ``SpanHub(enabled=True)``
 (FDB_TPU_SPANS; a disabled hub's ``begin`` returns ``NULL_SPAN``) and
 ``per_role=4096`` (FDB_TPU_SPANS_PER_ROLE).  The reference stamps the
-event loop's seed into the json header; the port has no loop, so ``seed``
-is None unless the hub is given one.
+event loop's seed into the json header; so does the port's hub, at its
+first span under a port event loop, unless it was given a ``seed``.
 """
 
 from __future__ import annotations
@@ -159,8 +160,9 @@ class SpanHub:
     the monotonic event-sequence counter (the interleaving clock).
 
     ``clock`` is a zero-argument callable giving span timestamps (default:
-    0.0, the reference's stamp without an event loop); ``seed`` goes into
-    the ``spans_json()`` header."""
+    the current port event loop's ``now()``, 0.0 without one); ``seed``
+    goes into the ``spans_json()`` header (default: the loop's seed, read
+    at the first span begun under a loop, never drawn)."""
 
     def __init__(self, per_role: int = 4096, enabled: bool = True,
                  clock: Optional[Callable[[], float]] = None,
@@ -176,13 +178,22 @@ class SpanHub:
         self.seed: Optional[int] = seed
 
     def _now(self) -> float:
-        return self.clock() if self.clock is not None else 0.0
+        if self.clock is not None:
+            return self.clock()
+        from .eventloop import _current_loop
+
+        return _current_loop.now() if _current_loop is not None else 0.0
 
     # -- lifecycle --
     def begin(self, name: str, role: Optional[str] = None,
               parent: Optional[Span] = None, attrs: Optional[dict] = None):
         if not self.enabled:
             return NULL_SPAN
+        if self.seed is None:
+            from .eventloop import _current_loop
+
+            if _current_loop is not None:
+                self.seed = getattr(_current_loop.rng, "seed", None)
         if parent is None and self._stack:
             parent = self._stack[-1]
         if isinstance(parent, _NullSpan):

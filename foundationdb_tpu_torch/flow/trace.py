@@ -12,8 +12,8 @@ installed, the reference's included.
 ``Time`` comes from the collector's ``clock`` (a zero-argument callable)
 when it has one, else from the clock installed beside it
 (``set_global_collector(c, clock=)``, for a collector that has none), else
-``time.time()``: the reference stamps its event loop's virtual time and
-falls back to the wall clock without a loop, and the port has no loop.
+from the current port event loop's virtual time, as the reference stamps
+its loop's, else ``time.time()`` (no loop is set).
 The reference's FDB_TPU_TRACE_RECENT knob is the ``recent=512``
 constructor argument.
 """
@@ -135,8 +135,8 @@ class TraceEvent:
             return
         self._emitted = True
         if now is None:
-            clock = getattr(self._collector, "clock", None) or _global_clock
-            now = clock() if clock is not None else time.time()  # fdblint: ignore[DET001]: fallback with no clock installed; a simulated run installs its loop's clock on the collector or through set_global_collector(c, clock=loop.now)
+            clock = getattr(self._collector, "clock", None) or _global_clock or _loop_clock()
+            now = clock() if clock is not None else time.time()  # fdblint: ignore[DET001]: fallback with no clock installed and no event loop set; a simulated run stamps its loop's virtual time
         ev = {"Type": self.type, "Severity": self.severity, "Time": now}
         ev.update(self.fields)
         self._collector.emit(ev)
@@ -150,3 +150,20 @@ class TraceEvent:
             self.severity = max(self.severity, Severity.Error)
         self.log()
         return False
+
+
+def _loop_clock() -> Optional[Callable[[], float]]:
+    """The current port event loop's ``now``, or None when none is set."""
+    from .eventloop import _current_loop
+
+    return _current_loop.now if _current_loop is not None else None
+
+
+def trace_batch(type_: str, location: str, debug_id) -> None:
+    """The g_traceBatch analog (flow/Trace.h's TraceBatch and the
+    CommitDebug stage chain): one event per pipeline stage, keyed by the
+    sampled transaction's debug id.  No-op for unsampled work (debug_id
+    None), which bounds volume."""
+    if debug_id is None:
+        return
+    TraceEvent(type_).detail("ID", debug_id).detail("Location", location).log()

@@ -1133,3 +1133,76 @@ def test_sync_debug_mode_and_the_hidden_syncs_on_the_card(dev):
         assert min(r["launches"].values()) >= 1, (variant, r["launches"])
         assert (r["guard"] is not None) == HIDDEN_SYNCS_REFUSED[PLANT_OF[variant]], (variant, r)
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def _role_replies(device, depth):
+    """The port's Resolver over ConflictSet(device=...) at the CPU tests'
+    shape (key_words 3, h_cap 1 << 10): two proxies, reordered pairs, a
+    retry while parked and a state transaction.  Every reply with its
+    virtual time, and the role's deterministic snapshot."""
+    from foundationdb_tpu_torch.client.types import Mutation, MutationType
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.rpc.network import SimNetwork
+    from foundationdb_tpu_torch.server.interfaces import ResolveTransactionBatchRequest
+    from foundationdb_tpu_torch.server.resolver import Resolver
+
+    rng = np.random.default_rng(5)
+    loop = el.EventLoop(5)
+    el.set_event_loop(loop)
+    try:
+        net = SimNetwork(loop)
+        cs = ConflictSet(key_words=3, bucket_mins=(32, 128, 64), h_cap=1 << 10,
+                         pipeline_depth=depth, device=device)
+        role = Resolver(net.process("resolver"), conflict_set=cs, n_proxies=2,
+                        max_write_transaction_life_versions=40)
+        proxies = net.process("proxies")
+        iface = role.interface()
+        reqs, prev, version = [], 0, 10
+        for j in range(12):
+            txns = []
+            for _ in range(8):
+                a, b = rng.integers(0, 60, 2)
+                txns.append(TT(max(0, version - int(rng.integers(0, 25))),
+                               [(b"%06d" % a, b"%06d" % (a + 3))], [(b"%06d" % b, b"%06d" % (b + 2))]))
+            version += int(rng.integers(1, 10))
+            state = [(0, [Mutation(MutationType.SET_VALUE, b"\xff/s", b"%d" % j)])] if j == 4 else []
+            reqs.append(ResolveTransactionBatchRequest(
+                prev_version=prev, version=version, transactions=txns, state_txns=state,
+                proxy_id=f"p{j % 2}"))
+            prev = version
+        order = [j ^ 1 for j in range(12)]
+        order.insert(1, 1)  # the retry of batch 1, sent while it is parked
+        out = []
+
+        async def go():
+            futs = []
+            for j in order:
+                futs.append((j, iface.resolve.get_reply(proxies, reqs[j])))
+                await loop.delay(0.001)
+            for j, f in futs:
+                r = await f
+                out.append((j, [int(x) for x in r.committed], list(r.witnesses), r.degraded,
+                            r.state_mutations, loop.now()))
+
+        loop.run_until(proxies.spawn(go(), "go"), timeout_vt=60.0)
+        return out, role.metrics.snapshot_json(), role.metrics.counter("cache_hits").value
+    finally:
+        el.set_event_loop(None)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_resolver_role_on_the_card_matches_the_cpu(dev, depth):
+    """Resolver(process) builds its ConflictSet on the card, and the role
+    gives the same replies, at the same virtual times, and the same
+    registry snapshot on cuda as on cpu."""
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.rpc.network import SimNetwork
+    from foundationdb_tpu_torch.server.resolver import Resolver
+
+    loop = el.EventLoop(1)
+    role = Resolver(SimNetwork(loop).process("r"))
+    assert role.conflicts._dev.device.type == "cuda" and role._pipeline_on
+    cuda = _role_replies("cuda", depth)
+    assert cuda == _role_replies("cpu", depth)
+    assert cuda[2] == 1 and any(r[4] for r in cuda[0])

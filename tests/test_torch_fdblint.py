@@ -12,7 +12,7 @@ reference's exemptions by path of modules the port does not have: its
 knob registry (flow/knobs.py, ENV001) and its real network backend
 (rpc/real_network.py, IO001); there the port gives the reference's
 findings at a path it does not exempt.  Then the port's own tree: no
-unsuppressed finding, the 5 reasoned pragmas, and the reference's
+unsuppressed finding, the 6 reasoned pragmas, and the reference's
 fdblint over it finds nothing either.  Pragma hygiene, one plant of each
 rule in a copy of the port, the gate's CLI, and chip_smoke.py's planted
 window held to the reference.
@@ -241,7 +241,8 @@ PORT_PRAGMAS = [
     ("flow/rng.py", 19, ["DET002"]),
     ("flow/trace.py", 51, ["IO001"]),
     ("flow/trace.py", 139, ["DET001"]),
-    ("metrics.py", 36, ["DET001"]),
+    ("metrics.py", 41, ["DET001"]),
+    ("rpc/stream.py", 77, ["ERR001"]),
 ]
 
 
@@ -252,7 +253,7 @@ def port_findings():
 
 def test_port_tree_is_clean(port_findings):
     assert [f.format() for f in port_findings if not f.suppressed] == []
-    assert Counter(f.rule for f in port_findings) == {"DET001": 2, "DET002": 2, "IO001": 1}
+    assert Counter(f.rule for f in port_findings) == {"DET001": 2, "DET002": 2, "ERR001": 1, "IO001": 1}
     assert all(f.reason for f in port_findings)
     assert sorted((f.path, f.line) for f in port_findings) == [
         (p, ln) for p, ln, _r in PORT_PRAGMAS]
@@ -271,7 +272,8 @@ def test_every_wall_read_goes_through_the_funnel():
     users = sorted(p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")
                    if re.search(r"from \.+metrics import [^\n]*\bwall_now\b", p.read_text()))
     assert users == ["conflict/_build.py", "conflict/api.py", "conflict/phase_attribution.py",
-                     "conflict/programs.py", "flow/spans.py", "parallel/sharded_resolver.py"]
+                     "conflict/programs.py", "flow/eventloop.py", "flow/spans.py",
+                     "parallel/sharded_resolver.py"]
 
 
 def test_the_reference_finds_nothing_in_the_port(port_findings):
@@ -385,26 +387,27 @@ def test_each_plant_gives_exactly_its_rule(plant, tmp_path):
 def test_gate_counts_every_fdblint_rule(capsys):
     assert runner.main([]) == 0
     err = capsys.readouterr().err
-    assert ("[fdblint] 0 finding(s), 5 suppressed; per-rule (flagged+suppressed): "
-            "DET001=0+2s DET002=0+2s DET003=0+0s DET101=0+0s ENV001=0+0s ERR001=0+0s "
+    assert ("[fdblint] 0 finding(s), 6 suppressed; per-rule (flagged+suppressed): "
+            "DET001=0+2s DET002=0+2s DET003=0+0s DET101=0+0s ENV001=0+0s ERR001=0+1s "
             "IO001=0+1s SPN001=0+0s TRC001=0+0s") in err
     assert "[perfcheck] 0 finding(s), 8 suppressed;" in err
-    assert "lint: 0 finding(s), 13 suppressed across 2 tool(s)" in err
+    assert "lint: 0 finding(s), 14 suppressed across 2 tool(s)" in err
 
 
 def test_gate_json_sarif_and_list_rules(capsys):
     assert runner.main(["--format=json", "--show-suppressed"]) == 0
     doc = json.loads(capsys.readouterr().out)
     fd = doc["tools"]["fdblint"]
-    assert fd["unsuppressed"] == 0 and fd["total"] == 5
+    assert fd["unsuppressed"] == 0 and fd["total"] == 6
     assert fd["counts"] == {"DET001": {"flagged": 0, "suppressed": 2},
                             "DET002": {"flagged": 0, "suppressed": 2},
+                            "ERR001": {"flagged": 0, "suppressed": 1},
                             "IO001": {"flagged": 0, "suppressed": 1}}
     assert runner.main(["--format=sarif", "--show-suppressed"]) == 0
     runs = json.loads(capsys.readouterr().out)["runs"]
     assert [r["tool"]["driver"]["name"] for r in runs] == ["fdblint", "perfcheck"]
     assert {r["id"] for r in runs[0]["tool"]["driver"]["rules"]} == set(COMPARED)
-    assert len(runs[0]["results"]) == 5
+    assert len(runs[0]["results"]) == 6
     assert runner.main(["--list-rules"]) == 0
     lines = capsys.readouterr().out.splitlines()
     tools = Counter(ln.split()[0] for ln in lines)
@@ -415,7 +418,7 @@ def test_gate_json_sarif_and_list_rules(capsys):
 def test_fdblint_shim_runs_fdblint_alone(capsys):
     assert fdblint.main([]) == 0
     err = capsys.readouterr().err
-    assert "[fdblint] 0 finding(s), 5 suppressed" in err and "[perfcheck]" not in err
+    assert "[fdblint] 0 finding(s), 6 suppressed" in err and "[perfcheck]" not in err
     assert fdblint.RULES is base.RULES and fdblint.lint_source is runner.lint_source
 
 

@@ -33,6 +33,7 @@ import foundationdb_tpu.parallel.sharded_resolver  # noqa: F401
 import foundationdb_tpu.server.resolver  # noqa: F401
 import foundationdb_tpu_torch.conflict.api as port_api
 import foundationdb_tpu_torch.parallel.sharded_resolver  # noqa: F401
+import foundationdb_tpu_torch.server.resolver  # noqa: F401
 from foundationdb_tpu.conflict.device_faults import DeviceFaultInjector as RefInjector
 from foundationdb_tpu.conflict.engine_cpu import CpuConflictSet as RefCpu
 from foundationdb_tpu.conflict.types import TransactionConflictInfo as JT
@@ -62,6 +63,7 @@ MODULES = {
     "foundationdb_tpu.conflict.api": "foundationdb_tpu_torch.conflict.api",
     "foundationdb_tpu.parallel.sharded_resolver":
         "foundationdb_tpu_torch.parallel.sharded_resolver",
+    "foundationdb_tpu.server.resolver": "foundationdb_tpu_torch.server.resolver",
 }
 # Reference names the port spells differently.
 NAMES = {
@@ -71,12 +73,8 @@ NAMES = {
     # shared by sync_ticket and readback_packed.
     "TorchConflictSet._sync_ticket_body": "TorchConflictSet._readback",
 }
-# Reference sites outside conflict/ and parallel/, with no port counterpart.
-EXCLUDED = {
-    "foundationdb_tpu.server.resolver.Resolver._complete_resolve":
-        "the reference's server (server/resolver.py:662) serves the port's sets and stays "
-        "unported",
-}
+# Reference sites with no port counterpart (none since the Resolver's port).
+EXCLUDED: dict = {}
 
 
 def _port_name(qual: str) -> str:
@@ -111,7 +109,7 @@ def test_hot_path_registers_and_validates_bounds():
 
 def test_hot_registry_covers_the_reference_sites():
     """tests/test_hotpath.py:122, whole: every @hot_path site of the
-    reference's conflict/ and parallel/ modules has a port counterpart
+    reference's conflict/, parallel/ and server/resolver.py modules has a port counterpart
     with the same bound, and the port declares no site the reference
     lacks; the exclusions name their reason."""
     ref = {q: b for q, b in ref_hot_registry().items()
@@ -124,7 +122,7 @@ def test_hot_registry_covers_the_reference_sites():
             continue
         want[_port_name(qual)] = bound
     assert port == want
-    assert len(want) == 17 and set(EXCLUDED) <= set(ref)
+    assert len(want) == 18 and set(EXCLUDED) <= set(ref)
     assert all(reason for reason in EXCLUDED.values())
 
 

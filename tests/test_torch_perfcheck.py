@@ -39,6 +39,7 @@ import pytest
 import foundationdb_tpu_torch.conflict.api  # noqa: F401  (registers the hot set)
 import foundationdb_tpu_torch.conflict.engine_torch  # noqa: F401
 import foundationdb_tpu_torch.parallel.sharded_resolver  # noqa: F401
+import foundationdb_tpu_torch.server.resolver  # noqa: F401
 from foundationdb_tpu.tools.lint.base import LintConfig as RefLintConfig
 from foundationdb_tpu.tools.lint.project import lint_source as ref_lint_source
 from foundationdb_tpu.tools.lint.runner import run_source_tools
@@ -299,7 +300,7 @@ def test_static_bounds_equal_the_hot_registry():
                 static[f"{module}.{qual}"] = ff.bound
     reg = {k: v for k, v in hot_registry().items()
            if k.startswith("foundationdb_tpu_torch.")}
-    assert len(reg) == 17
+    assert len(reg) == 18
     assert static == reg
 
 
@@ -323,8 +324,8 @@ def test_runner_text_counts_every_hot_rule(capsys):
     err = capsys.readouterr().err
     assert ("[perfcheck] 0 finding(s), 8 suppressed; per-rule (flagged+suppressed): "
             "HOT001=0+0s HOT002=0+0s HOT003=0+7s HOT004=0+1s") in err
-    # The gate runs fdblint beside perfcheck: its 5 suppressions join the 8.
-    assert "lint: 0 finding(s), 13 suppressed across 2 tool(s)" in err
+    # The gate runs fdblint beside perfcheck: its 6 suppressions join the 8.
+    assert "lint: 0 finding(s), 14 suppressed across 2 tool(s)" in err
 
 
 def test_runner_sarif_and_pragma_inventory(capsys):
