@@ -157,21 +157,45 @@ seconds (`phase <name>: ...`):
                state after its warm-up in a ConflictSet with phase 4's
                settings (it rehydrates from it at its first batch) behind
                Resolver(n_proxies=2) on SimNetwork(deep_copy=False);
-               phase 4's first 4 timed batches as
-               ResolveTransactionBatchRequests from proxies p0 and p1 in
-               turn, each pair's later batch sent first (the prevVersion
-               chain parks it), batch 1 sent again while parked, a state
-               transaction in batches 1 and 2: every
+               phase 4's first 2 timed batches as
+               ResolveTransactionBatchRequests from proxies p0 and p1, the
+               later batch sent first (the prevVersion chain parks it),
+               batch 1 sent again while parked, a state transaction in
+               batch 0: every
                reply's verdicts and witnesses equal phase 4's, the retry
-               gets the cached reply (cache_hits 1), the state mutations
-               reach the other proxy's next reply, stale_epoch and
-               degraded_batches 0, phase 4's launches a batch, 4
+               gets the cached reply (cache_hits 1), the state mutation
+               reaches the other proxy's reply, stale_epoch and
+               degraded_batches 0, phase 4's launches a batch, 2
                dispatches, queue depth 0, backend "ok", mirror_check "ok",
-               4 batches and 262,144 transactions counted.  Prints the wall seconds
+               2 batches and 131,072 transactions counted.  Prints the wall seconds
                from the first request to the last reply and txn/s through
                the role beside phase 4's (no claim), one deep-copied
                request's host ms, the pipeline gauges and stalls, the
                virtual resolve_seconds p50/p99 and host syncs a batch
+  4k. cluster  the commit path through the port's SimCluster(n_proxies=2,
+               n_tlogs=2, n_storages=1, buggify=False) on
+               SimNetwork(deep_copy=False): resolver 0's set is 4q's
+               (phase 4's state after its warm-up); one empty commit lifts
+               the committed version above that state's newest, then 2
+               waves (4 took 80.9 s on an H100's host), wave k
+               phase 4's timed batch 52 + k as 65,536
+               commits (its read and write range and one SET_VALUE of the
+               write range's begin key) alternating between the proxies,
+               so each proxy cuts one full batch of 32,768, read at the
+               GRV taken before wave k - 1: every resolve request replayed
+               through a host CpuConflictSet from the same state gives the
+               same verdicts and witnesses, each acknowledged commit gets
+               its batch's version and each conflicted one not_committed
+               with its witness's version and read range, the key range
+               read back in pages equals the acknowledged writes, both
+               tlogs acknowledged every version with its SET_VALUEs, one
+               launch of each kernel a batch, 0 faults, degraded batches
+               and fallbacks, mirror_check "ok", the proxies count every
+               commit and conflict, acked_commit marks the last ack.
+               Prints commits/s beside phase 4's txn/s (no claim), each
+               wave's wall by the proxies' phase spans, the conflict
+               set's and the storage apply's share, the read-back, host
+               syncs a batch, the conflict rate and the batch versions
   4w. witness-free  phase 4's stream, seed and scale through ConflictSet(
                witness=False): every batch's verdicts equal phase 4's and
                every witness is [], decode_witness never runs (a counter
@@ -309,6 +333,18 @@ seconds (`phase <name>: ...`):
                request script through the Resolver over ConflictSet on cuda
                and on cpu at depths 1-3: every reply, its virtual time, the
                role's registry snapshot and conflict_witness equal
+  6k. cluster vs cpu  the commit script of tests/test_torch_cluster.py
+               (commit_script: GRVs, sets, a clear, atomic adds,
+               versionstamps, a conflict, a state transaction, a too-old
+               commit, reads at several versions, a future read, a watch)
+               through SimCluster(n_proxies=2, n_resolvers=2, n_tlogs=2,
+               buggify=True) with resolver 0's ConflictSet (the CPU
+               differential's shape: key_words 3, h_cap 1,024) at depths
+               1-3 (the too-old tail after 6 s of virtual idle at depth 3
+               only), on cuda and on cpu: every reply and its virtual
+               time, the
+               sequencer, tlogs, storage window, every role's registry
+               snapshot and each resolver's witness block and state equal
   6d. determinism  two fresh ConflictSets with phase 4's settings over the
                first 4 batches of phase 4's stream, each under fresh port
                hubs on a clock that counts its own reads: verdicts and
@@ -351,8 +387,11 @@ seconds (`phase <name>: ...`):
                launches_tiered: the tiered one's; launches_sharded:
                the sharded one's; launches_resharded: phase 4r's 9
                batches; launches_chaos: phase 6c(a)'s 60 batches;
-               launches_resolver: phase 4q's 4 requests; tiered
-               and sharded: those shapes' times), then {"ok": true, ...}
+               launches_resolver: phase 4q's 2 requests;
+               launches_cluster: phase 4k's, over its batches_cluster
+               resolve batches, empty_batches_cluster of them empty (an
+               empty batch launches both kernels too); tiered and
+               sharded: those shapes' times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
 """
@@ -3273,12 +3312,16 @@ def guard_path(torch, api, et, ecpu, hotpath, T, batches, main):
 ROLE_RETRY_AT = 1
 ROLE_STATE_AT = (1, 2)
 ROLE_SEND_GAP = 0.001
-# Phase 4q's requests: half of phase 4's timed batches, to keep the
-# script inside its time target.
-ROLE_BATCHES = TIMED // 2
+# Phase 4q's requests: one pair of phase 4's timed batches, to keep the
+# script inside its 900 s time target (with 8 the script read 958.3 s on
+# an NVIDIA H100 80GB HBM3's host, with 4 and phase 4k 907.0 s), with the
+# retry of batch 1 and one state transaction, in batch 0, which batch 1's
+# reply carries to proxy p1.
+ROLE_BATCHES = 2
+ROLE_STATE_4Q = (0,)
 
 
-def role_requests(stream, epoch_begin):
+def role_requests(stream, epoch_begin, state_at=ROLE_STATE_AT):
     """(send order, requests) of a role run over (txns, now, new_oldest)
     batches: one ResolveTransactionBatchRequest a batch on the version
     chain that starts at epoch_begin."""
@@ -3288,7 +3331,7 @@ def role_requests(stream, epoch_begin):
     reqs, prev = [], epoch_begin
     for j, (txns, now, _nov) in enumerate(stream):
         state = ([(0, [Mutation(MutationType.SET_VALUE, b"\xff/conf/role%d" % j, b"v%d" % j)])]
-                 if j in ROLE_STATE_AT else [])
+                 if j in state_at else [])
         reqs.append(ResolveTransactionBatchRequest(
             prev_version=prev, version=now, last_received_version=epoch_begin,
             transactions=txns, state_txns=state, proxy_id=f"p{j % 2}"))
@@ -3301,7 +3344,7 @@ def role_requests(stream, epoch_begin):
     return order, reqs
 
 
-def role_run(cs, stream, epoch_begin, window, seed=17):
+def role_run(cs, stream, epoch_begin, window, seed=17, state_at=ROLE_STATE_AT):
     """Serve a stream's requests (role_requests) through the port's
     Resolver(n_proxies=2) over `cs` on a fresh port EventLoop and
     SimNetwork(deep_copy=False).  Returns the role, the requests, every
@@ -3322,7 +3365,7 @@ def role_run(cs, stream, epoch_begin, window, seed=17):
                         max_write_transaction_life_versions=window)
         proxies = net.process("proxies")
         iface = role.interface()
-        order, reqs = role_requests(stream, epoch_begin)
+        order, reqs = role_requests(stream, epoch_begin, state_at)
         futs, vt, last = {}, {}, [None]
 
         async def send_all():
@@ -3352,7 +3395,7 @@ def role_run(cs, stream, epoch_begin, window, seed=17):
         el.set_event_loop(None)
 
 
-def role_checks(label, run, n_txn):
+def role_checks(label, run, n_txn, state_at=ROLE_STATE_AT):
     """The role's own records after a run: one cache hit (the retry got the
     original's reply), the state transactions in the other proxy's next
     reply and nowhere else, no stale epoch and no degraded batch, nothing
@@ -3369,7 +3412,7 @@ def role_checks(label, run, n_txn):
                              f"{c['transactions']} transactions")
     for j, rep in enumerate(replies):
         want = []
-        for s in ROLE_STATE_AT:
+        for s in state_at:
             if s + 1 < n and j == s + 1:
                 committed = int(replies[s].committed[0]) == 2
                 want.append((reqs[s].version, [(committed, reqs[s].state_txns[0][1])]))
@@ -3408,7 +3451,7 @@ def resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
     n = ROLE_BATCHES
     stream = [(batches[i], i + WINDOW, i) for i in range(WARM, WARM + n)]
     epoch = WARM - 1 + WINDOW
-    _order, reqs = role_requests(stream[:1], epoch)
+    _order, reqs = role_requests(stream[:1], epoch, ROLE_STATE_4Q)
     t0 = wall_now()
     copy.deepcopy(reqs[0])
     copy_ms = (wall_now() - t0) * 1e3
@@ -3420,7 +3463,7 @@ def resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
     for name in tk.LAUNCHES:
         tk.LAUNCHES[name] = 0
     try:
-        run = role_run(cs, stream, epoch, WINDOW)
+        run = role_run(cs, stream, epoch, WINDOW, state_at=ROLE_STATE_4Q)
         torch.cuda.synchronize()
     finally:
         hubs.restore()
@@ -3430,7 +3473,7 @@ def resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches} in {n} batches, expected {expect} "
                              f"(phase 4's {main['launches']} in {TIMED})")
-    role_checks(label, run, PER_BATCH)
+    role_checks(label, run, PER_BATCH, ROLE_STATE_4Q)
     got = [digest(rep.committed, rep.witnesses) for rep in run["replies"]]
     want = main["digests"][WARM:WARM + n]
     if got != want:
@@ -3457,7 +3500,7 @@ def resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
     card = torch.cuda.get_device_name(0)
     log(f"{label}: {n} requests x {PER_BATCH} txns from 2 proxies (each pair's later "
         f"batch sent first, one retry while parked, state transactions in batches "
-        f"{list(ROLE_STATE_AT)}) through Resolver(n_proxies=2) over ConflictSet(depth 2) from "
+        f"{list(ROLE_STATE_4Q)}) through Resolver(n_proxies=2) over ConflictSet(depth 2) from "
         f"phase 4's state after its warm-up ({snap.boundary_count} keys) on "
         f"SimNetwork(deep_copy=False): replies equal phase 4's verdicts and witnesses, cache "
         f"hits {cn['cache_hits']}, state mutations in the other proxy's next reply, "
@@ -3516,6 +3559,583 @@ def roles_vs_cpu(torch, api, T, spans, trace, fr):
         f"retry, 2 state transactions) through Resolver over ConflictSet at depths 1, 2, 3: "
         f"replies, their virtual times, the registry's snapshot and conflict_witness equal on "
         f"cuda and cpu ({conflicts} conflicts); card {torch.cuda.get_device_name(0)}")
+
+
+# ---------------------------------------------------------------------------
+# phases 4k and 6k: the commit path through the port's SimCluster
+# ---------------------------------------------------------------------------
+
+# Phase 4k's waves: phase 4's timed batches WARM .. WARM + CLUSTER_WAVES - 1,
+# each PER_BATCH commits sent at once and alternating between the two
+# proxies, so that each proxy cuts one full batch of PER_BATCH // 2 =
+# 32,768 a wave (commit_transaction_batch_count_max, the proxy's cap).
+# Two waves, not four: four took 80.9 s on an NVIDIA H100 80GB HBM3's host
+# (11.4-16.9 s a wave), above the phase's 60 s.
+CLUSTER_WAVES = 2
+CLUSTER_PAGE = 10_000  # rows a page of 4k's read-back
+# Phase 6k's pipeline depths, and the one that runs commit_script's
+# too-old tail.  The tail's 6 s of virtual idle cut about 96 of a run's 112
+# resolve dispatches, and the whole script at depths 1-3 on both devices
+# took 19.1-30.4 s on an NVIDIA H100 80GB HBM3's host, above the phase's
+# 15 s; so depths 1 and 2 run the script without its tail.
+CLUSTER_VS_CPU_DEPTHS = (1, 2, 3)
+CLUSTER_VS_CPU_TAIL_DEPTH = 3
+
+
+def norm(v):
+    """A package-free form of a value: dataclasses as (class name,
+    fields), enums as ints (so either package's roles give one record)."""
+    import dataclasses
+    from enum import IntEnum
+
+    if isinstance(v, IntEnum):
+        return int(v)
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return (type(v).__name__,
+                tuple((f.name, norm(getattr(v, f.name))) for f in dataclasses.fields(v)))
+    if isinstance(v, (list, tuple)):
+        return type(v)(norm(x) for x in v)
+    if isinstance(v, dict):
+        return {norm(k): norm(x) for k, x in v.items()}
+    return v
+
+
+def vstamp_param(prefix: bytes, suffix: bytes = b"") -> bytes:
+    """A SET_VERSIONSTAMPED_* parameter: 10 placeholder bytes after
+    `prefix`, then the 4-byte little-endian offset of the stamp."""
+    return prefix + b"\x00" * 10 + suffix + len(prefix).to_bytes(4, "little")
+
+
+def commit_script(c, types, itf, too_old=True):
+    """The commit path's script of raw requests through a SimCluster `c`
+    (the port's, or any cluster with its roles' request streams; `types`
+    and `itf` are the matching client types and interfaces modules), from
+    one client process: GRVs; commits with SET_VALUE, CLEAR_RANGE, atomic
+    adds, a versionstamped key and value, a read-write conflict (t3) and
+    (with `too_old`) a too-old commit and read after 6 s; a state
+    transaction on \\xff/conf/x; get_value and get_key_values (forward,
+    reverse, limited) at several versions, a read 0.4 s of versions ahead,
+    and a watch.  Returns every reply as
+    (label, virtual time, "reply", payload) or (label, virtual time,
+    "error", name, detail), payloads through norm()."""
+    loop = c.loop
+    M, MT = types.Mutation, types.MutationType
+    client = c.net.process("client")
+    proxies = [p.interface() for p in c.proxies]
+    ss = c.storage.interface()
+    out = []
+
+    def txn(snap, reads=(), writes=(), muts=()):
+        return itf.CommitTransactionRequest(transaction=types.CommitTransactionRef(
+            read_snapshot=snap, read_conflict_ranges=list(reads),
+            write_conflict_ranges=list(writes), mutations=list(muts)))
+
+    async def call(label, stream, req):
+        try:
+            v = await stream.get_reply(client, req)
+        except Exception as e:  # noqa: BLE001 - the roles' FdbError
+            out.append((label, loop.now(), "error", e.name, norm(getattr(e, "detail", None))))
+            return None
+        out.append((label, loop.now(), "reply", norm(v)))
+        return v
+
+    def point(key):
+        return (key, key + b"\x00")
+
+    async def script():
+        await loop.delay(0.01)
+        v0 = await call("grv0", proxies[0].get_consistent_read_version, itf.GetReadVersionRequest())
+        one = (1).to_bytes(8, "little")
+        await call("t1", proxies[0].commit, txn(
+            v0, writes=[point(b"a"), point(b"b"), point(b"c1"), point(b"c2"), point(b"cnt"),
+                        (b"vs", b"vt"), point(b"vsv")],
+            muts=[M(MT.SET_VALUE, b"a", b"1"), M(MT.SET_VALUE, b"b", b"2"),
+                  M(MT.SET_VALUE, b"c1", b"x"), M(MT.SET_VALUE, b"c2", b"y"),
+                  M(MT.ADD_VALUE, b"cnt", one),
+                  M(MT.SET_VERSIONSTAMPED_KEY, vstamp_param(b"vs"), b"k"),
+                  M(MT.SET_VERSIONSTAMPED_VALUE, b"vsv", vstamp_param(b"s", b"!"))]))
+        # Three at once, on the proxies in turn: a clear and an add, a
+        # read of `a` at v0 (written after it: not_committed), another add.
+        fs = []
+        for i, t in enumerate((
+            txn(v0, writes=[(b"c", b"d"), point(b"cnt")],
+                muts=[M(MT.CLEAR_RANGE, b"c", b"d"), M(MT.ADD_VALUE, b"cnt", one)]),
+            txn(v0, reads=[point(b"a")], writes=[point(b"z")],
+                muts=[M(MT.SET_VALUE, b"z", b"no")]),
+            txn(v0, writes=[point(b"cnt")], muts=[M(MT.ADD_VALUE, b"cnt", one)]),
+        )):
+            fs.append(client.spawn(call(f"t{2 + i}", proxies[i % len(proxies)].commit, t)))
+        for f in fs:
+            await f
+        # A state transaction: its metadata key reaches the other proxies
+        # through every resolver.
+        await call("state", proxies[-1].commit, txn(
+            v0, writes=[point(b"\xff/conf/x")], muts=[M(MT.SET_VALUE, b"\xff/conf/x", b"1")]))
+        v1 = await call("grv1", proxies[-1].get_consistent_read_version,
+                        itf.GetReadVersionRequest())
+        for label, ver in (("v0", v0), ("v1", v1)):
+            for key in (b"a", b"cnt", b"vsv", b"c1", b"z"):
+                await call(f"get {key!r} @{label}", ss.get_value,
+                           itf.GetValueRequest(key=key, version=ver))
+            await call(f"range @{label}", ss.get_key_values,
+                       itf.GetKeyValuesRequest(begin=b"", end=b"\xff", version=ver))
+        await call("range reverse", ss.get_key_values,
+                   itf.GetKeyValuesRequest(begin=b"", end=b"\xff", version=v1, reverse=True))
+        await call("range limit 2", ss.get_key_values,
+                   itf.GetKeyValuesRequest(begin=b"b", end=b"\xff", version=v1, limit=2))
+        await call("range reverse limit 2", ss.get_key_values,
+                   itf.GetKeyValuesRequest(begin=b"", end=b"v", version=v1, limit=2,
+                                           reverse=True))
+        # A read 0.4 s of versions ahead: the storage catches up on the
+        # proxies' idle batches and answers.
+        fut = client.spawn(call("future", ss.get_value,
+                                itf.GetValueRequest(key=b"a", version=v1 + 400_000)))
+        watch = client.spawn(call("watch", ss.watch_value,
+                                  itf.WatchValueRequest(key=b"a", value=b"1", version=v1)))
+        await loop.delay(0.05)
+        await call("t5", proxies[0].commit, txn(
+            v1, reads=[point(b"a")], writes=[point(b"a")], muts=[M(MT.SET_VALUE, b"a", b"3")]))
+        await watch
+        await fut
+        if too_old:
+            await loop.delay(6.0)
+            await call("too old", proxies[0].commit, txn(
+                v0, reads=[point(b"b")], writes=[point(b"q")],
+                muts=[M(MT.SET_VALUE, b"q", b"1")]))
+            await call("get @v0 late", ss.get_value, itf.GetValueRequest(key=b"a", version=v0))
+        v2 = await call("grv2", proxies[0].get_consistent_read_version,
+                        itf.GetReadVersionRequest())
+        await call("range @v2", ss.get_key_values,
+                   itf.GetKeyValuesRequest(begin=b"", end=b"\xff\xff", version=v2))
+
+    c.run_until(client.spawn(script(), "script"), timeout_vt=60.0)
+    return out
+
+
+def cluster_record(c, types, itf, export, too_old=True) -> dict:
+    """commit_script's replies through `c` and the cluster's state after
+    it: the sequencer's version and committed version, each tlog's
+    versions, entries and pops, the storage's window (keys, version chains,
+    clears) and byte sample, every proxy's and resolver's registry
+    snapshot, the proxies' latency samples, each resolver's
+    conflict_witness and its set's state (`export(set)`), and the loop's
+    end time with its rng's next draw."""
+    replies = commit_script(c, types, itf, too_old)
+    st = c.storage.store
+    return dict(
+        replies=replies,
+        sequencer=(c.sequencer.version, c.sequencer.committed.get()),
+        tlogs=[(t.versions, norm(t.entries), t.popped_tags, t.popped, t.durable.get(),
+                t.known_committed, t._mem_bytes) for t in c.tlogs],
+        storage=(norm(st.kv), st.sorted_keys, list(st.clears), c.storage.version.get(),
+                 c.storage.durable_version, c.storage.input_bytes,
+                 c.storage.byte_sample.idx.keys_in(b"", None),
+                 c.storage.byte_sample.bytes_in(b"", None)),
+        proxies=[p.metrics.snapshot_json() for p in c.proxies],
+        proxy_latency=[{k: s.summary() for k, s in p.latency_samples.items()}
+                       for p in c.proxies],
+        resolvers=[r.metrics.snapshot_json() for r in c.resolvers],
+        witness=[r.conflict_witness() for r in c.resolvers],
+        sets=[export(r.conflicts) for r in c.resolvers],
+        end=(c.loop.now(), c.loop.rng.random_int(0, 1 << 30)),
+    )
+
+
+def set_state(ecpu, cs):
+    """A ConflictSet's mirror (keys, versions, oldest) and, with a device
+    engine, its exported device state."""
+    mirror = (list(cs._cpu.keys), list(cs._cpu.vers), cs._cpu.oldest_version)
+    if cs._dev is None:
+        return mirror
+    out = ecpu.CpuConflictSet()
+    cs._dev.store_to(out)
+    return mirror, (list(out.keys), list(out.vers), out.oldest_version)
+
+
+class Recorded:
+    """A RequestStreamRef stand-in, on the script's side of a role: every
+    request sent through it and the reply's future, in send order."""
+
+    def __init__(self, ref, log):
+        self.ref, self.log = ref, log
+
+    def get_reply(self, src, request):
+        f = self.ref.get_reply(src, request)
+        self.log.append((request, f))
+        return f
+
+
+class WallCalls:
+    """Wall seconds inside the named methods of one object (instance
+    attributes wrapping the bound methods; remove() restores them)."""
+
+    def __init__(self, obj, names):
+        from foundationdb_tpu_torch.metrics import wall_now
+
+        self.obj, self.names, self.seconds = obj, names, 0.0
+        for name in names:
+            inner = getattr(obj, name)
+
+            def timed(*a, _inner=inner, **kw):
+                t0 = wall_now()
+                try:
+                    return _inner(*a, **kw)
+                finally:
+                    self.seconds += wall_now() - t0
+
+            setattr(obj, name, timed)
+
+    def remove(self):
+        for name in self.names:
+            delattr(self.obj, name)
+
+
+def cluster_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
+    """Phase 4k: the commit path through the port's SimCluster on the card.
+    SimCluster(n_proxies=2, n_tlogs=2, n_storages=1, buggify=False) with
+    resolver 0's set a ConflictSet with phase 4's settings rehydrated from
+    phase 4's warm-up state (as 4q's), on SimNetwork(deep_copy=False) and
+    fresh port hubs.  After 1 ms of virtual time one empty commit (the
+    cluster's first batch, as a recovery transaction) lifts the committed
+    version above the snapshot's newest; then CLUSTER_WAVES waves, wave k
+    phase 4's timed batch WARM + k as PER_BATCH commits (its read and
+    write range, one SET_VALUE of the write range's begin key to 8 bytes
+    (wave, index)) alternating between the proxies, read at the GRV taken
+    before wave k - 1 (wave 0 at its own).  Checks: every resolve request
+    the resolver served (recorded on the proxies' side) replayed through a
+    host CpuConflictSet rehydrated from the same snapshot gives the same
+    verdicts and witnesses; each acknowledged commit's reply is its batch's
+    version and each conflicted one gets not_committed with the witness's
+    version and its read range; the whole key range read back in pages
+    equals the acknowledged writes applied in version and batch order;
+    both tlogs acknowledged every committed version with as many
+    SET_VALUEs as commits acknowledged there; phase 4's launches a batch,
+    pipeline_dispatches = batches, no fault, degraded batch or fallback,
+    mirror_check "ok"; the proxies' registries count the waves; the
+    acked_commit mark is the last acknowledged version.  Prints commits/s
+    through the cluster beside phase 4's txn/s, each wave's wall by the
+    proxies' phase spans, the conflict set's share of it, the storage's
+    apply and the read-back, host syncs a batch, the conflict rate, the
+    batch versions and the commit latency p50/p99 (virtual).  Returns the
+    launches of the non-empty batches."""
+    import dataclasses
+    import struct
+
+    from foundationdb_tpu_torch.client.types import CommitTransactionRef, Mutation, MutationType
+    from foundationdb_tpu_torch.conflict.types import COMMITTED, CONFLICT
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.flow import sim_validation
+    from foundationdb_tpu_torch.flow.future import Promise
+    from foundationdb_tpu_torch.metrics import wall_now
+    from foundationdb_tpu_torch.server import interfaces as itf
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    gc.collect()
+    label = "cluster"
+    snap = main["warm_snapshot"]
+    newest = max(ch.max_ver for ch in snap.chunks)
+    cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=2)
+    cs._cpu = ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
+                                       key_words=KEY_WORDS)
+    eng = cs._dev
+    syncs0, dispatches0 = eng.host_syncs, eng.metrics.counter("pipeline_dispatches").value
+    half = PER_BATCH // 2
+    waves = [batches[WARM + w] for w in range(CLUSTER_WAVES)]
+    t_setup = wall_now()
+    # The requests, made before the clock starts; each wave's snapshot is
+    # set when its GRV is known.
+    reqs = [[itf.CommitTransactionRequest(transaction=CommitTransactionRef(
+        read_snapshot=0, read_conflict_ranges=t.read_ranges,
+        write_conflict_ranges=t.write_ranges,
+        mutations=[Mutation(MutationType.SET_VALUE, t.write_ranges[0][0],
+                            struct.pack(">II", w, i))]))
+        for i, t in enumerate(txns)] for w, txns in enumerate(waves)]
+    hubs = PortHubs(spans, trace, fr)
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    c = None
+    try:
+        c = SimCluster(seed=23, conflict_set=cs, n_proxies=2, n_tlogs=2, n_storages=1,
+                       buggify=False)
+        c.net.deep_copy = False  # before the first request, as 4q's network
+        loop = c.loop
+        resolves, pushes = [], [[] for _ in c.tlogs]
+        for p in c.proxies:
+            p.resolvers = [dataclasses.replace(r, resolve=Recorded(r.resolve, resolves))
+                           for r in p.resolvers]
+            p.tlogs = [dataclasses.replace(t, commit=Recorded(t.commit, pushes[i]))
+                       for i, t in enumerate(p.tlogs)]
+        in_set = WallCalls(cs, ("pipeline_submit", "pipeline_complete_oldest", "pipeline_drain"))
+        in_apply = WallCalls(c.storage, ("_apply",))
+        client = c.net.process("client")
+        proxies = [p.interface() for p in c.proxies]
+
+        def wait(fut):
+            return loop.run_until(fut, timeout_vt=loop.now() + 60.0)
+
+        wait(loop.delay(0.001))
+        first = wait(proxies[0].commit.get_reply(client, itf.CommitTransactionRequest(
+            transaction=CommitTransactionRef())))
+        if first <= newest:
+            raise AssertionError(f"{label}: the first batch's version {first} is not above the "
+                                 f"snapshot's newest {newest}")
+        grvs, walls, outcomes, split = [], [], [], []
+        phase_names = ("get_version", "resolution", "log_push", "reply")
+        seen = {n: 0 for n in phase_names}
+        set_s0, apply_s0 = in_set.seconds, in_apply.seconds
+        t_first = None
+        for w in range(CLUSTER_WAVES):
+            grvs.append(wait(proxies[0].get_consistent_read_version.get_reply(
+                client, itf.GetReadVersionRequest())))
+            snap_v = grvs[max(w - 1, 0)]
+            for r in reqs[w]:
+                r.transaction.read_snapshot = snap_v
+            done, left, last = Promise(), [PER_BATCH], [None]
+
+            def arrived(_f):
+                left[0] -= 1
+                if left[0] == 0:
+                    last[0] = wall_now()
+                    done.send(None)
+
+            t0 = wall_now()
+            t_first = t_first or t0
+            futs = []
+            for i, r in enumerate(reqs[w]):
+                f = proxies[i % 2].commit.get_reply(client, r)
+                f.add_callback(arrived)
+                futs.append(f)
+            wait(done.future)
+            walls.append(last[0] - t0)
+            outcomes.append(futs)
+            row = {}
+            for n in phase_names:
+                got = hubs.hub.spans(name=n)
+                row[n] = sum(s.wall_end - s.wall_start for s in got[seen[n]:])
+                seen[n] = len(got)
+            row["set"] = in_set.seconds - set_s0
+            row["apply"] = in_apply.seconds - apply_s0
+            set_s0, apply_s0 = in_set.seconds, in_apply.seconds
+            split.append(row)
+        t_last = last[0]
+        torch.cuda.synchronize()
+        # The read-back: the whole key range at the last committed version,
+        # in pages.
+        vf = wait(proxies[0].get_consistent_read_version.get_reply(
+            client, itf.GetReadVersionRequest()))
+        t0 = wall_now()
+        got, begin, pages = {}, b"", 0
+        while True:
+            page = wait(c.storage.interface().get_key_values.get_reply(
+                client, itf.GetKeyValuesRequest(begin=begin, end=b"\xff", version=vf,
+                                                limit=CLUSTER_PAGE)))
+            pages += 1
+            got.update(page.data)
+            if not page.more:
+                break
+            begin = page.data[-1][0] + b"\x00"
+        read_s = wall_now() - t0
+        in_set.remove()
+        in_apply.remove()
+    finally:
+        hubs.restore()
+        el.set_event_loop(None)
+    launches = dict(tk.LAUNCHES)
+    t_checks = wall_now()
+
+    # Verdicts: the served requests replayed on the host from the snapshot.
+    served = sorted(resolves, key=lambda rf: rf[0].version)
+    window = c.resolver.max_write_transaction_life_versions
+    host = ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
+                                    key_words=KEY_WORDS)
+    nonempty = [(q, f.get()) for q, f in served if q.transactions]
+    empty = len(served) - len(nonempty)
+    for q, f in served:
+        rep = f.get()
+        st = host.detect(q.transactions, q.version, q.version - window)
+        if digest(rep.committed, rep.witnesses) != digest(st, list(host.last_witness)):
+            raise AssertionError(f"{label}: batch at version {q.version} ({len(q.transactions)} "
+                                 f"txns from {q.proxy_id}): verdicts or witnesses differ from "
+                                 f"the host set's")
+    sizes = sorted(len(q.transactions) for q, _r in nonempty)
+    if sizes != [1] + [half] * (2 * CLUSTER_WAVES):
+        raise AssertionError(f"{label}: batch sizes {sizes}, expected one of 1 and "
+                             f"{2 * CLUSTER_WAVES} of {half}")
+    # Outcomes: each client transaction found in its batch by its ranges.
+    where = {}
+    for q, rep in nonempty:
+        for t, tr in enumerate(q.transactions):
+            key = (tuple(tr.read_ranges), tuple(tr.write_ranges), tr.read_snapshot)
+            if key in where:
+                raise AssertionError(f"{label}: two transactions share ranges {key}")
+            where[key] = (q.version, t, rep)
+    acks, acked_at = [], {}
+    n_conflict = 0
+    for w, futs in enumerate(outcomes):
+        for i, f in enumerate(futs):
+            tr = reqs[w][i].transaction
+            ver, t, rep = where[(tuple(tr.read_conflict_ranges), tuple(tr.write_conflict_ranges),
+                                 tr.read_snapshot)]
+            status = int(rep.committed[t])
+            if status == COMMITTED:
+                if f.is_error() or f.get() != ver:
+                    raise AssertionError(f"{label}: wave {w} txn {i} committed at {ver}, reply "
+                                         f"{f.error() if f.is_error() else f.get()}")
+                acks.append((ver, t, tr.mutations[0]))
+                acked_at[ver] = acked_at.get(ver, 0) + 1
+            elif status == CONFLICT:
+                n_conflict += 1
+                e = f.error() if f.is_error() else None
+                wit = rep.witnesses[t]
+                want = {"version": int(wit[0]), "retry_version": ver,
+                        "range": tr.read_conflict_ranges[wit[1]]}
+                if e is None or e.name != "not_committed" or e.detail != want:
+                    raise AssertionError(f"{label}: wave {w} txn {i} conflicted at {ver}: "
+                                         f"{e!r} {getattr(e, 'detail', None)}, expected {want}")
+            else:
+                raise AssertionError(f"{label}: wave {w} txn {i}: status {status}")
+    want_map = {}
+    for _v, _t, m in sorted(acks, key=lambda a: (a[0], a[1])):
+        want_map[m.param1] = m.param2
+    if got != want_map:
+        extra = len(set(got) - set(want_map))
+        missing = len(set(want_map) - set(got))
+        wrong = sum(1 for k in set(got) & set(want_map) if got[k] != want_map[k])
+        raise AssertionError(f"{label}: read-back differs from the acknowledged writes: "
+                             f"{extra} extra keys, {missing} missing, {wrong} wrong values")
+    # Both logs: every committed version acknowledged, its SET_VALUEs
+    # counted.
+    versions = sorted(q.version for q, _f in served)
+    for i, log_ in enumerate(pushes):
+        held = {}
+        for q, f in log_:
+            if f.is_error() or f.get() != q.version:
+                raise AssertionError(f"{label}: tlog {i} answered version {q.version} with "
+                                     f"{f.error() if f.is_error() else f.get()}")
+            held[q.version] = len({seq for items in q.tagged.values() for seq, m in items
+                                   if m.type == MutationType.SET_VALUE})
+        if sorted(held) != versions:
+            raise AssertionError(f"{label}: tlog {i} holds versions {sorted(held)}, the "
+                                 f"resolver served {versions}")
+        bad = [v for v in versions if held[v] != acked_at.get(v, 0)]
+        if bad:
+            raise AssertionError(f"{label}: tlog {i}'s SET_VALUEs differ from the acks at {bad}")
+        if c.tlogs[i].durable.get() < versions[-1]:
+            raise AssertionError(f"{label}: tlog {i} durable at {c.tlogs[i].durable.get()}")
+    # The conflict set and the launches.
+    n_batches = len(served)
+    per = {k: v // TIMED for k, v in main["launches"].items()}
+    expect = {k: v * n_batches for k, v in per.items()}
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches} in {n_batches} batches "
+                             f"({empty} empty), expected {expect}")
+    dispatches = eng.metrics.counter("pipeline_dispatches").value - dispatches0
+    cm = cs.device_metrics()["counters"]
+    if dispatches != n_batches or cm["device_faults"] or cm["degraded_batches"]:
+        raise AssertionError(f"{label}: {dispatches} dispatches, counters {cm}")
+    if eng.cpu_fallbacks != 0:
+        raise AssertionError(f"{label}: cpu_fallbacks = {eng.cpu_fallbacks}")
+    t_mirror = wall_now()
+    report = cs.mirror_check()
+    if report["status"] != "ok":
+        raise AssertionError(f"{label}: mirror_check: {report}")
+    t_mirror = wall_now() - t_mirror
+    # The proxies' registries and the acked_commit mark.
+    counters = [p.metrics.snapshot()["counters"] for p in c.proxies]
+    tot = {k: sum(x[k] for x in counters) for k in ("committed", "conflicted", "too_old")}
+    if (tot["committed"] != len(acks) + 1 or tot["conflicted"] != n_conflict
+            or tot["too_old"] or len(acks) + n_conflict != CLUSTER_WAVES * PER_BATCH):
+        raise AssertionError(f"{label}: the proxies count {tot}; {len(acks)} acks and "
+                             f"{n_conflict} conflicts seen")
+    mark = sim_validation.marked(c.loop, "acked_commit")
+    if mark != max(v for v, _t, _m in acks):
+        raise AssertionError(f"{label}: acked_commit marked {mark}, last ack "
+                             f"{max(v for v, _t, _m in acks)}")
+    lat = [p.latency_samples["commit"] for p in c.proxies]
+    commits = CLUSTER_WAVES * PER_BATCH
+    card = torch.cuda.get_device_name(0)
+    wall = t_last - t_first
+    log(f"{label}: SimCluster(n_proxies=2, n_tlogs=2, n_storages=1, buggify=False) over "
+        f"ConflictSet(depth 2) from phase 4's state after its warm-up ({snap.boundary_count} "
+        f"keys, newest version {newest}) on SimNetwork(deep_copy=False); one empty commit at "
+        f"version {first}, then {CLUSTER_WAVES} waves of {PER_BATCH} commits (phase 4's batches "
+        f"{WARM}..{WARM + CLUSTER_WAVES - 1}) from 2 proxies: {n_batches} resolve batches "
+        f"({empty} empty) of sizes {sizes}, verdicts and witnesses equal the host set's replay, "
+        f"{len(acks)} acknowledged at their batch's version, {n_conflict} not_committed with "
+        f"the witness's version and range, {len(got)} keys read back in {pages} pages equal "
+        f"the acknowledged writes, both tlogs hold every version and SET_VALUE, launches "
+        f"{launches}, pipeline_dispatches {dispatches}, mirror_check ok; card {card}")
+    log(f"{label}: wall {wall:.6f} s from the first commit sent to the last reply: "
+        f"{commits / wall:.1f} commits/s through the cluster ({len(acks) / wall:.1f} "
+        f"acknowledged/s) beside phase 4's {main['tps']:.1f} txn/s (ConflictSet alone; no "
+        f"claim); conflict rate {n_conflict / commits:.6f}; host syncs/batch "
+        f"{(eng.host_syncs - syncs0) / n_batches}; batch versions {versions}; commit latency "
+        f"(virtual) p50 {[s.percentile(0.5) for s in lat]} p99 "
+        f"{[s.percentile(0.99) for s in lat]}; read-back {read_s:.6f} s ({len(got)} keys, "
+        f"{pages} pages); card {card}")
+    log(f"{label}: the phase's host seconds: building the requests and the cluster and the "
+        f"first commit {t_first - t_setup:.3f}, the waves {wall:.3f}, the read-back "
+        f"{read_s:.3f}, the replay and checks {wall_now() - t_checks - t_mirror:.3f}, "
+        f"mirror_check {t_mirror:.3f}")
+    for w, (wl, row) in enumerate(zip(walls, split)):
+        log(f"{label}: wave {w}: wall {wl:.6f} s; the proxies' phase spans (summed over both "
+            f"proxies' batches) get_version {row['get_version']:.6f} resolution "
+            f"{row['resolution']:.6f} log_push {row['log_push']:.6f} reply {row['reply']:.6f} "
+            f"s; inside the conflict set {row['set']:.6f} s (share {row['set'] / wl:.4f}); "
+            f"the storage's apply {row['apply']:.6f} s; GRV {grvs[w]}, read at "
+            f"{grvs[max(w - 1, 0)]}")
+    del reqs, outcomes, resolves, pushes, c, cs, host
+    gc.collect()
+    return launches, n_batches, empty
+
+
+def clusters_vs_cpu(torch, api, ecpu, spans, trace, fr):
+    """Phase 6k: commit_script through the port's SimCluster(n_proxies=2,
+    n_resolvers=2, n_tlogs=2, buggify=True) with resolver 0's set a
+    ConflictSet at the CPU differential's shape (key_words 3, h_cap 1,024,
+    bucket_mins (32, 128, 64); the script's keys reach 12 bytes) at
+    CLUSTER_VS_CPU_DEPTHS, on cuda and on cpu (resolver 1 builds its own
+    set on the same device), each on fresh port hubs and a fresh loop of
+    one seed: every reply and its virtual time, the storage, the tlogs,
+    every role's registry snapshot and each resolver's conflict_witness and
+    set state equal on the two devices.  Only CLUSTER_VS_CPU_TAIL_DEPTH runs
+    the script's too-old tail."""
+    from foundationdb_tpu_torch.client import types
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import interfaces as itf
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    from foundationdb_tpu_torch.metrics import wall_now
+
+    n_conflicts, n_replies, secs = 0, 0, {}
+    for depth in CLUSTER_VS_CPU_DEPTHS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            t0 = wall_now()
+            cs = api.ConflictSet(key_words=3, h_cap=1 << 10, bucket_mins=(32, 128, 64),
+                                 pipeline_depth=depth, device=device)
+            hubs = PortHubs(spans, trace, fr)
+            try:
+                c = SimCluster(seed=41, conflict_set=cs, n_proxies=2, n_resolvers=2,
+                               n_tlogs=2, buggify=True, device=device)
+                runs[device] = cluster_record(c, types, itf, lambda s: set_state(ecpu, s),
+                                              too_old=depth == CLUSTER_VS_CPU_TAIL_DEPTH)
+            finally:
+                hubs.restore()
+                el.set_event_loop(None)
+            secs[(depth, device)] = round(wall_now() - t0, 3)
+        if runs["cuda"] != runs["cpu"]:
+            which = [k for k in runs["cpu"] if runs["cuda"][k] != runs["cpu"][k]]
+            raise AssertionError(f"cluster depth {depth}: cuda and cpu differ in {which}")
+        n_conflicts += sum(1 for r in runs["cuda"]["replies"]
+                           if r[2] == "error" and r[3] == "not_committed")
+        n_replies += len(runs["cuda"]["replies"])
+    log(f"cluster vs cpu: commit_script ({n_replies} replies, {n_conflicts} not_committed "
+        f"in all) through SimCluster(n_proxies=2, n_resolvers=2, n_tlogs=2, buggify=True) "
+        f"at depths {CLUSTER_VS_CPU_DEPTHS} (the too-old tail at depth "
+        f"{CLUSTER_VS_CPU_TAIL_DEPTH}): replies and their virtual times, "
+        f"storage, tlogs, registries, witnesses and set state equal on cuda and cpu; host "
+        f"seconds a run {secs}; card {torch.cuda.get_device_name(0)}")
 
 
 def guard_vs_cpu(torch, api, T, faults, hotpath):
@@ -4014,8 +4634,12 @@ def main(argv) -> int:
     phase_done("4v")
     # 4q. the Resolver role over phase 4's state and timed batches
     launches_resolver = resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main)
-    del main["warm_snapshot"]
     phase_done("4q")
+    # 4k. the commit path through the port's SimCluster over the same state
+    launches_cluster, batches_cluster, empty_cluster = cluster_path(
+        torch, api, ecpu, tk, spans, trace, fr, batches, main)
+    del main["warm_snapshot"]
+    phase_done("4k")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
         run = main_path(torch, api, batches, tk, rq, et, profile, mode=mode, want=main)
@@ -4052,6 +4676,8 @@ def main(argv) -> int:
     phase_done("6v")
     roles_vs_cpu(torch, api, T, spans, trace, fr)
     phase_done("6q")
+    clusters_vs_cpu(torch, api, ecpu, spans, trace, fr)
+    phase_done("6k")
     # 6d. two runs of one stream on the card give equal records
     determinism_path(torch, api, tk, spans, trace, fr, batches)
     phase_done("6d")
@@ -4083,6 +4709,8 @@ def main(argv) -> int:
              launches_resharded=launches_resharded[r["name"]],
              launches_chaos=launches_chaos[r["name"]],
              launches_resolver=launches_resolver[r["name"]],
+             launches_cluster=launches_cluster[r["name"]],
+             batches_cluster=batches_cluster, empty_batches_cluster=empty_cluster,
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

@@ -1,5 +1,6 @@
-"""The port's client-side wire types (``types``)."""
+"""The port's client-side wire types (``types``) and atomic-operation
+semantics (``atomic``)."""
 
-from .types import Mutation, MutationType
+from .types import CommitTransactionRef, Mutation, MutationType
 
-__all__ = ["Mutation", "MutationType"]
+__all__ = ["CommitTransactionRef", "Mutation", "MutationType"]

@@ -1,15 +1,49 @@
-"""Orphaned-wait scan: tasks parked on a promise nobody holds any more.
+"""Simulation-only invariant recorder and the orphaned-wait scan.
 
-The part of the reference package's ``flow/sim_validation.py`` the event
-loop calls (``orphaned_waits``, which names such tasks when a loop runs
-dry awaiting a future).  It sees promises only while
-``future.track_promise_refs(True)`` is on; otherwise it finds nothing.
+The port's copy of the reference package's ``flow/sim_validation.py``
+(modelled on fdbrpc/sim_validation.{h,cpp}): roles record monotone
+promises (``mark_at_least``: "commits through V were acknowledged") that
+the simulation later checks (``expect_at_least``); the state hangs off the
+event loop, so two simulated clusters in one process do not interfere.
+``orphaned_waits`` names tasks parked on a promise nobody holds any more
+(the event loop calls it when a loop runs dry awaiting a future).  It sees
+promises only while ``future.track_promise_refs(True)`` is on; otherwise
+it finds nothing.
 """
 
 from __future__ import annotations
 
 import gc
 from typing import List, Tuple
+
+
+def _state(loop) -> dict:
+    st = getattr(loop, "_sim_validation", None)
+    if st is None:
+        st = loop._sim_validation = {}
+    return st
+
+
+def mark_at_least(loop, key: str, value: int):
+    """Record a monotone promise, e.g. 'commits through V were acked'."""
+    st = _state(loop)
+    if value > st.get(key, -(1 << 62)):
+        st[key] = value
+
+
+def marked(loop, key: str) -> int:
+    return _state(loop).get(key, -(1 << 62))
+
+
+def expect_at_least(loop, key: str, value: int, context: str = ""):
+    """The checking side: `value` must cover every marked promise (e.g. a
+    recovery's epoch cut must not truncate below an acked commit)."""
+    m = _state(loop).get(key, None)
+    if m is not None and value < m:
+        raise AssertionError(
+            f"sim_validation: {key} promised {m} but observed {value}"
+            + (f" ({context})" if context else "")
+        )
 
 
 def orphaned_waits(loop) -> List[Tuple[str, str]]:

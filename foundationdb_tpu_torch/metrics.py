@@ -1,9 +1,9 @@
 """Counters, gauges, histograms and a wall-clock namespace for one subsystem.
 
 The port's own copy of the reference package's ``flow/metrics.py`` (with
-``ContinuousSample`` from its ``flow/stats.py``): named counters, gauges
-and histograms, read back as one ``snapshot()`` dict of the shape the
-time-series sampler and status surfaces read (``{"name", ["time"],
+``ContinuousSample`` and ``CounterCollection`` from its ``flow/stats.py``,
+whose counters a registry may ``adopt``): named counters, gauges and
+histograms, read back as one ``snapshot()`` dict (``{"name", ["time"],
 "counters", "gauges", "histograms"}``), and ``emit_metrics``, the actor
 that traces a registry periodically.  A histogram keeps exact aggregates
 (count, sum, mean, min, max); a registry built with an ``rng`` (an event
@@ -113,6 +113,35 @@ class ContinuousSample:
         s = sorted(self.samples)
         return s[min(len(s) - 1, int(p * len(s)))]
 
+    def summary(self) -> dict:
+        """The status document's latency shape."""
+        return {
+            "count": self.n,
+            "min": self._min,
+            "median": self.percentile(0.5),
+            "p90": self.percentile(0.90),
+            "p99": self.percentile(0.99),
+            "max": self._max,
+        }
+
+
+class CounterCollection:
+    """A role's named counters (flow/Stats.h's CounterCollection), which
+    its registry adopts."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.counters: Dict[str, Counter] = {}
+
+    def counter(self, name: str) -> Counter:
+        c = self.counters.get(name)
+        if c is None:
+            c = self.counters[name] = Counter(name)
+        return c
+
+    def add(self, name: str, n: int = 1) -> None:
+        self.counter(name).add(n)
+
 
 class BoundedHistogram:
     """Exact aggregates of a stream of values and, with an ``rng``, a
@@ -170,6 +199,14 @@ class MetricsRegistry:
         if c is None:
             c = self.counters[name] = Counter(name)
         return c
+
+    def adopt(self, counter: Counter) -> Counter:
+        """Register an existing Counter (a role's CounterCollection's) under
+        its own name, so both surfaces read one value.  The adopter must be
+        the counter's only rate emitter (``rate_since_last`` resets a
+        shared baseline)."""
+        self.counters[counter.name] = counter
+        return counter
 
     def gauge(self, name: str) -> Gauge:
         g = self.gauges.get(name)

@@ -1,7 +1,14 @@
-"""The port's server roles: the Resolver (``resolver``), its request and
-reply types (``interfaces``) and its shard balancer
-(``resolver_balancer``)."""
+"""The port's server roles: the commit path's ``Sequencer``, ``Proxy``,
+``Resolver``, ``TLog`` and ``StorageServer``, wired together by
+``cluster.SimCluster``; their request and reply types (``interfaces``),
+the system keyspace (``system_keys``), tag placement (``log_system``) and
+the resolver's shard balancer (``resolver_balancer``)."""
 
+from .cluster import SimCluster
+from .proxy import Proxy
 from .resolver import Resolver
+from .sequencer import Sequencer
+from .storage import StorageServer
+from .tlog import TLog
 
-__all__ = ["Resolver"]
+__all__ = ["Proxy", "Resolver", "Sequencer", "SimCluster", "StorageServer", "TLog"]

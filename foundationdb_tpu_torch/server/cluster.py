@@ -1,0 +1,157 @@
+"""Single-generation simulated cluster: the commit path end to end.
+
+The port's own copy of the reference package's ``server/cluster.py``
+(the role wiring worker.actor.cpp does from Initialize*Requests after
+master recovery): a sequencer, commit proxies, resolvers, tlogs and
+storage servers on one SimNetwork.  ``SimCluster`` sets the port's
+current event loop and the port's buggify switch, never the reference
+package's.
+
+The resolvers' conflict sets are on the card: ``SimCluster()`` builds
+every resolver's set with ``ConflictSet(backend="torch")`` and raises
+where no card is visible.  ``device="cpu"`` runs the same engine with the
+kernels' plain twins, and ``conflict_backend="cpu"`` the host engine.
+``conflict_set`` is resolver 0's set; the others build their own.
+
+Not ported yet: ``durable=True`` (the fileio layer) raises
+NotImplementedError; the client's ``database()``, ``resolver_balancer()``,
+``data_distributor()`` and ``dd_role()`` wait for the client and data
+distribution roles, so a caller drives the cluster through the roles'
+request streams (``proxy.interface().commit``, ``.get_consistent_read_
+version``, ``storage.interface().get_value``, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..flow.eventloop import EventLoop, set_event_loop
+from ..rpc.network import SimNetwork
+from .proxy import Proxy
+from .resolver import Resolver
+from .sequencer import Sequencer
+from .storage import StorageServer
+from .tlog import TLog
+
+
+def even_split_keys(n_resolvers: int) -> list:
+    """n-1 single-byte split points partitioning the key space evenly (ref:
+    the initial keyResolvers split)."""
+    return [bytes([256 * i // n_resolvers]) for i in range(1, n_resolvers)]
+
+
+class SimCluster:
+    def __init__(
+        self,
+        seed: int = 1,
+        conflict_backend: str = "torch",
+        conflict_set=None,
+        loop: Optional[EventLoop] = None,
+        durable: bool = False,
+        n_resolvers: int = 1,
+        n_storages: int = 1,
+        n_tlogs: int = 1,
+        n_proxies: int = 1,
+        buggify: bool = True,
+        n_satellite_tlogs: int = 0,  # extra logs carrying EVERY tag,
+        # synchronously in the commit ack set (ref: satellite TLogs;
+        # the remote region's zero-loss recovery source)
+        device=None,
+    ):
+        if durable:
+            raise NotImplementedError(
+                "SimCluster(durable=True) needs the port's fileio layer "
+                "(disk queue, storage engine), which is not ported yet"
+            )
+        if conflict_backend != "cpu" and (conflict_set is None or n_resolvers > 1):
+            # A resolver will build its set on `device`: fail before any
+            # role spawns an actor (None is the card, raising without one).
+            from ..device import resolve_device
+
+            resolve_device(device)
+        self.loop = loop or EventLoop(seed=seed)
+        set_event_loop(self.loop)
+        # Simulation buggifies by default, like the reference (flow/flow.h
+        # :60-67: BUGGIFY only fires under the simulator).
+        from ..flow.buggify import set_buggify_enabled
+
+        set_buggify_enabled(buggify, self.loop.rng)
+        self.net = SimNetwork(self.loop)
+        self.conflict_backend = conflict_backend
+        self._conflict_set = conflict_set
+        self.device = device
+        self.durable = durable
+        self.master_proc = self.net.process("master")
+        self.resolver_procs = [
+            self.net.process(f"resolver{i}" if i else "resolver")
+            for i in range(n_resolvers)
+        ]
+        self.resolver_proc = self.resolver_procs[0]
+        self.n_satellite_tlogs = n_satellite_tlogs
+        self.tlog_procs = [
+            self.net.process(f"tlog{i}" if i else "tlog")
+            for i in range(n_tlogs)
+        ] + [
+            # Satellites on their own machines (a different DC in spirit;
+            # the sim fabric treats machines uniformly).
+            self.net.process(f"satlog{i}")
+            for i in range(n_satellite_tlogs)
+        ]
+        self.tlog_proc = self.tlog_procs[0]
+        self.storage_procs = [
+            self.net.process(f"storage{i}" if i else "storage")
+            for i in range(n_storages)
+        ]
+        self.storage_proc = self.storage_procs[0]
+        self.proxy_procs = [
+            self.net.process(f"proxy{i}" if i else "proxy")
+            for i in range(n_proxies)
+        ]
+        self.proxy_proc = self.proxy_procs[0]
+        self.split_keys = even_split_keys(n_resolvers)
+
+        self.sequencer = Sequencer(self.master_proc)
+        self.resolvers = [
+            Resolver(
+                p,
+                backend=conflict_backend,
+                conflict_set=conflict_set if i == 0 else None,
+                n_proxies=n_proxies,
+                device=device,
+            )
+            for i, p in enumerate(self.resolver_procs)
+        ]
+        self.resolver = self.resolvers[0]
+        self.tlogs = [TLog(p) for p in self.tlog_procs]
+        self.tlog = self.tlogs[0]
+        tlog_ifaces = [t.interface() for t in self.tlogs]
+        # Storage 0 owns everything at bootstrap (including the \xff
+        # system keyspace).
+        self.storages = [
+            StorageServer(
+                p,
+                tlog_ifaces,
+                storage_id=f"ss{i}",
+                owned_all=(i == 0),
+                n_route_logs=n_tlogs,  # satellites excluded from placement
+            )
+            for i, p in enumerate(self.storage_procs)
+        ]
+        self.storage = self.storages[0]
+        self.proxies = [
+            Proxy(
+                p,
+                self.sequencer.interface(),
+                [r.interface() for r in self.resolvers],
+                tlog_ifaces,
+                resolver_split_keys=self.split_keys,
+                proxy_id=f"proxy{i}",
+                n_proxies=n_proxies,
+                n_satellites=n_satellite_tlogs,
+            )
+            for i, p in enumerate(self.proxy_procs)
+        ]
+        self.proxy = self.proxies[0]
+
+    def run_until(self, future, timeout_vt: float = 1000.0):
+        return self.loop.run_until(future, timeout_vt=timeout_vt)

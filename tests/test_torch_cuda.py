@@ -1206,3 +1206,43 @@ def test_resolver_role_on_the_card_matches_the_cpu(dev, depth):
     cuda = _role_replies("cuda", depth)
     assert cuda == _role_replies("cpu", depth)
     assert cuda[2] == 1 and any(r[4] for r in cuda[0])
+
+
+def _cluster_record(device, depth):
+    """chip_smoke's commit_script through the port's SimCluster at the CPU
+    differential's shape (tests/test_torch_cluster.py), resolver 0 over a
+    ConflictSet at `depth` on `device`."""
+    from foundationdb_tpu_torch.client import types
+    from foundationdb_tpu_torch.conflict import engine_cpu as ecpu
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import interfaces as itf
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    smoke = _chip_smoke()
+    cs = ConflictSet(device=device, pipeline_depth=depth, key_words=3,
+                     bucket_mins=(32, 128, 64), h_cap=1 << 10)
+    try:
+        c = SimCluster(seed=5, conflict_set=cs, n_proxies=2, n_tlogs=2, buggify=False,
+                       device=device)
+        return smoke.cluster_record(c, types, itf, lambda s: smoke.set_state(ecpu, s))
+    finally:
+        el.set_event_loop(None)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_commit_path_on_the_card_matches_the_cpu(dev, depth):
+    """SimCluster() builds every resolver's set on the card, and the commit
+    script gives the same replies, virtual times, logs, storage, registries
+    and resolver state on cuda as on cpu."""
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    try:
+        c = SimCluster(seed=1, n_resolvers=2, buggify=False)
+        assert all(r.conflicts._dev.device.type == "cuda" for r in c.resolvers)
+    finally:
+        el.set_event_loop(None)
+    cuda = _cluster_record("cuda", depth)
+    assert cuda == _cluster_record("cpu", depth)
+    assert any(r[2] == "error" and r[3] == "not_committed" for r in cuda["replies"])
