@@ -196,8 +196,28 @@ seconds (`phase <name>: ...`):
                wave's wall by the proxies' phase spans, the conflict
                set's and the storage apply's share, the read-back, host
                syncs a batch, the conflict rate and the batch versions
-  4w. witness-free  phase 4's stream, seed and scale through ConflictSet(
-               witness=False): every batch's verdicts equal phase 4's and
+  4n. client   the client on 4k's cluster and set, right after 4k's
+               waves: clients from c.database() run the Cycle workload on a
+               ring of 4,096 nodes (keys b"c/%04d", 6 bytes: 4k's key_words=2
+               set takes 8), loaded by 64 transactions that read every key
+               they set (so the client adds no 14-byte self-conflict key),
+               then 1,024 actors x 2 read-modify-write ops, once from
+               Database(witness_retry=False) and once from
+               Database(witness_retry=True), each followed by the ring's
+               check.  Every resolve request replayed through 4k's host
+               CpuConflictSet gives the same verdicts and witnesses; in the
+               load and in each arm each kernel launches once a resolve
+               batch, every batch is a device dispatch, and no fault,
+               degraded batch or fallback happens and no batch meets the
+               long-key side table.  Prints for each arm the commits, not_committed,
+               retries and witness_hint_retries, the GRV calls against the
+               proxies' GRV requests, the resolve batches and their sizes,
+               the wall and commits/s beside 4k's and phase 4's (no claim)
+  4w. witness-free  phase 4's timed batches through ConflictSet(
+               witness=False), its mirror from phase 4's state after the
+               warm-up (the device rehydrated from it before the timed
+               batches, as in 4c, 4e and 4t; the warm-up replay was 60-70
+               s of each): every batch's verdicts equal phase 4's and
                every witness is [], decode_witness never runs (a counter
                around it in this script), and phase 4's checks (launches,
                no fallback, mirror_check "ok", no growth).  Prints phase
@@ -206,19 +226,21 @@ seconds (`phase <name>: ...`):
                depth 2): the same checks, 4 note_synced calls and 4 folds
                in the 8 timed batches; prints the mirror apply, fold and
                note_synced ms beside phase 4's
-  4e. amortized  the same stream and seed through ConflictSet(key_words=2,
+  4e. amortized  phase 4's timed batches through ConflictSet(key_words=2,
                h_cap=3,538,944, evict_every=4) at depth 2 (the bench's
-               evict4 arm): every batch's verdicts and witnesses equal
-               phase 4's, one launch of each kernel a batch (8 + 8 in the
-               timed 8), an eviction every 4th batch, mirror_check "ok"
-               (below_window_keys printed), no growth, no CPU fallback.
-               Prints txn/s and the device span of evicting and keeping
-               batches apart
-  4t. tiered   the same stream and seed through ConflictSet(history=
+               evict4 arm), from phase 4's state after the warm-up as 4w:
+               every batch's verdicts and witnesses
+               equal phase 4's, one launch of each kernel a batch (8 + 8
+               in the timed 8), an eviction every 4th batch, mirror_check
+               "ok" (below_window_keys printed), no growth, no CPU
+               fallback.  Prints txn/s and the device span of evicting and
+               keeping batches apart
+  4t. tiered   phase 4's timed batches through ConflictSet(history=
                "tiered", evict_every=4, delta_cap=655,360, h_cap=3,538,944)
-               at depth 2 (the bench's tiered4 settings): every batch's
-               verdicts and witnesses equal phase 4's; compactions on
-               batches 4, 8, ... 60, so in the 8 timed batches the search
+               at depth 2 (the bench's tiered4 settings), from phase 4's
+               state after the warm-up as 4e: every batch's verdicts and
+               witnesses equal phase 4's; compactions on the 4th and 8th
+               timed batches (phase 4's 55 and 59), so the search
                launches 16 times and the merge 10 (8 delta merges, 2
                compactions); mirror_check "ok", no merge order fault, no
                CPU fallback, no growth.  Prints txn/s, the device span of
@@ -345,6 +367,22 @@ seconds (`phase <name>: ...`):
                time, the
                sequencer, tlogs, storage window, every role's registry
                snapshot and each resolver's witness block and state equal
+  6n. client vs cpu  one client script through SimCluster(n_resolvers=2,
+               n_proxies=2, buggify=True) at depths 1-3 on cuda and on cpu,
+               every resolver over ConflictSet(key_words=4, h_cap=1,024):
+               a ResolverBalancer(min_ops=10, ratio=1.2) round every 0.15 s
+               beside run_workloads of Cycle (the reference's own setup,
+               whose blind writes carry 14-byte self-conflict keys),
+               AtomicLedger, WriteSkew and LockDatabase (lock and unlock):
+               every read, commit, error and retry with its virtual time,
+               the clients' state, the ring, the balancer's splits and
+               moves, the workloads, the roles' registries and the loop's
+               end equal on the two devices; each ring one cycle, at least
+               one move; on cuda each kernel launched once in every
+               resolve batch and the card served every one (the
+               balancer's 20-byte resolverSplit key, past the card's 16,
+               goes through the long-key side table: those batches are
+               counted, and none is served by the host)
   6d. determinism  two fresh ConflictSets with phase 4's settings over the
                first 4 batches of phase 4's stream, each under fresh port
                hubs on a clock that counts its own reads: verdicts and
@@ -390,7 +428,9 @@ seconds (`phase <name>: ...`):
                launches_resolver: phase 4q's 2 requests;
                launches_cluster: phase 4k's, over its batches_cluster
                resolve batches, empty_batches_cluster of them empty (an
-               empty batch launches both kernels too); tiered and
+               empty batch launches both kernels too); launches_client:
+               phase 4n's (the ring's load and both arms), over its
+               batches_client resolve batches; tiered and
                sharded: those shapes' times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
@@ -1267,7 +1307,7 @@ def path_mode(mode: str):
 
 
 def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=None,
-              obs=None):
+              obs=None, warm_from=None, ecpu=None):
     """The bench stream through ConflictSet at depth 2, as a Resolver
     serves it, in one of path_mode's modes, on the bench stream's
     `batches` (bench_batches).  Every mode but the flat one must give
@@ -1277,7 +1317,11 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
     digest (verdicts and witness) and verdict digest, the set, the 4
     extra batches, and the stats its log line prints.  With `obs` (the
     spans, trace and flight_recorder modules), the timed batches are phase
-    4o's (SpanArms)."""
+    4o's (SpanArms).  With `warm_from` (phase 4's mirror snapshot after its
+    warm-up; `ecpu` the engine_cpu module) the set's mirror starts from it
+    and the device rehydrates from it before the timed batches, in place
+    of the WARM warm-up batches (a depth cut: phase 4's batches 52-59
+    still meet a full window)."""
     depth = 2
     tiered, amortized = mode == "tiered", mode == "amortized"
     label, settings = path_mode(mode)
@@ -1300,13 +1344,25 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
         last[0] = st
 
     stream = [(batches[i], i + WINDOW, i) for i in range(WARM + TIMED + 4)]
+    n_warm = 0 if warm_from is not None else WARM
     decodes = DecodeCalls(et)
     try:
         t0 = time.perf_counter()
-        drive(cs, stream[:WARM], depth, sink=sink)
-        torch.cuda.synchronize()
-        log(f"{label}: {WARM} warm-up batches through ConflictSet in "
-            f"{time.perf_counter() - t0:.3f} s, boundaries (bound) {eng.boundary_count_bound}")
+        if warm_from is not None:
+            cs._cpu = ecpu.engine_from_handoff([(warm_from, b"", None)],
+                                               warm_from.oldest_version, key_words=KEY_WORDS)
+            cs._cpu.coalesce_window = window
+            cs._rehydrate_from_mirror()  # what the first dispatch would do, before the clock
+            torch.cuda.synchronize()
+            log(f"{label}: from phase 4's state after its {WARM} warm-up batches "
+                f"({warm_from.boundary_count} keys, rehydrated onto the card) in "
+                f"{time.perf_counter() - t0:.3f} s")
+        else:
+            drive(cs, stream[:WARM], depth, sink=sink)
+            torch.cuda.synchronize()
+            log(f"{label}: {WARM} warm-up batches through ConflictSet in "
+                f"{time.perf_counter() - t0:.3f} s, boundaries (bound) "
+                f"{eng.boundary_count_bound}")
         # The mirror at the end of the warm-up (drained, so current): phase
         # 4v starts its sets from it.
         warm_snapshot = cs._cpu.snapshot() if mode == "flat" else None
@@ -1346,12 +1402,12 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
     if (eng.h_cap, eng.d_cap) != caps0:
         raise AssertionError(f"{label}: history grew from (h_cap, d_cap) {caps0} to "
                              f"{(eng.h_cap, eng.d_cap)}")
-    if len(pairs) != WARM + TIMED:
-        raise AssertionError(f"{label}: {len(pairs)} batches answered of {WARM + TIMED}")
+    if len(pairs) != n_warm + TIMED:
+        raise AssertionError(f"{label}: {len(pairs)} batches answered of {n_warm + TIMED}")
     digests = [d for d, _v, _e in pairs]
     verdicts = [v for _d, v, _e in pairs]
     if witness:
-        if any(n != PER_BATCH for _d, _v, n in pairs[WARM:]):
+        if any(n != PER_BATCH for _d, _v, n in pairs[n_warm:]):
             raise AssertionError(f"{label}: a timed batch came back without its witness")
         if n_decodes != TIMED:
             raise AssertionError(f"{label}: decode_witness ran {n_decodes} times in {TIMED} "
@@ -1364,31 +1420,34 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
                                  f"witness off")
     if want is not None:
         mine, theirs = (digests, want["digests"]) if witness else (verdicts, want["verdicts"])
+        theirs = theirs[WARM - n_warm : WARM + TIMED]
         if mine != theirs:
             first = next(i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b)
-            raise AssertionError(f"{label}: batch {first}'s verdicts or witnesses differ from "
-                                 f"the flat path's")
+            raise AssertionError(f"{label}: batch {first + WARM - n_warm}'s verdicts or "
+                                 f"witnesses differ from the flat path's")
     counters = m.snapshot()["counters"]
     for name in ("device_faults", "breaker_opens", "degraded_batches", "cpu_fallback_txns",
                  "pipeline_replayed_batches"):
         if counters[name] != 0:
             raise AssertionError(f"{label}: {name} = {counters[name]}")
-    if counters["pipeline_dispatches"] != WARM + TIMED:
+    if counters["pipeline_dispatches"] != n_warm + TIMED:
         raise AssertionError(f"{label}: pipeline_dispatches {counters['pipeline_dispatches']} "
-                             f"!= {WARM + TIMED} batches submitted")
-    if tiered and counters["major_compactions"] != (WARM + TIMED) // EVICT_EVERY:
+                             f"!= {n_warm + TIMED} batches submitted")
+    if tiered and counters["major_compactions"] != (n_warm + TIMED) // EVICT_EVERY:
         raise AssertionError(f"{label}: {counters['major_compactions']} compactions in "
-                             f"{WARM + TIMED} batches")
+                             f"{n_warm + TIMED} batches")
     if amortized and len(major_ms) != TIMED // EVICT_EVERY:
         raise AssertionError(f"{label}: {len(major_ms)} evicting batches in the {TIMED} timed")
     wall = m.snapshot(include_wall=True)["wall"]
 
     def wall_ms(name, samples):
-        n = wall[name]["count"] - wall0[name]["count"]
+        # A set started from phase 4's state has timed nothing before.
+        w0 = wall0.get(name, {"count": 0, "seconds": 0.0})
+        n = wall[name]["count"] - w0["count"]
         if n != samples:
             raise AssertionError(f"{label}: {name}: {n} samples in {TIMED} timed batches, "
                                  f"expected {samples}")
-        return (wall[name]["seconds"] - wall0[name]["seconds"]) * 1e3
+        return (wall[name]["seconds"] - w0["seconds"]) * 1e3
 
     apply_ms = wall_ms("mirror_apply_seconds", TIMED) / TIMED
     # The synced point moves once a fold: every batch, or every K-th one
@@ -3817,7 +3876,9 @@ def cluster_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
     proxies' phase spans, the conflict set's share of it, the storage's
     apply and the read-back, host syncs a batch, the conflict rate, the
     batch versions and the commit latency p50/p99 (virtual).  Returns the
-    launches of the non-empty batches."""
+    launches, the resolve batches, the empty ones among them and what
+    phase 4n goes on with: the cluster, its set and engine, the host
+    replay (a Replay past every batch so far) and 4k's commits/s."""
     import dataclasses
     import struct
 
@@ -3944,19 +4005,16 @@ def cluster_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
     t_checks = wall_now()
 
     # Verdicts: the served requests replayed on the host from the snapshot.
-    served = sorted(resolves, key=lambda rf: rf[0].version)
     window = c.resolver.max_write_transaction_life_versions
-    host = ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
-                                    key_words=KEY_WORDS)
+    rp = Replay(ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
+                                         key_words=KEY_WORDS), window)
+    rp.log = resolves
+    served = rp.replay(label)
+    if len(served) != len(resolves):
+        raise AssertionError(f"{label}: {len(resolves) - len(served)} resolve requests "
+                             f"unanswered")
     nonempty = [(q, f.get()) for q, f in served if q.transactions]
     empty = len(served) - len(nonempty)
-    for q, f in served:
-        rep = f.get()
-        st = host.detect(q.transactions, q.version, q.version - window)
-        if digest(rep.committed, rep.witnesses) != digest(st, list(host.last_witness)):
-            raise AssertionError(f"{label}: batch at version {q.version} ({len(q.transactions)} "
-                                 f"txns from {q.proxy_id}): verdicts or witnesses differ from "
-                                 f"the host set's")
     sizes = sorted(len(q.transactions) for q, _r in nonempty)
     if sizes != [1] + [half] * (2 * CLUSTER_WAVES):
         raise AssertionError(f"{label}: batch sizes {sizes}, expected one of 1 and "
@@ -4084,9 +4142,11 @@ def cluster_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
             f"s; inside the conflict set {row['set']:.6f} s (share {row['set'] / wl:.4f}); "
             f"the storage's apply {row['apply']:.6f} s; GRV {grvs[w]}, read at "
             f"{grvs[max(w - 1, 0)]}")
-    del reqs, outcomes, resolves, pushes, c, cs, host
+    # Phase 4n goes on from here: the cluster, its set and the host replay.
+    run = dict(cluster=c, set=cs, engine=eng, replay=rp, commits_per_s=commits / wall)
+    del reqs, outcomes, pushes
     gc.collect()
-    return launches, n_batches, empty
+    return launches, n_batches, empty, run
 
 
 def clusters_vs_cpu(torch, api, ecpu, spans, trace, fr):
@@ -4136,6 +4196,490 @@ def clusters_vs_cpu(torch, api, ecpu, spans, trace, fr):
         f"{CLUSTER_VS_CPU_TAIL_DEPTH}): replies and their virtual times, "
         f"storage, tlogs, registries, witnesses and set state equal on cuda and cpu; host "
         f"seconds a run {secs}; card {torch.cuda.get_device_name(0)}")
+
+
+# ---------------------------------------------------------------------------
+# phases 4n and 6n: the client (Database, Transaction) on the port's cluster
+# ---------------------------------------------------------------------------
+
+# Phase 4n's ring: CLIENT_NODES nodes under b"c/%04d" (6-byte keys, 7 with
+# key_after, inside the 8 bytes of 4k's key_words=2 set), loaded by
+# CLIENT_LOAD_TXNS transactions that read every key they set (so the client
+# adds no self-conflict key), then CLIENT_ACTORS actors of CLIENT_OPS Cycle
+# operations each, once with witness_retry off and once on.  Two ops, not
+# eight: at eight 4n took 106.2 s on an NVIDIA H100 80GB HBM3's host (the
+# arms 44.3 and 37.2 s, 554 resolve batches), above its 45 s, so the ops
+# were halved twice.
+CLIENT_NODES = 4096
+CLIENT_ACTORS = 1024
+CLIENT_OPS = 2
+CLIENT_LOAD_TXNS = 64
+CLIENT_PREFIX = b"c/"
+# Phase 6n's pipeline depths and its sets' shape: the Resolver's default
+# key_words=4, so the client's 14-byte self-conflict keys fit the card, at
+# the CPU differential's h_cap.  Its script's sizes (client_script) were
+# cut by a third after 21.9 s on an NVIDIA H100 80GB HBM3's host, above
+# the phase's 15 s.
+CLIENT_VS_CPU_DEPTHS = (1, 2, 3)
+CLIENT_SET_KW = dict(key_words=4, h_cap=1 << 10, bucket_mins=(32, 128, 64))
+
+
+class ClientLog:
+    """Every point read, range read, commit and retry of one package's
+    client: wraps the Transaction class of `txmod` (its get, get_range,
+    commit and on_error; remove() restores them).  `counts` counts each
+    call by (method, outcome); with `record`, `events` also holds each as
+    (method, virtual time, client process, arguments, outcome...), payloads
+    through norm() and errors as ("error", name, detail); on_error's
+    outcome is the retry count before it and the read version it left
+    (a witness hint seeds it)."""
+
+    def __init__(self, txmod, record=True):
+        T = txmod.Transaction
+        self.T, self.record, self.events, self.counts = T, record, [], {}
+        self.saved = {n: T.__dict__[n] for n in ("get", "get_range", "commit", "on_error")}
+        for name, args in (("get", lambda a, kw: (a, kw)),
+                           ("get_range", lambda a, kw: (a, kw)),
+                           ("commit", lambda a, kw: ())):
+            setattr(T, name, self._wrap(name, args))
+        setattr(T, "on_error", self._on_error())
+
+    def emit(self, tr, method, outcome, *rest):
+        key = (method, outcome)
+        self.counts[key] = self.counts.get(key, 0) + 1
+        if self.record:
+            proc = tr.db.process
+            self.events.append((method, proc.network.loop.now(), proc.name)
+                               + tuple(norm(x) for x in rest))
+
+    def _wrap(self, name, args):
+        inner, log = self.saved[name], self
+
+        async def call(tr, *a, **kw):
+            try:
+                v = await inner(tr, *a, **kw)
+            except Exception as e:  # noqa: BLE001 - the client's FdbError, re-raised
+                if getattr(e, "name", None) is None:
+                    raise
+                log.emit(tr, name, e.name, args(a, kw), "error", e.name, e.detail)
+                raise
+            log.emit(tr, name, "ok", args(a, kw), v)
+            return v
+
+        return call
+
+    def _on_error(self):
+        inner, log = self.saved["on_error"], self
+
+        async def on_error(tr, e):
+            retries = tr._retries
+            try:
+                await inner(tr, e)
+            except Exception:  # noqa: BLE001 - not retryable: re-raised
+                log.emit(tr, "on_error", "raised", e.name, e.detail, retries)
+                raise
+            log.emit(tr, "on_error", e.name, e.name, e.detail, retries, tr._read_version)
+
+        return on_error
+
+    def remove(self):
+        for name, fn in self.saved.items():
+            setattr(self.T, name, fn)
+
+
+def client_state(dbs) -> list:
+    """Each client's state after a run: its process, witness_hint_retries,
+    latency samples, round-robin counters, GRV lanes, location cache (the
+    teams by storage id) and queue model."""
+
+    def team(v):
+        return v if v is None else tuple(getattr(i, "storage_id", "") for i in v)
+
+    return [(db.process.name, db.witness_hint_retries,
+             {k: s.summary() for k, s in db.latency_samples.items()},
+             sorted(db._proxy_rr.items()), sorted(db._grv_lanes),
+             [(b, e, team(v)) for b, e, v in db._loc_cache.items()],
+             sorted(db.queue_model._latency.items()), sorted(db.queue_model._penalty.items()))
+            for db in dbs]
+
+
+@contextlib.contextmanager
+def resolver_sets(cluster_mod, make_set):
+    """While open, every Resolver the SimCluster of `cluster_mod` builds
+    without a conflict set of its own gets `make_set()`."""
+    base = cluster_mod.Resolver
+
+    class Resolver(base):
+        def __init__(self, process, conflict_set=None, **kw):
+            super().__init__(process, conflict_set=conflict_set or make_set(), **kw)
+
+    cluster_mod.Resolver = Resolver
+    try:
+        yield
+    finally:
+        cluster_mod.Resolver = base
+
+
+def tracked_databases(c) -> list:
+    """Every Database `c.database()` makes from now on, in order."""
+    dbs, make = [], c.database
+
+    def database(name="", **kw):
+        db = make(name, **kw)
+        dbs.append(db)
+        return db
+
+    c.database = database
+    return dbs
+
+
+def ring_ok(ring) -> bool:
+    """Following the successors from node 0 visits every node once."""
+    seen, cur = set(), 0
+    for _ in range(len(ring)):
+        if cur in seen:
+            return False
+        seen.add(cur)
+        cur = ring[cur]
+    return cur == 0 and len(seen) == len(ring)
+
+
+def client_script(c, wl):
+    """Phase 6n's client script through a SimCluster `c` (either package's;
+    `wl` is its workloads module): a ResolverBalancer(min_ops=10, ratio=1.2)
+    round every 0.15 s while run_workloads drives a Cycle ring of 8 nodes
+    (its own setup, whose blind writes carry the client's self-conflict
+    keys), an AtomicLedger, WriteSkew rounds and a LockDatabase lock and
+    unlock, all concurrent; then the ring read back.  Returns the balancer,
+    the workloads and the ring's rows."""
+    db = c.database("script")
+    bal = c.resolver_balancer(min_ops=10, ratio=1.2)
+    stop = []
+
+    async def balance():
+        while not stop:
+            await bal.run_once()
+            await c.loop.delay(0.15)
+
+    task = db.process.spawn(balance(), "balancer")
+    loads = [wl.CycleWorkload(nodes=8, ops=4, actors=3), wl.AtomicLedgerWorkload(ops=4),
+             wl.WriteSkewWorkload(rounds=3), wl.LockDatabaseWorkload(at=0.1, hold=0.2)]
+    wl.run_workloads(c, loads)
+    stop.append(True)
+    c.run_until(task, timeout_vt=2000.0)
+    out = {}
+
+    async def read(tr):
+        out["rows"] = await tr.get_range(b"cycle/", b"cycle0")
+
+    c.run_all([(db, db.run(read))])
+    return bal, loads, out["rows"]
+
+
+def client_record(c, wl, txmod) -> dict:
+    """client_script's record through `c`: every read, commit and retry
+    (ClientLog), each client's state, the ring, the balancer's splits and
+    moves, the workloads' own records, the proxies' resolver bounds and
+    registry snapshots, the resolvers' snapshots and witness blocks, the
+    buggify coverage, and the loop's end time with its rng's next draw."""
+    log = ClientLog(txmod)
+    dbs = tracked_databases(c)
+    try:
+        bal, loads, rows = client_script(c, wl)
+    finally:
+        log.remove()
+    return dict(
+        events=log.events,
+        clients=client_state(dbs),
+        ring=[int(v) for _k, v in rows],
+        balancer=(bal.split_keys, bal.moves),
+        workloads=[(w.name, norm({k: v for k, v in vars(w).items()})) for w in loads],
+        proxies=[(p.resolver_bounds, p.locked_uid, p.metrics.snapshot_json()) for p in c.proxies],
+        resolvers=[r.metrics.snapshot_json() for r in c.resolvers],
+        witness=[r.conflict_witness() for r in c.resolvers],
+        coverage=c.buggify_coverage.snapshot_json(),
+        end=(c.loop.now(), c.loop.rng.random_int(0, 1 << 30)),
+    )
+
+
+def long_key_counts(cs) -> dict:
+    """A ConflictSet's long-key counters: the batches that used the
+    long-key side table ("side") and those of them the host served whole
+    ("host"); both are 0 on a set that never met a key past the card's
+    width."""
+    c = cs.device_metrics()["counters"]
+    return dict(side=c.get("long_key_batches", 0), host=c.get("long_key_host_batches", 0))
+
+
+class Replay:
+    """The resolve requests the proxies send (a Recorded log), replayed in
+    version order through a host CpuConflictSet: every served reply's
+    verdicts and witnesses must equal the host's.  replay(label) takes
+    the answered requests not yet replayed, in version order, up to the
+    first unanswered one, and returns them."""
+
+    def __init__(self, host, window):
+        self.host, self.window = host, window
+        self.log, self.done = [], 0
+
+    def replay(self, label):
+        todo = sorted(self.log[self.done:], key=lambda rf: rf[0].version)
+        ready = list(itertools.takewhile(lambda rf: rf[1].is_ready(), todo))
+        for q, f in ready:
+            rep = f.get()
+            st = self.host.detect(q.transactions, q.version, q.version - self.window)
+            if digest(rep.committed, rep.witnesses) != digest(st, list(self.host.last_witness)):
+                raise AssertionError(f"{label}: batch at version {q.version} "
+                                     f"({len(q.transactions)} txns from {q.proxy_id}): verdicts "
+                                     f"or witnesses differ from the host set's")
+        self.log[self.done:] = ready + todo[len(ready):]
+        self.done += len(ready)
+        return ready
+
+
+def client_path(torch, tk, spans, trace, fr, run, main):
+    """Phase 4n: the client on 4k's cluster and set, right after 4k's
+    waves.  A Cycle ring of CLIENT_NODES nodes loaded by CLIENT_LOAD_TXNS
+    transactions that read every key they set, then two arms on the same
+    cluster, one after the other: CycleWorkload(CLIENT_NODES, CLIENT_OPS,
+    CLIENT_ACTORS)'s start from c.database(witness_retry=False), then from
+    c.database(witness_retry=True), each followed by the workload's check.
+    Every resolve request is replayed on 4k's host CpuConflictSet (the
+    verdicts and witnesses equal); in each arm the kernels launch once a
+    resolve batch, every batch is a device dispatch, no fault, degraded
+    batch, fallback or key-width refusal or pin.  Prints for each arm the
+    commits, not_committed, retries and witness_hint_retries, the GRV calls
+    against the GRV requests the proxies saw, the resolve batches and
+    their sizes, the launches, the wall and commits/s beside 4k's and
+    phase 4's (no claim).  Returns the launches and batches of both
+    arms."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.flow.eventloop import all_of
+    from foundationdb_tpu_torch.metrics import wall_now
+
+    label = "client"
+    c, cs, eng, rp = run["cluster"], run["set"], run["engine"], run["replay"]
+    card = torch.cuda.get_device_name(0)
+    loop = c.loop
+    el.set_event_loop(loop)
+    hubs = PortHubs(spans, trace, fr)
+    totals = {"launches": {n: 0 for n in tk.LAUNCHES}, "batches": 0}
+    try:
+        def wait(fut, budget=600.0):
+            return loop.run_until(fut, timeout_vt=loop.now() + budget)
+
+        def settle():
+            """Run the loop until every request sent is answered, then
+            replay them; returns the replayed requests."""
+            for _ in range(1000):
+                if all(f.is_ready() for _q, f in rp.log[rp.done:]):
+                    break
+                wait(loop.delay(0.001))
+            else:
+                raise AssertionError(f"{label}: resolve requests still unanswered")
+            return rp.replay(label)
+
+        def counters():
+            m = cs.device_metrics()["counters"]
+            return dict(launches=dict(tk.LAUNCHES), grv=sum(
+                p.stats.counter("grv_requests").value for p in c.proxies),
+                dispatches=eng.metrics.counter("pipeline_dispatches").value,
+                faults=m["device_faults"], degraded=m["degraded_batches"],
+                fallbacks=eng.cpu_fallbacks, **long_key_counts(cs))
+
+        ring = wl.CycleWorkload(nodes=CLIENT_NODES, ops=CLIENT_OPS, actors=CLIENT_ACTORS,
+                                prefix=CLIENT_PREFIX)
+        loader = c.database("client_loader")
+        keys = [ring._key(i) for i in range(CLIENT_NODES)]
+        chunk = CLIENT_NODES // CLIENT_LOAD_TXNS
+
+        def load(part):
+            async def txn(tr):
+                for i in part:
+                    await tr.get(keys[i])  # the read covers the write
+                    tr.set(keys[i], b"%04d" % ((i + 1) % CLIENT_NODES))
+            return loader.run(txn)
+
+        t0 = wall_now()
+        before = counters()
+        for name in tk.LAUNCHES:
+            tk.LAUNCHES[name] = 0
+        wait(all_of([loader.process.spawn(load(range(j, j + chunk)), "load")
+                     for j in range(0, CLIENT_NODES, chunk)]))
+        loaded = settle()
+        after = counters()
+        load_s = wall_now() - t0
+        check_arm(label, "load", before, after, loaded)
+        for k, v in after["launches"].items():
+            totals["launches"][k] += v
+        totals["batches"] += len(loaded)
+        for arm, hint in (("off", False), ("on", True)):
+            db = c.database(f"client_{arm}", witness_retry=hint)
+            calls = [0]
+            inner = db.batched_read_version
+
+            async def grv(flags, _inner=inner):
+                calls[0] += 1
+                return await _inner(flags)
+
+            db.batched_read_version = grv
+            log_ = ClientLog(txmod, record=False)
+            before = counters()
+            for name in tk.LAUNCHES:
+                tk.LAUNCHES[name] = 0
+            v0 = loop.now()
+            t0 = wall_now()
+            try:
+                wait(db.process.spawn(ring.start(db, c), f"cycle_{arm}"))
+            finally:
+                log_.remove()
+            wall = wall_now() - t0
+            vt = loop.now() - v0
+            t1 = wall_now()
+            ok = wait(db.process.spawn(ring.check(db, c), f"check_{arm}"))
+            check_s = wall_now() - t1
+            if not ok:
+                raise AssertionError(f"{label} {arm}: the ring is no longer one cycle")
+            served = settle()
+            after = counters()
+            check_arm(label, arm, before, after, served)
+            for k, v in after["launches"].items():
+                totals["launches"][k] += v
+            totals["batches"] += len(served)
+            n = log_.counts
+            commits = n.get(("commit", "ok"), 0)
+            if commits != CLIENT_ACTORS * CLIENT_OPS:
+                raise AssertionError(f"{label} {arm}: {commits} commits, counts {n}")
+            retries = sum(v for (m, o), v in n.items() if m == "on_error" and o != "raised")
+            sizes = sorted(len(q.transactions) for q, _f in served)
+            nonempty = [s for s in sizes if s]
+            log(f"{label} {arm}: Database(witness_retry={hint}): {CLIENT_ACTORS} actors x "
+                f"{CLIENT_OPS} Cycle ops on {CLIENT_NODES} nodes: {commits} commits, "
+                f"{n.get(('commit', 'not_committed'), 0)} not_committed, {retries} retries "
+                f"({ {o: v for (m, o), v in sorted(n.items()) if m == 'on_error'} }), "
+                f"witness_hint_retries {db.witness_hint_retries}; GRV calls {calls[0]} against "
+                f"{after['grv'] - before['grv']} GRV requests at the proxies; "
+                f"{len(served)} resolve batches ({len(sizes) - len(nonempty)} empty), sizes "
+                f"min {nonempty[0] if nonempty else 0} median "
+                f"{nonempty[len(nonempty) // 2] if nonempty else 0} max "
+                f"{nonempty[-1] if nonempty else 0}, {sum(sizes)} transactions; launches "
+                f"{after['launches']} = {after['dispatches'] - before['dispatches']} device "
+                f"dispatches = batches; fallbacks, degraded, faults and long-key side-table "
+                f"batches 0; every batch's verdicts and witnesses equal the host "
+                f"replay; the ring one cycle (check {check_s:.3f} s); card {card}")
+            log(f"{label} {arm}: wall {wall:.6f} s ({vt:.6f} s virtual): "
+                f"{commits / wall:.1f} commits/s through the client beside 4k's "
+                f"{run['commits_per_s']:.1f} commits/s and phase 4's {main['tps']:.1f} txn/s "
+                f"(no claim); latency p50/p99 (virtual) grv "
+                f"{db.latency_samples['grv'].percentile(0.5)} / "
+                f"{db.latency_samples['grv'].percentile(0.99)}, commit "
+                f"{db.latency_samples['commit'].percentile(0.5)} / "
+                f"{db.latency_samples['commit'].percentile(0.99)}; card {card}")
+        log(f"{label}: ring load {load_s:.3f} s ({CLIENT_LOAD_TXNS} transactions reading "
+            f"every key they set, {len(loaded)} resolve batches)")
+    finally:
+        hubs.restore()
+        el.set_event_loop(None)
+    return totals
+
+
+def check_arm(label, arm, before, after, served):
+    """One 4n step's device checks: each kernel launched once a resolve
+    batch, every batch a device dispatch, nothing faulted, degraded or fell
+    back, and no key past the card's width met the long-key side table."""
+    n = len(served)
+    if any(v != n for v in after["launches"].values()):
+        raise AssertionError(f"{label} {arm}: launches {after['launches']} in {n} batches")
+    delta = {k: after[k] - before[k] for k in ("dispatches", "faults", "degraded", "fallbacks",
+                                                "side", "host")}
+    if delta != dict(dispatches=n, faults=0, degraded=0, fallbacks=0, side=0, host=0):
+        raise AssertionError(f"{label} {arm}: {n} batches, counters moved {delta}")
+
+
+def clients_vs_cpu(torch, api, tk, spans, trace, fr):
+    """Phase 6n: client_script through the port's SimCluster(n_resolvers=2,
+    n_proxies=2, buggify=True) at CLIENT_VS_CPU_DEPTHS, on cuda and on cpu,
+    every resolver over a ConflictSet of CLIENT_SET_KW at that depth, each
+    run on fresh port hubs and a fresh loop of one seed: the records equal
+    on the two devices, the ring a single cycle, the balancer moved at
+    least once; on cuda each kernel launched once in every resolve batch,
+    every one of them served by the card: the balancer's 20-byte
+    \\xff/conf/resolverSplit, above the card's 16, goes through the
+    long-key side table, whose batches are counted.  Returns the launches,
+    the resolve batches and the side-table batches over the cuda runs."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.metrics import wall_now
+    from foundationdb_tpu_torch.server import cluster as cm
+
+    tot = dict(launches={n: 0 for n in tk.LAUNCHES}, device=0, batches=0, side=0)
+    secs, moves, events = {}, [], 0
+    for depth in CLIENT_VS_CPU_DEPTHS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            t0 = wall_now()
+            sets = []
+
+            def make_set():
+                sets.append(api.ConflictSet(device=device, pipeline_depth=depth,
+                                            **CLIENT_SET_KW))
+                return sets[-1]
+
+            hubs = PortHubs(spans, trace, fr)
+            for name in tk.LAUNCHES:
+                tk.LAUNCHES[name] = 0
+            try:
+                with resolver_sets(cm, make_set):
+                    c = cm.SimCluster(seed=43, n_proxies=2, n_resolvers=2, buggify=True,
+                                      device=device)
+                runs[device] = client_record(c, wl, txmod)
+            finally:
+                hubs.restore()
+                el.set_event_loop(None)
+            secs[(depth, device)] = round(wall_now() - t0, 3)
+            if device == "cuda":
+                batches = sum(r.metrics.counter("batches").value for r in c.resolvers)
+                served = sum(s.device_metrics()["counters"]["batches"] for s in sets)
+                longs = [long_key_counts(s) for s in sets]
+                launches = dict(tk.LAUNCHES)
+                if any(v != batches for v in launches.values()) or served != batches:
+                    raise AssertionError(f"client depth {depth}: launches {launches}, "
+                                         f"{served} batches served by the card of {batches}")
+                if any(lk["host"] for lk in longs):
+                    raise AssertionError(f"client depth {depth}: long-key batches {longs}")
+                for s in sets:
+                    cm_ = s.device_metrics()["counters"]
+                    if cm_["device_faults"] or cm_["degraded_batches"] or cm_["cpu_fallbacks"]:
+                        raise AssertionError(f"client depth {depth}: counters {cm_}")
+                for k, v in launches.items():
+                    tot["launches"][k] += v
+                tot["device"] += served
+                tot["batches"] += batches
+                tot["side"] += sum(lk["side"] for lk in longs)
+        if runs["cuda"] != runs["cpu"]:
+            which = [k for k in runs["cpu"] if runs["cuda"][k] != runs["cpu"][k]]
+            raise AssertionError(f"client depth {depth}: cuda and cpu differ in {which}")
+        rec = runs["cuda"]
+        if not ring_ok(rec["ring"]) or rec["balancer"][1] < 1:
+            raise AssertionError(f"client depth {depth}: ring {rec['ring']}, balancer "
+                                 f"{rec['balancer']}")
+        moves.append(rec["balancer"][1])
+        events += len(rec["events"])
+    log(f"client vs cpu: client_script (a ResolverBalancer beside Cycle, AtomicLedger, "
+        f"WriteSkew and LockDatabase; {events} reads, commits and retries in all) through "
+        f"SimCluster(n_resolvers=2, n_proxies=2, buggify=True), every resolver over "
+        f"ConflictSet({CLIENT_SET_KW}) at depths {CLIENT_VS_CPU_DEPTHS}: every read, commit, "
+        f"error and retry with its virtual time, the clients' state, the ring, the "
+        f"balancer's splits and moves {moves}, the workloads, proxies, resolvers, "
+        f"coverage and the loop's end equal on cuda and cpu; the rings single cycles; on "
+        f"cuda launches {tot['launches']} = {tot['device']} batches served by the card = "
+        f"{tot['batches']} resolve batches, {tot['side']} of them through the long-key side "
+        f"table (the 20-byte resolverSplit key), none served by the host; "
+        f"host seconds a run {secs}; card {torch.cuda.get_device_name(0)}")
+    return tot
 
 
 def guard_vs_cpu(torch, api, T, faults, hotpath):
@@ -4636,13 +5180,24 @@ def main(argv) -> int:
     launches_resolver = resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main)
     phase_done("4q")
     # 4k. the commit path through the port's SimCluster over the same state
-    launches_cluster, batches_cluster, empty_cluster = cluster_path(
+    launches_cluster, batches_cluster, empty_cluster, cluster_run = cluster_path(
         torch, api, ecpu, tk, spans, trace, fr, batches, main)
-    del main["warm_snapshot"]
     phase_done("4k")
+    # 4n. the client (Database, Transaction, a Cycle ring) on 4k's cluster
+    client = client_path(torch, tk, spans, trace, fr, cluster_run, main)
+    del cluster_run
+    gc.collect()
+    phase_done("4n")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
-        run = main_path(torch, api, batches, tk, rq, et, profile, mode=mode, want=main)
+        # Each starts from phase 4's state after its warm-up, rehydrated
+        # onto the card, instead of replaying the WARM batches (a depth
+        # cut: the replay was 60-70 s of each mode's 77-88 s).  The timed
+        # batches are phase 4's 52-59 as before, and compactions (4t) and
+        # evictions (4e) fall on the same ones, WARM being a multiple of
+        # EVICT_EVERY.
+        run = main_path(torch, api, batches, tk, rq, et, profile, mode=mode, want=main,
+                        warm_from=main["warm_snapshot"], ecpu=ecpu)
         label = path_mode(mode)[0]
         stats[label] = run["stats"]
         if mode == "witness_free":
@@ -4654,6 +5209,7 @@ def main(argv) -> int:
         del run
         phase_done({"witness_free": "4w", "coalesced": "4c", "amortized": "4e",
                     "tiered": "4t"}[mode])
+    del main["warm_snapshot"]
     # 4s. the sharded resolver's main path; 4r. resharded live
     launches_sharded, sharded_set, rng = sharded_path(torch, sr, tk, et, keylib, obs)
     phase_done("4s")
@@ -4678,6 +5234,8 @@ def main(argv) -> int:
     phase_done("6q")
     clusters_vs_cpu(torch, api, ecpu, spans, trace, fr)
     phase_done("6k")
+    clients_vs_cpu(torch, api, tk, spans, trace, fr)
+    phase_done("6n")
     # 6d. two runs of one stream on the card give equal records
     determinism_path(torch, api, tk, spans, trace, fr, batches)
     phase_done("6d")
@@ -4711,6 +5269,8 @@ def main(argv) -> int:
              launches_resolver=launches_resolver[r["name"]],
              launches_cluster=launches_cluster[r["name"]],
              batches_cluster=batches_cluster, empty_batches_cluster=empty_cluster,
+             launches_client=client["launches"][r["name"]],
+             batches_client=client["batches"],
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

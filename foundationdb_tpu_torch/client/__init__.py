@@ -1,6 +1,31 @@
-"""The port's client-side wire types (``types``) and atomic-operation
-semantics (``atomic``)."""
+"""The port's client library: the transaction API and its read-your-writes
+overlay (``transaction``), atomic-operation semantics (``atomic``), the
+wire types (``types``) and the management transactions
+(``management``)."""
 
-from .types import CommitTransactionRef, Mutation, MutationType
+from .atomic import apply_atomic, transform_versionstamp
+from .transaction import Database, Transaction, transactional
+from .types import (
+    ALL_KEYS,
+    CommitTransactionRef,
+    KeySelector,
+    Mutation,
+    MutationType,
+    key_after,
+    strinc,
+)
 
-__all__ = ["CommitTransactionRef", "Mutation", "MutationType"]
+__all__ = [
+    "apply_atomic",
+    "transform_versionstamp",
+    "Database",
+    "Transaction",
+    "transactional",
+    "ALL_KEYS",
+    "CommitTransactionRef",
+    "KeySelector",
+    "Mutation",
+    "MutationType",
+    "key_after",
+    "strinc",
+]

@@ -8,7 +8,13 @@ Backends:
   "cpu"    - engine_cpu.CpuConflictSet (host, exact, low latency)
   "torch"  - engine_torch.TorchConflictSet (device, whole-batch vectorized)
   "hybrid" - torch for batches of at least ``device_min_batch``
-             transactions, cpu for smaller ones and for oversized keys
+             transactions, cpu for smaller ones
+
+Keys past the device's width: where the reference keeps a batch that
+holds one on the mirror, and after a long-key write pins all history
+there for an MVCC window, the port's device serves it, with the long
+keys' parts of history in the long-key side table (long_keys.py); the
+mirror then holds the device's history and the side table the rest.
 
 Device resilience: whenever a device engine exists, the chunked CPU mirror
 stays AUTHORITATIVE.  Every device-served batch's committed writes are
@@ -94,10 +100,12 @@ from ..device import is_lost_device
 from .device_faults import DeviceCircuitBreaker, DeviceFault, DeviceUnavailable
 from .engine_cpu import CpuConflictSet
 from .engine_cpu_flat import FLOOR_VERSION
+from .long_keys import SideTable
 from .types import TransactionConflictInfo
 
 # Longest key the device takes (the reference's
-# conflict_max_device_key_bytes default); longer ones go to the mirror.
+# conflict_max_device_key_bytes default); the parts of history that longer
+# keys bound live in the long-key side table (long_keys.py).
 MAX_DEVICE_KEY_BYTES = 16
 
 
@@ -154,12 +162,14 @@ class InflightBatch:
     order, by pipeline_complete_oldest / pipeline_drain or by the breaker's
     mirror replay.  CPU-served batches come back already completed."""
 
-    __slots__ = ("txns", "ticket", "now", "new_oldest_version",
+    __slots__ = ("txns", "ticket", "now", "new_oldest_version", "plan",
                  "statuses", "degraded", "span", "device_span", "witness")
 
-    def __init__(self, txns, ticket, now, new_oldest_version):
+    def __init__(self, txns, ticket, now, new_oldest_version, plan=None):
         self.txns = txns
         self.ticket = ticket
+        # The batch's long-key plan (long_keys.SideTable.plan), or None.
+        self.plan = plan
         self.now = now
         self.new_oldest_version = new_oldest_version
         self.statuses: Optional[List[int]] = None
@@ -183,6 +193,11 @@ class InflightBatch:
     @property
     def done(self) -> bool:
         return self.statuses is not None
+
+    @property
+    def dev_txns(self):
+        """The transactions as the device took them."""
+        return self.txns if self.plan is None else self.plan.dev_txns
 
     def _resolve(self, statuses: List[int], degraded: bool,
                  witness: Optional[list] = None) -> None:
@@ -265,11 +280,12 @@ class ConflictSet:
             self._dev.fault_injector = fault_injector
         # hybrid: which side served the last device-eligible batch
         self._authority = "cpu" if backend == "hybrid" else backend
-        # True once a long-key write range may have entered the mirror; the
-        # device cannot represent it, so authority stays on the CPU until
-        # the last long-key write ages out of the window (_device_eligible).
-        self._history_long_keys = False
-        self._long_key_version = -1  # version of the last long-key write
+        # Keys past the device width: their parts of history, beside the
+        # device's (long_keys.py); None for the host-only backend, whose
+        # mirror holds every key itself.
+        self._long: Optional[SideTable] = None
+        if self._dev is not None:
+            self._long = SideTable(min(MAX_DEVICE_KEY_BYTES, key_words * 4), oldest_version)
         # The device is stale whenever the mirror absorbed a batch the
         # device did not run; the next device attempt rehydrates first.
         self._device_stale = True
@@ -336,33 +352,33 @@ class ConflictSet:
         decided."""
         return list(engine.last_witness) if self._witness else []
 
-    def _device_eligible(self, txns, now: int = 0) -> bool:
-        """Every key in the batch fits the device width and no long-key
-        write has pinned history host-side."""
-        max_key = min(MAX_DEVICE_KEY_BYTES, self._key_words * 4)
-        if self._history_long_keys and self._long_key_version < self._cpu.oldest_version:
-            # The last long-key write aged out of the window; it may still
-            # survive as a boundary, so check the mirror before lifting
-            # the pin (one O(keys) scan per window passage at most).
-            if all(len(k) <= max_key for k in self._cpu.keys):
-                self._history_long_keys = False
-            else:
-                self._long_key_version = now  # re-check next window
-        batch_fits = all(
-            len(b) <= max_key and len(e) <= max_key
-            for tr in txns
-            for (b, e) in tr.read_ranges + tr.write_ranges
-        )
-        if not batch_fits and any(
-            len(b) > max_key or len(e) > max_key
-            for tr in txns
-            for (b, e) in tr.write_ranges
-        ):
-            # A long-key write may enter history; until the window flushes
-            # it the device cannot represent the step function exactly.
-            self._history_long_keys = True
-            self._long_key_version = now
-        return batch_fits and not self._history_long_keys
+    def _plan(self, txns):
+        """The batch's long-key plan (long_keys.SideTable.plan): None when
+        the device takes the batch as it is.  A parked batch with a plan
+        has not yet recorded its side-table parts, so none may be parked
+        when the next plan is made."""
+        if self._long is None:
+            return None
+        if any(e.plan is not None for e in self._pipe):
+            self.pipeline_drain()
+        plan = self._long.plan(txns, self._cpu.oldest_version)
+        if plan is not None:
+            # Counted only when they happen, so that a registry without
+            # long keys stays the reference's.
+            self._dev.metrics.counter("long_key_batches").add()
+            if plan.host_only:
+                self._dev.metrics.counter("long_key_host_batches").add()
+        return plan
+
+    def _settle_plan(self, plan, txns, statuses, now, new_oldest_version) -> List[int]:
+        """A device-decided batch's final verdicts: the device's, joined
+        with the side table's history conflicts, whose parts are then
+        recorded."""
+        if plan is None:
+            return statuses
+        statuses = list(statuses)
+        self._long.settle(plan, txns, statuses, self.last_witness, now, new_oldest_version)
+        return statuses
 
     def _apply_to_mirror(self, txns, statuses, now, new_oldest_version, parent=None) -> None:
         """Apply a device-decided batch to the mirror, then, unless the
@@ -427,11 +443,23 @@ class ConflictSet:
         self._breaker.note_rehydrate()
         self._device_stale = False
 
-    def _cpu_detect_fallback(self, txns, now, new_oldest_version):
-        """Mirror detect for a DEGRADED device-eligible batch, timed on the
+    def _host_detect(self, txns, now, new_oldest_version, plan=None) -> List[int]:
+        """Decide a batch on the host: the mirror alone without a plan,
+        else the mirror and the side table together.  Sets last_witness."""
+        if plan is None:
+            statuses = self._cpu.detect(txns, now, new_oldest_version)
+            self.last_witness = self._witness_of(self._cpu)
+            return statuses
+        statuses, witness = self._long.host_detect(
+            self._cpu, txns, plan, now, new_oldest_version)
+        self.last_witness = witness if self._witness else []
+        return statuses
+
+    def _cpu_detect_fallback(self, txns, now, new_oldest_version, plan=None):
+        """Host detect for a DEGRADED device-eligible batch, timed on the
         wall clock for backend_signal's throughput estimate."""
         t0 = wall_now()
-        statuses = self._cpu.detect(txns, now, new_oldest_version)
+        statuses = self._host_detect(txns, now, new_oldest_version, plan)
         self._cpu_fallback_txns += len(txns)
         self._cpu_fallback_recent.append((len(txns), wall_now() - t0))
         if self._dev is not None:
@@ -439,30 +467,29 @@ class ConflictSet:
         return statuses
 
     def _detect_device(self, txns, now, new_oldest_version) -> List[int]:
-        """backend="torch": every batch with keys that fit goes to the
-        device; the mirror absorbs faults and open-circuit windows."""
-        if self._device_eligible(txns, now):
-            statuses = self._device_serve(txns, now, new_oldest_version)
+        """backend="torch": every batch goes to the device but those whose
+        long keys couple it to the side table (host_only); the mirror
+        absorbs faults and open-circuit windows."""
+        plan = self._plan(txns)
+        if plan is None or not plan.host_only:
+            statuses = self._device_serve(
+                txns if plan is None else plan.dev_txns, now, new_oldest_version)
             if statuses is not None:
                 self.last_witness = self._witness_of(self._dev)
-                return statuses
+                return self._settle_plan(plan, txns, statuses, now, new_oldest_version)
             self._device_stale = True
-            statuses = self._cpu_detect_fallback(txns, now, new_oldest_version)
-            self.last_witness = self._witness_of(self._cpu)
-            return statuses
+            return self._cpu_detect_fallback(txns, now, new_oldest_version, plan)
         self._device_stale = True
-        statuses = self._cpu.detect(txns, now, new_oldest_version)
-        self.last_witness = self._witness_of(self._cpu)
-        return statuses
+        return self._host_detect(txns, now, new_oldest_version, plan)
 
-    def _hybrid_wants_device(self, txns, now) -> bool:
+    def _hybrid_wants_device(self, txns, plan) -> bool:
         """Hybrid routing (and its hysteresis updates), shared by the
         synchronous and the pipelined path: True iff a device serve is due
         for this batch.  While device authority is held, small batches
         still run on the device; only a sustained small streak flips
         authority back."""
         big = len(txns) >= self.device_min_batch
-        if not self._device_eligible(txns, now):
+        if plan is not None and plan.host_only:
             return False
         if self._authority == "torch":
             self._small_streak = 0 if big else self._small_streak + 1
@@ -474,23 +501,22 @@ class ConflictSet:
         return False
 
     def _detect_hybrid(self, txns, now, new_oldest_version) -> List[int]:
-        attempted = self._hybrid_wants_device(txns, now)
+        plan = self._plan(txns)
+        attempted = self._hybrid_wants_device(txns, plan)
         if attempted:
-            statuses = self._device_serve(txns, now, new_oldest_version)
+            statuses = self._device_serve(
+                txns if plan is None else plan.dev_txns, now, new_oldest_version)
             if statuses is not None:
                 self.last_witness = self._witness_of(self._dev)
-                return statuses
+                return self._settle_plan(plan, txns, statuses, now, new_oldest_version)
         if self._authority == "torch":
             # Flip back host-side: the mirror already holds the state.
             self._authority = "cpu"
             self._small_streak = 0
         self._device_stale = True
         if attempted:
-            statuses = self._cpu_detect_fallback(txns, now, new_oldest_version)
-        else:
-            statuses = self._cpu.detect(txns, now, new_oldest_version)
-        self.last_witness = self._witness_of(self._cpu)
-        return statuses
+            return self._cpu_detect_fallback(txns, now, new_oldest_version, plan)
+        return self._host_detect(txns, now, new_oldest_version, plan)
 
     # -- double-buffered pipeline ------------------------------------------
     @property
@@ -505,17 +531,20 @@ class ConflictSet:
         come back parked; the caller completes oldest entries until
         pipeline_inflight is under its depth bound, and drains the tail.
         CPU-routed batches (host-only backend, hybrid small batches,
-        ineligible keys, open circuit, a dispatch fault) first drain the
-        pipeline and come back completed.  Routing is the synchronous
-        path's, so verdict streams are identical across depths."""
+        long keys that couple the batch to the side table, open circuit, a
+        dispatch fault) first drain the pipeline and come back completed.
+        Routing is the synchronous path's, so verdict streams are identical
+        across depths."""
         wants_device = False
+        plan = None
         if self._dev is not None and self.pipeline_depth > 1:
+            plan = self._plan(txns)
             if self.backend == "torch":
-                wants_device = self._device_eligible(txns, now)
+                wants_device = plan is None or not plan.host_only
             else:
-                wants_device = self._hybrid_wants_device(txns, now)
+                wants_device = self._hybrid_wants_device(txns, plan)
         if wants_device:
-            entry = self._pipeline_dispatch(txns, now, new_oldest_version)
+            entry = self._pipeline_dispatch(txns, now, new_oldest_version, plan)
             if entry is not None:
                 return entry
             # A device serve was due but the circuit is open or the
@@ -525,8 +554,7 @@ class ConflictSet:
                 self._authority = "cpu"
                 self._small_streak = 0
             self._device_stale = True
-            statuses = self._cpu_detect_fallback(txns, now, new_oldest_version)
-            self.last_witness = self._witness_of(self._cpu)
+            statuses = self._cpu_detect_fallback(txns, now, new_oldest_version, plan)
             self.consume_degraded()  # folded into the entry's flag
             return InflightBatch.completed(statuses, degraded=True, witness=self.last_witness)
         if self._dev is not None and self.pipeline_depth > 1:
@@ -537,8 +565,7 @@ class ConflictSet:
                 self._authority = "cpu"
                 self._small_streak = 0
             self._device_stale = True
-            statuses = self._cpu.detect(txns, now, new_oldest_version)
-            self.last_witness = self._witness_of(self._cpu)
+            statuses = self._host_detect(txns, now, new_oldest_version, plan)
             return InflightBatch.completed(
                 statuses, degraded=self.consume_degraded(), witness=self.last_witness,
             )
@@ -561,7 +588,8 @@ class ConflictSet:
         return nullcontext()
 
     @hot_path(bound="batch")
-    def _pipeline_dispatch(self, txns, now, new_oldest_version) -> Optional[InflightBatch]:
+    def _pipeline_dispatch(self, txns, now, new_oldest_version,
+                           plan=None) -> Optional[InflightBatch]:
         """One device dispatch under the breaker without a sync — the
         pipelined twin of _device_serve.  Returns the parked entry, or None
         when the circuit is open or the dispatch faulted (the parked tail
@@ -579,7 +607,8 @@ class ConflictSet:
                 assert not self._pipe, "rehydrating around parked batches"
                 self._rehydrate_from_mirror()
             with self._dispatch_guard():
-                ticket = self._dev.dispatch_txns(txns, now, new_oldest_version)
+                ticket = self._dev.dispatch_txns(
+                    txns if plan is None else plan.dev_txns, now, new_oldest_version)
         except DeviceFault as e:
             self._breaker.on_failure(e)
             self._device_stale = True
@@ -590,7 +619,7 @@ class ConflictSet:
         # a device failure surfaces at the readback, and a success credited
         # at dispatch would keep the circuit from ever opening.
         self._dev.metrics.counter("pipeline_dispatches").add()
-        entry = InflightBatch(txns, ticket, now, new_oldest_version)
+        entry = InflightBatch(txns, ticket, now, new_oldest_version, plan)
         # The owning batch span (the caller pushed it for this synchronous
         # submit), so that the deferred completion's spans parent to it,
         # and the device in-flight span, closed at the sync.
@@ -646,9 +675,11 @@ class ConflictSet:
         self._breaker.on_success()
         self._pipe.popleft()
         statuses_list = [int(s) for s in statuses[: len(entry.txns)]]
-        self._apply_to_mirror(entry.txns, statuses_list, entry.now, entry.new_oldest_version,
+        self._apply_to_mirror(entry.dev_txns, statuses_list, entry.now, entry.new_oldest_version,
                               parent=entry.span)
         self.last_witness = self._witness_of(self._dev)
+        statuses_list = self._settle_plan(entry.plan, entry.txns, statuses_list, entry.now,
+                                          entry.new_oldest_version)
         entry._resolve(statuses_list, degraded=False, witness=self.last_witness)
 
     def _pipeline_replay_on_mirror(self, degraded: bool = True) -> None:
@@ -664,11 +695,12 @@ class ConflictSet:
                 entry.device_span.end(attrs={"replayed": 1})
             self._dev.metrics.counter("pipeline_replayed_batches").add()
             if degraded:
-                statuses = self._cpu_detect_fallback(entry.txns, entry.now, entry.new_oldest_version)
+                statuses = self._cpu_detect_fallback(entry.txns, entry.now,
+                                                     entry.new_oldest_version, entry.plan)
             else:
                 # A by-design re-decide, kept out of the fallback window.
-                statuses = self._cpu.detect(entry.txns, entry.now, entry.new_oldest_version)
-            self.last_witness = self._witness_of(self._cpu)
+                statuses = self._host_detect(entry.txns, entry.now, entry.new_oldest_version,
+                                             entry.plan)
             entry._resolve(statuses, degraded=degraded, witness=self.last_witness)
         self._degraded_last = False  # per-entry flags carry it instead
 
@@ -843,13 +875,11 @@ class ConflictSet:
 
     def clear(self, version: int):
         self.pipeline_drain()  # parked verdicts must land before the wipe
-        for eng in (self._cpu, self._dev):
+        for eng in (self._cpu, self._dev, self._long):
             if eng is not None:
                 eng.clear(version)
         if self.backend == "hybrid":
             self._authority = "cpu"
-        self._history_long_keys = False
-        self._long_key_version = -1
         # The breaker is not reset: clearing data says nothing about the
         # device's health.
         self._device_stale = True

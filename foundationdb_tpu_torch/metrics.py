@@ -142,6 +142,9 @@ class CounterCollection:
     def add(self, name: str, n: int = 1) -> None:
         self.counter(name).add(n)
 
+    def __getitem__(self, name: str) -> int:
+        return self.counter(name).value
+
 
 class BoundedHistogram:
     """Exact aggregates of a stream of values and, with an ``rng``, a

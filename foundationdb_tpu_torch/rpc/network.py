@@ -79,6 +79,7 @@ class SimProcess:
         self._endpoints: Dict[int, Callable] = {}
         self._next_token = 1
         self._tasks: List[Task] = []
+        self._prune_at = 16  # len(_tasks) at which spawn drops finished ones
         # Futures (reply promises) this process is waiting on, keyed by the
         # remote address expected to answer; broken on that process's death.
         self._pending_on: Dict[str, dict] = {}  # addr -> ordered {(<Promise>,<Endpoint>): None}
@@ -89,7 +90,14 @@ class SimProcess:
         assert self.alive, f"spawn on dead process {self.name}"
         t = self.network.loop.spawn(coro, name=f"{self.name}/{name}")
         self._tasks.append(t)
-        self._tasks = [x for x in self._tasks if not x.is_ready()]
+        # Drop finished actors once the list has doubled since the last
+        # prune: amortized O(1) a spawn, where the reference's prune at
+        # every spawn is O(live actors) (a client of a thousand actors
+        # spawns a few a request).  kill() skips finished actors, so when
+        # they are dropped changes nothing.
+        if len(self._tasks) >= self._prune_at:
+            self._tasks = [x for x in self._tasks if not x.is_ready()]
+            self._prune_at = 2 * len(self._tasks) + 16
         return t
 
     def spawn_observed(self, coro, name: str = "") -> Task:

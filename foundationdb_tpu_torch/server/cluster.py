@@ -13,12 +13,14 @@ where no card is visible.  ``device="cpu"`` runs the same engine with the
 kernels' plain twins, and ``conflict_backend="cpu"`` the host engine.
 ``conflict_set`` is resolver 0's set; the others build their own.
 
+Clients come from ``database(name, **kw)`` (a ``client.transaction.
+Database`` on its own process; ``kw`` are its settings, such as
+``witness_retry``), and ``run_all`` runs one coroutine per client to the
+end.  ``resolver_balancer(**kw)`` moves the resolvers' split points.
+
 Not ported yet: ``durable=True`` (the fileio layer) raises
-NotImplementedError; the client's ``database()``, ``resolver_balancer()``,
-``data_distributor()`` and ``dd_role()`` wait for the client and data
-distribution roles, so a caller drives the cluster through the roles'
-request streams (``proxy.interface().commit``, ``.get_consistent_read_
-version``, ``storage.interface().get_value``, ...).
+NotImplementedError; ``data_distributor()`` and ``dd_role()`` wait for
+the data distribution roles.
 """
 
 from __future__ import annotations
@@ -108,6 +110,7 @@ class SimCluster:
             for i in range(n_proxies)
         ]
         self.proxy_proc = self.proxy_procs[0]
+        self._n_clients = 0
         self.split_keys = even_split_keys(n_resolvers)
 
         self.sequencer = Sequencer(self.master_proc)
@@ -153,5 +156,42 @@ class SimCluster:
         ]
         self.proxy = self.proxies[0]
 
+    def resolver_balancer(self, **kw):
+        """A ResolverBalancer polling this cluster's resolvers (its own
+        client process; ref: the master-hosted resolution balancing)."""
+        from .resolver_balancer import ResolverBalancer
+
+        return ResolverBalancer(
+            self.database("balancer"),
+            [r.interface() for r in self.resolvers],
+            self.split_keys,
+            **kw,
+        )
+
+    def database(self, name: str = "", **kw):
+        """A client Database on a new process of this cluster's network;
+        `kw` are the Database's settings."""
+        # Imported here: client.transaction imports server.interfaces (the
+        # interface structs live with the client, as in fdbclient/), so a
+        # module-level import would be circular.
+        from ..client.transaction import Database
+
+        self._n_clients += 1
+        proc = self.net.process(name or f"client{self._n_clients}")
+        return Database(
+            proc,
+            self.proxy.interface(),
+            self.storage.interface(),
+            proxies=[p.interface() for p in self.proxies],
+            **kw,
+        )
+
     def run_until(self, future, timeout_vt: float = 1000.0):
         return self.loop.run_until(future, timeout_vt=timeout_vt)
+
+    def run_all(self, coros_by_db, timeout_vt: float = 1000.0):
+        """Spawn one coroutine per (db, coro) pair and run until all done."""
+        from ..flow.eventloop import all_of
+
+        tasks = [db.process.spawn(c) for db, c in coros_by_db]
+        return self.run_until(all_of(tasks), timeout_vt=timeout_vt)

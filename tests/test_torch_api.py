@@ -374,8 +374,10 @@ def test_mirror_check_ok_then_a_planted_divergence_opens_the_breaker(monkeypatch
 
 
 def test_long_key_pin_and_its_lift_match_the_reference(monkeypatch):
-    """A write with a key past the device width pins history to the mirror
-    until the window passes it; then the device serves again."""
+    """A write with a key past the device width.  The reference pins its
+    history to the mirror until the window passes the key; the port's
+    device serves every batch, with the key's part of history in the
+    long-key side table, and decides every batch as the reference does."""
     stream = _random_stream(17, 60, 14, 6)
     long_key = b"L" * 20
     txns, now, nov = stream[2]
@@ -384,19 +386,24 @@ def test_long_key_pin_and_its_lift_match_the_reference(monkeypatch):
     want = _drive(ref, stream, 2, port=False)
     cs = _port_set(2)
     got = _drive(cs, stream, 2, port=True)
-    _assert_same(cs, ref, got, want)
-    assert not cs._history_long_keys
-    served = cs._dev.batches
-    assert 0 < served < len(stream)
+    assert got == want
+    assert [(s, w) for s, w, _d in got] == _cpu_only(stream)
+    assert 0 < ref._jax.metrics.snapshot()["counters"]["batches"] < len(stream)  # its pin
+    assert cs._dev.batches == len(stream)
+    assert _mirror_state(cs) == _device_export(cs, True)
+    counters = cs.device_metrics()["counters"]
+    assert counters["long_key_batches"] == 1
+    assert "long_key_host_batches" not in counters
+    assert cs._long._live == []  # the window passed the key
 
 
 def test_device_key_cap_matches_the_reference_at_five_key_words(monkeypatch):
     """At key_words=5 the device takes keys of at most 16 bytes (the
-    reference's conflict_max_device_key_bytes default), not 20: a batch
-    with a 20-byte read key is served by the mirror, and a 20-byte write
-    also pins history host-side until the window passes it — batch by
-    batch as in the reference (routing, the engine's batches and
-    pipeline_dispatches, the pin)."""
+    reference's conflict_max_device_key_bytes default), not 20.  The
+    reference serves a batch with a 20-byte read key from its mirror and
+    pins history on a 20-byte write; the port's device serves both, with
+    the 20-byte keys rounded to their 16-byte regions, and every verdict
+    and witness is the reference's."""
     stream = _random_stream(17, 60, 30, 6)
     txns, now, _nov = stream[2]
     txns.append(JT(read_snapshot=now - 1, read_ranges=[(b"R" * 20, b"S" * 20)]))
@@ -406,21 +413,78 @@ def test_device_key_cap_matches_the_reference_at_five_key_words(monkeypatch):
     cs = _port_set(2, key_words=5)
 
     def walk(cs, dev, port):
-        seen = []
+        seen, keys = [], []
         for txns, now, nov in stream:
-            cs.pipeline_submit(_port_txns(txns) if port else txns, now, nov)
+            e = cs.pipeline_submit(_port_txns(txns) if port else txns, now, nov)
             cs.pipeline_drain()
             c = dev.metrics.snapshot()["counters"]
-            seen.append((cs._history_long_keys, c["batches"], c["pipeline_dispatches"]))
-        return seen
+            seen.append((list(e.statuses), list(e.witness), c["batches"]))
+            keys.append(_device_export(cs, port)[0])
+        return seen, keys
 
-    want = walk(ref, ref._jax, port=False)
-    got = walk(cs, cs._dev, port=True)
-    assert got == want
-    assert want[2][1] == want[1][1]  # the 20-byte read skipped the device
-    assert want[5][0]                # the 20-byte write pinned the history
-    assert not want[-1][0] and want[-1][1] < len(stream)
-    _assert_same(cs, ref, [], [])
+    want, _ = walk(ref, ref._jax, port=False)
+    got, dev_keys = walk(cs, cs._dev, port=True)
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    assert want[2][2] == want[1][2]  # the reference's mirror took the read
+    assert [g[2] for g in got] == list(range(1, len(stream) + 1))
+    assert all(len(key) <= 16 for keys in dev_keys for key in keys)
+    assert b"X" * 16 in dev_keys[5] and b"W" * 20 not in dev_keys[5]
+    assert _mirror_state(cs) == _device_export(cs, True)
+
+
+def _long_key_stream(seed, batches, width):
+    """Batches whose keys crowd a few regions of the device width: keys
+    shorter than, equal to and longer than `width` under shared prefixes,
+    the region at the end of the key space (all 0xff) among them, and
+    ranges that start, end or lie in a region or cross several."""
+    rng = DeterministicRandom(seed)
+    heads = [b"ab" * (width // 2), b"ac" * (width // 2), b"\xff" * width]
+    tails = [b"", b"\x00", b"a", b"b", b"\xff", b"a\x00", b"ab", b"\xff\xff\x00"]
+
+    def key():
+        head = heads[rng.random_int(0, len(heads))]
+        cut = rng.random_int(0, 4)
+        if cut == 0:
+            return head[: rng.random_int(1, width)]
+        return head + tails[rng.random_int(0, len(tails))]
+
+    def rng_range():
+        a, b = sorted((key(), key()))
+        return a, b
+
+    version = 10
+    out = []
+    for _ in range(batches):
+        txns = []
+        for _ in range(rng.random_int(1, 9)):
+            tr = JT(read_snapshot=max(0, version - rng.random_int(0, 25)))
+            tr.read_ranges = [rng_range() for _ in range(rng.random_int(0, 3))]
+            tr.write_ranges = [rng_range() for _ in range(rng.random_int(0, 3))]
+            txns.append(tr)
+        version += rng.random_int(1, 10)
+        out.append((txns, version, max(0, version - WINDOW)))
+    # A last batch without long keys, which the device always takes.
+    out.append(([JT(read_snapshot=version, read_ranges=[(b"a", b"b")])] * 8,
+                version + 1, max(0, version + 1 - WINDOW)))
+    return out
+
+
+@pytest.mark.parametrize("depth,backend", [(1, "torch"), (2, "torch"), (3, "torch"),
+                                           (2, "hybrid")])
+def test_long_key_side_table_matches_the_reference_engine(depth, backend):
+    """Long keys everywhere: every verdict and witness is the reference
+    engine's; the mirror holds the device's history; the device serves
+    every batch but those whose long keys couple it to the side table."""
+    stream = _long_key_stream(31 + depth, 80, 12)
+    cs = _port_set(depth, backend=backend, device_min_batch=4)
+    got = _drive(cs, stream, depth, port=True, drain_every=7)
+    assert [(s, w) for s, w, _d in got] == _cpu_only(stream)
+    assert _mirror_state(cs) == _device_export(cs, True)
+    c = cs.device_metrics()["counters"]
+    host = c.get("long_key_host_batches", 0)
+    assert c["long_key_batches"] > host > 0
+    if backend == "torch":
+        assert c["batches"] == len(stream) - host
 
 
 def _big_batch(base, ranges=40):

@@ -349,6 +349,67 @@ def test_conflict_set_fault_script_on_the_card_matches_the_cpu(dev):
     assert tk.merge_contract_faults(dev) == 0
 
 
+def _long_key_stream(seed, batches, width=12):
+    """Batches whose keys crowd three regions of the device width (the one
+    at the end of the key space among them): keys shorter than, equal to
+    and longer than `width` under shared prefixes."""
+    r = np.random.default_rng(seed)
+    heads = [b"ab" * (width // 2), b"ac" * (width // 2), b"\xff" * width]
+    tails = [b"", b"\x00", b"a", b"b", b"\xff", b"a\x00", b"ab", b"\xff\xff\x00"]
+
+    def key():
+        head = heads[int(r.integers(0, len(heads)))]
+        if int(r.integers(0, 4)) == 0:
+            return head[: int(r.integers(1, width))]
+        return head + tails[int(r.integers(0, len(tails)))]
+
+    version, out = 10, []
+    for _ in range(batches):
+        txns = []
+        for _ in range(int(r.integers(1, 9))):
+            t = TT(read_snapshot=max(0, version - int(r.integers(0, 25))))
+            t.read_ranges = [tuple(sorted((key(), key()))) for _ in range(int(r.integers(0, 3)))]
+            t.write_ranges = [tuple(sorted((key(), key()))) for _ in range(int(r.integers(0, 3)))]
+            txns.append(t)
+        version += int(r.integers(1, 10))
+        out.append((txns, version, max(0, version - 40)))
+    return out
+
+
+def test_long_key_side_table_on_the_card_matches_the_cpu(dev):
+    """Keys past the device width at pipeline depth 2, on the GPU and on
+    the CPU: verdicts and witnesses equal to each other and to the host
+    backend's (which holds every key itself), the same long-key batches
+    counted, and one launch of each kernel in every batch the device
+    served."""
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+
+    stream = _long_key_stream(5, 60)
+
+    def run(device, backend="torch"):
+        cs = ConflictSet(backend=backend, key_words=3, bucket_mins=BUCKETS, h_cap=1 << 10,
+                         device=device)
+        out = []
+        for txns, now, nov in stream:
+            out.append(cs.pipeline_submit(txns, now, nov))
+            while cs.pipeline_inflight > 1:
+                cs.pipeline_complete_oldest()
+        cs.pipeline_drain()
+        return cs, [(e.statuses, e.witness) for e in out]
+
+    before = dict(tk.LAUNCHES)
+    gpu, got = run(dev)
+    launches = {n: tk.LAUNCHES[n] - before[n] for n in tk.LAUNCHES}
+    cpu, want = run("cpu")
+    assert got == want == run("cpu", backend="cpu")[1]
+    gc, cc = gpu.device_metrics()["counters"], cpu.device_metrics()["counters"]
+    for name in ("batches", "long_key_batches", "long_key_host_batches"):
+        assert gc[name] == cc[name]
+    assert gc["long_key_batches"] > gc["long_key_host_batches"] > 0
+    assert gc["batches"] == len(stream) - gc["long_key_host_batches"]
+    assert all(v == gc["batches"] for v in launches.values())
+
+
 def _tiers(cs):
     """The tiered engine's raw state on the host: both tiers, the carried
     table, the counts and the host bounds."""
@@ -1246,3 +1307,49 @@ def test_commit_path_on_the_card_matches_the_cpu(dev, depth):
     cuda = _cluster_record("cuda", depth)
     assert cuda == _cluster_record("cpu", depth)
     assert any(r[2] == "error" and r[3] == "not_committed" for r in cuda["replies"])
+
+
+def _client_record(device, depth):
+    """chip_smoke's phase 6n script through the port's SimCluster(
+    n_resolvers=2, n_proxies=2, buggify=True), every resolver over a
+    ConflictSet of the Resolver's default key width at `depth` on `device`;
+    returns the record, the launches, the device-served batches and the
+    resolve batches."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.conflict import kernels as tk
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import cluster as cm
+
+    smoke = _chip_smoke()
+    sets = []
+
+    def make_set():
+        sets.append(ConflictSet(device=device, pipeline_depth=depth, **smoke.CLIENT_SET_KW))
+        return sets[-1]
+
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    try:
+        with smoke.resolver_sets(cm, make_set):
+            c = cm.SimCluster(seed=43, n_proxies=2, n_resolvers=2, buggify=True, device=device)
+        record = smoke.client_record(c, wl, txmod)
+    finally:
+        el.set_event_loop(None)
+    served = sum(s.device_metrics()["counters"]["batches"] for s in sets)
+    batches = sum(r.metrics.counter("batches").value for r in c.resolvers)
+    return record, dict(tk.LAUNCHES), served, batches
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_client_on_the_card_matches_the_cpu(dev, depth):
+    """The client's reads, commits, errors and retries, the rings, the
+    balancer's moves and the roles' state are equal on cuda and cpu, and
+    each kernel launched once in every resolve batch, the card serving
+    every one (the balancer's long key goes through the side table)."""
+    cuda, launches, served, batches = _client_record("cuda", depth)
+    assert cuda == _client_record("cpu", depth)[0]
+    smoke = _chip_smoke()
+    assert smoke.ring_ok(cuda["ring"]) and cuda["balancer"][1] >= 1
+    assert served == batches > 0 and all(v == batches for v in launches.values())
