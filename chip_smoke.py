@@ -603,6 +603,13 @@ def drive(cs, stream, depth, sink=None, tick=None):
     return out
 
 
+def warm_engine(ecpu, snap):
+    """A host engine holding `snap` (phase 4's state after its warm-up
+    batches), as a handoff loads it: the mirror a set starts from."""
+    return ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
+                                    key_words=KEY_WORDS)
+
+
 def digest(statuses, witness) -> str:
     """One batch's verdicts and witnesses as a hash, so that two paths'
     60 batches compare without keeping them."""
@@ -1349,8 +1356,7 @@ def main_path(torch, api, batches, tk, rq, et, profile: bool, mode="flat", want=
     try:
         t0 = time.perf_counter()
         if warm_from is not None:
-            cs._cpu = ecpu.engine_from_handoff([(warm_from, b"", None)],
-                                               warm_from.oldest_version, key_words=KEY_WORDS)
+            cs._cpu = warm_engine(ecpu, warm_from)
             cs._cpu.coalesce_window = window
             cs._rehydrate_from_mirror()  # what the first dispatch would do, before the clock
             torch.cuda.synchronize()
@@ -3262,8 +3268,7 @@ def guard_path(torch, api, et, ecpu, hotpath, T, batches, main):
     for label, guard in (("guarded", True), ("unguarded", False)):
         cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=2,
                              transfer_guard=guard)
-        cs._cpu = ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
-                                           key_words=KEY_WORDS)
+        cs._cpu = warm_engine(ecpu, snap)
         sets[label] = cs
     if sets["guarded"]._cpu.snapshot().to_flat() != snap.to_flat():
         raise AssertionError("guard: the loaded mirror differs from phase 4's")
@@ -3505,8 +3510,7 @@ def resolver_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
     gc.collect()
     snap = main["warm_snapshot"]
     cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=2)
-    cs._cpu = ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
-                                       key_words=KEY_WORDS)
+    cs._cpu = warm_engine(ecpu, snap)
     n = ROLE_BATCHES
     stream = [(batches[i], i + WINDOW, i) for i in range(WARM, WARM + n)]
     epoch = WARM - 1 + WINDOW
@@ -3896,8 +3900,7 @@ def cluster_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
     snap = main["warm_snapshot"]
     newest = max(ch.max_ver for ch in snap.chunks)
     cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=2)
-    cs._cpu = ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
-                                       key_words=KEY_WORDS)
+    cs._cpu = warm_engine(ecpu, snap)
     eng = cs._dev
     syncs0, dispatches0 = eng.host_syncs, eng.metrics.counter("pipeline_dispatches").value
     half = PER_BATCH // 2
@@ -4006,8 +4009,7 @@ def cluster_path(torch, api, ecpu, tk, spans, trace, fr, batches, main):
 
     # Verdicts: the served requests replayed on the host from the snapshot.
     window = c.resolver.max_write_transaction_life_versions
-    rp = Replay(ecpu.engine_from_handoff([(snap, b"", None)], snap.oldest_version,
-                                         key_words=KEY_WORDS), window)
+    rp = Replay(warm_engine(ecpu, snap), window)
     rp.log = resolves
     served = rp.replay(label)
     if len(served) != len(resolves):
@@ -4682,6 +4684,441 @@ def clients_vs_cpu(torch, api, tk, spans, trace, fr):
     return tot
 
 
+# ---------------------------------------------------------------------------
+# phases 4m and 6m: the acceptance workloads through the client
+# ---------------------------------------------------------------------------
+
+# Phase 4m's cluster: one proxy, so that the resolver sees whole batches, and
+# one resolver over a card set at the Resolver's key width (16 bytes: the
+# workloads' keys are 11-13 bytes and the client's self-conflict keys 14)
+# with phase 4's presized flat history; the Resolver's defaults otherwise.
+ACCEPT_KEY_WORDS = 4
+ACCEPT_SEED = 29
+# Step 1, BASELINE.json config 3 (RandomReadWrite, 1 resolver, 10k-txn
+# batches, uniform keys, low contention): 10,240 single-transaction actors
+# spawned together over 400,000 nodes (an in-batch read meets an earlier
+# write of the batch about 7% of the time), after the workload's setup
+# population (every fourth node, b"init") loaded in transactions of at most
+# ACCEPT_LOAD_SETS sets.
+ACCEPT_RRW = dict(nodes=400_000, actors=10_240, txns_per_actor=1)
+ACCEPT_LOAD_SETS = 4096
+# Step 2, config 2 (WriteDuringRead, small keyspace, high contention): the
+# acceptance shape with 100 transactions instead of 10.  Step 3: FuzzApi at
+# its test shape.
+ACCEPT_WDR = dict(nodes=25, contention_actors=3, txns=100)
+ACCEPT_FUZZ = dict(nodes=20, txns=15)
+# Phase 6m: configs 2 and 3 at the reference's exact acceptance shapes and
+# seeds (tests/test_acceptance_matrix.py), on cuda and cpu at each depth, at
+# phase 6n's set shape.
+ACCEPT_VS_CPU_DEPTHS = (1, 2, 3)
+ACCEPT_TIMEOUT = 30000.0  # virtual s, the reference tests' run_workloads timeout
+ACCEPT_CONFIGS = {
+    "config 2": dict(seed=9001, prefix=b"\x02wdr/", cluster=dict(n_proxies=2),
+                     load=("WriteDuringReadWorkload",
+                           dict(nodes=25, txns=10, contention_actors=3))),
+    "config 3": dict(seed=9002, prefix=b"rrw/", cluster=dict(n_proxies=2),
+                     load=("RandomReadWriteWorkload",
+                           dict(nodes=120, actors=3, txns_per_actor=6))),
+}
+
+
+def final_state(c, prefix):
+    """Every row under `prefix` on SimCluster `c`, read by a fresh client in
+    one transaction (tests/test_acceptance_matrix.py's _final_state)."""
+    db = c.database("final_reader")
+
+    async def read():
+        tr = db.create_transaction()
+        return await tr.get_range(prefix, prefix + b"\xff")
+
+    return c.run_until(db.process.spawn(read(), "final"), timeout_vt=5000.0)
+
+
+def acceptance_record(c, wl, txmod, config) -> dict:
+    """One of ACCEPT_CONFIGS through run_workloads on a SimCluster `c` (of
+    either package; `wl` and `txmod` its workloads and client modules):
+    every read, commit and retry (ClientLog), each client's state, the
+    workload's record (its attributes after the run), whether its check
+    held, the final state under its prefix read by a fresh client in one
+    transaction, the proxies' and resolvers' registries and the resolvers'
+    witness blocks, and the loop's end time with its rng's next draw."""
+    cfg = ACCEPT_CONFIGS[config]
+    name, kw = cfg["load"]
+    log_ = ClientLog(txmod)
+    dbs = tracked_databases(c)
+    w = getattr(wl, name)(**kw)
+    try:
+        try:
+            wl.run_workloads(c, [w], timeout_vt=ACCEPT_TIMEOUT)
+            check = True
+        except AssertionError as e:  # the runner's assert on a check's False
+            if "check failed" not in str(e):
+                raise
+            check = False
+        state = final_state(c, cfg["prefix"])
+    finally:
+        log_.remove()
+    return dict(
+        events=log_.events,
+        clients=client_state(dbs),
+        workload=norm(dict(vars(w))),
+        check=check,
+        state=state,
+        proxies=[p.metrics.snapshot_json() for p in c.proxies],
+        resolvers=[r.metrics.snapshot_json() for r in c.resolvers],
+        witness=[r.conflict_witness() for r in c.resolvers],
+        end=(c.loop.now(), c.loop.rng.random_int(0, 1 << 30)),
+    )
+
+
+class SideShadow:
+    """Which resolve batches a ConflictSet's long-key side table must take,
+    worked out from the requests and their replies alone, in version
+    order: a batch holding a key longer than the card's `width` bytes, or
+    one with a read that meets a live region, the width-byte prefix of a
+    long end that a committed transaction wrote at a version the window
+    still holds (conflict/long_keys.py's rule)."""
+
+    def __init__(self, width, window):
+        self.width, self.window = width, window
+        self.live, self.oldest = [], 0  # (lo, hi or None, version)
+
+    def _region(self, k):
+        t = k[: self.width].rstrip(b"\xff")
+        return k[: self.width], (t[:-1] + bytes([t[-1] + 1]) if t else None)
+
+    def count(self, served):
+        """(batches with a key past the width, batches the side table takes)
+        of the replayed requests `served`, after every earlier call's."""
+        from foundationdb_tpu_torch.conflict.types import COMMITTED
+
+        w, long_, side = self.width, 0, 0
+        for q, f in served:
+            self.live = [r for r in self.live if r[2] >= self.oldest]
+            txns = q.transactions
+            has_long = any(len(k) > w for t in txns
+                           for b, e in t.read_ranges + t.write_ranges for k in (b, e))
+            meets = any(lo < e and (hi is None or b < hi) for t in txns
+                        for b, e in t.read_ranges for lo, hi, _v in self.live)
+            long_ += has_long
+            side += has_long or meets
+            for t, st in zip(txns, f.get().committed):
+                if st != COMMITTED:
+                    continue
+                for b, e in t.write_ranges:
+                    if b >= e:
+                        continue
+                    if len(b) > w:
+                        self.live.append((*self._region(b), q.version))
+                    if len(e) > w and not (len(b) > w and b[:w] == e[:w]):
+                        self.live.append((*self._region(e), q.version))
+            self.oldest = q.version - self.window
+        return long_, side
+
+
+def acceptance_path(torch, api, ecpu, tk, spans, trace, fr, main, rates):
+    """Phase 4m: the acceptance workloads through the client on a card set
+    at full width.  SimCluster(n_proxies=1, n_resolvers=1, buggify=False)
+    over ConflictSet(key_words=ACCEPT_KEY_WORDS, h_cap=H_CAP) on the card
+    (the Resolver's defaults otherwise, depth 2), on SimNetwork(deep_copy=
+    False) and fresh port hubs; three steps on the one cluster, each
+    after the last: (1) RandomReadWriteWorkload(ACCEPT_RRW)'s setup rows
+    loaded in transactions of ACCEPT_LOAD_SETS sets, then its start and
+    check; (2) WriteDuringReadWorkload(ACCEPT_WDR) through run_workloads,
+    its check holding with no mismatch and conflicts; (3)
+    FuzzApiWorkload(ACCEPT_FUZZ) through run_workloads.  Every resolve
+    request is replayed on a host CpuConflictSet (verdicts and witnesses
+    equal); in each step each kernel launches once a resolve batch, every
+    batch is a device dispatch, no fault, degraded batch or fallback, no
+    batch served by the host, and the long-key side table takes exactly
+    the batches SideShadow names from the replay (none in steps 1 and 2);
+    mirror_check "ok" at the end.  Prints for each step the
+    commits, not_committed and retries, the resolve batches and their
+    sizes, the launches, the wall and commits/s beside 4k's and phase 4's
+    (no claim; RandomReadWrite's over its start, its check apart).  Returns the launches and batches of all three steps."""
+    import dataclasses
+
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.flow.eventloop import all_of
+    from foundationdb_tpu_torch.metrics import wall_now
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    gc.collect()
+    label = "acceptance"
+    card = torch.cuda.get_device_name(0)
+    width = ACCEPT_KEY_WORDS * 4
+    t_build = wall_now()
+    cs = api.ConflictSet(key_words=ACCEPT_KEY_WORDS, h_cap=H_CAP)
+    eng = cs._dev
+    hubs = PortHubs(spans, trace, fr)
+    totals = {"launches": {n: 0 for n in tk.LAUNCHES}, "batches": 0}
+    try:
+        c = SimCluster(seed=ACCEPT_SEED, conflict_set=cs, n_proxies=1, n_resolvers=1,
+                       buggify=False)
+        c.net.deep_copy = False  # before the first request, as 4k's network
+        loop = c.loop
+        resolves = []
+        for p in c.proxies:
+            p.resolvers = [dataclasses.replace(r, resolve=Recorded(r.resolve, resolves))
+                           for r in p.resolvers]
+        rp = Replay(ecpu.CpuConflictSet(key_words=ACCEPT_KEY_WORDS),
+                    c.resolver.max_write_transaction_life_versions)
+        rp.log = resolves
+        shadow = SideShadow(width, rp.window)
+        build_s = wall_now() - t_build
+
+        def wait(fut, budget=3000.0):
+            return loop.run_until(fut, timeout_vt=loop.now() + budget)
+
+        def settle():
+            for _ in range(1000):
+                if all(f.is_ready() for _q, f in rp.log[rp.done:]):
+                    break
+                wait(loop.delay(0.001))
+            else:
+                raise AssertionError(f"{label}: resolve requests still unanswered")
+            return rp.replay(label)
+
+        def counters():
+            m = cs.device_metrics()["counters"]
+            return dict(launches=dict(tk.LAUNCHES),
+                        dispatches=eng.metrics.counter("pipeline_dispatches").value,
+                        faults=m["device_faults"], degraded=m["degraded_batches"],
+                        fallbacks=eng.cpu_fallbacks, **long_key_counts(cs))
+
+        def step(name, run, split=None):
+            """Run `run()` from zeroed launches, settle and replay its
+            resolve requests, check the card's counters; returns its
+            ClientLog counts, wall and batch sizes.  `split`, when given,
+            holds the seconds of the run's start and check and the
+            start's commits, filled by `run`: its commits/s is then over
+            the start alone."""
+            log_ = ClientLog(txmod, record=False)
+            before = counters()
+            for n in tk.LAUNCHES:
+                tk.LAUNCHES[n] = 0
+            v0, t0 = loop.now(), wall_now()
+            try:
+                run()
+            finally:
+                log_.remove()
+            wall, vt = wall_now() - t0, loop.now() - v0
+            served = settle()
+            after = counters()
+            n = len(served)
+            long_, side = shadow.count(served)
+            if any(v != n for v in after["launches"].values()):
+                raise AssertionError(f"{label} {name}: launches {after['launches']} in {n} "
+                                     f"batches")
+            delta = {k: after[k] - before[k] for k in ("dispatches", "faults", "degraded",
+                                                        "fallbacks", "side", "host")}
+            if delta != dict(dispatches=n, faults=0, degraded=0, fallbacks=0, side=side,
+                             host=0):
+                raise AssertionError(f"{label} {name}: {n} batches ({long_} with a key past "
+                                     f"{width} bytes, {side} for the side table), counters "
+                                     f"moved {delta}")
+            for k, v in after["launches"].items():
+                totals["launches"][k] += v
+            totals["batches"] += n
+            counts = log_.counts
+            commits = counts.get(("commit", "ok"), 0)
+            retries = sum(v for (m, o), v in counts.items() if m == "on_error" and o != "raised")
+            sizes = sorted(len(q.transactions) for q, _f in served)
+            nonempty = [s for s in sizes if s]
+            log(f"{label} {name}: {commits} commits, "
+                f"{counts.get(('commit', 'not_committed'), 0)} not_committed, {retries} retries "
+                f"({ {o: v for (m, o), v in sorted(counts.items()) if m == 'on_error'} }); {n} "
+                f"resolve batches ({n - len(nonempty)} empty), sizes min "
+                f"{nonempty[0] if nonempty else 0} median "
+                f"{nonempty[len(nonempty) // 2] if nonempty else 0} max "
+                f"{nonempty[-1] if nonempty else 0}, {sum(sizes)} transactions; launches "
+                f"{after['launches']} = {delta['dispatches']} device dispatches = batches; every "
+                f"batch's verdicts and witnesses equal the host replay; faults, degraded, "
+                f"fallbacks and host-served batches 0, long-key side-table batches "
+                f"{delta['side']} = the replay's ({long_} with a key past {width} bytes, the "
+                f"rest reading a live region); card {card}")
+            if split is None:
+                rate = f"{commits / wall:.1f} commits/s through the client over the step"
+            else:
+                rate = (f"{split['commits'] / split['start']:.1f} commits/s through the client "
+                        f"over its start ({split['commits']} commits in {split['start']:.6f} s; "
+                        f"its check {split['check']:.6f} s apart)")
+            log(f"{label} {name}: wall {wall:.6f} s ({vt:.6f} s virtual): {rate} beside 4k's "
+                f"{rates['cluster']:.1f} commits/s and phase 4's {main['tps']:.1f} txn/s "
+                f"(no claim); card {card}")
+            return counts, wall, sizes
+
+        # Step 1: RandomReadWrite.
+        rrw = wl.RandomReadWriteWorkload(**ACCEPT_RRW)
+        db = c.database("rrw")
+        keys = [rrw._key(i) for i in range(0, rrw.nodes, 4)]  # the setup's rows
+
+        def load(part):
+            async def txn(tr):
+                for k in part:
+                    tr.set(k, b"init")
+            return db.run(txn)
+
+        step("rrw load", lambda: wait(all_of([
+            db.process.spawn(load(keys[j:j + ACCEPT_LOAD_SETS]), "rrw_load")
+            for j in range(0, len(keys), ACCEPT_LOAD_SETS)])))
+        phases = {}
+
+        def start_and_check():
+            t0 = wall_now()
+            wait(db.process.spawn(rrw.start(db, c), "rrw_start"))
+            t1 = wall_now()
+            phases["ok"] = wait(db.process.spawn(rrw.check(db, c), "rrw_check"))
+            phases.update(start=t1 - t0, check=wall_now() - t1, commits=rrw.committed)
+
+        _counts, _wall, sizes = step("rrw", start_and_check, split=phases)
+        if not phases["ok"] or rrw.committed != rrw.actors * rrw.txns_per_actor:
+            raise AssertionError(f"{label} rrw: check {phases['ok']}, {rrw.committed} committed")
+        big = [s for s in sizes if s]
+        log(f"{label} rrw: RandomReadWriteWorkload({ACCEPT_RRW}) after its {len(keys)} setup "
+            f"rows in transactions of at most {ACCEPT_LOAD_SETS} sets: {rrw.committed} "
+            f"committed; start {phases['start']:.3f} s, check ok in {phases['check']:.3f} s; "
+            f"resolve batches of 10,000 transactions or more: "
+            f"{sum(s >= 10_000 for s in big)} of {len(big)} (the proxy's 2 ms batch interval "
+            f"cuts them; the workload and proxy are as they are)")
+        # Step 2: WriteDuringRead.
+        wdr = wl.WriteDuringReadWorkload(**ACCEPT_WDR)
+        step("wdr", lambda: wl.run_workloads(c, [wdr]))
+        if wdr.mismatches or not wdr.conflicts or not wdr.committed_txns:
+            raise AssertionError(f"{label} wdr: mismatches {wdr.mismatches[:3]}, conflicts "
+                                 f"{wdr.conflicts}, committed {wdr.committed_txns}")
+        log(f"{label} wdr: WriteDuringReadWorkload({ACCEPT_WDR}): the memory model held "
+            f"(mismatches 0), {wdr.committed_txns} committed and {wdr.conflicts} conflicted of "
+            f"the driver's {wdr.txns} (history by outcome "
+            f"{ {k: sum(h[0] == k for h in wdr.history) for k in sorted({h[0] for h in wdr.history})} })")
+        # Step 3: FuzzApi.
+        fuzz = wl.FuzzApiWorkload(**ACCEPT_FUZZ)
+        step("fuzz", lambda: wl.run_workloads(c, [fuzz]))
+        if fuzz.failures or len(fuzz.errors_exercised) < 3:
+            raise AssertionError(f"{label} fuzz: failures {fuzz.failures[:3]}, errors "
+                                 f"{fuzz.errors_exercised}")
+        log(f"{label} fuzz: FuzzApiWorkload({ACCEPT_FUZZ}): no failed contract, errors "
+            f"exercised {sorted(fuzz.errors_exercised)}")
+        t_mirror = wall_now()
+        report = cs.mirror_check()
+        if report["status"] != "ok":
+            raise AssertionError(f"{label}: mirror_check: {report}")
+        log(f"{label}: SimCluster(n_proxies=1, n_resolvers=1, buggify=False) over "
+            f"ConflictSet(key_words={ACCEPT_KEY_WORDS}, h_cap={H_CAP}, depth "
+            f"{cs.pipeline_depth}) built in {build_s:.3f} s; launches {totals['launches']} = "
+            f"{totals['batches']} resolve batches over the three steps; mirror_check ok "
+            f"({report['boundaries']} boundaries, {wall_now() - t_mirror:.3f} s); card {card}")
+    finally:
+        hubs.restore()
+        el.set_event_loop(None)
+    del c, cs, eng, rp
+    gc.collect()
+    return totals
+
+
+def acceptance_vs_cpu(torch, api, tk, spans, trace, fr):
+    """Phase 6m: ACCEPT_CONFIGS (configs 2 and 3 at the reference's exact
+    acceptance shapes and seeds) through the port's SimCluster at
+    ACCEPT_VS_CPU_DEPTHS, every resolver over a ConflictSet of
+    CLIENT_SET_KW at that depth on cuda and on cpu, each run on fresh port
+    hubs and a fresh loop: the records (acceptance_record) equal on the
+    two devices; at depth 1 also the host engine's (conflict_backend=
+    "cpu") reads, commits, retries, workload record, check and final
+    state, the reference's acceptance bar; config 2's check holding at
+    depth 1 with no mismatch and conflicts, config 3's 18 commits at every
+    depth; on cuda each kernel launched once in every resolve batch, every
+    one served by the card, nothing faulted, degraded or fell back.
+    Returns the launches and resolve batches over the cuda runs."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.metrics import wall_now
+    from foundationdb_tpu_torch.server import cluster as cm
+
+    tot = dict(launches={n: 0 for n in tk.LAUNCHES}, batches=0)
+    secs, checks, outcomes = {}, {}, {}
+    for depth in ACCEPT_VS_CPU_DEPTHS:
+        for config, cfg in ACCEPT_CONFIGS.items():
+            runs = {}
+            for device in ("cuda", "cpu", "host") if depth == 1 else ("cuda", "cpu"):
+                t0 = wall_now()
+                sets = []
+
+                def make_set():
+                    sets.append(api.ConflictSet(device=device, pipeline_depth=depth,
+                                                **CLIENT_SET_KW))
+                    return sets[-1]
+
+                hubs = PortHubs(spans, trace, fr)
+                for name in tk.LAUNCHES:
+                    tk.LAUNCHES[name] = 0
+                try:
+                    if device == "host":
+                        c = cm.SimCluster(seed=cfg["seed"], conflict_backend="cpu",
+                                          **cfg["cluster"])
+                    else:
+                        with resolver_sets(cm, make_set):
+                            c = cm.SimCluster(seed=cfg["seed"], device=device, **cfg["cluster"])
+                    runs[device] = acceptance_record(c, wl, txmod, config)
+                finally:
+                    hubs.restore()
+                    el.set_event_loop(None)
+                secs[(config, depth, device)] = round(wall_now() - t0, 3)
+                if device == "cuda":
+                    batches = sum(r.metrics.counter("batches").value for r in c.resolvers)
+                    served = sum(s.device_metrics()["counters"]["batches"] for s in sets)
+                    launches = dict(tk.LAUNCHES)
+                    if any(v != batches for v in launches.values()) or served != batches:
+                        raise AssertionError(f"acceptance {config} depth {depth}: launches "
+                                             f"{launches}, {served} batches served by the card "
+                                             f"of {batches}")
+                    for s in sets:
+                        cm_ = s.device_metrics()["counters"]
+                        if (cm_["device_faults"] or cm_["degraded_batches"]
+                                or cm_["cpu_fallbacks"] or cm_.get("long_key_batches", 0)):
+                            raise AssertionError(f"acceptance {config} depth {depth}: "
+                                                 f"counters {cm_}")
+                    for k, v in launches.items():
+                        tot["launches"][k] += v
+                    tot["batches"] += batches
+            if runs["cuda"] != runs["cpu"]:
+                which = [k for k in runs["cpu"] if runs["cuda"][k] != runs["cpu"][k]]
+                raise AssertionError(f"acceptance {config} depth {depth}: cuda and cpu differ "
+                                     f"in {which}")
+            rec = runs["cuda"]
+            if depth == 1:
+                same = ("events", "workload", "check", "state")
+                which = [k for k in same if runs["host"][k] != rec[k]]
+                if which:
+                    raise AssertionError(f"acceptance {config} depth 1: the set and the host "
+                                         f"engine differ in {which}")
+            w = dict(rec["workload"])
+            if config == "config 2":
+                if w["mismatches"] or (depth == 1 and not (rec["check"] and w["conflicts"])):
+                    raise AssertionError(f"acceptance {config} depth {depth}: check "
+                                         f"{rec['check']}, {w['mismatches'][:3]}, history "
+                                         f"{w['history']}")
+                outcomes[(config, depth)] = (w["committed_txns"], w["conflicts"])
+            else:
+                if w["committed"] != 18 or not rec["check"]:
+                    raise AssertionError(f"acceptance {config} depth {depth}: check "
+                                         f"{rec['check']}, {w['committed']} committed")
+                outcomes[(config, depth)] = (w["committed"], 0)
+            checks[(config, depth)] = rec["check"]
+    log(f"acceptance vs cpu: configs 2 and 3 at the reference's acceptance shapes "
+        f"({ {k: v['load'] for k, v in ACCEPT_CONFIGS.items()} }) through SimCluster(n_proxies=2), "
+        f"every resolver over ConflictSet({CLIENT_SET_KW}) at depths {ACCEPT_VS_CPU_DEPTHS}: "
+        f"every read, commit, error and retry with its virtual time, the clients' state, the "
+        f"workload's record and check, the final state, the proxies, resolvers and the loop's "
+        f"end equal on cuda and cpu; at depth 1 the reads, commits, retries, record, check and "
+        f"final state also equal the host engine's; (committed, conflicts) {outcomes}; checks "
+        f"{checks}; on cuda launches {tot['launches']} = {tot['batches']} resolve batches, every "
+        f"one served by the card; host seconds a run {secs}; card {torch.cuda.get_device_name(0)}")
+    return tot
+
+
 def guard_vs_cpu(torch, api, T, faults, hotpath):
     """Phase 6v: the guard at phase 6's reduced shape: ConflictSet(
     transfer_guard=True) at depths 1-3 under phase 6o's dispatch fault, on
@@ -4846,11 +5283,14 @@ class RehydrateSpans:
         return [(a.elapsed_time(b), host * 1e3, k) for a, b, host, k in self.spans]
 
 
-def chaos_path(torch, api, batches, tk, faults, buggify, DR, want, obs):
+def chaos_path(torch, api, ecpu, batches, tk, faults, buggify, DR, want, obs, warm_from):
     """Phase 6c(a): phase 4's set, stream and seed under the port's random
-    faults at full width.  The buggify sites are armed (activated
-    probability 1.0) on a DeterministicRandom, the injector runs in random
-    mode, and an open-ended dispatch outage holds batches CHAOS_OUTAGE.
+    faults at full width, from phase 4's state after its warm-up
+    (`warm_from`, rehydrated onto the card before the clock starts) over
+    its timed batches WARM .. WARM + TIMED - 1.  The buggify sites are
+    armed (activated probability 1.0) on a DeterministicRandom, the
+    injector runs in random mode, and an open-ended dispatch outage holds
+    batches CHAOS_OUTAGE.
     Every batch's verdicts and witnesses must equal phase 4's (`want`), the
     breaker must walk legally back to ok, each fault must be counted, the
     mirror must check ok, and each kernel must launch once in every batch
@@ -4869,8 +5309,16 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want, obs):
     inj = faults.DeviceFaultInjector(rng=DR(CHAOS_INJECTOR_SEED), fire_probability=CHAOS_FIRE)
     cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=depth,
                          fault_injector=inj)
+    cs._cpu = warm_engine(ecpu, warm_from)
+    t_warm = time.perf_counter()
+    cs._rehydrate_from_mirror()  # what the first dispatch would do, before the clock
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t_warm
+    rehydrates0 = cs._dev.metrics.counter("rehydrates").value
+    first = WARM
+
     def stream():
-        for i in range(WARM + TIMED):
+        for i in range(first, WARM + TIMED):
             vt[0] = float(i)
             if i == CHAOS_OUTAGE.start:
                 inj.begin_outage("dispatch")
@@ -4903,9 +5351,9 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want, obs):
     buggify.set_buggify_enabled(False)
     hubs.restore()
 
-    if digests != want:
-        first = next(i for i, (a, b) in enumerate(zip(digests, want)) if a != b)
-        raise AssertionError(f"chaos: batch {first}'s verdicts or witnesses differ from phase 4's")
+    if digests != want[first:WARM + TIMED]:
+        bad = first + next(i for i, (a, b) in enumerate(zip(digests, want[first:])) if a != b)
+        raise AssertionError(f"chaos: batch {bad}'s verdicts or witnesses differ from phase 4's")
     transitions = cs._breaker.transitions
     if walk_end("chaos", transitions) != "ok":
         raise AssertionError(f"chaos: the breaker ends {cs._breaker.state}")
@@ -4913,11 +5361,13 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want, obs):
     if not injected or counters["device_faults"] != len(injected):
         raise AssertionError(f"chaos: {len(injected)} faults injected, device_faults "
                              f"{counters['device_faults']}")
-    if counters["rehydrates"] < 1 or len(reh) != counters["rehydrates"]:
-        raise AssertionError(f"chaos: rehydrates {counters['rehydrates']}, timed {len(reh)}")
+    if not reh or len(reh) != counters["rehydrates"] - rehydrates0:
+        raise AssertionError(f"chaos: rehydrates {counters['rehydrates']} (the warm start's "
+                             f"{rehydrates0}), timed {len(reh)}")
     if not any(site.startswith("device_fault_") for site in buggify_cov["fired_counts"]):
         raise AssertionError(f"chaos: no device fault site fired: {buggify_cov}")
-    for i, kind, _s, after, _r in turns:
+    for j, kind, _s, after, _r in turns:
+        i = first + j
         before = prev_launches
         for name in tk.LAUNCHES:
             n = after[name] - before[name]
@@ -4941,20 +5391,20 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want, obs):
     by_site = {}
     for _seq, site, kind in injected:
         by_site[f"{site}:{kind}"] = by_site.get(f"{site}:{kind}", 0) + 1
-    degraded = [i for i, kind, _s, _l, _r in turns if kind == "degraded"]
+    degraded = [first + i for i, kind, _s, _l, _r in turns if kind == "degraded"]
     # A turn's host time: its submit (dispatch, or the mirror's detect)
     # and the completion of the batch before it.
     device_ms = [s * 1e3 for i, kind, s, _l, r in turns
                  if kind == "device" and r == (turns[i - 1][4] if i else 0)]
     degraded_ms = [s * 1e3 for _i, kind, s, _l, _r in turns if kind == "degraded"]
-    timed = turns[WARM:WARM + TIMED]
-    timed_s = sum(s for _i, _k, s, _l, _r in timed)
-    log(f"chaos: {WARM + TIMED} batches x {PER_BATCH} txns through ConflictSet(h_cap "
+    n_run = WARM + TIMED - first
+    log(f"chaos: from phase 4's state after its {WARM} warm-up batches "
+        f"({warm_from.boundary_count} keys, rehydrated onto the card in {t_warm:.3f} s), "
+        f"batches {first}-{WARM + TIMED - 1} x {PER_BATCH} txns through ConflictSet(h_cap "
         f"{H_CAP}, depth {depth}) under random faults (fire probability {CHAOS_FIRE}, "
         f"buggify seed {CHAOS_BUGGIFY_SEED}, injector seed {CHAOS_INJECTOR_SEED}) and a "
         f"dispatch outage over batches {CHAOS_OUTAGE.start}-{CHAOS_OUTAGE.stop - 1}, in "
-        f"{dt:.3f} s: {(WARM + TIMED) * PER_BATCH / dt:.1f} txn/s over the run, "
-        f"{TIMED * PER_BATCH / timed_s:.1f} over the timed window (not a claim); every "
+        f"{dt:.3f} s: {n_run * PER_BATCH / dt:.1f} txn/s over the run (not a claim); every "
         f"batch's verdicts and witnesses equal phase 4's; card {torch.cuda.get_device_name(0)}")
     log(f"chaos: faults {len(injected)} by site and kind {by_site}; injected {injected}; "
         f"buggify coverage {buggify_cov}")
@@ -4969,7 +5419,7 @@ def chaos_path(torch, api, batches, tk, faults, buggify, DR, want, obs):
         f"{np.median(device_ms):.3f}, {len(device_ms)} turns without a rehydration), degraded "
         f"{np.mean(degraded_ms):.3f} (median {np.median(degraded_ms):.3f}, "
         f"{len(degraded_ms)} turns); each turn "
-        + ", ".join(f"{i} {k} {s * 1e3:.0f}" for i, k, s, _l, _r in turns))
+        + ", ".join(f"{first + i} {k} {s * 1e3:.0f}" for i, k, s, _l, _r in turns))
     log(f"chaos: mirror_check ok ({report['boundaries']} boundaries, {check_s:.3f} s)")
     log(obs_line)
     return launches
@@ -5185,9 +5635,14 @@ def main(argv) -> int:
     phase_done("4k")
     # 4n. the client (Database, Transaction, a Cycle ring) on 4k's cluster
     client = client_path(torch, tk, spans, trace, fr, cluster_run, main)
+    rates = {"cluster": cluster_run["commits_per_s"]}
     del cluster_run
     gc.collect()
     phase_done("4n")
+    # 4m. the acceptance workloads (RandomReadWrite, WriteDuringRead, FuzzApi)
+    # through the client on a full-width card set of their own
+    workloads = acceptance_path(torch, api, ecpu, tk, spans, trace, fr, main, rates)
+    phase_done("4m")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
         # Each starts from phase 4's state after its warm-up, rehydrated
@@ -5209,7 +5664,6 @@ def main(argv) -> int:
         del run
         phase_done({"witness_free": "4w", "coalesced": "4c", "amortized": "4e",
                     "tiered": "4t"}[mode])
-    del main["warm_snapshot"]
     # 4s. the sharded resolver's main path; 4r. resharded live
     launches_sharded, sharded_set, rng = sharded_path(torch, sr, tk, et, keylib, obs)
     phase_done("4s")
@@ -5236,13 +5690,18 @@ def main(argv) -> int:
     phase_done("6k")
     clients_vs_cpu(torch, api, tk, spans, trace, fr)
     phase_done("6n")
+    acceptance_vs_cpu(torch, api, tk, spans, trace, fr)
+    phase_done("6m")
     # 6d. two runs of one stream on the card give equal records
     determinism_path(torch, api, tk, spans, trace, fr, batches)
     phase_done("6d")
-    # 6c. chaos on the card: random faults at full width, then replayed
-    # on cuda and cpu at the reduced shape
-    launches_chaos = chaos_path(torch, api, batches, tk, faults, buggify, DR, digests, obs)
-    del batches
+    # 6c. chaos on the card: random faults at full width from phase 4's
+    # state after its warm-up (a depth cut: replaying the WARM batches took
+    # 60-70 s of the run's ~81), then replayed on cuda and cpu at the
+    # reduced shape
+    launches_chaos = chaos_path(torch, api, ecpu, batches, tk, faults, buggify, DR, digests, obs,
+                                main["warm_snapshot"])
+    del batches, main["warm_snapshot"]
     chaos_vs_cpu(torch, api, sr, T, faults, buggify, DR, keylib)
     phase_done("6c")
     # 4a's device busy under the profiler, after every timed phase
@@ -5271,6 +5730,8 @@ def main(argv) -> int:
              batches_cluster=batches_cluster, empty_batches_cluster=empty_cluster,
              launches_client=client["launches"][r["name"]],
              batches_client=client["batches"],
+             launches_workloads=workloads["launches"][r["name"]],
+             batches_workloads=workloads["batches"],
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

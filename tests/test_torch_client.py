@@ -116,18 +116,20 @@ def _install_hubs(pkg):
     port_ts.set_global_timeseries(port_ts.TimeSeriesHub())
 
 
-def _set():
-    return ConflictSet(device="cpu", **SMOKE.CLIENT_SET_KW)
+def _set(depth=None):
+    kw = {} if depth is None else {"pipeline_depth": depth}
+    return ConflictSet(device="cpu", **kw, **SMOKE.CLIENT_SET_KW)
 
 
-def cluster(m, arm, seed, **kw):
+def cluster(m, arm, seed, depth=None, **kw):
     """`m`'s SimCluster for `arm`: its host engine ("cpu"), or every
-    resolver over a port ConflictSet(device="cpu") ("set")."""
+    resolver over a port ConflictSet(device="cpu") ("set"), at pipeline
+    depth `depth` when given."""
     if arm == "cpu":
         return m.cluster.SimCluster(seed=seed, conflict_backend="cpu", **kw)
     if m.pkg == "port":
         kw["device"] = "cpu"
-    with SMOKE.resolver_sets(m.cluster, _set):
+    with SMOKE.resolver_sets(m.cluster, lambda: _set(depth)):
         return m.cluster.SimCluster(seed=seed, **kw)
 
 

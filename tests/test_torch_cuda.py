@@ -1353,3 +1353,49 @@ def test_client_on_the_card_matches_the_cpu(dev, depth):
     smoke = _chip_smoke()
     assert smoke.ring_ok(cuda["ring"]) and cuda["balancer"][1] >= 1
     assert served == batches > 0 and all(v == batches for v in launches.values())
+
+
+def _acceptance_record(device, depth, config="config 2"):
+    """chip_smoke's phase 6m: one of its acceptance configs (the
+    reference's exact shape and seed) through the port's SimCluster, every
+    resolver over a ConflictSet of the Resolver's default key width at
+    `depth` on `device`; returns the record, the launches, the
+    device-served batches and the resolve batches."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.conflict import kernels as tk
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import cluster as cm
+
+    smoke = _chip_smoke()
+    cfg = smoke.ACCEPT_CONFIGS[config]
+    sets = []
+
+    def make_set():
+        sets.append(ConflictSet(device=device, pipeline_depth=depth, **smoke.CLIENT_SET_KW))
+        return sets[-1]
+
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    try:
+        with smoke.resolver_sets(cm, make_set):
+            c = cm.SimCluster(seed=cfg["seed"], device=device, **cfg["cluster"])
+        record = smoke.acceptance_record(c, wl, txmod, config)
+    finally:
+        el.set_event_loop(None)
+    served = sum(s.device_metrics()["counters"]["batches"] for s in sets)
+    batches = sum(r.metrics.counter("batches").value for r in c.resolvers)
+    return record, dict(tk.LAUNCHES), served, batches
+
+
+def test_write_during_read_on_the_card_matches_the_cpu(dev):
+    """Config 2 (WriteDuringRead at high contention) at depth 2: every
+    read, commit, conflict and retry, the workload's record and check and
+    the final state equal on cuda and cpu, the memory model without a
+    mismatch, and each kernel launched once in every resolve batch, the
+    card serving every one."""
+    cuda, launches, served, batches = _acceptance_record("cuda", 2)
+    assert cuda == _acceptance_record("cpu", 2)[0]
+    assert not cuda["workload"]["mismatches"] and cuda["workload"]["conflicts"] > 0
+    assert served == batches > 0 and all(v == batches for v in launches.values())

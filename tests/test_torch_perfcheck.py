@@ -325,7 +325,7 @@ def test_runner_text_counts_every_hot_rule(capsys):
     assert ("[perfcheck] 0 finding(s), 8 suppressed; per-rule (flagged+suppressed): "
             "HOT001=0+0s HOT002=0+0s HOT003=0+7s HOT004=0+1s") in err
     # The gate runs fdblint beside perfcheck: its 7 suppressions join the 8.
-    assert "lint: 0 finding(s), 16 suppressed across 2 tool(s)" in err
+    assert "lint: 0 finding(s), 18 suppressed across 2 tool(s)" in err
 
 
 def test_runner_sarif_and_pragma_inventory(capsys):

@@ -35,17 +35,29 @@ SMOKE = TWINS.SMOKE
 _restore_globals = TWINS._restore_globals
 
 
-def run(pkg, arm, make, seed, **cluster_kw):
+def run(pkg, arm, make, seed, timeout_vt=None, prefixes=(), depth=None, conflict_set=None,
+        **cluster_kw):
     """run_workloads(make(wl)) through `pkg`'s cluster in `arm`; returns
-    the record."""
+    the record.  `depth` gives the "set" arm's sets that pipeline depth;
+    `conflict_set` (a factory) puts resolver 0 over that set beside the
+    host engine; after the run a fresh client reads each of `prefixes`
+    in one transaction (the final state)."""
     m = TWINS.mods(pkg)
     TWINS._install_hubs(pkg)
-    c = TWINS.cluster(m, arm, seed, **cluster_kw)
+    kw = dict(cluster_kw)
+    if conflict_set is not None:
+        if pkg == "port":
+            kw["device"] = "cpu"
+        c = m.cluster.SimCluster(seed=seed, conflict_backend="cpu", conflict_set=conflict_set(),
+                                 **kw)
+    else:
+        c = TWINS.cluster(m, arm, seed, depth=depth, **kw)
     dbs = SMOKE.tracked_databases(c)
     log = SMOKE.ClientLog(m.tx)
     loads = make(m.wl)
     try:
-        m.wl.run_workloads(c, loads)
+        m.wl.run_workloads(c, loads, **({} if timeout_vt is None else {"timeout_vt": timeout_vt}))
+        state = [SMOKE.final_state(c, prefix) for prefix in prefixes]
     finally:
         log.remove()
         m.el.set_event_loop(None)
@@ -53,20 +65,23 @@ def run(pkg, arm, make, seed, **cluster_kw):
         events=log.events,
         clients=SMOKE.client_state(dbs),
         workloads=[(w.name, SMOKE.norm(dict(vars(w)))) for w in loads],
+        state=state,
         coverage=c.buggify_coverage.snapshot_json(),
         proxies=[p.metrics.snapshot_json() for p in c.proxies],
         resolvers=[r.metrics.snapshot_json() for r in c.resolvers],
         end=(c.loop.now(), c.loop.rng.random_int(0, 1 << 30)),
-    )
+    ), loads, c
 
 
-def pair(arm, make, seed, **cluster_kw):
-    ref = run("ref", arm, make, seed, **cluster_kw)
-    port = run("port", arm, make, seed, **cluster_kw)
+def pair(arm, make, seed, **kw):
+    """The reference's record and the port's, asserted equal; returns the
+    port's record, its workloads and its cluster."""
+    ref = run("ref", arm, make, seed, **kw)[0]
+    port, loads, c = run("port", arm, make, seed, **kw)
     assert port["events"] == ref["events"]
     for key in ref:
         assert port[key] == ref[key], key
-    return port
+    return port, loads, c
 
 
 CASES = [
@@ -98,7 +113,7 @@ CASES = [
     [pytest.param(make, seed, arm, kw, id=f"{name}-{arm}")
      for name, make, seed, arms, kw in CASES for arm in arms])
 def test_workloads_match_the_reference(make, seed, arm, kw):
-    port = pair(arm, make, seed, **kw)
+    port = pair(arm, make, seed, **kw)[0]
     assert port["events"] and any(e[0] == "commit" for e in port["events"])
 
 
@@ -107,10 +122,10 @@ def test_workload_checks_see_what_they_claim():
     conflict-range probes saw both outcomes, RYW read something, the lock
     was seen while held."""
     port = pair("cpu", lambda wl: [wl.ConflictRangeWorkload(), wl.RyowCorrectnessWorkload()],
-                212)
+                212)[0]
     cr, ryow = (dict(w[1]) for w in port["workloads"])
     assert 0 < cr["conflicts"] < cr["checked"] and ryow["reads_checked"] > 0
-    port = pair("cpu", lambda wl: [wl.LockDatabaseWorkload()], 213, n_proxies=2)
+    port = pair("cpu", lambda wl: [wl.LockDatabaseWorkload()], 213, n_proxies=2)[0]
     assert dict(port["workloads"][0][1])["checked_while_locked"]
 
 
@@ -130,7 +145,13 @@ def test_port_exports_only_the_client_workloads():
         "TestWorkload", "run_workloads", "CycleWorkload", "AtomicLedgerWorkload",
         "WriteSkewWorkload", "AtomicOpsWorkload", "SerializabilityWorkload",
         "VersionStampWorkload", "LockDatabaseWorkload", "IncrementWorkload",
-        "ConflictRangeWorkload", "RyowCorrectnessWorkload"])
+        "ConflictRangeWorkload", "RyowCorrectnessWorkload", "WriteDuringReadWorkload",
+        "RandomReadWriteWorkload", "FuzzApiWorkload", "SelectorCorrectnessWorkload",
+        "ConsistencyChecker", "check_consistency", "BulkLoadWorkload", "IndexScanWorkload",
+        "InventoryWorkload", "QueuePushWorkload", "StorefrontWorkload", "LowLatencyWorkload",
+        "UnreadableWorkload", "SidebandWorkload", "WatchesWorkload", "WatchAndWaitWorkload",
+        "FastTriggeredWatchesWorkload", "BackgroundSelectorsWorkload", "CommitBugWorkload",
+        "ConfigureDatabaseWorkload", "SlowTaskWorkload"])
     ref = TWINS.mods("ref").wl
     assert set(port.__all__) < set(ref.__all__)
 
@@ -142,15 +163,13 @@ def test_client_script_matches_the_reference(depth):
     phase 6n's shape at `depth`.  On the port's side the device engine
     serves every resolve batch, the balancer's 20-byte key going through
     the long-key side table."""
-    from foundationdb_tpu_torch.conflict.api import ConflictSet
-
     recs, sets = {}, {"ref": [], "port": []}
     for pkg in ("ref", "port"):
         m = TWINS.mods(pkg)
         TWINS._install_hubs(pkg)
 
         def make_set(mine=sets[pkg]):
-            mine.append(ConflictSet(device="cpu", pipeline_depth=depth, **SMOKE.CLIENT_SET_KW))
+            mine.append(TWINS._set(depth))
             return mine[-1]
 
         with SMOKE.resolver_sets(m.cluster, make_set):
