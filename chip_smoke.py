@@ -213,6 +213,40 @@ seconds (`phase <name>: ...`):
                retries and witness_hint_retries, the GRV calls against the
                proxies' GRV requests, the resolve batches and their sizes,
                the wall and commits/s beside 4k's and phase 4's (no claim)
+  4f. durable  FoundationDB's restarting test on SimCluster(durable=True,
+               buggify=False) (the port's fileio: simulated files under
+               KillMode.FULL_CORRUPTION, the tlog's disk queue and spill
+               B-tree, the storage's memory engine): resolver 0's set is
+               a ConflictSet with phase 4's settings and transfer_guard=
+               True from phase 4's warm-up state, lifted past its newest
+               version by one empty commit; 4n's ring (4,096 nodes, loaded
+               by 64 transactions that read what they set), then twice
+               1,024 actors x 2 Cycle ops, one more commit held in flight
+               at the set, crash_and_recover() (every process killed, each
+               unsynced write settled by the loop's rng, an epoch jump of
+               100,000,000 versions, the recovery transaction) and the
+               ring's check.  Each ring one cycle and equal to every
+               acknowledged commit's writes applied in version order;
+               every batch the set decided, before and after each crash,
+               replayed equal on a host CpuConflictSet from the same
+               state; every batch on the card and every ticket synced
+               once, in order (the one in flight at a kill by the next
+               Resolver); launches = pipeline_dispatches = batches; no
+               fault, degraded batch, fallback or long-key batch;
+               mirror_check "ok"; the first batch after each recovery
+               drops every older row (about 2.9 M after the first crash).
+               Prints each arm's commits, not_committed, retries, batches,
+               wall and commits/s beside 4n's arms (no claim), each
+               recovery's host seconds, records replayed, disk bytes by
+               machine, in-flight batches and evicted rows, and rebases
+  4m. acceptance  RandomReadWrite (BASELINE.json config 3), WriteDuringRead
+               (config 2) and FuzzApi through the client on SimCluster(
+               n_proxies=1, buggify=False) over a card set at key_words=4
+               and phase 4's h_cap: every resolve request replayed equal on
+               the host, each kernel once a resolve batch, the long-key
+               side table exactly where the replay says; prints each
+               step's commits, conflicts, retries, batches and commits/s
+               (no claim)
   4w. witness-free  phase 4's timed batches through ConflictSet(
                witness=False), its mirror from phase 4's state after the
                warm-up (the device rehydrated from it before the timed
@@ -383,14 +417,28 @@ seconds (`phase <name>: ...`):
                balancer's 20-byte resolverSplit key, past the card's 16,
                goes through the long-key side table: those batches are
                counted, and none is served by the host)
+  6f. durable vs cpu  4f's script at the reference rig's shape (key_words
+               3, h_cap 1,024; a 64-node ring, 32 actors x 2 ops, two
+               crashes) through SimCluster(durable=True, buggify=True) at
+               depths 1-3, on cuda and on cpu: every read, commit and retry
+               with its virtual time, every file's bytes and pending writes
+               on every machine after each crash, the batches in flight at
+               each kill, every batch's verdicts and witnesses, the
+               storage's rows, the tlog, the exported set state and the
+               loop's end and next rng draw equal
+  6m. acceptance vs cpu  configs 2 and 3 at the reference's exact shapes
+               and seeds through the port's SimCluster at depths 1-3 on
+               cuda and on cpu: the records equal, and at depth 1 equal to
+               the host engine's
   6d. determinism  two fresh ConflictSets with phase 4's settings over the
                first 4 batches of phase 4's stream, each under fresh port
                hubs on a clock that counts its own reads: verdicts and
                witnesses, the export (keys, versions, count, oldest),
                metrics.snapshot() (no wall namespace) and spans_json()
                (no wall stamps) equal; one launch of each kernel a batch
-  6c. chaos    (a) phase 4's ConflictSet, stream and seed (52 + 8 batches
-               of 65,536 transactions at h_cap 3,145,728, depth 2) under
+  6c. chaos    (a) phase 4's ConflictSet, stream and seed (its 8 timed
+               batches of 65,536 transactions from its state after the
+               warm-up, at h_cap 3,145,728, depth 2) under
                the injector's random mode (the port's buggify armed on a
                DeterministicRandom, fire probability 0.05) and an
                open-ended dispatch outage over batches 54-56: every
@@ -424,13 +472,16 @@ seconds (`phase <name>: ...`):
                batches;
                launches_tiered: the tiered one's; launches_sharded:
                the sharded one's; launches_resharded: phase 4r's 9
-               batches; launches_chaos: phase 6c(a)'s 60 batches;
+               batches; launches_chaos: phase 6c(a)'s 8 batches;
                launches_resolver: phase 4q's 2 requests;
                launches_cluster: phase 4k's, over its batches_cluster
                resolve batches, empty_batches_cluster of them empty (an
                empty batch launches both kernels too); launches_client:
                phase 4n's (the ring's load and both arms), over its
-               batches_client resolve batches; tiered and
+               batches_client resolve batches; launches_workloads: phase
+               4m's three steps, over its batches_workloads;
+               launches_durable: phase 4f's, over its batches_durable
+               resolve batches; tiered and
                sharded: those shapes' times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
@@ -4467,7 +4518,7 @@ def client_path(torch, tk, spans, trace, fr, run, main):
     loop = c.loop
     el.set_event_loop(loop)
     hubs = PortHubs(spans, trace, fr)
-    totals = {"launches": {n: 0 for n in tk.LAUNCHES}, "batches": 0}
+    totals = {"launches": {n: 0 for n in tk.LAUNCHES}, "batches": 0, "rates": {}}
     try:
         def wait(fut, budget=600.0):
             return loop.run_until(fut, timeout_vt=loop.now() + budget)
@@ -4555,6 +4606,7 @@ def client_path(torch, tk, spans, trace, fr, run, main):
             if commits != CLIENT_ACTORS * CLIENT_OPS:
                 raise AssertionError(f"{label} {arm}: {commits} commits, counts {n}")
             retries = sum(v for (m, o), v in n.items() if m == "on_error" and o != "raised")
+            totals["rates"][arm] = commits / wall
             sizes = sorted(len(q.transactions) for q, _f in served)
             nonempty = [s for s in sizes if s]
             log(f"{label} {arm}: Database(witness_retry={hint}): {CLIENT_ACTORS} actors x "
@@ -4681,6 +4733,521 @@ def clients_vs_cpu(torch, api, tk, spans, trace, fr):
         f"{tot['batches']} resolve batches, {tot['side']} of them through the long-key side "
         f"table (the 20-byte resolverSplit key), none served by the host; "
         f"host seconds a run {secs}; card {torch.cuda.get_device_name(0)}")
+    return tot
+
+
+# ---------------------------------------------------------------------------
+# phases 4f and 6f: the durable commit path, crashed and recovered
+# ---------------------------------------------------------------------------
+
+# Phase 4f: FoundationDB's restarting test as the reference's
+# tests/test_restarting.py models it (run Cycle, kill every process, check
+# the ring after the restart), on SimCluster(durable=True) over a card set
+# with phase 4's settings, at 4n's shapes: the ring's load, then twice
+# CLIENT_ACTORS actors x CLIENT_OPS ops, a crash_and_recover() and the
+# ring's check.
+DURABLE_SHAPE = dict(nodes=CLIENT_NODES, actors=CLIENT_ACTORS, ops=CLIENT_OPS,
+                     load_txns=CLIENT_LOAD_TXNS, crashes=2)
+DURABLE_SEED = 31
+# Phase 6f: the same script at the reference rig's small shape, on cuda and
+# on cpu at each depth.
+DURABLE_VS_CPU_SHAPE = dict(nodes=64, actors=32, ops=2, load_txns=8, crashes=2)
+DURABLE_VS_CPU_DEPTHS = (1, 2, 3)
+DURABLE_SET_KW = dict(key_words=3, h_cap=1 << 10, bucket_mins=(32, 128, 64))
+
+
+class SetLog:
+    """Every batch a ConflictSet `cs` decides, on its side of the Resolver:
+    wraps the instance's pipeline_submit (depths 2-3), _detect (depth 1)
+    and pipeline_complete_oldest (remove() restores them).  `batches` holds
+    [txns, now, new_oldest_version, entry] in decision order (entry: the
+    InflightBatch, or a synchronous decision's (statuses, witness));
+    `parked` the entries dispatched without a sync and `synced` the entry
+    each pipeline_complete_oldest retired, in order; `rows` the device
+    history's row count after each synced batch (by the entry's id)."""
+
+    NAMES = ("pipeline_submit", "_detect", "pipeline_complete_oldest")
+
+    def __init__(self, cs):
+        self.cs, self.batches, self.parked, self.synced, self.rows = cs, [], [], [], {}
+        inner = {n: getattr(cs, n) for n in self.NAMES}
+        nested = [0]
+
+        def pipeline_submit(txns, now, new_oldest_version):
+            nested[0] += 1
+            try:
+                entry = inner["pipeline_submit"](txns, now, new_oldest_version)
+            finally:
+                nested[0] -= 1
+            self.batches.append([txns, now, new_oldest_version, entry])
+            if not entry.done:
+                self.parked.append(entry)
+            return entry
+
+        def _detect(txns, now, new_oldest_version):
+            statuses = inner["_detect"](txns, now, new_oldest_version)
+            if not nested[0]:
+                self.batches.append([txns, now, new_oldest_version,
+                                     (list(statuses), list(cs.last_witness))])
+            return statuses
+
+        def pipeline_complete_oldest():
+            entry = cs._pipe[0]
+            self.synced.append(entry)
+            inner["pipeline_complete_oldest"]()
+            if entry.done:
+                # Set from the batch's readback, with no sync of its own.
+                self.rows[id(entry)] = cs._dev.metrics.gauge("boundary_count").value
+
+        for n, fn in zip(self.NAMES, (pipeline_submit, _detect, pipeline_complete_oldest)):
+            setattr(cs, n, fn)
+
+    def outcome(self, i):
+        """Batch i's (statuses, witness), or None while it is parked."""
+        entry = self.batches[i][3]
+        if isinstance(entry, tuple):
+            return entry
+        return (list(entry.statuses), list(entry.witness)) if entry.done else None
+
+    def record(self) -> list:
+        """(now, new_oldest_version, transactions, outcome) a batch."""
+        return [(b[1], b[2], len(b[0]), norm(self.outcome(i))) for i, b in enumerate(self.batches)]
+
+    def remove(self):
+        for n in self.NAMES:
+            delattr(self.cs, n)
+
+
+class Acks:
+    """The commits one package's client acknowledged: wraps the commit of
+    `txmod`'s Transaction (remove() restores it); `acks` holds each as (its
+    committed version, its mutations as (type, param1, param2)), in the
+    order the commits returned."""
+
+    def __init__(self, txmod):
+        self.T = txmod.Transaction
+        self.inner = self.T.__dict__["commit"]
+        self.acks = []
+        inner, acks = self.inner, self.acks
+
+        async def commit(tr):
+            v = await inner(tr)
+            acks.append((tr.committed_version,
+                         [(int(m.type), m.param1, m.param2) for m in tr.mutations]))
+            return v
+
+        self.T.commit = commit
+
+    def remove(self):
+        self.T.commit = self.inner
+
+
+def disk_state(fs, full=True):
+    """Every machine's files in a SimFileSystem: with `full`, (machine,
+    name) -> the durable bytes and the pending (offset, bytes) writes;
+    without, machine -> the bytes on its disk (pending writes included)."""
+    if full:
+        return {k: (bytes(f.durable), [(o, bytes(d)) for o, d in f.pending])
+                for k, f in sorted(fs._files.items())}
+    out = {}
+    for (mid, _name), f in sorted(fs._files.items()):
+        end = max([len(f.durable)] + [o + len(d) for o, d in f.pending])
+        out[mid] = out.get(mid, 0) + end
+    return out
+
+
+@contextlib.contextmanager
+def fixed_gc():
+    """While open, cyclic garbage is collected only where the code calls
+    gc.collect(), never at the allocator's thresholds.  A role killed by a
+    crash leaves its cancelled actors in cycles, and an unanswered Reply
+    among them sends broken_promise when collected, which draws a latency
+    from the loop's rng: when the collector runs would move every later
+    draw.  durable_script collects after each crash while this is open."""
+    gc.collect()
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def durable_script(c, wl, txmod, shape, setlog, export=None, full=True, on=None) -> dict:
+    """The restarting test through a durable SimCluster `c` (either
+    package's; `wl` and `txmod` are its workloads and client.transaction
+    modules) whose resolver 0's set `setlog` watches (a SetLog): a Cycle
+    ring of shape["nodes"] nodes under CLIENT_PREFIX, loaded by
+    shape["load_txns"] transactions that read every key they set; then
+    shape["crashes"] times: shape["actors"] actors x shape["ops"] Cycle
+    ops from a new client, at depths 2-3 one more commit sent and the loop
+    stepped until the set holds it (or its batch) in flight,
+    crash_and_recover(), the workload's check and
+    the ring read back through the client, which must equal every
+    acknowledged commit's writes applied in version order.  `on(event,
+    k)` is called at "loaded", and for arm k at "arm", "armed", "crash",
+    "recovered" and "checked".  Returns the record: every read, commit
+    and retry with its virtual time (with `full`), the acknowledged
+    commits, each arm's commit, conflict and retry counts, the set's
+    in-flight batches at each kill, the disks after each crash (`full`:
+    every file's bytes and pending writes; else each machine's bytes),
+    each ring read back, the set's batches and outcomes, the storage's
+    window and engine rows, the sequencer, the set's state (`export`),
+    and the loop's end time with its rng's next draw."""
+    loop = c.loop
+    on = on or (lambda event, k: None)
+    nodes, load_txns = shape["nodes"], shape["load_txns"]
+    log_, acks = ClientLog(txmod, record=full), None
+    rec = dict(arms=[], inflight=[], disks=[], rings=[])
+    try:
+        acks = Acks(txmod)
+
+        def wait(fut):
+            return loop.run_until(fut, timeout_vt=loop.now() + 2000.0)
+
+        ring = wl.CycleWorkload(nodes=nodes, ops=shape["ops"], actors=shape["actors"],
+                                prefix=CLIENT_PREFIX)
+        keys = [ring._key(i) for i in range(nodes)]
+        loader = c.database("durable_loader")
+
+        def load(part):
+            async def txn(tr):
+                for i in part:
+                    await tr.get(keys[i])  # the read covers the write
+                    tr.set(keys[i], b"%04d" % ((i + 1) % nodes))
+            return loader.run(txn)
+
+        step = nodes // load_txns
+        wait(loader.process.spawn(_every([
+            loader.process.spawn(load(range(j, j + step)), "load")
+            for j in range(0, nodes, step)]), "loads"))
+        on("loaded", None)
+        for k in range(shape["crashes"]):
+            db = c.database(f"durable_{k}")
+            before = dict(log_.counts)
+            on("arm", k)
+            wait(db.process.spawn(ring.start(db, c), f"cycle_{k}"))
+            on("armed", k)
+            n = {key: v - before.get(key, 0) for key, v in log_.counts.items()}
+            rec["arms"].append(dict(
+                commits=n.get(("commit", "ok"), 0),
+                not_committed=n.get(("commit", "not_committed"), 0),
+                retries=sum(v for (m, o), v in n.items() if m == "on_error" and o != "raised")))
+            if rec["arms"][-1]["commits"] != shape["actors"] * shape["ops"]:
+                raise AssertionError(f"durable arm {k}: counts {n}")
+            if setlog.cs.pipeline_depth > 1:
+                # Kill with a batch in flight: one more commit (a key off
+                # the ring, read first so the client adds no self-conflict
+                # key), the loop stepped until the set holds a dispatched,
+                # unsynced batch.
+                probe = db.process.spawn(_probe(db, CLIENT_PREFIX[:1] + b"f/%d" % k), "probe")
+                for _ in range(100_000):
+                    if setlog.cs.pipeline_inflight or probe.is_ready():
+                        break
+                    loop.run_one()
+            rec["inflight"].append(setlog.cs.pipeline_inflight)
+            on("crash", k)
+            c.crash_and_recover()
+            if not gc.isenabled():
+                gc.collect()  # the old roles' garbage, at a fixed point (fixed_gc)
+            rec["disks"].append(disk_state(c.fs, full))
+            on("recovered", k)
+            if not wait(db.process.spawn(ring.check(db, c), f"check_{k}")):
+                raise AssertionError(f"durable crash {k}: the ring is no longer one cycle")
+            out = {}
+
+            async def read(tr):
+                out["rows"] = await tr.get_range(CLIENT_PREFIX, CLIENT_PREFIX + b"\xff")
+
+            wait(db.process.spawn(db.run(read), f"read_{k}"))
+            want = {}
+            for _v, muts in sorted(acks.acks, key=lambda a: a[0]):
+                for t, key, val in muts:
+                    if t == 0 and key.startswith(CLIENT_PREFIX):  # SET_VALUE
+                        want[key] = val
+            got = dict(out["rows"])
+            if got != want:
+                bad = sorted(set(got) ^ set(want)) + sorted(
+                    x for x in set(got) & set(want) if got[x] != want[x])
+                raise AssertionError(f"durable crash {k}: the ring read back differs from the "
+                                     f"acknowledged writes at {len(bad)} keys, e.g. {bad[:3]}")
+            rec["rings"].append(sorted(got.items()))
+            on("checked", k)
+        rec["acks"] = list(acks.acks)
+    finally:
+        if acks is not None:
+            acks.remove()
+        log_.remove()
+    st = c.storage.store
+    kv = c.storage.kvstore
+    rec.update(
+        events=log_.events,
+        batches=setlog.record(),
+        storage=(norm(st.kv), st.sorted_keys, list(st.clears), c.storage.version.get(),
+                 c.storage.durable_version, kv.read_range(b"", b"\xff\xff\xff", 1 << 30)),
+        sequencer=(c.sequencer.version, c.sequencer.committed.get()),
+        tlog=(c.tlog.versions, norm(c.tlog.entries), c.tlog.popped, c.tlog.durable.get(),
+              c.tlog.spilled_through),
+        set=export(setlog.cs) if export is not None else None,
+        end=(loop.now(), loop.rng.random_int(0, 1 << 30)),
+    )
+    return rec
+
+
+async def _probe(db, key):
+    """One read-then-write commit of `key`: its outcome's name."""
+    tr = db.create_transaction()
+    try:
+        await tr.get(key)
+        tr.set(key, b"1")
+        await tr.commit()
+        return "committed"
+    except Exception as e:  # noqa: BLE001 - the client's FdbError
+        return e.name
+
+
+async def _every(futures):
+    """Wait for every future, in order (either package's loop)."""
+    for f in futures:
+        await f
+
+
+def durable_path(torch, api, ecpu, tk, spans, trace, fr, main, rates):
+    """Phase 4f: the restarting test (durable_script at DURABLE_SHAPE) on
+    SimCluster(durable=True, buggify=False) with its file system's default
+    KillMode.FULL_CORRUPTION, SimNetwork(deep_copy=False) and fresh port
+    hubs, garbage collected at fixed points (fixed_gc); resolver 0's set a
+    ConflictSet with phase 4's settings and the transfer guard on,
+    rehydrated from phase 4's warm-up state (as 4k's), and one empty
+    commit first that lifts the committed version above the state's
+    newest.  Checks: each ring one cycle after each crash and equal
+    to the acknowledged writes; every batch the set decided, before and
+    after each crash, replayed on a host CpuConflictSet rehydrated from the
+    same state gives the same verdicts and witnesses; every batch
+    dispatched to the card and each dispatched ticket synced exactly once
+    and in order (the one in flight at each kill by the next Resolver);
+    phase 4's launches a batch, pipeline_dispatches = batches; no fault,
+    degraded batch, fallback or long-key batch; mirror_check "ok"; the
+    first batch after each recovery drops every older row.  Prints for
+    each arm the commits, not_committed, retries, resolve batches, wall
+    and commits/s beside 4n's arms (`rates`); for each recovery its host
+    seconds, the records each disk queue replayed, the bytes on each
+    machine's disk, the batches in flight at the kill and the rows the
+    first batch after it evicted; the rebases.  Returns the launches and
+    the resolve batches."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.client.types import CommitTransactionRef
+    from foundationdb_tpu_torch.fileio import KillMode, diskqueue
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.metrics import wall_now
+    from foundationdb_tpu_torch.server import interfaces as itf
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    gc.collect()
+    label = "durable"
+    card = torch.cuda.get_device_name(0)
+    snap = main["warm_snapshot"]
+    newest = max(ch.max_ver for ch in snap.chunks)
+    cs = api.ConflictSet(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=2,
+                         transfer_guard=True)
+    cs._cpu = warm_engine(ecpu, snap)
+    eng = cs._dev
+    syncs0, rebases0 = eng.host_syncs, eng.rebases
+    dispatches0 = eng.metrics.counter("pipeline_dispatches").value
+    counters0 = dict(cs.device_metrics()["counters"])
+    hubs = PortHubs(spans, trace, fr)
+    opened = diskqueue.DiskQueue.__dict__["open"]
+    replayed = []
+
+    async def counted(cls, fs, process, filename):
+        q, records = await opened.__func__(cls, fs, process, filename)
+        if replayed:
+            replayed[-1][filename] = len(records)
+        return q, records
+
+    marks, at = {}, {}
+    setlog = None
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    t0 = wall_now()
+    try:
+        c = SimCluster(seed=DURABLE_SEED, durable=True, conflict_set=cs, buggify=False)
+        c.net.deep_copy = False  # before the first request, as 4k's network
+        kill_mode = next(k for k, v in vars(KillMode).items() if v == c.fs.kill_mode)
+        loop = c.loop
+        setlog = SetLog(cs)
+        client = c.net.process("client")
+        loop.run_until(loop.delay(0.001), timeout_vt=60.0)
+        first = loop.run_until(c.proxy.interface().commit.get_reply(
+            client, itf.CommitTransactionRequest(transaction=CommitTransactionRef())),
+            timeout_vt=60.0)
+        if first <= newest:
+            raise AssertionError(f"{label}: the first batch's version {first} is not above the "
+                                 f"snapshot's newest {newest}")
+
+        def on(event, k):
+            marks[(event, k)] = wall_now()
+            at[(event, k)] = len(setlog.batches)
+            if event == "crash":
+                replayed.append({})
+
+        diskqueue.DiskQueue.open = classmethod(counted)
+        with fixed_gc():  # the draws after a crash do not hang on the collector
+            rec = durable_script(c, wl, txmod, DURABLE_SHAPE, setlog, full=False, on=on)
+        diskqueue.DiskQueue.open = opened
+        t_end = wall_now()
+        cs.pipeline_drain()
+    finally:
+        diskqueue.DiskQueue.open = opened
+        if setlog is not None:
+            setlog.remove()
+        hubs.restore()
+        el.set_event_loop(None)
+    launches = dict(tk.LAUNCHES)
+    t_checks = wall_now()
+    # Every batch on the card, every ticket synced once and in order.
+    n = len(setlog.batches)
+    if len(setlog.parked) != n or len(setlog.synced) != n or any(
+            a is not b for a, b in zip(setlog.parked, setlog.synced)) or cs.pipeline_inflight:
+        raise AssertionError(f"{label}: {n} batches, {len(setlog.parked)} dispatched, "
+                             f"{len(setlog.synced)} synced, {cs.pipeline_inflight} in flight")
+    per = {k: v // TIMED for k, v in main["launches"].items()}
+    dispatches = eng.metrics.counter("pipeline_dispatches").value - dispatches0
+    if launches != {k: v * n for k, v in per.items()} or dispatches != n:
+        raise AssertionError(f"{label}: launches {launches}, {dispatches} dispatches in {n} "
+                             f"batches")
+    cm = cs.device_metrics()["counters"]
+    moved = {k: cm.get(k, 0) - counters0.get(k, 0)
+             for k in ("device_faults", "degraded_batches", "cpu_fallbacks", "long_key_batches",
+                       "long_key_host_batches")}
+    if any(moved.values()) or eng.cpu_fallbacks:
+        raise AssertionError(f"{label}: counters moved {moved}, cpu_fallbacks "
+                             f"{eng.cpu_fallbacks}")
+    # The host replay of every batch from the same state.
+    host = warm_engine(ecpu, snap)
+    for i, (txns, now, oldest, entry) in enumerate(setlog.batches):
+        st = host.detect(txns, now, oldest)
+        if digest(entry.statuses, entry.witness) != digest(st, list(host.last_witness)):
+            raise AssertionError(f"{label}: batch {i} at version {now} ({len(txns)} txns): "
+                                 f"verdicts or witnesses differ from the host set's")
+    t_mirror = wall_now()
+    report = cs.mirror_check()
+    if report["status"] != "ok":
+        raise AssertionError(f"{label}: mirror_check: {report}")
+    t_mirror = wall_now() - t_mirror
+    # The first batch after each recovery: every older row dropped.
+    evicted = []
+    for k in range(DURABLE_SHAPE["crashes"]):
+        i = at[("crash", k)]
+        prev, first_after = setlog.batches[i - 1], setlog.batches[i]
+        before, after = setlog.rows[id(prev[3])], setlog.rows[id(first_after[3])]
+        writes = sum(len(t.write_ranges) for t in first_after[0])
+        if first_after[2] <= prev[1] or after > 2 * writes + 2:
+            raise AssertionError(f"{label}: crash {k}: the first batch after it (version "
+                                 f"{first_after[1]}, removeBefore {first_after[2]}, {writes} "
+                                 f"writes) keeps {after} of {before} rows")
+        evicted.append(dict(version=first_after[1], remove_before=first_after[2], rows=before,
+                            kept=after, writes=writes))
+    arm_walls = [marks[("armed", k)] - marks[("arm", k)] for k in range(len(rec["arms"]))]
+    log(f"{label}: SimCluster(durable=True, buggify=False, KillMode.{kill_mode}) over "
+        f"ConflictSet(depth 2, transfer_guard=True) from phase 4's state after its warm-up "
+        f"({snap.boundary_count} keys, newest version {newest}) on SimNetwork(deep_copy=False); "
+        f"one empty commit at version {first}, then a ring of {DURABLE_SHAPE['nodes']} nodes "
+        f"loaded by {DURABLE_SHAPE['load_txns']} transactions, and {DURABLE_SHAPE['crashes']} "
+        f"times {DURABLE_SHAPE['actors']} actors x {DURABLE_SHAPE['ops']} Cycle ops, a "
+        f"crash_and_recover() and the ring's check: each ring one cycle and equal to the "
+        f"acknowledged writes ({len(rec['acks'])} acknowledged commits); {n} resolve batches, "
+        f"verdicts and witnesses equal the host replay, every ticket synced once and in order, "
+        f"launches {launches} = pipeline_dispatches {dispatches} = batches; faults, degraded "
+        f"batches, fallbacks and long-key batches 0; mirror_check ok; card {card}")
+    for k, (arm, wall) in enumerate(zip(rec["arms"], arm_walls)):
+        batches = at[("armed", k)] - at[("arm", k)]
+        log(f"{label} arm {k}: {arm['commits']} commits, {arm['not_committed']} not_committed, "
+            f"{arm['retries']} retries, {batches} resolve batches; wall {wall:.6f} s, "
+            f"{arm['commits'] / wall:.1f} commits/s beside 4n's arms "
+            f"{ {a: round(r, 1) for a, r in rates.items()} } commits/s (no claim); card {card}")
+    for k, ev in enumerate(evicted):
+        secs = marks[("recovered", k)] - marks[("crash", k)]
+        log(f"{label} recovery {k}: {secs:.6f} host s for crash_and_recover(); records "
+            f"replayed by each disk queue {replayed[k]}; bytes on each machine's disk "
+            f"{rec['disks'][k]}; batches in flight at the kill {rec['inflight'][k]}; the first "
+            f"batch after it (version {ev['version']}, removeBefore {ev['remove_before']}, "
+            f"{ev['writes']} write ranges) merged away all {ev['rows']} rows of the history "
+            f"before it, keeping {ev['kept']}; check {marks[('checked', k)] - marks[('recovered', k)]:.6f} s")
+    log(f"{label}: rebases {eng.rebases - rebases0}; host syncs/batch "
+        f"{(eng.host_syncs - syncs0) / n:.3f}; the phase's host seconds: the script "
+        f"{t_end - t0:.3f}, the replay and checks {wall_now() - t_checks - t_mirror:.3f}, "
+        f"mirror_check {t_mirror:.3f}")
+    del setlog, host, c
+    gc.collect()
+    return launches, n
+
+
+def durables_vs_cpu(torch, api, ecpu, tk, spans, trace, fr):
+    """Phase 6f: durable_script at DURABLE_VS_CPU_SHAPE through
+    SimCluster(durable=True, buggify=True) with resolver 0 over a
+    ConflictSet of DURABLE_SET_KW at DURABLE_VS_CPU_DEPTHS, on cuda and on
+    cpu, each on fresh port hubs and a fresh loop of one seed: every read,
+    commit and retry with its virtual time, every file's bytes and pending
+    writes on every machine after each crash, the set's in-flight batches
+    at each kill and every batch it decided, the storage's window and
+    engine rows, the tlog, the exported set state and the loop's end equal
+    on the two devices; on cuda each kernel launched once a batch the card
+    served, and the card served every batch."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.metrics import wall_now
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    tot = dict(launches={n: 0 for n in tk.LAUNCHES}, batches=0)
+    secs, inflight = {}, {}
+    for depth in DURABLE_VS_CPU_DEPTHS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            t0 = wall_now()
+            cs = api.ConflictSet(device=device, pipeline_depth=depth, **DURABLE_SET_KW)
+            hubs = PortHubs(spans, trace, fr)
+            for name in tk.LAUNCHES:
+                tk.LAUNCHES[name] = 0
+            setlog = SetLog(cs)
+            try:
+                with fixed_gc():
+                    c = SimCluster(seed=47, durable=True, conflict_set=cs, buggify=True,
+                                   device=device)
+                    runs[device] = durable_script(c, wl, txmod, DURABLE_VS_CPU_SHAPE, setlog,
+                                                  export=lambda s: set_state(ecpu, s))
+            finally:
+                setlog.remove()
+                hubs.restore()
+                el.set_event_loop(None)
+            secs[(depth, device)] = round(wall_now() - t0, 3)
+            if device == "cuda":
+                n = len(setlog.batches)
+                cm = cs.device_metrics()["counters"]
+                launches = dict(tk.LAUNCHES)
+                if any(v != n for v in launches.values()) or cm["batches"] != n:
+                    raise AssertionError(f"durable depth {depth}: launches {launches}, "
+                                         f"{cm['batches']} batches served by the card of {n}")
+                if cm["device_faults"] or cm["degraded_batches"] or cm["cpu_fallbacks"]:
+                    raise AssertionError(f"durable depth {depth}: counters {cm}")
+                for k, v in launches.items():
+                    tot["launches"][k] += v
+                tot["batches"] += n
+        if runs["cuda"] != runs["cpu"]:
+            which = [k for k in runs["cpu"] if runs["cuda"][k] != runs["cpu"][k]]
+            raise AssertionError(f"durable depth {depth}: cuda and cpu differ in {which}")
+        inflight[depth] = runs["cuda"]["inflight"]
+    log(f"durable vs cpu: durable_script ({DURABLE_VS_CPU_SHAPE}) through "
+        f"SimCluster(durable=True, buggify=True) over ConflictSet({DURABLE_SET_KW}) at depths "
+        f"{DURABLE_VS_CPU_DEPTHS}: every read, commit and retry with its virtual time, every "
+        f"file's bytes and pending writes after each crash, the batches in flight at each kill "
+        f"{inflight}, every batch's verdicts and witnesses, the storage, the tlog, the set's "
+        f"state and the loop's end equal on cuda and cpu; the rings one cycle; on cuda "
+        f"launches {tot['launches']} = {tot['batches']} batches, all served by the card; host "
+        f"seconds a run {secs}; card {torch.cuda.get_device_name(0)}")
     return tot
 
 
@@ -4853,7 +5420,7 @@ def acceptance_path(torch, api, ecpu, tk, spans, trace, fr, main, rates):
     cs = api.ConflictSet(key_words=ACCEPT_KEY_WORDS, h_cap=H_CAP)
     eng = cs._dev
     hubs = PortHubs(spans, trace, fr)
-    totals = {"launches": {n: 0 for n in tk.LAUNCHES}, "batches": 0}
+    totals = {"launches": {n: 0 for n in tk.LAUNCHES}, "batches": 0, "rates": {}}
     try:
         c = SimCluster(seed=ACCEPT_SEED, conflict_set=cs, n_proxies=1, n_resolvers=1,
                        buggify=False)
@@ -5639,6 +6206,10 @@ def main(argv) -> int:
     del cluster_run
     gc.collect()
     phase_done("4n")
+    # 4f. the durable commit path: the restarting test, crashed and recovered
+    launches_durable, batches_durable = durable_path(torch, api, ecpu, tk, spans, trace, fr,
+                                                     main, client["rates"])
+    phase_done("4f")
     # 4m. the acceptance workloads (RandomReadWrite, WriteDuringRead, FuzzApi)
     # through the client on a full-width card set of their own
     workloads = acceptance_path(torch, api, ecpu, tk, spans, trace, fr, main, rates)
@@ -5690,6 +6261,8 @@ def main(argv) -> int:
     phase_done("6k")
     clients_vs_cpu(torch, api, tk, spans, trace, fr)
     phase_done("6n")
+    durables_vs_cpu(torch, api, ecpu, tk, spans, trace, fr)
+    phase_done("6f")
     acceptance_vs_cpu(torch, api, tk, spans, trace, fr)
     phase_done("6m")
     # 6d. two runs of one stream on the card give equal records
@@ -5732,6 +6305,8 @@ def main(argv) -> int:
              batches_client=client["batches"],
              launches_workloads=workloads["launches"][r["name"]],
              batches_workloads=workloads["batches"],
+             launches_durable=launches_durable[r["name"]],
+             batches_durable=batches_durable,
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

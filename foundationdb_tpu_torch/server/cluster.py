@@ -18,9 +18,13 @@ Database`` on its own process; ``kw`` are its settings, such as
 ``witness_retry``), and ``run_all`` runs one coroutine per client to the
 end.  ``resolver_balancer(**kw)`` moves the resolvers' split points.
 
-Not ported yet: ``durable=True`` (the fileio layer) raises
-NotImplementedError; ``data_distributor()`` and ``dd_role()`` wait for
-the data distribution roles.
+``durable=True`` puts the one tlog and the one storage server on the
+simulated disks of ``fs`` (a SimFileSystem): the log's disk queue and
+spill store, the storage's memory engine.  ``crash_and_recover()`` kills
+every process, settles each unsynced write by the file system's KillMode,
+reboots, rebuilds the roles from disk at a new epoch and commits the
+recovery transaction.  Not ported yet: ``data_distributor()`` and
+``dd_role()`` wait for the data distribution roles.
 """
 
 from __future__ import annotations
@@ -60,11 +64,6 @@ class SimCluster:
         # the remote region's zero-loss recovery source)
         device=None,
     ):
-        if durable:
-            raise NotImplementedError(
-                "SimCluster(durable=True) needs the port's fileio layer "
-                "(disk queue, storage engine), which is not ported yet"
-            )
         if conflict_backend != "cpu" and (conflict_set is None or n_resolvers > 1):
             # A resolver will build its set on `device`: fail before any
             # role spawns an actor (None is the card, raising without one).
@@ -83,6 +82,7 @@ class SimCluster:
         self._conflict_set = conflict_set
         self.device = device
         self.durable = durable
+        self.fs = None
         self.master_proc = self.net.process("master")
         self.resolver_procs = [
             self.net.process(f"resolver{i}" if i else "resolver")
@@ -113,48 +113,58 @@ class SimCluster:
         self._n_clients = 0
         self.split_keys = even_split_keys(n_resolvers)
 
-        self.sequencer = Sequencer(self.master_proc)
-        self.resolvers = [
-            Resolver(
-                p,
-                backend=conflict_backend,
-                conflict_set=conflict_set if i == 0 else None,
-                n_proxies=n_proxies,
-                device=device,
-            )
-            for i, p in enumerate(self.resolver_procs)
-        ]
-        self.resolver = self.resolvers[0]
-        self.tlogs = [TLog(p) for p in self.tlog_procs]
-        self.tlog = self.tlogs[0]
-        tlog_ifaces = [t.interface() for t in self.tlogs]
-        # Storage 0 owns everything at bootstrap (including the \xff
-        # system keyspace).
-        self.storages = [
-            StorageServer(
-                p,
-                tlog_ifaces,
-                storage_id=f"ss{i}",
-                owned_all=(i == 0),
-                n_route_logs=n_tlogs,  # satellites excluded from placement
-            )
-            for i, p in enumerate(self.storage_procs)
-        ]
-        self.storage = self.storages[0]
-        self.proxies = [
-            Proxy(
-                p,
-                self.sequencer.interface(),
-                [r.interface() for r in self.resolvers],
-                tlog_ifaces,
-                resolver_split_keys=self.split_keys,
-                proxy_id=f"proxy{i}",
-                n_proxies=n_proxies,
-                n_satellites=n_satellite_tlogs,
-            )
-            for i, p in enumerate(self.proxy_procs)
-        ]
-        self.proxy = self.proxies[0]
+        if durable:
+            from ..fileio import SimFileSystem
+
+            assert n_resolvers == 1, "durable multi-resolver: use DynamicCluster"
+            assert n_storages == 1, "durable multi-storage: use DynamicCluster"
+            assert n_tlogs == 1, "durable multi-tlog: use DynamicCluster"
+            assert n_satellite_tlogs == 0, "satellites: non-durable SimCluster"
+            self.fs = SimFileSystem(self.net)
+            self._start_roles_durable(epoch_begin=0)
+        else:
+            self.sequencer = Sequencer(self.master_proc)
+            self.resolvers = [
+                Resolver(
+                    p,
+                    backend=conflict_backend,
+                    conflict_set=conflict_set if i == 0 else None,
+                    n_proxies=n_proxies,
+                    device=device,
+                )
+                for i, p in enumerate(self.resolver_procs)
+            ]
+            self.resolver = self.resolvers[0]
+            self.tlogs = [TLog(p) for p in self.tlog_procs]
+            self.tlog = self.tlogs[0]
+            tlog_ifaces = [t.interface() for t in self.tlogs]
+            # Storage 0 owns everything at bootstrap (including the \xff
+            # system keyspace).
+            self.storages = [
+                StorageServer(
+                    p,
+                    tlog_ifaces,
+                    storage_id=f"ss{i}",
+                    owned_all=(i == 0),
+                    n_route_logs=n_tlogs,  # satellites excluded from placement
+                )
+                for i, p in enumerate(self.storage_procs)
+            ]
+            self.storage = self.storages[0]
+            self.proxies = [
+                Proxy(
+                    p,
+                    self.sequencer.interface(),
+                    [r.interface() for r in self.resolvers],
+                    tlog_ifaces,
+                    resolver_split_keys=self.split_keys,
+                    proxy_id=f"proxy{i}",
+                    n_proxies=n_proxies,
+                    n_satellites=n_satellite_tlogs,
+                )
+                for i, p in enumerate(self.proxy_procs)
+            ]
+            self.proxy = self.proxies[0]
 
     def resolver_balancer(self, **kw):
         """A ResolverBalancer polling this cluster's resolvers (its own
@@ -166,6 +176,82 @@ class SimCluster:
             [r.interface() for r in self.resolvers],
             self.split_keys,
             **kw,
+        )
+
+    def _start_roles_durable(self, epoch_begin: int):
+        """(Re)build all roles from the machines' disks at a new epoch (the
+        static stand-in for master recovery's recruitment; the real recovery
+        state machine arrives with the control plane)."""
+
+        async def build():
+            self.tlog = await TLog.recover(
+                self.tlog_proc, self.fs, "tlog.dq", fast_forward_to=epoch_begin
+            )
+            self.tlogs = [self.tlog]
+            self.storage = await StorageServer.recover(
+                self.storage_proc, self.tlog.interface(), self.fs, "storage.dq"
+            )
+            self.storages = [self.storage]
+            self.sequencer = Sequencer(
+                self.master_proc, epoch_begin_version=epoch_begin
+            )
+            self.resolver = Resolver(
+                self.resolver_proc,
+                backend=self.conflict_backend,
+                conflict_set=self._conflict_set,
+                epoch_begin_version=epoch_begin,
+                device=self.device,
+            )
+            self.proxy = Proxy(
+                self.proxy_proc,
+                self.sequencer.interface(),
+                [self.resolver.interface()],
+                [self.tlog.interface()],
+                epoch_begin_version=epoch_begin,
+            )
+            self.proxies = [self.proxy]
+
+        self.loop.run_until(self.master_proc.spawn(build(), "recovery"))
+
+    def crash_and_recover(self):
+        """Kill every server process, resolve unsynced disk writes per the
+        corruption model, reboot, and rebuild roles from disk at a new epoch
+        (ref: restartSimulatedSystem SimulatedCluster.actor.cpp:597)."""
+        assert self.durable, "crash_and_recover requires durable=True"
+        from .proxy import MAX_VERSIONS_IN_FLIGHT
+
+        procs = [
+            self.master_proc,
+            self.resolver_proc,
+            self.tlog_proc,
+            self.storage_proc,
+            self.proxy_proc,
+        ]
+        for p in procs:
+            p.kill()
+        for p in procs:
+            self.fs.crash_machine(p.machine.machine_id)
+        for p in procs:
+            p.reboot()
+        # New epoch begins beyond anything the old one may have handed out
+        # (ref: recoverFrom picking recoveryTransactionVersion past the old
+        # epoch's end, masterserver.actor.cpp:725).
+        epoch_begin = self.sequencer.version + MAX_VERSIONS_IN_FLIGHT
+        self._start_roles_durable(epoch_begin=epoch_begin)
+        # The recovery transaction: an empty commit that advances the chain
+        # through the new epoch so storage catches up to GRV-visible versions
+        # (ref: the RECOVERY_TRANSACTION state, masterserver.actor.cpp:1158).
+        from ..client.types import CommitTransactionRef
+        from .interfaces import CommitTransactionRequest
+
+        async def recovery_txn():
+            await self.proxy.interface().commit.get_reply(
+                self.master_proc,
+                CommitTransactionRequest(transaction=CommitTransactionRef()),
+            )
+
+        self.loop.run_until(
+            self.master_proc.spawn(recovery_txn(), "recovery_txn")
         )
 
     def database(self, name: str = "", **kw):

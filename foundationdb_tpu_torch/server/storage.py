@@ -1,12 +1,13 @@
 """Storage server role: versioned MVCC reads over pulled log data.
 
-The port's own copy of the in-memory half of the reference package's
-``server/storage.py``.  The base engine (``kvstore``, ``recover`` and the
-durability fold into it) needs the port's fileio layer, which is not
-ported yet: asking the constructor for a ``kvstore`` raises
-NotImplementedError, and the window is trimmed to the MVCC floor as the
-reference's in-memory server does.  The reference's knobs it reads are
-the module constants below, at the reference's defaults.
+The port's own copy of the reference package's ``server/storage.py``.
+Without a base engine (``kvstore``) every version stays in the RAM window,
+trimmed to the MVCC floor.  Over one (``recover`` opens it from the
+machine's disk: "memory" or "btree"), applied mutations are folded into
+the engine every STORAGE_DURABILITY_LAG seconds of virtual time, and the
+window is trimmed and the log popped only behind that durable version.
+The reference's knobs it reads are the module constants below, at the
+reference's defaults.
 
 Ref: storageserver.actor.cpp — VersionedData :236-260 (MVCC window),
 getValueQ :684 / getKeyValues :1182 read path with waitForVersion :631;
@@ -34,9 +35,11 @@ from typing import Dict, List, Optional, Tuple
 
 from ..client.atomic import apply_atomic
 from ..client.types import Mutation, MutationType, key_after
+from ..fileio.kvstore import open_engine
 from ..flow.asyncvar import NotifiedVersion
 from ..flow.error import FdbError
 from ..rpc.network import SimProcess
+from ..rpc.wire import decode_frame, encode_frame
 from ..rpc.stream import RequestStream
 from ..utils import RangeMap
 from .interfaces import (
@@ -67,6 +70,7 @@ FETCH_SHARD_PAGE_ROWS = 5000
 MAX_VERSIONS_IN_FLIGHT = 100_000_000
 FUTURE_VERSION_DELAY = 1.0
 MAX_WRITE_TRANSACTION_LIFE_VERSIONS = 5_000_000
+STORAGE_DURABILITY_LAG = 0.05
 
 
 class VersionedClears:
@@ -286,6 +290,10 @@ class ByteSample:
         return best
 
 
+VERSION_META_KEY = b"\xff\xffmeta/durable_version"
+OWNED_META_KEY = b"\xff\xffmeta/owned_ranges"
+
+
 class AddingShard:
     """A range this server is becoming responsible for (ref: AddingShard
     storageserver.actor.cpp:85-133).  While FETCHING, the stream's mutations
@@ -311,8 +319,14 @@ class AddingShard:
 
 
 class StorageServer:
-    """In-memory MVCC window: applied == durable, and the log is popped
-    eagerly (the reference's in-memory server)."""
+    """In-memory MVCC window, optionally over a durable base engine.
+
+    With `kvstore` set, applied mutations are mirrored into the engine and
+    committed on a cadence; the window is trimmed to the durable floor and
+    the TLog popped only after durability (ref: updateStorage ->
+    IKeyValueStore::commit -> tLogPop).  Without it, applied == durable and
+    the log is popped eagerly (the original in-memory slice).
+    """
 
     def __init__(
         self,
@@ -322,14 +336,10 @@ class StorageServer:
         kvstore=None,
         storage_id: str = None,
         owned_all: bool = True,
+        meta=None,
         n_route_logs: int = None,  # tag placement spans the first N logs
         # (the rest are satellites: in the ack/confirm set, not consumed)
     ):
-        if kvstore is not None:
-            raise NotImplementedError(
-                "a StorageServer over a base engine needs the port's fileio "
-                "layer, which is not ported yet"
-            )
         self.process = process
         self.tlogs: List[TLogInterface] = (
             list(tlog) if isinstance(tlog, (list, tuple)) else [tlog]
@@ -338,6 +348,7 @@ class StorageServer:
             len(self.tlogs) if n_route_logs is None else n_route_logs
         )
         self.store = VersionedStore()
+        self.kvstore = kvstore
         self.storage_id = storage_id or f"ss:{process.machine.machine_id}"
         self.owned = RangeMap(False)
         self.adding = RangeMap(False)  # range -> AddingShard while moving in
@@ -345,7 +356,24 @@ class StorageServer:
         # storage id -> StorageInterface, learned from \xff/serverList/
         # mutations in the stream (ref: the serverList system keys).
         self.server_list: Dict[str, StorageInterface] = {}
-        if owned_all:
+        self._meta_dirty = True
+        if meta is not None:
+            owned_entries, avail_entries, server_list, ready_shards = meta
+            for b, e, v in owned_entries:
+                self.owned.set_range(b, e, v)
+            for b, e, v in avail_entries:
+                self.avail.set_range(b, e, v)
+            self.server_list = dict(server_list)
+            # READY AddingShards persist with the same commit that made
+            # their fetched data durable, so a crash between FETCHED and the
+            # settle record doesn't lose the move (the settle replayed from
+            # the log tail finds the shard and flips it).
+            for b, e, fv in ready_shards:
+                shard = AddingShard(b, e, [])
+                shard.phase = AddingShard.READY
+                shard.fetch_version = fv
+                self.adding.set_range(b, e, shard)
+        elif owned_all:
             self.owned.set_range(b"", None, True)
         self.version = NotifiedVersion(epoch_begin_version)
         self.durable_version = epoch_begin_version
@@ -354,6 +382,18 @@ class StorageServer:
         # bytesDurable; queue depth = input - durable).
         self.input_bytes = 0
         self.durable_bytes = 0
+        if kvstore is not None:
+            # Rebuild from the durable base after a restart (the reference
+            # persists its byte sample for the same reason); paged so huge
+            # stores don't need one giant materialization.
+            lo = b""
+            while True:
+                page = kvstore.read_range(lo, KEYSPACE_END, limit=4096)
+                for k, v in page:
+                    self.byte_sample.update(k, len(k) + len(v))
+                if len(page) < 4096:
+                    break
+                lo = page[-1][0] + b"\x00"
         self._metrics_stream = RequestStream(
             process, "get_storage_metrics", well_known=True
         )
@@ -405,6 +445,46 @@ class StorageServer:
         process.spawn_observed(self._serve_fetch_shard(), "ss_fetch")
         process.spawn_observed(self._serve_get_shard_state(), "ss_shard_state")
         process.spawn_observed(self._serve_get_owned_meta(), "ss_owned_meta")
+
+    @classmethod
+    async def recover(
+        cls,
+        process: SimProcess,
+        tlog: TLogInterface,
+        fs,
+        filename: str,
+        storage_id: str = None,
+        owned_all: bool = True,
+        engine: str = "memory",
+    ):
+        """Reopen the base engine and resume pulling from its durable
+        version (ref: storageServer rollback/restart recovery).  Ownership
+        is restored from the durable meta record; keyServers mutations in
+        the replayed log tail re-apply any later changes.  A move still
+        FETCHING at the crash is absent after recovery — DD observes
+        "missing" shard state and restarts it.  A move that reached READY
+        is durable (persisted with the fetched rows in one commit by
+        _finish_fetch) and is restored as a READY AddingShard: the source
+        may already have settled and dropped its copy, so re-fetching is
+        not an option (hence the write-through).
+
+        engine: "memory" (WAL+snapshot RAM map, KeyValueStoreMemory.
+        actor.cpp analog) or "btree" (COW B+tree, the ssd-class engine —
+        datasets exceed RAM; ref KeyValueStoreSQLite.actor.cpp's role)."""
+        kv = await open_engine(engine, fs, process, filename)
+        vmeta = kv.read_value(VERSION_META_KEY)
+        durable = int(vmeta.decode()) if vmeta else 0
+        owned_meta = kv.read_value(OWNED_META_KEY)
+        meta = decode_frame(owned_meta) if owned_meta else None
+        return cls(
+            process,
+            tlog,
+            epoch_begin_version=durable,
+            kvstore=kv,
+            storage_id=storage_id,
+            owned_all=owned_all if meta is None else False,
+            meta=meta,
+        )
 
     def interface(self) -> StorageInterface:
         return StorageInterface(
@@ -517,6 +597,7 @@ class StorageServer:
         from ..flow.buggify import buggify
 
         loop = self.process.network.loop
+        last_durable_commit = loop.now()
         log_i = 0
         while True:
             if buggify("storage_apply_lag"):
@@ -555,18 +636,102 @@ class StorageServer:
             floor = min(bound, reply.end_version)
             if floor > self.version.get():
                 self.version.set(floor)
-            # In-memory engine: every version stays in the RAM window, so
-            # only the MVCC-window floor limits old reads (ref: the 5s
-            # window, oldestVersion = version - MAX_WRITE_TRANSACTION_LIFE
-            # _VERSIONS); the log pops eagerly.
-            self.durable_version = max(
-                self.durable_version,
-                self.version.get() - MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
-            )
-            self.durable_bytes = self.input_bytes  # RAM window IS durable
-            self._pop_all(self.version.get())
+            if self.kvstore is None:
+                # In-memory engine: every version stays in the RAM window,
+                # so only the MVCC-window floor limits old reads (ref: the
+                # 5s window, oldestVersion = version - MAX_WRITE_TRANSACTION
+                # _LIFE_VERSIONS); the log still pops eagerly.
+                self.durable_version = max(
+                    self.durable_version,
+                    self.version.get()
+                    - MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+                )
+                self.durable_bytes = self.input_bytes  # RAM window IS durable
+                self._pop_all(self.version.get())
+            elif (
+                (
+                    loop.now() - last_durable_commit
+                    >= STORAGE_DURABILITY_LAG
+                    # BUGGIFY: eager durability — trims the MVCC window as
+                    # aggressively as possible (transaction_too_old paths).
+                    or buggify("storage_eager_durable")
+                )
+                and self.version.get() > self.durable_version
+            ):
+                await self._make_durable()
+                last_durable_commit = loop.now()
             if not reply.has_more:
                 await loop.delay(0.001)  # poll; push-based peek comes later
+
+    async def _make_durable(self):
+        """Fold window mutations through the applied version into the base
+        engine in (version, seq) order, commit, trim, pop the log (ref:
+        updateStorage storageserver.actor.cpp).
+
+        The durable floor is raised BEFORE the engine's RAM state is
+        mutated: reads below the new floor error transaction_too_old instead
+        of falling through the window to a base engine that is already ahead
+        of their version (the fold + commit spans awaits).
+
+        The fold stops an MVCC window short of the applied version (ref:
+        storageserver keeping the newest ~5s in the versioned window;
+        oldestVersion trails by MAX_WRITE_TRANSACTION_LIFE_VERSIONS) so
+        reads at any version the resolver would still admit keep working —
+        durability of the recent tail is the log's job until it is popped
+        here."""
+        new_durable = max(
+            self.durable_version,
+            self.version.get()
+            - MAX_WRITE_TRANSACTION_LIFE_VERSIONS,
+        )
+        if new_durable <= self.durable_version:
+            # No fold progress, but OWNERSHIP changes must not wait for
+            # the version window to advance: a crash after a shard
+            # handoff (fetch WRITE-THROUGH already made the data durable)
+            # would otherwise recover a server whose durable meta never
+            # claimed the shard — unreachable data.
+            if self._meta_dirty:
+                self._persist_meta_locked()
+                await self.kvstore.commit()
+            return
+        self.durable_version = new_durable
+        ops = []
+        for key, chain in self.store.kv.items():
+            for ver, seq, val in chain:
+                if ver <= new_durable:
+                    ops.append((ver, seq, "set", key, val))
+        for ver, seq, b, e in self.store.clears:
+            if ver <= new_durable:
+                ops.append((ver, seq, "clear", b, e))
+        ops.sort(key=lambda o: (o[0], o[1]))
+        for _v, _s, op, a, b in ops:
+            self.durable_bytes += len(a) + len(b) + 16
+            if op == "set":
+                self.kvstore.set(a, b)
+            else:
+                self.kvstore.clear_range(a, b)
+        self.kvstore.set(VERSION_META_KEY, b"%d" % new_durable)
+        if self._meta_dirty:
+            self._persist_meta_locked()
+        await self.kvstore.commit()
+        self.store.trim(new_durable)
+        self._pop_all(new_durable)
+
+    def _persist_meta_locked(self):
+        """Serialize ownership/avail/serverList/READY-shard meta into the
+        engine's write buffer (caller commits)."""
+        self._meta_dirty = False
+        ready = {
+            id(a): a for _b, _e, a in self.adding.items()
+            if a and a.phase == AddingShard.READY
+        }
+        meta = (
+            [(b, e, v) for b, e, v in self.owned.items()],
+            [(b, e, v) for b, e, v in self.avail.items()],
+            dict(self.server_list),
+            [(a.begin, a.end, a.fetch_version) for a in ready.values()],
+        )
+        self.kvstore.set(OWNED_META_KEY, encode_frame(meta))
 
     @property
     def queue_bytes(self) -> int:
@@ -575,7 +740,10 @@ class StorageServer:
         return max(0, self.input_bytes - self.durable_bytes)
 
     def _get_current(self, key: bytes, version: int) -> Optional[bytes]:
-        return self.store.get(key, version)
+        touched, val = self.store.get_stamped(key, version)
+        if not touched and self.kvstore is not None:
+            return self.kvstore.read_value(key)
+        return val
 
     # -- mutation application + metadata interception --
     def _apply(self, version: int, mutations: List[Mutation]):
@@ -652,11 +820,13 @@ class StorageServer:
         if parsed[0] == "server":
             _kind, sid, iface = parsed
             self.server_list[sid] = iface
+            self._meta_dirty = True
         elif parsed[0] == "resolver_split":
             pass  # proxy-side concern; storages don't partition resolution
         elif parsed[0] == "lock":
             pass  # lock enforcement lives at the proxies
         else:
+            self._meta_dirty = True
             _kind, begin, src, dest, end = parsed
             if dest:
                 self._start_adding(begin, end, src, dest, version)
@@ -730,11 +900,13 @@ class StorageServer:
         self.adding.set_range(shard.begin, shard.end, False)
         self.owned.set_range(shard.begin, shard.end, True)
         self.avail.set_range(shard.begin, shard.end, shard.fetch_version)
+        self._meta_dirty = True
 
     def _disown(self, begin: bytes, end: bytes):
         had = any(v for _b, _e, v in self.owned.intersecting(begin, end))
         self.owned.set_range(begin, end, False)
         self.adding.set_range(begin, end, False)
+        self._meta_dirty = True
         if had:
             self._drop_range(begin, end)
 
@@ -743,6 +915,8 @@ class StorageServer:
         in the range fire wrong_shard_server so clients re-route."""
         hi = min(end, KEYSPACE_END) if end is not None else KEYSPACE_END
         self.byte_sample.remove_range(begin, hi)
+        if self.kvstore is not None:
+            self.kvstore.clear_range(begin, hi)
         i = bisect_left(self.store.sorted_keys, begin)
         j = bisect_left(self.store.sorted_keys, hi)
         for k in self.store.sorted_keys[i:j]:
@@ -789,6 +963,14 @@ class StorageServer:
                 self._apply_point(m, ver, seq)
         shard.buffer = []
         shard.phase = AddingShard.READY
+        self._meta_dirty = True
+        if self.kvstore is not None:
+            # One commit covers the written-through rows AND the READY
+            # claim: after this fsync a crashed destination recovers the
+            # shard complete (the settle's flip persists via the next
+            # meta-only durability pass).
+            self._persist_meta_locked()
+            await self.kvstore.commit()
         if shard.finalized:
             self._flip_to_owned(shard)
 
@@ -801,6 +983,18 @@ class StorageServer:
         self.store.clear_range(shard.begin, shard.end, snap, 0)
         self.input_bytes += len(shard.begin) + len(shard.end) + 16
         self.byte_sample.remove_range(shard.begin, shard.end)
+        # WRITE-THROUGH: fetched rows go straight into the durable base
+        # engine too, fsynced before the shard can report READY.  The
+        # settle that follows READY makes the SOURCE durably drop its
+        # copy, so a destination holding the snapshot only in its RAM
+        # window would leave the data existing NOWHERE durable across a
+        # crash (snapshots never ride the log) — silent loss (ref:
+        # fetchKeys persisting fetched data before the shard turns
+        # readable, storageserver.actor.cpp fetchKeys).  Base rows above
+        # durable_version are benign: window entries shadow them until
+        # trim, and recovery gates reads with the avail floor (= snap).
+        if self.kvstore is not None:
+            self.kvstore.clear_range(shard.begin, shard.end)
         begin = shard.begin
         while True:
             rep: FetchShardReply = await src.fetch_shard.get_reply(
@@ -811,11 +1005,17 @@ class StorageServer:
                 from ..flow.testprobe import test_probe
 
                 test_probe("fetch_superseded")
-                # Superseded mid-page by an overlapping move: stop writing.
-                # The caller's top-of-loop check turns this into a return.
+                # Superseded mid-page by an overlapping move: STOP writing
+                # through — the new fetch's clear_range/sets share the
+                # base-engine commit buffer, and a stale row written after
+                # it would win last-writer-wins durably (served after a
+                # crash even though the RAM window shadows it).  The
+                # caller's top-of-loop check turns this into a return.
                 raise FdbError("fetch_superseded")
             for k, v in rep.data:
                 self.store.set(k, v, snap, 1)
+                if self.kvstore is not None:
+                    self.kvstore.set(k, v)
                 self.input_bytes += len(k) + len(v) + 16
                 self.byte_sample.update(k, len(k) + len(v))
             if not rep.more:
@@ -972,8 +1172,65 @@ class StorageServer:
         )
 
     def _range_at(self, begin, end, version, limit, reverse):
-        """The window's range read (the in-memory engine holds every key)."""
-        return self.store.get_range(begin, end, version, limit, reverse)
+        """Window-over-base merged range read (window clears mask base keys).
+
+        Two-pointer merge over the already-sorted base and window key lists
+        with early exit, so a limited read costs O(limit + skipped-masked),
+        not O(range size).
+        """
+        if self.kvstore is None:
+            return self.store.get_range(begin, end, version, limit, reverse)
+        # Base keys arrive in PAGES through the engine-neutral
+        # read_keys_page (works for the Python memory engine and the
+        # native C++ engine alike), merged against the window's sorted
+        # keys; window clears mask base rows, so more pages are pulled
+        # until `limit` merged rows exist or the base is exhausted.
+        wkeys = self.store.sorted_keys
+        wi = bisect_left(wkeys, begin)
+        wj = bisect_left(wkeys, end)
+        # Window keys are indexed in place (no range-sized slice/reverse):
+        # a limited read stays O(limit + masked keys skipped).
+        if reverse:
+            iw, ew, wstep = wj - 1, wi - 1, -1
+        else:
+            iw, ew, wstep = wi, wj, 1
+        before = (lambda x, y: x > y) if reverse else (lambda x, y: x < y)
+        rows: list = []
+        page_lo, page_hi = begin, end
+        page: list = []
+        ia = 0
+        exhausted = False
+        while len(rows) < limit:
+            if ia >= len(page) and not exhausted:
+                page = self.kvstore.read_keys_page(
+                    page_lo, page_hi, max(limit, 256), reverse
+                )
+                ia = 0
+                if len(page) < max(limit, 256):
+                    exhausted = True
+                elif reverse:
+                    page_hi = page[-1]  # next page strictly below
+                else:
+                    page_lo = page[-1] + b"\x00"
+            ka = page[ia] if ia < len(page) else None
+            kb = wkeys[iw] if iw != ew else None
+            if ka is None and kb is None:
+                break
+            if kb is None or (ka is not None and before(ka, kb)):
+                k = ka
+                ia += 1
+            elif ka is None or before(kb, ka):
+                k = kb
+                iw += wstep
+            else:  # same key in both
+                k = ka
+                ia += 1
+                iw += wstep
+            touched, wv = self.store.get_stamped(k, version)
+            v = wv if touched else self.kvstore.read_value(k)
+            if v is not None:
+                rows.append((k, v))
+        return rows
 
     async def _serve_metrics(self):
         """Byte estimates + split points for DD (ref: waitMetrics /

@@ -218,11 +218,6 @@ def test_port_cluster_defaults_to_the_card():
     port_el.set_event_loop(None)
 
 
-def test_durable_cluster_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="fileio"):
-        PortSimCluster(seed=1, durable=True, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # The metadata half: shard moves between two storages, the lock, the
 # resolver split, the recovery-time map and the ratekeeper's GRV lane

@@ -192,6 +192,46 @@ def test_fused_merge_evict_kernel_matches_plain(dev, kw1, width, NA, NB, liveA, 
     assert torch.equal(ok[:, :n], rk[:, :n]) and torch.equal(ov[:n], rv[:n])
 
 
+@pytest.mark.parametrize("liveB", [0, 2])
+def test_fused_merge_evict_drops_every_row_at_full_width(dev, liveB):
+    """The first batch after a recovery's epoch jump: removeBefore passes
+    every row of a full-width history (2,900,000 rows at width
+    3,145,728), so the merge keeps only the first row, the batch's new
+    rows and the row after each; the kernel equals its plain twin."""
+    width, NA, NB, liveA = 3_145_728, 3_145_728, 1024, 2_900_000
+    r = np.random.default_rng(liveB + 21)
+    keepA = np.zeros(NA, np.int32)
+    keepA[np.sort(r.choice(NA, size=liveA, replace=False))] = 1
+    keepB = np.zeros(NB, np.int32)
+    keepB[:liveB] = 1
+    mc = liveA + liveB
+    b_slots = np.sort(r.choice(mc, size=liveB, replace=False))
+    a_slots = np.setdiff1d(np.arange(mc), b_slots)
+    posA = np.full(NA, 2**31 - 1, np.int32)
+    posA[keepA != 0] = a_slots
+    posB = np.full(NB, 2**31 - 1, np.int32)
+    posB[keepB != 0] = b_slots
+    window = 100_000_000
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    args = (
+        t(r.integers(-(2**31), 2**31 - 1, (3, NA))), t(r.integers(0, 5_000, NA)),
+        t(keepA), t(posA),
+        t(r.integers(-(2**31), 2**31 - 1, (3, NB))), t(np.full(NB, window + 7)),
+        t(keepB), t(posB),
+        torch.tensor(mc, dtype=torch.int32, device=dev),
+        torch.tensor(window, dtype=torch.int32, device=dev),
+    )
+    assert tk.merge_contract_faults(dev) == 0
+    before = tk.LAUNCHES["fused_merge_evict"]
+    ok, ov, oc = tk.fused_merge_evict(*args, width=width)
+    assert tk.LAUNCHES["fused_merge_evict"] == before + 1
+    assert tk.merge_contract_faults(dev) == 0
+    rk, rv, rc = tk.fused_merge_evict_reference(*args, width=width)
+    n = int(rc)
+    assert int(oc) == n and n <= 1 + 2 * liveB
+    assert torch.equal(ok[:, :n], rk[:, :n]) and torch.equal(ov[:n], rv[:n])
+
+
 def test_engine_on_the_card_matches_the_cpu(dev):
     """A reduced bench-shaped stream through TorchConflictSet on the GPU
     and on the CPU: identical verdicts, witnesses and exported state."""

@@ -142,6 +142,37 @@ def test_fused_merge_evict_plain_vs_pallas_interpret(case, window):
         assert n == mc
 
 
+@pytest.mark.parametrize("case", [(512, 512, 64, 300, 0), (1024, 1024, 128, 777, 3),
+                                  (2048, 2048, 256, 1792, 256)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_fused_merge_evict_all_dropped_plain_vs_pallas_interpret(case):
+    """The first batch after a recovery's epoch jump: removeBefore passes
+    every history row, so the merge keeps the first row and, of the rest,
+    only the batch's new rows and the row after each."""
+    width, NA, NB, la, lb = case
+    kA, vA, keepA, pA, kB, vB, keepB, pB, mc = _merge_inputs(
+        width, NA, NB, la, lb, seed=width + lb)
+    window = 1 << 20  # above every version of A
+    vB = np.full(NB, window + 5, np.int32)  # the batch's rows are newer
+    jok, jov, joc = jk.fused_merge_evict(
+        jnp.asarray(kA), jnp.asarray(vA), jnp.asarray(keepA), jnp.asarray(pA),
+        jnp.asarray(kB), jnp.asarray(vB), jnp.asarray(keepB), jnp.asarray(pB),
+        jnp.asarray(mc, jnp.int32), jnp.asarray(window, jnp.int32),
+        width=width, kw1=3, interpret=True,
+    )
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    ok, ov, oc = tk.fused_merge_evict(
+        _tw(kA), i32(vA), i32(keepA), i32(pA),
+        _tw(kB), i32(vB), i32(keepB), i32(pB),
+        torch.tensor(mc, dtype=torch.int32), torch.tensor(window, dtype=torch.int32),
+        width=width,
+    )
+    n = int(joc)
+    assert int(oc) == n and 1 <= n <= 1 + 2 * lb
+    assert (from_device_words(ok.numpy()[:, :n]) == np.asarray(jok)[:, :n]).all()
+    assert (ov.numpy()[:n] == np.asarray(jov)[:n]).all()
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     hk, rb, re_ = _history_and_queries(3, 256, 100, 16)
     before = dict(tk.LAUNCHES)
