@@ -1,8 +1,10 @@
 """The port's server roles: the commit path's ``Sequencer``, ``Proxy``,
 ``Resolver``, ``TLog`` and ``StorageServer``, wired together by
 ``cluster.SimCluster``; their request and reply types (``interfaces``),
-the system keyspace (``system_keys``), tag placement (``log_system``) and
-the resolver's shard balancer (``resolver_balancer``)."""
+the system keyspace (``system_keys``), tag placement (``log_system``),
+the resolver's shard balancer (``resolver_balancer``), admission control
+(``ratekeeper``) and data distribution (``data_distribution``,
+``dd_role``)."""
 
 from .cluster import SimCluster
 from .proxy import Proxy

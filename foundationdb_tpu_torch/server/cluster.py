@@ -23,8 +23,15 @@ simulated disks of ``fs`` (a SimFileSystem): the log's disk queue and
 spill store, the storage's memory engine.  ``crash_and_recover()`` kills
 every process, settles each unsynced write by the file system's KillMode,
 reboots, rebuilds the roles from disk at a new epoch and commits the
-recovery transaction.  Not ported yet: ``data_distributor()`` and
-``dd_role()`` wait for the data distribution roles.
+recovery transaction.
+
+``data_distributor()`` is a DataDistributor on its own client process,
+knowing every storage by id, and ``dd_role(dd=None, **kw)`` a started
+DataDistributionRole over it (``kw`` are the role's settings, the
+reference's ``dd_*`` knobs).  The cluster builds no ratekeeper: a caller
+builds ``Ratekeeper(c.master_proc, c.tlogs, c.storages,
+resolvers=c.resolvers, proxies=c.proxies)`` and sets each proxy's
+``ratekeeper`` to its ``interface()``.
 """
 
 from __future__ import annotations
@@ -177,6 +184,28 @@ class SimCluster:
             self.split_keys,
             **kw,
         )
+
+    def data_distributor(self):
+        """A DataDistributor driving this cluster (its own client process);
+        pre-registered with every storage's id -> interface."""
+        from .data_distribution import DataDistributor
+
+        return DataDistributor(
+            self.database("dd"),
+            {s.storage_id: s.interface() for s in self.storages},
+        )
+
+    def dd_role(self, dd=None, **kw):
+        """A started self-driving DataDistribution role over this cluster
+        (ref: the DD singleton control loop, DataDistribution.actor.cpp);
+        `kw` are the role's settings."""
+        from .dd_role import DataDistributionRole
+
+        return DataDistributionRole(
+            dd or self.data_distributor(),
+            tlogs=[t.interface() for t in self.tlogs],
+            **kw,
+        ).start()
 
     def _start_roles_durable(self, epoch_begin: int):
         """(Re)build all roles from the machines' disks at a new epoch (the

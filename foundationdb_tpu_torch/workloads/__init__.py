@@ -8,8 +8,9 @@ operations, versionstamps, read-your-writes, conflict ranges, key
 selectors, unreadable ranges, watches, external consistency and the
 database lock; the acceptance workloads WriteDuringRead and
 RandomReadWrite and the API fuzzer; the replica consistency check; the
-transactional load workloads; live configuration churn; and the
-slow-task probe.
+transactional load workloads; live configuration churn; the
+slow-task probe; and the data distribution workloads (random shard moves
+under load, DD's balance, the safe removal of a storage server).
 
 Ref: fdbserver/workloads/workloads.h:55 (TestWorkload's setup/start/check/
 getMetrics contract), tester.actor.cpp:239 (CompoundWorkload running the
@@ -46,6 +47,9 @@ from .background_selectors import BackgroundSelectorsWorkload
 from .commit_bug import CommitBugWorkload
 from .configure_db import ConfigureDatabaseWorkload
 from .slow_task import SlowTaskWorkload
+from .random_move_keys import RandomMoveKeysWorkload
+from .dd_balance import DDBalanceWorkload
+from .remove_servers import RemoveServersSafelyWorkload
 
 __all__ = [
     "TestWorkload",
@@ -81,4 +85,7 @@ __all__ = [
     "CommitBugWorkload",
     "ConfigureDatabaseWorkload",
     "SlowTaskWorkload",
+    "RandomMoveKeysWorkload",
+    "DDBalanceWorkload",
+    "RemoveServersSafelyWorkload",
 ]

@@ -28,9 +28,11 @@ sides of the move, the storages' shard state, metrics, version and
 ownership dumps, the proxies' key locations, the ``\\xff/dbLocked`` lock
 and unlock, a resolver split, a recovery-time system map, and, with a
 scripted ratekeeper attached to every proxy, throttled and shed read
-versions.  Held equal as above, plus each storage's ownership, adding and
-availability maps and each proxy's key-server map, server list, lock and
-resolver bounds.  The TLog's commit, peek, pop, metrics and confirm
+versions; then the same with the port's own Ratekeeper attached (its
+rate, transitions log and registry held to the reference's).  Held
+equal as above, plus each storage's ownership, adding and availability
+maps and each proxy's key-server map, server list, lock and resolver
+bounds.  The TLog's commit, peek, pop, metrics and confirm
 streams, its lock, ``truncate_above`` and ``append_raw`` are held to the
 reference's on one log.
 
@@ -439,9 +441,19 @@ def metadata_record(c, types, itf, sk, keyspace_end, export, ratekeeper=False):
     list, lock, resolver bounds, rate info and registry snapshot; the
     tlogs, the sequencer, each resolver's snapshot, witness block and set
     state; what the ratekeeper was asked; the loop's end and rng."""
-    asked = _attach_ratekeeper(c, "ref" if type(c) is RefSimCluster else "port") \
-        if ratekeeper else []
+    pkg = "ref" if type(c) is RefSimCluster else "port"
+    rk = None
+    if ratekeeper == "real":
+        rk = importlib.import_module(f"{BASES[pkg]}.server.ratekeeper").Ratekeeper(
+            c.master_proc, c.tlogs, c.storages, resolvers=c.resolvers, proxies=c.proxies)
+        for p in c.proxies:
+            p.ratekeeper = rk.interface()
+        asked = []
+    else:
+        asked = _attach_ratekeeper(c, pkg) if ratekeeper else []
     replies = metadata_script(c, types, itf, sk, keyspace_end, ratekeeper)
+    if rk is not None:
+        asked = [rk.transition_log_json(), SMOKE.norm(rk.rate), rk.metrics.snapshot_json()]
 
     def adding(a):
         return a and (a.phase, a.begin, a.end, a.src_ids, a.fetch_version, a.finalized,
@@ -492,6 +504,9 @@ META_CASES = [
     ("two-resolvers", 9, None, False, dict(conflict_backend="cpu", buggify=False, n_proxies=2,
                                            n_resolvers=2)),
     ("ratekeeper", 10, None, True, dict(conflict_backend="cpu", buggify=False, n_proxies=2)),
+    # The port's Ratekeeper beside the scripted one, held to the reference's.
+    ("real-ratekeeper", 10, None, "real", dict(conflict_backend="cpu", buggify=False,
+                                               n_proxies=2)),
 ]
 
 

@@ -1439,3 +1439,103 @@ def test_write_during_read_on_the_card_matches_the_cpu(dev):
     assert cuda == _acceptance_record("cpu", 2)[0]
     assert not cuda["workload"]["mismatches"] and cuda["workload"]["conflicts"] > 0
     assert served == batches > 0 and all(v == batches for v in launches.values())
+
+
+def _spring_record(device):
+    """chip_smoke's spring_record through the port's SimCluster(seed=75,
+    buggify=False) whose resolver serves over a ConflictSet of the
+    Resolver's key width at depth 2 on `device`, three dispatch faults from
+    its 3rd batch; returns the record, the launches and the set's
+    counters."""
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.conflict import kernels as tk
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.conflict.device_faults import DeviceFaultInjector
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.flow import flight_recorder as fr
+    from foundationdb_tpu_torch.flow import spans, trace
+    from foundationdb_tpu_torch.server import ratekeeper as rkmod
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    smoke = _chip_smoke()
+    inj = DeviceFaultInjector()
+    inj.script("dispatch", at=3, persist=3)
+    cs = ConflictSet(device=device, pipeline_depth=2, fault_injector=inj, **smoke.CLIENT_SET_KW)
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    # Fresh hubs: the ratekeeper's commit-latency spring reads the global
+    # trace collector from its start.
+    hubs = smoke.PortHubs(spans, trace, fr)
+    try:
+        c = SimCluster(seed=75, conflict_set=cs, buggify=False, device=device)
+        record = smoke.spring_record(c, rkmod, txmod)
+    finally:
+        hubs.restore()
+        el.set_event_loop(None)
+    return record, dict(tk.LAUNCHES), cs.device_metrics()["counters"]
+
+
+def test_ratekeeper_over_the_card_set_through_an_outage(dev):
+    """The port's Ratekeeper over a cuda ConflictSet whose breaker opens on
+    three dispatch faults: the rate falls to the degraded cap while it is
+    open and returns once it closes, and the rate series, transitions and
+    every commit equal the cpu run's; each kernel launched once in every
+    batch the card served and never in one the mirror served."""
+    smoke = _chip_smoke()
+    cuda, launches, counters = _spring_record("cuda")
+    assert cuda == _spring_record("cpu")[0]
+    smoke.spring_checks("spring", cuda, smoke.SPRING_MAX_TPS, 0.25 * smoke.SPRING_MAX_TPS)
+    assert counters["device_faults"] == 3 and counters["degraded_batches"] > 0
+    assert all(v == counters["pipeline_dispatches"] > 0 for v in launches.values())
+
+
+def _hot_shard_record(device):
+    """chip_smoke's hot_shard_record through the port's SimCluster(seed=173,
+    n_storages=2), every resolver over a ConflictSet of the Resolver's key
+    width at depth 2 on `device`; returns the record, the launches and the
+    sets' counters."""
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.conflict import kernels as tk
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.flow import flight_recorder as fr
+    from foundationdb_tpu_torch.flow import spans, trace
+    from foundationdb_tpu_torch.server import cluster as cm
+    from foundationdb_tpu_torch.server import data_distribution as ddmod
+
+    smoke = _chip_smoke()
+    sets = []
+
+    def make_set():
+        sets.append(ConflictSet(device=device, pipeline_depth=2, **smoke.CLIENT_SET_KW))
+        return sets[-1]
+
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    hubs = smoke.PortHubs(spans, trace, fr)
+    try:
+        with smoke.resolver_sets(cm, make_set):
+            c = cm.SimCluster(seed=173, n_storages=2, device=device)
+        record = smoke.hot_shard_record(c, ddmod, txmod)
+    finally:
+        hubs.restore()
+        el.set_event_loop(None)
+    return record, dict(tk.LAUNCHES), [s.device_metrics()["counters"] for s in sets]
+
+
+def test_dd_move_through_the_card_set_counts_its_side_table(dev):
+    """DD splits and moves the hot shard, its metadata transactions
+    committing through a cuda ConflictSet: DD's log, each storage's rows,
+    every commit and the loop's end equal the cpu run's; the system keys
+    went through the long-key side table (as many batches as on cpu, none
+    host-served), and each kernel launched once in every resolve batch, the
+    card serving every one."""
+    cuda, launches, counters = _hot_shard_record("cuda")
+    cpu, _l, cpu_counters = _hot_shard_record("cpu")
+    assert cuda == cpu and cuda["ok"] and len(cuda["rows"]) == 240
+    assert any(e[0] == "move" for e in cuda["moves"])
+    side = [c.get("long_key_batches", 0) for c in counters]
+    assert sum(side) > 0 and side == [c.get("long_key_batches", 0) for c in cpu_counters]
+    assert not any(c.get("long_key_host_batches", 0) for c in counters)
+    served = sum(c["batches"] for c in counters)
+    assert served > 0 and all(v == served for v in launches.values())

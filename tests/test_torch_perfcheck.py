@@ -324,8 +324,8 @@ def test_runner_text_counts_every_hot_rule(capsys):
     err = capsys.readouterr().err
     assert ("[perfcheck] 0 finding(s), 8 suppressed; per-rule (flagged+suppressed): "
             "HOT001=0+0s HOT002=0+0s HOT003=0+7s HOT004=0+1s") in err
-    # The gate runs fdblint beside perfcheck: its 7 suppressions join the 8.
-    assert "lint: 0 finding(s), 18 suppressed across 2 tool(s)" in err
+    # The gate runs fdblint beside perfcheck: its 11 suppressions join the 8.
+    assert "lint: 0 finding(s), 19 suppressed across 2 tool(s)" in err
 
 
 def test_runner_sarif_and_pragma_inventory(capsys):

@@ -151,7 +151,8 @@ def test_port_exports_only_the_client_workloads():
         "InventoryWorkload", "QueuePushWorkload", "StorefrontWorkload", "LowLatencyWorkload",
         "UnreadableWorkload", "SidebandWorkload", "WatchesWorkload", "WatchAndWaitWorkload",
         "FastTriggeredWatchesWorkload", "BackgroundSelectorsWorkload", "CommitBugWorkload",
-        "ConfigureDatabaseWorkload", "SlowTaskWorkload"])
+        "ConfigureDatabaseWorkload", "SlowTaskWorkload", "RandomMoveKeysWorkload",
+        "DDBalanceWorkload", "RemoveServersSafelyWorkload"])
     ref = TWINS.mods("ref").wl
     assert set(port.__all__) < set(ref.__all__)
 
