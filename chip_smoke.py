@@ -144,7 +144,7 @@ seconds (`phase <name>: ...`):
   4v. guard    the transfer guard at full width: phase 4's state after its
                warm-up (its mirror's snapshot) in a ConflictSet(
                transfer_guard=True) and an unguarded one at depth 2, each
-               rehydrating from it; phase 4's first 4 timed batches on
+               rehydrating from it; phase 4's first 2 timed batches on
                both, the sets taking turns: verdicts and witnesses equal
                phase 4's, no TransferGuardError, host syncs a batch
                equal; prints each set's ms a batch (no
@@ -176,8 +176,9 @@ seconds (`phase <name>: ...`):
                n_tlogs=2, n_storages=1, buggify=False) on
                SimNetwork(deep_copy=False): resolver 0's set is 4q's
                (phase 4's state after its warm-up); one empty commit lifts
-               the committed version above that state's newest, then 2
-               waves (4 took 80.9 s on an H100's host), wave k
+               the committed version above that state's newest, then 1
+               wave (4 took 80.9 s on an H100's host, and 2 left no room
+               for phase 4x), wave k
                phase 4's timed batch 52 + k as 65,536
                commits (its read and write range and one SET_VALUE of the
                write range's begin key) alternating between the proxies,
@@ -262,6 +263,31 @@ seconds (`phase <name>: ...`):
                acknowledged write on every storage of its shard's team.
                Prints the rate's samples, transitions, read versions by
                rate, commits/s by state, DD's moves and splits (no claim)
+  4x. recovery the control plane on the card: the port's DynamicCluster(3
+               coordinators, 2 controllers, 2 proxies, 2 tlogs, 3
+               storages, 10 workers, buggify=False) on
+               SimNetwork(deep_copy=False), every resolver it recruits over
+               a ConflictSet with phase 4's settings on the card (the
+               first from phase 4's warm-up state); 4n's ring loaded
+               through Database(info_var=), then rounds of 16 actors x 2
+               Cycle ops 0.5 virtual s apart, and after each 64 ring
+               commits: the resolver's process killed, then the acting
+               controller's, then a tlog's, cyclic garbage collected at
+               fixed virtual times only.  The generation rises at each
+               event; a transaction reading before each recovery fails
+               with transaction_too_old or future_version; every
+               acknowledged write served by each storage of its team and
+               the ring one cycle; every batch of every generation
+               replayed equal on a host CpuConflictSet from that set's
+               start; each set built at its generation's begin version,
+               its first batch for the card served there; each kernel once
+               in every card-served batch and never in a mirror-served
+               one; no degraded batch.  Prints each event's time to
+               recover (kill to the new generation's first commit) in
+               virtual and host seconds, the card's bytes before each kill
+               and after the dead generations' sets are collected (and
+               how many dead sets are still referenced), and the batches
+               by card and mirror a generation
   4w. witness-free  phase 4's timed batches through ConflictSet(
                witness=False), its mirror from phase 4's state after the
                warm-up (the device rehydrated from it before the timed
@@ -299,7 +325,7 @@ seconds (`phase <name>: ...`):
                bench's multichip shape (bench.py:547-606) on the one card:
                8 shards split by uniform_int_split_keys(8, 2e7, 4), each
                a history of 1,048,576 rows, driven through detect_packed
-               (synchronous), 12 warm-up (SHARD_WARM: under a quarter of the
+               (synchronous), 8 warm-up (SHARD_WARM: under a sixth of the
                window, so the timed batches evict nothing) and 8 timed
                batches.  Each kernel
                must launch exactly 64 times (once a shard a batch), with
@@ -506,7 +532,10 @@ seconds (`phase <name>: ...`):
                launches_durable: phase 4f's, over its batches_durable
                resolve batches; launches_admission: phase 4b's, over its
                batches_admission card-served resolve batches
-               (degraded_batches_admission served by the mirror); tiered and
+               (degraded_batches_admission served by the mirror);
+               launches_recovery: phase 4x's, over its batches_recovery
+               card-served batches in generations_recovery recruited
+               resolver sets; tiered and
                sharded: those shapes' times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
@@ -519,14 +548,17 @@ import copy
 import dataclasses
 import gc
 import hashlib
+import importlib
 import importlib.util
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 
@@ -556,9 +588,10 @@ SHARD_H_CAP = 1 << 20
 SHARD_LIVE = LIVE // SHARDS  # steady-state boundaries of one shard
 SHARD_NEW_ROWS = NEW_ROWS // SHARDS  # new boundaries one shard takes a batch
 # Phase 4s's warm-up, cut from WARM to keep the script inside its time
-# limit: its timed batches meet a history of SHARD_WARM batches' writes
-# (under a quarter of the window's) and evict nothing.
-SHARD_WARM = 12
+# limit (12, then 8 to make room for phase 4x): its timed batches meet a
+# history of SHARD_WARM batches' writes (under a sixth of the window's)
+# and evict nothing.
+SHARD_WARM = 8
 
 
 def log(msg: str) -> None:
@@ -3322,7 +3355,8 @@ def source_gate_path(torch, et, tk, T):
     return plant
 
 
-GUARD_BATCHES = 4
+# Phase 4v's batches (4, then 2 to make room for phase 4x).
+GUARD_BATCHES = 2
 
 
 def guard_path(torch, api, et, ecpu, hotpath, T, batches, main):
@@ -3709,9 +3743,10 @@ def roles_vs_cpu(torch, api, T, spans, trace, fr):
 # each PER_BATCH commits sent at once and alternating between the two
 # proxies, so that each proxy cuts one full batch of PER_BATCH // 2 =
 # 32,768 a wave (commit_transaction_batch_count_max, the proxy's cap).
-# Two waves, not four: four took 80.9 s on an NVIDIA H100 80GB HBM3's host
-# (11.4-16.9 s a wave), above the phase's 60 s.
-CLUSTER_WAVES = 2
+# One wave, not four: four took 80.9 s on an NVIDIA H100 80GB HBM3's host
+# (11.4-16.9 s a wave), above the phase's 60 s; two were cut to one to
+# make room for phase 4x.
+CLUSTER_WAVES = 1
 CLUSTER_PAGE = 10_000  # rows a page of 4k's read-back
 # Phase 6k's pipeline depths, and the one that runs commit_script's
 # too-old tail.  The tail's 6 s of virtual idle cut about 96 of a run's 112
@@ -4849,18 +4884,24 @@ class Acks:
     `txmod`'s Transaction (remove() restores it); `acks` holds each as (its
     committed version, its mutations as (type, param1, param2)), in the
     order the commits returned, and `times` its virtual time and wall
-    seconds (wall_now) when it returned."""
+    seconds (wall_now) when it returned; `unknown` the mutations of each
+    commit that ended commit_unknown_result (it may have committed)."""
 
     def __init__(self, txmod):
         from foundationdb_tpu_torch.metrics import wall_now
 
         self.T = txmod.Transaction
         self.inner = self.T.__dict__["commit"]
-        self.acks, self.times = [], []
-        inner, acks, times = self.inner, self.acks, self.times
+        self.acks, self.times, self.unknown = [], [], []
+        inner, acks, times, unknown = self.inner, self.acks, self.times, self.unknown
 
         async def commit(tr):
-            v = await inner(tr)
+            try:
+                v = await inner(tr)
+            except Exception as e:  # noqa: BLE001 - the client's FdbError, re-raised
+                if getattr(e, "name", None) == "commit_unknown_result":
+                    unknown.append([(int(m.type), m.param1, m.param2) for m in tr.mutations])
+                raise
             acks.append((tr.committed_version,
                          [(int(m.type), m.param1, m.param2) for m in tr.mutations]))
             times.append((tr.db.process.network.loop.now(), wall_now()))
@@ -6597,6 +6638,643 @@ def admission_vs_cpu(torch, api, sr, tk, faults, spans, trace, fr):
     return tot
 
 
+# ---------------------------------------------------------------------------
+# Phase 4x: the control plane's recovery at full width
+# ---------------------------------------------------------------------------
+
+RECOVER_SEED = 41
+RECOVER_CLUSTER = dict(n_coordinators=3, n_controllers=2, n_proxies=2, n_tlogs=2, n_storages=3,
+                       n_workers=10, buggify=False)
+RECOVER_SHAPE = dict(nodes=CLIENT_NODES, load_txns=CLIENT_LOAD_TXNS, actors=16, ops=2,
+                     pause=0.5, gap=64)
+RECOVER_EVENTS = ("resolver", "controller", "tlog")
+RECOVER_GC_EVERY = 4.0  # virtual s between the fixed collections
+RECOVER_STALE_ERRORS = ("transaction_too_old", "future_version")
+# The reference rig's twins of phase 4x (tests/test_torch_recovery_phase.py,
+# and tests/test_torch_cuda.py on cuda and cpu).
+RECOVER_VS_CPU_SHAPE = dict(nodes=64, load_txns=8, actors=4, ops=2, pause=0.2, gap=16)
+
+
+class RecoveryLog:
+    """Every conflict set the workers of `worker_mod` recruit for a
+    resolver (it wraps the module's Resolver; remove() restores it):
+    `gens` holds, a recruited set, its generation, begin version, the
+    oldest version it was built at, a weak reference to it, and each batch
+    it took as [txns, now, new_oldest_version, entry or outcome] beside
+    `turns`: (dispatched to the card, the kernels' launches in its
+    submit, the long-key batches the host served whole in it, degraded).
+    `first(cs)` is called on the first set before it serves."""
+
+    def __init__(self, worker_mod, tk, first=None):
+        self.mod, self.gens = worker_mod, []
+        base = self.base = worker_mod.Resolver
+        log = self
+
+        class Resolver(base):
+            def __init__(self, process, *a, **kw):
+                super().__init__(process, *a, **kw)
+                log._recruited(self, kw, tk, first)
+
+        worker_mod.Resolver = Resolver
+
+    def _recruited(self, role, kw, tk, first):
+        cs = role.conflicts
+        g = dict(epoch=kw.get("epoch", 0), begin=kw.get("epoch_begin_version", 0),
+                 oldest=cs._cpu.oldest_version, ref=weakref.ref(cs), batches=[], turns=[],
+                 settled=False)
+        if first is not None and not self.gens:
+            first(cs)
+        self.gens.append(g)
+        if getattr(cs, "_dev", None) is None:
+            return  # a host set: no card batches to count
+        submit, detect = cs.pipeline_submit, cs._detect
+        batches, turns, nested = g["batches"], g["turns"], [0]
+
+        def pipeline_submit(txns, now, new_oldest_version):
+            before = dict(tk.LAUNCHES)
+            host0 = long_key_counts(cs)["host"]
+            nested[0] += 1
+            try:
+                entry = submit(txns, now, new_oldest_version)
+            finally:
+                nested[0] -= 1
+            turns.append((not entry.done, {k: tk.LAUNCHES[k] - before[k] for k in before},
+                          long_key_counts(cs)["host"] - host0, entry.degraded))
+            batches.append([txns, now, new_oldest_version, entry])
+            return entry
+
+        def _detect(txns, now, new_oldest_version):
+            # Depth 1: the synchronous decision; the card served it if the
+            # device engine counted a batch (an empty batch may not run).
+            before = dict(tk.LAUNCHES)
+            ran = cs._dev.metrics.counter("batches")
+            host0, fall0, ran0 = long_key_counts(cs)["host"], cs._cpu_fallback_txns, ran.value
+            statuses = detect(txns, now, new_oldest_version)
+            if not nested[0]:
+                host = long_key_counts(cs)["host"] - host0
+                degraded = cs._cpu_fallback_txns != fall0
+                turns.append((ran.value != ran0,
+                              {k: tk.LAUNCHES[k] - before[k] for k in before}, host, degraded))
+                batches.append([txns, now, new_oldest_version,
+                                (list(statuses), list(cs.last_witness))])
+            return statuses
+
+        cs.pipeline_submit = pipeline_submit
+        cs._detect = _detect
+
+    def settle(self, g):
+        """Keep each batch's outcome in place of its entry (an entry holds
+        its ticket's buffers): (statuses, witness), or None for a batch the
+        set never synced."""
+        for b in g["batches"]:
+            e = b[3]
+            if not isinstance(e, tuple) and e is not None:
+                b[3] = (list(e.statuses), list(e.witness)) if e.done else None
+        g["settled"] = True
+
+    def remove(self):
+        self.mod.Resolver = self.base
+
+
+def _collect_every(loop_cls, every):
+    """While open, cyclic garbage is collected before the first event at or
+    past each multiple of `every` virtual seconds of a loop of `loop_cls`
+    (with fixed_gc, the only collections): a recovery may wait on a dead
+    role's Reply, which breaks only when collected."""
+    run_one = loop_cls.run_one
+
+    def collecting_run_one(loop):
+        heap = loop._heap
+        if heap and heap[0][0] >= getattr(loop, "_gc_at", every):
+            loop._gc_at = (heap[0][0] // every + 1) * every
+            gc.collect()
+        return run_one(loop)
+
+    loop_cls.run_one = collecting_run_one
+    return lambda: setattr(loop_cls, "run_one", run_one)
+
+
+def recovery_script(c, wl, txmod, shape, rlog, events=RECOVER_EVENTS, on=None,
+                    card_bytes=None) -> dict:
+    """Phase 4x's script through a DynamicCluster `c` whose recruited
+    resolvers `rlog` (a RecoveryLog) watches: a Cycle ring of
+    shape["nodes"] nodes under CLIENT_PREFIX loaded through a client that
+    finds the proxies by the controller's ClientDBInfo; then
+    rounds of shape["actors"] x shape["ops"] Cycle ops from another such
+    client, each shape["pause"] virtual s after the last (the resolve
+    batches follow the virtual time under traffic, not the commits)
+    until the events are done, and after each
+    shape["gap"] acknowledged ring commits, an
+    event of `events`: "resolver" or "tlog" kills that role's process
+    (its machine's unsynced writes settled, the worker revived), and
+    "controller" kills the acting controller's process.  Before each, a
+    transaction takes a read version; after the new generation's first
+    acknowledged commit (at or past its resolver's begin version) it
+    commits a read and a write at that read version, which must fail with
+    one of RECOVER_STALE_ERRORS.  Then the ring's check, and the ring read
+    back must equal every acknowledged write.  `on(event, k)` is called
+    at "kill" and "recovered"; `card_bytes()` (or None) is read before
+    each kill and after the dead generations' sets are settled and
+    collected.  Returns the record."""
+    loop = c.loop
+    on = on or (lambda event, k: None)
+    revive = importlib.import_module(f"{wl.__name__}.chaos").revive_worker
+    acks = Acks(txmod)
+    log_ = ClientLog(txmod, record=False)
+    rec = dict(events=[], rings=[])
+    try:
+        def wait(fut, budget=3000.0):
+            return loop.run_until(fut, timeout_vt=loop.now() + budget)
+
+        def step_until(pred, budget=3000.0, what=""):
+            end = loop.now() + budget
+            while not pred():
+                if loop.now() > end:
+                    raise AssertionError(f"recovery: {what} not reached in {budget} virtual s")
+                wait(loop.delay(0.01))
+
+        nodes = shape["nodes"]
+        ring = wl.CycleWorkload(nodes=nodes, ops=shape["ops"], actors=shape["actors"],
+                                prefix=CLIENT_PREFIX)
+        keys = [ring._key(i) for i in range(nodes)]
+        loader = c.database("recovery_loader")
+
+        def load(part):
+            async def txn(tr):
+                for i in part:
+                    await tr.get(keys[i])  # the read covers the write
+                    tr.set(keys[i], b"%04d" % ((i + 1) % nodes))
+            return loader.run(txn)
+
+        step = nodes // shape["load_txns"]
+        wait(loader.process.spawn(_every([
+            loader.process.spawn(load(range(j, j + step)), "load")
+            for j in range(0, nodes, step)]), "loads"))
+        rec["loaded"] = (loop.now(), c.acting_controller().generation, len(acks.acks))
+        db = c.database("recovery_ring")
+
+        async def after_pause():
+            await loop.delay(shape["pause"])
+            await ring.start(db, c)
+
+        rounds = [db.process.spawn(ring.start(db, c), "cycle_0")]
+        seen = [0, 0]  # acks looked at, ring commits among them
+
+        def running():
+            """The current round of the ring's ops, a new one started
+            when the last has ended while events remain."""
+            if rounds[-1].is_ready():
+                if rounds[-1].is_error():
+                    raise AssertionError(f"recovery: round {len(rounds) - 1} of the ring's ops "
+                                         f"failed: {rounds[-1].error()!r}")
+                rounds.append(db.process.spawn(after_pause(), f"cycle_{len(rounds)}"))
+            return rounds[-1]
+
+        def ring_commits():
+            for _v, muts in acks.acks[seen[0]:]:
+                seen[1] += any(key.startswith(CLIENT_PREFIX) for _t, key, _x in muts)
+            seen[0] = len(acks.acks)
+            return seen[1]
+
+        for k, what in enumerate(events):
+            target = ring_commits() + shape["gap"]
+            step_until(lambda: running() and ring_commits() >= target,
+                       what=f"{shape['gap']} ring commits before event {k}")
+            stale = db.create_transaction()
+            wait(db.process.spawn(stale.get_read_version(), "stale_grv"))
+            cc = c.acting_controller()
+            gen0, n_sets = cc.generation, len(rlog.gens)
+            before = card_bytes() if card_bytes else None
+            ev = dict(what=what, generation_before=gen0, read_version=stale._read_version,
+                      kill_vt=loop.now(), card_bytes_before=before, ring_commits=ring_commits())
+            on("kill", k)
+            t_kill = time.perf_counter()
+            if what == "controller":
+                proc = cc.process
+                proc.kill()
+            else:
+                proc = c.kill_role_process(what)
+                c.fs.crash_machine(proc.machine.machine_id)
+                revive(c, proc)
+            ev["process"] = proc.address
+            gc.collect()  # the dead roles' garbage, at a fixed point
+
+            def new_commit():
+                if len(rlog.gens) <= n_sets:
+                    return False
+                begin = rlog.gens[-1]["begin"]
+                return any(v is not None and v >= begin for v, _m in acks.acks[-64:])
+
+            step_until(lambda: running() and new_commit(),
+                       what=f"a commit of the generation after event {k}")
+            ev["recover_vt"] = loop.now() - ev["kill_vt"]
+            ev["ring_commits_recovered"] = ring_commits()
+            ev["recover_host_s"] = time.perf_counter() - t_kill
+            on("recovered", k)
+            g = rlog.gens[-1]
+            ev["generation_after"] = c.acting_controller().generation
+            ev["resolver_generation"], ev["begin"] = g["epoch"], g["begin"]
+            ev["first_commit"] = min(v for v, _m in acks.acks if v is not None and v >= g["begin"])
+            ev["sets_recruited"] = len(rlog.gens) - n_sets
+
+            async def stale_commit():
+                try:
+                    await stale.get(keys[0])
+                    stale.set(keys[0], b"stale")
+                    await stale.commit()
+                    return "committed"
+                except Exception as e:  # noqa: BLE001 - the client's FdbError
+                    if getattr(e, "name", None) is None:
+                        raise
+                    return e.name
+
+            ev["stale"] = wait(db.process.spawn(stale_commit(), "stale"))
+            if ev["stale"] not in RECOVER_STALE_ERRORS:
+                raise AssertionError(f"recovery event {k}: a transaction reading at "
+                                     f"{ev['read_version']}, before the recovery, ended "
+                                     f"{ev['stale']!r}")
+            for old in rlog.gens[:-1]:
+                if not old["settled"]:
+                    rlog.settle(old)
+            gc.collect()
+            ev["dead_sets_alive"] = sum(old["ref"]() is not None for old in rlog.gens[:-1])
+            ev["card_bytes_after"] = card_bytes() if card_bytes else None
+            rec["events"].append(ev)
+        wait(rounds[-1])
+        rec["rounds"] = len(rounds)
+        if not wait(db.process.spawn(ring.check(db, c), "check")):
+            raise AssertionError("recovery: the ring is no longer one cycle")
+        out = {}
+
+        async def read(tr):
+            out["rows"] = await tr.get_range(CLIENT_PREFIX, CLIENT_PREFIX + b"\xff")
+
+        wait(db.process.spawn(db.run(read), "read"))
+        want = {}
+        for _v, muts in sorted(acks.acks, key=lambda a: a[0] or 0):
+            for t, key, val in muts:
+                if t == 0 and key.startswith(CLIENT_PREFIX):  # SET_VALUE
+                    want[key] = val
+        # A commit that ended commit_unknown_result may have committed
+        # after the last acknowledged write of a key: its value stands too.
+        maybe = {}
+        for muts in acks.unknown:
+            for t, key, val in muts:
+                if t == 0 and key.startswith(CLIENT_PREFIX):
+                    maybe.setdefault(key, set()).add(val)
+        got = dict(out["rows"])
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k) and got.get(k) not in maybe.get(k, ()))
+        if bad:
+            raise AssertionError(f"recovery: the ring read back differs from the acknowledged "
+                                 f"writes at {len(bad)} keys, e.g. {bad[:3]}: read "
+                                 f"{[got.get(k) for k in bad[:3]]}, acknowledged "
+                                 f"{[want.get(k) for k in bad[:3]]}")
+        rec["unknown"] = len(acks.unknown)
+        want = got  # the teams serve what the client read
+        rec["ring"] = sorted(got.items())
+        rec["teams"] = recovered_teams(c, db, want, wait, txmod.__name__.rsplit(".client", 1)[0])
+        rec["acks"] = len(acks.acks)
+        rec["counts"] = dict(log_.counts)
+        # Once the run has ended: the dead generations' sets still held
+        # (at a kill's measurement a queued event may still hold one).
+        for old in rlog.gens[:-1]:
+            if not old["settled"]:
+                rlog.settle(old)
+        gc.collect()
+        rec["dead_sets_alive_end"] = sum(old["ref"]() is not None for old in rlog.gens[:-1])
+        rec["card_bytes_end"] = card_bytes() if card_bytes else None
+    finally:
+        acks.remove()
+        log_.remove()
+    rec["generations"] = [(g["epoch"], g["begin"], g["oldest"], len(g["batches"]),
+                           [t[:1] + t[2:] for t in g["turns"]]) for g in rlog.gens]
+    rec["end"] = (loop.now(), loop.rng.random_int(0, 1 << 30))
+    return rec
+
+
+def recovered_teams(c, db, want, wait, pkg) -> int:
+    """Every acknowledged write (`want`) served by each storage of its
+    shard's team in the current shard map, at a fresh read version;
+    returns the shards checked.  `pkg` names the cluster's package."""
+    ddmod = importlib.import_module(f"{pkg}.server.data_distribution")
+    itf = importlib.import_module(f"{pkg}.server.interfaces")
+    smap = wait(db.process.spawn(ddmod.DataDistributor(db).read_shard_map(), "shard_map"))
+    current = set(c.acting_controller()._role_addrs.values())
+    by_id = {w.roles["storage"].storage_id: w.roles["storage"] for w in c.workers
+             if "storage" in w.roles and w.process.alive and w.process.address in current}
+    tr = db.create_transaction()
+    version = wait(db.process.spawn(tr.get_read_version(), "teams_grv"))
+    shards = 0
+    for b, e, team, dest in smap:
+        lo, hi = max(b, CLIENT_PREFIX), min(e or b"\xff", CLIENT_PREFIX + b"\xff")
+        if b >= b"\xff" or lo >= hi:
+            continue
+        if dest:
+            raise AssertionError(f"recovery: shard {b!r} still moving to {dest}")
+        shard = {k: v for k, v in want.items() if lo <= k < hi}
+        for sid in team:
+            if sid not in by_id:
+                raise AssertionError(f"recovery: {sid} of shard {b!r}'s team is not a current "
+                                     f"storage ({sorted(by_id)})")
+            rep = wait(by_id[sid].interface().get_key_values.get_reply(
+                db.process, itf.GetKeyValuesRequest(begin=lo, end=hi, version=version,
+                                                    limit=1 << 30)))
+            got = dict(rep.data)
+            if got != shard:
+                bad = sorted(k for k in set(got) | set(shard) if got.get(k) != shard.get(k))
+                raise AssertionError(f"recovery: {sid} serves {len(got)} rows of shard "
+                                     f"[{lo!r}, {hi!r}), the acknowledged writes {len(shard)}; "
+                                     f"they differ at {bad[:3]}: "
+                                     f"{[(got.get(k), shard.get(k)) for k in bad[:3]]}")
+        shards += 1
+    if not shards:
+        raise AssertionError("recovery: no shard of the ring in the shard map")
+    return shards
+
+
+def recovery_checks(label, rlog, rec, tk, warm, card=True):
+    """Phase 4x's checks on the recruited sets: every batch of every
+    generation replayed on a host CpuConflictSet from that set's start
+    (`warm(g)`: the first generation's warm state, else empty at its begin
+    version) gives the same verdicts and witnesses; each kernel launched
+    once in every card-served batch and never in a mirror-served one; no
+    batch degraded; each set built at its generation's begin version, its
+    first batch past it, and its first batch the plan does not route to the
+    host served on the card; at least 3 generations.  Without `card` (a CPU
+    run: the plain twins launch nothing) the launches are not checked.
+    Returns the launches,
+    the card-served batches and, a generation, (its epoch, card-served,
+    mirror-served)."""
+    if len(rlog.gens) < 4:
+        raise AssertionError(f"{label}: {len(rlog.gens)} resolver sets recruited")
+    launches = {n: 0 for n in tk.LAUNCHES}
+    served, per_gen = 0, []
+    for gi, g in enumerate(rlog.gens):
+        if not g["settled"]:
+            rlog.settle(g)
+        if g["oldest"] != g["begin"] or not g["batches"] or g["batches"][0][1] <= g["begin"]:
+            raise AssertionError(f"{label}: generation {g['epoch']}'s set was built at "
+                                 f"{g['oldest']} for begin {g['begin']}; first batch "
+                                 f"{g['batches'][0][1] if g['batches'] else None}")
+        host = warm(g)
+        for i, (txns, now, nov, outcome) in enumerate(g["batches"]):
+            st = host.detect(txns, now, nov)
+            if outcome is not None and digest(*outcome) != digest(st, list(host.last_witness)):
+                raise AssertionError(f"{label}: generation {g['epoch']} batch {i} at version "
+                                     f"{now}: verdicts or witnesses differ from the host's")
+        first_dev = next((i for i, t in enumerate(g["turns"]) if not t[2]), None)
+        if first_dev is not None and not g["turns"][first_dev][0]:
+            raise AssertionError(f"{label}: generation {g['epoch']}'s first batch for the card "
+                                 f"(batch {first_dev}) was served by the mirror")
+        n_card = 0
+        for j, (dev_, lt, host_only, degraded) in enumerate(g["turns"]):
+            if degraded or (card and any(v != (1 if dev_ else 0) for v in lt.values())):
+                raise AssertionError(f"{label}: generation {g['epoch']} batch {j} (card "
+                                     f"{dev_}, degraded {degraded}) launched {lt}")
+            n_card += dev_
+            for k_, v in lt.items():
+                launches[k_] += v
+        served += n_card
+        per_gen.append((g["epoch"], n_card, len(g["turns"]) - n_card))
+    return launches, served, per_gen
+
+
+def recovery_path(torch, api, ecpu, tk, spans, trace, fr, main, smi=""):
+    """Phase 4x: the control plane's recovery on the card.  The port's
+    DynamicCluster(RECOVER_CLUSTER) on fresh port hubs, every recruited
+    resolver's set with phase 4's settings (key_words 2, h_cap 3,145,728,
+    depth 2, on the card); the first generation's set starts from phase
+    4's warm-up state (rehydrated at its first dispatch, as 4f's).
+    recovery_script at RECOVER_SHAPE (the resolver's process killed, then
+    the acting controller's, then a tlog's, the clients committing
+    throughout) on SimNetwork(deep_copy=False), with cyclic garbage
+    collected at fixed points only.
+    Checks: the generation rises at each event, the new resolver's set
+    built at its begin version; the stale transactions fail retryably;
+    every acknowledged write on every storage of its team and the ring one
+    cycle; recovery_checks.  Prints each event's time to recover in
+    virtual and host seconds, the card's bytes before each kill and after
+    the dead generations' sets are collected, and the batches served by
+    the card and by the mirror a generation.  Returns the launches, the
+    card-served batches and the resolver sets recruited."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import dynamic_cluster as dcm
+    from foundationdb_tpu_torch.server import worker as wmod
+
+    gc.collect()
+    label = "recovery"
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    snap = main["warm_snapshot"]
+    settings = dict(key_words=KEY_WORDS, h_cap=H_CAP, pipeline_depth=2)
+
+    def first(cs):
+        cs._cpu = warm_engine(ecpu, snap)
+
+    def card_bytes():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    base_bytes = card_bytes()
+    hubs = PortHubs(spans, trace, fr)
+    rlog = RecoveryLog(wmod, tk, first=first)
+    restore_gc = _collect_every(el.EventLoop, RECOVER_GC_EVERY)
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    try:
+        with fixed_gc():
+            c = dcm.DynamicCluster(seed=RECOVER_SEED, resolver_settings=settings,
+                                   **RECOVER_CLUSTER)
+            c.net.deep_copy = False  # before the first request, as 4k's network
+            rec = recovery_script(c, wl, txmod, RECOVER_SHAPE, rlog, card_bytes=card_bytes)
+        t_script = time.perf_counter() - t0
+        launches_seen = dict(tk.LAUNCHES)
+    finally:
+        restore_gc()
+        rlog.remove()
+        hubs.restore()
+        el.set_event_loop(None)
+    t1 = time.perf_counter()
+    for k, ev in enumerate(rec["events"]):
+        if not ev["generation_after"] > ev["generation_before"] or \
+                ev["resolver_generation"] <= ev["generation_before"]:
+            raise AssertionError(f"{label}: event {k} ({ev['what']}): generation "
+                                 f"{ev['generation_before']} -> {ev['generation_after']}, "
+                                 f"resolver's {ev['resolver_generation']}")
+    roles = c.acting_controller()._role_addrs
+
+    def warm(g):
+        if g is rlog.gens[0]:
+            return warm_engine(ecpu, snap)
+        return ecpu.CpuConflictSet(g["begin"], key_words=KEY_WORDS)
+
+    launches, served, per_gen = recovery_checks(label, rlog, rec, tk, warm)
+    if launches != launches_seen:
+        raise AssertionError(f"{label}: launches {launches_seen}, the batches' {launches}")
+    if any(v != served for v in launches.values()):
+        raise AssertionError(f"{label}: launches {launches} against {served} card batches")
+    t_checks = time.perf_counter() - t1
+    s = RECOVER_SHAPE
+    log(f"{label}: DynamicCluster({RECOVER_CLUSTER}, seed {RECOVER_SEED}) on the card, every "
+        f"recruited resolver over ConflictSet({settings}), the first from phase 4's state after "
+        f"its warm-up ({snap.boundary_count} keys); a ring of {s['nodes']} nodes loaded by "
+        f"{s['load_txns']} transactions through Database(info_var=), then rounds of "
+        f"{s['actors']} actors x {s['ops']} Cycle ops {s['pause']} virtual s apart with the "
+        f"events {list(RECOVER_EVENTS)} after every {s['gap']} ring commits; {rec['acks']} "
+        f"acknowledged commits, the ring one cycle, each key read back its last acknowledged "
+        f"write or a commit_unknown_result commit's, and served so by each storage of its "
+        f"team ({rec['teams']} shards); roles {sorted(roles.items())}; card {card}")
+    for k, ev in enumerate(rec["events"]):
+        log(f"{label} event {k} ({ev['what']}, process {ev['process']}): generation "
+            f"{ev['generation_before']} -> {ev['generation_after']} (the new resolver's "
+            f"{ev['resolver_generation']}, begin version {ev['begin']}, first commit "
+            f"{ev['first_commit']}); time to recover {ev['recover_vt']:.6f} virtual s, "
+            f"{ev['recover_host_s']:.6f} host s; a transaction reading at {ev['read_version']} "
+            f"ended {ev['stale']}; card bytes {ev['card_bytes_before']} before the kill, "
+            f"{ev['card_bytes_after']} after the dead generations' sets are collected "
+            f"({ev['dead_sets_alive']} dead sets still referenced; {base_bytes} before the "
+            f"phase); card {card}")
+    log(f"{label}: at the run's end, dead generations' sets still referenced "
+        f"{rec['dead_sets_alive_end']} of {len(per_gen) - 1}, card bytes {rec['card_bytes_end']}; "
+        f"{rec['unknown']} commits ended commit_unknown_result; {rec['rounds']} rounds of the "
+        f"ring's ops; card {card}")
+    log(f"{label}: batches a generation (epoch, card, mirror): {per_gen}; launches "
+        f"{launches} = {served} card-served batches, one a card batch and none a mirror "
+        f"batch; every batch's verdicts and witnesses equal the host replay; the phase's host "
+        f"seconds: the script {t_script:.3f}, the replay and checks {t_checks:.3f}; card {card}")
+    del c, rlog
+    gc.collect()
+    return launches, served, len(per_gen)
+
+
+# Phase 4x's card tests (tests/test_torch_cuda.py): the reference's
+# control-plane tests through the port's DynamicCluster on cuda and cpu at
+# the rig's shape.
+CONTROL_SET_KW = DURABLE_SET_KW
+
+
+def port_test_module(name):
+    """The reference test module `name` (a file under tests/) with every
+    import of the reference package pointed at the port, loaded fresh:
+    its scripts drive the port alone."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "tests", f"{name}.py")
+    with open(path) as f:
+        src = f.read()
+    src = re.sub(r"\bfoundationdb_tpu\b", "foundationdb_tpu_torch", src)
+    mod = type(sys)(f"_port_{name}")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return mod
+
+
+def control_record(script, device, depth) -> dict:
+    """`script(dc_class)` with the port's DynamicCluster on `device`, every
+    recruited resolver over a ConflictSet at CONTROL_SET_KW and `depth`,
+    cyclic garbage collected at fixed virtual times: the record (every
+    read, commit and retry with its virtual time, each recruited set's
+    generation, begin version and every batch's verdicts and witnesses,
+    each cluster's controllers and disks, the loop's end), the launches
+    and the card-served batches."""
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.conflict import kernels as tk
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import dynamic_cluster as dcm
+    from foundationdb_tpu_torch.server import worker as wmod
+
+    made = []
+    settings = dict(CONTROL_SET_KW, pipeline_depth=depth)
+
+    class DynamicCluster(dcm.DynamicCluster):
+        def __init__(self, *a, **kw):
+            kw.setdefault("device", device)
+            kw.setdefault("resolver_settings", settings)
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    rlog = RecoveryLog(wmod, tk)
+    restore_gc = _collect_every(el.EventLoop, RECOVER_GC_EVERY)
+    log_ = ClientLog(txmod)
+    try:
+        with fixed_gc():
+            out = script(DynamicCluster)
+    finally:
+        log_.remove()
+        restore_gc()
+        rlog.remove()
+        el.set_event_loop(None)
+    launches = dict(tk.LAUNCHES)
+    gens = []
+    served = 0
+    for g in rlog.gens:
+        rlog.settle(g)
+        served += sum(t[0] for t in g["turns"])
+        if device == "cuda" and any(v != (1 if t[0] else 0)
+                                    for t in g["turns"] for v in t[1].values()):
+            raise AssertionError(f"control: a batch of generation {g['epoch']} launched "
+                                 f"{[t[1] for t in g['turns']]}")
+        gens.append((g["epoch"], g["begin"], g["oldest"],
+                     [(b[1], b[2], len(b[0]), norm(b[3])) for b in g["batches"]],
+                     [(t[0], t[2], t[3]) for t in g["turns"]]))
+    record = dict(
+        out=norm(out), events=log_.events, generations=gens,
+        clusters=[([(cc.process.address, cc.generation, cc.is_leader.get(),
+                     sorted(getattr(cc, "_role_addrs", {}).items())) for cc in c.controllers],
+                   disk_state(c.fs), (c.loop.now(), c.loop.rng.random_int(0, 1 << 30)))
+                  for c in made])
+    return record, launches, served
+
+
+def control_test(name, test, *params):
+    """A script running test function `test` of the reference test module
+    `name` (port_test_module) with `params`, through control_record's
+    DynamicCluster class."""
+    def script(cluster_cls):
+        mod = port_test_module(name)
+        mod.DynamicCluster = cluster_cls
+        dcm = importlib.import_module("foundationdb_tpu_torch.server.dynamic_cluster")
+        saved = dcm.DynamicCluster
+        dcm.DynamicCluster = cluster_cls  # the tests' local imports too
+        try:
+            return getattr(mod, test)(*params)
+        finally:
+            dcm.DynamicCluster = saved
+    return script
+
+
+def chaos_recovery_script(cluster_cls, seed=424242):
+    """Cycle beside DeviceChaosWorkload(duration=3, fire probability 0.5)
+    on a DynamicCluster(n_workers=6, buggify=False), the resolver's
+    process killed and revived 1.5 virtual s in, inside the outage, the
+    quiet wait before the checks: the injected faults and each breaker
+    walk."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.workloads import chaos
+
+    device_chaos = wl.DeviceChaosWorkload(duration=3.0, fire_probability=0.5)
+
+    class KillResolver(wl.TestWorkload):
+        name = "kill_resolver"
+
+        async def start(self, db, cluster):
+            await cluster.loop.delay(1.5)
+            proc = cluster.kill_role_process("resolver")
+            cluster.fs.crash_machine(proc.machine.machine_id)
+            chaos.revive_worker(cluster, proc)
+
+    c = cluster_cls(seed=seed, n_workers=6, buggify=False)
+    ring = wl.CycleWorkload(nodes=6, ops=12, actors=2)
+    wl.run_workloads(c, [ring, device_chaos, KillResolver()], timeout_vt=20000.0, quiet=True)
+    if not device_chaos.installed:
+        raise AssertionError("chaos: no device set to inject into")
+    return [(inj.injected, cs._breaker.transitions) for cs, inj in device_chaos.installed]
+
+
 def guard_vs_cpu(torch, api, T, faults, hotpath):
     """Phase 6v: the guard at phase 6's reduced shape: ConflictSet(
     transfer_guard=True) at depths 1-3 under phase 6o's dispatch fault, on
@@ -7129,6 +7807,11 @@ def main(argv) -> int:
     launches_admission, batches_admission, degraded_admission = admission_path(
         torch, api, ecpu, tk, faults, spans, trace, fr, main, client["rates"])
     phase_done("4b")
+    # 4x. the control plane: a full-width resolver re-recruited on the card
+    # after its process dies, the controller failing over, a tlog dying
+    launches_recovery, batches_recovery, generations_recovery = recovery_path(
+        torch, api, ecpu, tk, spans, trace, fr, main, smi)
+    phase_done("4x")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
         # Each starts from phase 4's state after its warm-up, rehydrated
@@ -7227,6 +7910,9 @@ def main(argv) -> int:
              launches_admission=launches_admission[r["name"]],
              batches_admission=batches_admission,
              degraded_batches_admission=degraded_admission,
+             launches_recovery=launches_recovery[r["name"]],
+             batches_recovery=batches_recovery,
+             generations_recovery=generations_recovery,
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

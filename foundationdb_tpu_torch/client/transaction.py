@@ -6,10 +6,9 @@ defaults (``LATENCY_SAMPLE_RATE``, ``KEY_SIZE_LIMIT``,
 ``VALUE_SIZE_LIMIT``, ``INITIAL_RETRY_DELAY``, ``MAX_RETRY_DELAY``,
 ``DUMMY_COMMIT_MAX_RETRIES``), and its FDB_TPU_WITNESS_RETRY switch (on
 by default) is ``Database(witness_retry=True)``; ``witness_retry=False``
-is the blind retry.  The dynamic mode (``info_var``, fed by
-the cluster controller and the failure monitor's client) waits for the
-control plane and raises NotImplementedError; a static ``SimCluster``
-never reaches it.
+is the blind retry.  The dynamic mode (``info_var``, fed by the cluster
+controller's ``ClientDBInfo`` long-poll) follows recoveries, with the
+failure monitor's client feeding ``failure_states``.
 
 Ref: fdbclient/NativeAPI.actor.cpp (getReadVersion :2770, getValue :1164,
 getRange :1603, tryCommit :2361, retry loop onError) and
@@ -71,9 +70,10 @@ class Database:
     """A handle bound to a client process + cluster interfaces (ref:
     Database/Cluster in NativeAPI.h).
 
-    Static mode: fixed proxy/storage interfaces (SimCluster).  The dynamic
-    mode (`info_var`, a ClientDBInfo the cluster controller maintains)
-    raises NotImplementedError until the port has the control plane.
+    Static mode: fixed proxy/storage interfaces (SimCluster).  Dynamic mode:
+    `info_var` holds a ClientDBInfo maintained by a cluster-controller
+    monitor; interfaces refresh across recoveries (ref: the client's
+    monitorProxies / ClientDBInfo subscription).
 
     `witness_retry` (on by default): a retry after a structured
     not_committed that carries a `retry_version` seeds its read version
@@ -94,17 +94,13 @@ class Database:
         proxies: Optional[List[ProxyInterface]] = None,
         witness_retry: bool = True,
     ):
-        if info_var is not None:
-            raise NotImplementedError(
-                "Database(info_var=...) is fed by the cluster controller and "
-                "the failure monitor's client, which the port has not yet"
-            )
         self.process = process
         self.witness_retry = witness_retry
         self._proxy = proxy
         self._proxies = list(proxies) if proxies else ([proxy] if proxy else [])
         self._proxy_rr: dict = {}
         self._storage = storage
+        self.info_var = info_var
         # range -> tuple(StorageInterface) | () unsharded | None unknown
         self._loc_cache = RangeMap(None)
         # Invalidations so far: only they reopen a gap in the cache.
@@ -114,10 +110,9 @@ class Database:
         from ..rpc.loadbalance import QueueModel
 
         self.queue_model = QueueModel()
-        # Endpoint liveness (ref: FailureMonitorClient): addr -> failed.
-        # loadBalance orders dead replicas last so reads avoid them
-        # WITHOUT eating a timeout.  Nothing feeds it until the port has
-        # the failure monitor's client.
+        # Endpoint liveness pushed from the CC's failure detector (ref:
+        # FailureMonitorClient): addr -> failed.  loadBalance orders dead
+        # replicas last so reads avoid them WITHOUT eating a timeout.
         self.failure_states: dict = {}
         # Per-flags GRV coalescing lanes (ref: readVersionBatcher,
         # NativeAPI.actor.cpp:2698): {flags: (pending promises, inflight)}.
@@ -134,6 +129,12 @@ class Database:
         # Retries that skipped the GRV round-trip because a structured
         # not_committed carried a witness retry hint (witness_retry).
         self.witness_hint_retries = 0
+        if info_var is not None:
+            from ..server.failure_monitor import run_failure_monitor_client
+
+            process.spawn(
+                run_failure_monitor_client(self), "failure_monitor_client"
+            )
 
     def _note_hint_retry(self) -> None:
         self.witness_hint_retries += 1
@@ -290,6 +291,8 @@ class Database:
 
     @property
     def proxy(self) -> ProxyInterface:
+        if self.info_var is not None and self.info_var.get().proxy is not None:
+            return self.info_var.get().proxy
         return self._proxy
 
     def pick_proxy(self, kind: str = "") -> ProxyInterface:
@@ -298,7 +301,14 @@ class Database:
         loadBalance over ProxyInfo).  A separate counter per call site
         (`kind`): one shared counter phase-locks with the fixed GRV+commit
         call pattern (2 picks/txn), pinning every commit to one proxy."""
-        proxies = self._proxies
+        proxies = None
+        if self.info_var is not None:
+            info = self.info_var.get()
+            proxies = getattr(info, "proxies", None) or (
+                [info.proxy] if info.proxy is not None else None
+            )
+        if not proxies:
+            proxies = self._proxies
         if not proxies:
             return self.proxy
         self._proxy_rr[kind] = self._proxy_rr.get(kind, 0) + 1
@@ -306,7 +316,13 @@ class Database:
 
     @property
     def storage(self) -> StorageInterface:
+        if self.info_var is not None and self.info_var.get().storage is not None:
+            return self.info_var.get().storage
         return self._storage
+
+    async def wait_connected(self):
+        while self.proxy is None or self.storage is None:
+            await self.info_var.on_change()
 
     def create_transaction(self) -> "Transaction":
         return Transaction(self)
@@ -372,6 +388,8 @@ class Transaction:
     # --- versions ---
     async def get_read_version(self) -> int:
         if self._read_version is None:
+            if self.db.info_var is not None:
+                await self.db.wait_connected()
             from ..server.interfaces import (
                 GRV_FLAG_LOCK_AWARE,
                 GRV_FLAG_PRIORITY_BATCH,
@@ -765,6 +783,8 @@ class Transaction:
             self.committed_version = self._read_version
             self._launch_watches(self._read_version or 0)
             return self.committed_version  # read-only: nothing to do
+        if self.db.info_var is not None:
+            await self.db.wait_connected()
         read = _coalesce(self.read_conflict_ranges)
         write = _coalesce(self.write_conflict_ranges)
         # Self-conflict guarantee (ref: makeSelfConflicting NativeAPI:2052,

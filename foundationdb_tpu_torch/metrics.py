@@ -145,6 +145,9 @@ class CounterCollection:
     def __getitem__(self, name: str) -> int:
         return self.counter(name).value
 
+    def snapshot(self) -> Dict[str, int]:
+        return {k: c.value for k, c in self.counters.items()}
+
 
 class BoundedHistogram:
     """Exact aggregates of a stream of values and, with an ``rng``, a

@@ -79,6 +79,10 @@ class TLog:
         self.versions: List[int] = []
         self.entries: List[Dict[str, list]] = []
         self.durable = NotifiedVersion(epoch_begin_version)
+        # A recovery's fast-forward (worker.FastForwardTLog): (the log's
+        # true durable end, the version it jumped to) until its durable
+        # passes the jump.  See _serve_confirm.
+        self.fast_forward_gap = None
         self.known_committed = epoch_begin_version
         self.popped = epoch_begin_version
         # tag -> highest pop seen; entries are discarded below min over tags
@@ -200,7 +204,23 @@ class TLog:
     async def _serve_confirm(self):
         while True:
             _req, reply = await self._confirm_stream.pop()
-            reply.send(self.durable.get())
+            reply.send(self.confirmed_durable())
+
+    def confirmed_durable(self) -> int:
+        """The durable version a storage's confirm round may count on.  A
+        log fast-forwarded at epoch end holds nothing between its true
+        durable end and the version it jumped to; until its durable passes
+        the jump it answers its true end, so that a storage counting every
+        log's confirm cannot take another log's orphan above the cut (one
+        not yet truncated) as durable on every log.  The reference answers
+        the jumped version (PERF.md §7, F9)."""
+        durable = self.durable.get()
+        gap = self.fast_forward_gap
+        if gap is not None:
+            if durable <= gap[1]:
+                return min(durable, gap[0])
+            self.fast_forward_gap = None
+        return durable
 
     async def _serve_metrics(self):
         from .interfaces import TLogMetricsReply

@@ -1,16 +1,18 @@
 """Workload framework: composable test workloads with setup/start/check
 phases, run concurrently against a simulated cluster.
 
-The port's own copy of the part of the reference package's
-``workloads/`` that needs nothing but the client and the cluster's loop:
-the runner; the correctness workloads that check serializability, atomic
+The port's own copy of the reference package's ``workloads/`` but the
+soak, the metrics and profiling workloads and the layers': the runner; the correctness workloads that check serializability, atomic
 operations, versionstamps, read-your-writes, conflict ranges, key
 selectors, unreadable ranges, watches, external consistency and the
 database lock; the acceptance workloads WriteDuringRead and
 RandomReadWrite and the API fuzzer; the replica consistency check; the
 transactional load workloads; live configuration churn; the
 slow-task probe; and the data distribution workloads (random shard moves
-under load, DD's balance, the safe removal of a storage server).
+under load, DD's balance, the safe removal of a storage server); and the
+control plane's: the chaos injectors (clogging, attrition, device faults),
+the targeted role kill, the rollback, the DD metrics read through status,
+the seeded topology, the status document's shape and the time keeper.
 
 Ref: fdbserver/workloads/workloads.h:55 (TestWorkload's setup/start/check/
 getMetrics contract), tester.actor.cpp:239 (CompoundWorkload running the
@@ -50,6 +52,17 @@ from .slow_task import SlowTaskWorkload
 from .random_move_keys import RandomMoveKeysWorkload
 from .dd_balance import DDBalanceWorkload
 from .remove_servers import RemoveServersSafelyWorkload
+from .targeted_kill import TargetedKillWorkload
+from .chaos import (
+    AttritionWorkload,
+    DeviceChaosWorkload,
+    RandomCloggingWorkload,
+)
+from .config import SimulationConfig
+from .rollback import RollbackWorkload
+from .time_keeper import TimeKeeperWorkload
+from .status_workload import StatusWorkload
+from .dd_metrics import DDMetricsWorkload
 
 __all__ = [
     "TestWorkload",
@@ -88,4 +101,13 @@ __all__ = [
     "RandomMoveKeysWorkload",
     "DDBalanceWorkload",
     "RemoveServersSafelyWorkload",
+    "TargetedKillWorkload",
+    "AttritionWorkload",
+    "DeviceChaosWorkload",
+    "RandomCloggingWorkload",
+    "SimulationConfig",
+    "RollbackWorkload",
+    "TimeKeeperWorkload",
+    "StatusWorkload",
+    "DDMetricsWorkload",
 ]

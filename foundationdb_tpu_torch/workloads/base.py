@@ -38,17 +38,12 @@ def run_workloads(
     sequentially, starts concurrently (chaos overlaps load), checks
     sequentially; every check must return True.
 
-    quiet=True, waiting for quiescence between start and check (ref:
+    quiet=True waits for quiescence between start and check (ref:
     waitForQuietDatabase before the trailing consistency check,
-    tester.actor.cpp:819 / QuietDatabase.actor.cpp:371), raises
-    NotImplementedError until the port has server/status.py."""
+    tester.actor.cpp:819 / QuietDatabase.actor.cpp:371) instead of relying
+    on fixed virtual-time margins inside the checks."""
     from ..flow.eventloop import all_of
 
-    if quiet:
-        raise NotImplementedError(
-            "run_workloads(quiet=True) waits for a quiet database through "
-            "server/status.py, which the port has not yet"
-        )
     db = cluster.database("tester")
     for wl in workloads:
         cluster.run_until(
@@ -60,6 +55,13 @@ def run_workloads(
         for wl in workloads
     ]
     cluster.run_until(all_of(tasks), timeout_vt=timeout_vt)
+    if quiet:
+        from ..server.status import quiet_database
+
+        cluster.run_until(
+            db.process.spawn(quiet_database(db, cluster), "quiet_database"),
+            timeout_vt=timeout_vt,
+        )
     for wl in workloads:
         ok = cluster.run_until(
             db.process.spawn(wl.check(db, cluster), f"check:{wl.name}"),

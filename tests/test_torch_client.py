@@ -1022,14 +1022,55 @@ def test_commit_unknown_result_is_fenced(arm):
     assert out["commit"][:2] == ("error", "commit_unknown_result") and out["f"] == b"0"
 
 
+def _dynamic_client(DC, pkg):
+    """A client of `pkg`'s DynamicCluster made before any controller is
+    elected: its first transaction waits for the controller's ClientDBInfo,
+    and after a proxy's process dies it follows the new generation."""
+    m = DC.mods(pkg)
+    c = m.dc.DynamicCluster(seed=1, conflict_backend="cpu")
+    db = c.database()
+    out = {"before": (db.proxy, db.storage, db.info_var.get().generation)}
+
+    async def w(tr):
+        tr.set(b"k", b"v")
+        out.setdefault("first_read_version", await tr.get_read_version())
+
+    c.run_all([(db, db.run(w))], timeout_vt=300.0)
+    out["first"] = (c.loop.now(), db.info_var.get().generation, db.proxy.commit.endpoint.address)
+    c.kill_role_process("proxy")
+
+    async def r(tr):
+        out["read"] = await tr.get(b"k")
+
+    c.run_all([(db, db.run(r))], timeout_vt=600.0)
+    out["after"] = (c.loop.now(), db.info_var.get().generation, db.proxy.commit.endpoint.address,
+                    sorted(db.failure_states.items()))
+    return out
+
+
 def test_dynamic_database_waits_for_the_control_plane():
-    m = mods("port")
-    c = cluster(m, "cpu", 1)
-    try:
-        with pytest.raises(NotImplementedError, match="cluster controller"):
-            m.tx.Database(c.net.process("x"), info_var=object())
-    finally:
-        m.el.set_event_loop(None)
+    """Database(info_var=...) through each package's DynamicCluster: no
+    proxy until the controller publishes, a transaction that waits for it,
+    the new generation's proxies after a recovery, the failure monitor's
+    client feeding failure_states; the records (tests/test_torch_dynamic_
+    cluster.py's) equal."""
+    spec = importlib.util.spec_from_file_location(
+        "_dc_twins_client", pathlib.Path(__file__).resolve().parent /
+        "test_torch_dynamic_cluster.py")
+    DC = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(DC)
+    recs = {}
+    for pkg in ("ref", "port"):
+        with DC.twin_run(pkg, "cpu") as rec:
+            rec["out"] = _dynamic_client(DC, pkg)
+        recs[pkg] = rec
+    for key in recs["ref"]:
+        assert recs["port"][key] == recs["ref"][key], DC.first_difference(
+            recs["port"][key], recs["ref"][key], key)
+    out = recs["port"]["out"]
+    assert out["before"] == (None, None, 0)
+    assert out["read"] == b"v" and out["after"][1] > out["first"][1]
+    assert out["after"][2] != out["first"][2] and out["after"][3]
 
 
 def test_transactional_joins_or_retries():

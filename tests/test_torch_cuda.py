@@ -1539,3 +1539,56 @@ def test_dd_move_through_the_card_set_counts_its_side_table(dev):
     assert not any(c.get("long_key_host_batches", 0) for c in counters)
     served = sum(c["batches"] for c in counters)
     assert served > 0 and all(v == served for v in launches.values())
+
+
+def _control_twins(script, depth):
+    """chip_smoke's control_record of `script` on cuda and on cpu at the
+    rig's shape and `depth`: asserts the records equal and each kernel
+    launched once in every card-served batch; returns the cuda record and
+    its card-served batches."""
+    smoke = _chip_smoke()
+    cuda, launches, served = smoke.control_record(script, "cuda", depth)
+    cpu = smoke.control_record(script, "cpu", depth)[0]
+    assert cuda == cpu
+    assert served > 0 and all(v == served for v in launches.values())
+    return cuda, served
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("role", ["resolver"])
+def test_any_role_failure_recovers(dev, role, depth):
+    """tests/test_dynamic_cluster.py's script through the port's
+    DynamicCluster: the resolver's process dies and a new generation
+    recruits a new card set at its begin version.  Every read, commit and
+    retry, each set's batches (verdicts, witnesses), the controllers,
+    every disk and the loop's end equal on cuda and cpu."""
+    smoke = _chip_smoke()
+    cuda, _served = _control_twins(
+        smoke.control_test("test_dynamic_cluster", "test_any_role_failure_recovers", role), depth)
+    gens = cuda["generations"]
+    assert len(gens) >= 2 and gens[-1][0] > gens[0][0]
+    assert all(g[1] == g[2] and g[3] and g[3][0][0] > g[1] for g in gens)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_controller_failover(dev, depth):
+    """The acting controller's process dies, the standby wins the election
+    and the clients keep committing through the card set: the records
+    equal on cuda and cpu."""
+    smoke = _chip_smoke()
+    cuda, _served = _control_twins(
+        smoke.control_test("test_dynamic_cluster", "test_controller_failover"), depth)
+    ccs = cuda["clusters"][0][0]
+    assert any(leader and addr != "cc0:0" for addr, _gen, leader, _roles in ccs)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_device_chaos_under_a_resolver_kill_on_the_card(dev, depth):
+    """DeviceChaosWorkload's outage on a card set while the resolver's
+    process dies and a new generation recruits another: the injected
+    faults, every breaker walk, every commit and each set's batches equal
+    on cuda and cpu, and at least one injector installed."""
+    smoke = _chip_smoke()
+    cuda, _served = _control_twins(smoke.chaos_recovery_script, depth)
+    assert cuda["out"] and any(injected for injected, _walk in cuda["out"])
+    assert len(cuda["generations"]) >= 2

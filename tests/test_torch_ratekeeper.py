@@ -14,8 +14,7 @@ ratekeeper's registries; the script's own results; and the loop's end
 time with its rng's next draw.  The host-engine arm ("cpu") runs every
 case; the resolver-signal case also runs over a port
 ``ConflictSet(device="cpu")`` ("set").  ``test_resolver_signals_feed_
-ratekeeper``'s status ``qos`` block is not held here: ``server/status.py``
-belongs to the control plane, which is not ported yet.
+ratekeeper``'s status ``qos`` block is held in tests/test_torch_status.py.
 
 Then the device-coupled spring: a cluster whose resolver serves over a
 port ``ConflictSet(device="cpu")`` with three scripted dispatch faults,
@@ -407,8 +406,8 @@ def s_resolver_signals(c, rk, m, k):
 
 @pytest.mark.parametrize("arm", ["cpu", "set"])
 def test_resolver_signals_feed_ratekeeper(arm):
-    """The status qos block of the reference test waits for the control
-    plane (server/status.py); the rest is held here."""
+    """The reference test but its status qos block (held in
+    tests/test_torch_status.py)."""
     port = pair(73, s_resolver_signals, dict(max_tps=100000.0), arm=arm)
     out = port["out"]
     assert out["snap"]["backend_state"] == "ok" and out["snap"]["queue_depth"] == 0

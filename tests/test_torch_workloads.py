@@ -36,12 +36,12 @@ _restore_globals = TWINS._restore_globals
 
 
 def run(pkg, arm, make, seed, timeout_vt=None, prefixes=(), depth=None, conflict_set=None,
-        **cluster_kw):
+        quiet=False, **cluster_kw):
     """run_workloads(make(wl)) through `pkg`'s cluster in `arm`; returns
     the record.  `depth` gives the "set" arm's sets that pipeline depth;
     `conflict_set` (a factory) puts resolver 0 over that set beside the
     host engine; after the run a fresh client reads each of `prefixes`
-    in one transaction (the final state)."""
+    in one transaction (the final state).  `quiet` is run_workloads'."""
     m = TWINS.mods(pkg)
     TWINS._install_hubs(pkg)
     kw = dict(cluster_kw)
@@ -56,7 +56,8 @@ def run(pkg, arm, make, seed, timeout_vt=None, prefixes=(), depth=None, conflict
     log = SMOKE.ClientLog(m.tx)
     loads = make(m.wl)
     try:
-        m.wl.run_workloads(c, loads, **({} if timeout_vt is None else {"timeout_vt": timeout_vt}))
+        m.wl.run_workloads(c, loads, quiet=quiet,
+                           **({} if timeout_vt is None else {"timeout_vt": timeout_vt}))
         state = [SMOKE.final_state(c, prefix) for prefix in prefixes]
     finally:
         log.remove()
@@ -130,13 +131,27 @@ def test_workload_checks_see_what_they_claim():
 
 
 def test_quiet_database_waits_for_status():
-    m = TWINS.mods("port")
-    c = TWINS.cluster(m, "cpu", 1)
+    """run_workloads(quiet=True) polls server/status.py's quiet_database
+    between the starts and the checks: the same records in both packages;
+    the port's status document read, quiet, and the run otherwise the
+    plain one."""
+    status = importlib.import_module("foundationdb_tpu_torch.server.status")
+    docs = []
+    inner = status.cluster_status
+
+    def counted(cluster):
+        docs.append(inner(cluster))
+        return docs[-1]
+
+    make = lambda wl: [wl.CycleWorkload(nodes=8, ops=20, actors=3)]  # noqa: E731
+    plain = run("port", "cpu", make, 214, n_proxies=2)[0]
+    status.cluster_status = counted
     try:
-        with pytest.raises(NotImplementedError, match="status"):
-            m.wl.run_workloads(c, [m.wl.CycleWorkload()], quiet=True)
+        port = pair("cpu", make, 214, quiet=True, n_proxies=2)[0]
     finally:
-        port_el.set_event_loop(None)
+        status.cluster_status = inner
+    assert docs and docs[-1]["cluster"]["data"]["moving_shards"] == 0
+    assert port["events"] == plain["events"]
 
 
 def test_port_exports_only_the_client_workloads():
@@ -152,7 +167,9 @@ def test_port_exports_only_the_client_workloads():
         "UnreadableWorkload", "SidebandWorkload", "WatchesWorkload", "WatchAndWaitWorkload",
         "FastTriggeredWatchesWorkload", "BackgroundSelectorsWorkload", "CommitBugWorkload",
         "ConfigureDatabaseWorkload", "SlowTaskWorkload", "RandomMoveKeysWorkload",
-        "DDBalanceWorkload", "RemoveServersSafelyWorkload"])
+        "DDBalanceWorkload", "RemoveServersSafelyWorkload", "TargetedKillWorkload",
+        "AttritionWorkload", "DeviceChaosWorkload", "RandomCloggingWorkload", "SimulationConfig", "RollbackWorkload", "TimeKeeperWorkload", "StatusWorkload",
+        "DDMetricsWorkload"])
     ref = TWINS.mods("ref").wl
     assert set(port.__all__) < set(ref.__all__)
 
