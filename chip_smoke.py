@@ -28,12 +28,16 @@ seconds (`phase <name>: ...`):
                kernel program's kernel regions on the card hold its
                launches and their allocations and none of the plain
                twin's ops
-  2h. source gate  fdblint (tools/lint/local.py and det101.py: DET001-003,
-               DET101, IO001, TRC001, SPN001, ERR001, ENV001) and
-               perfcheck (tools/lint/hotpath.py, HOT001-HOT004) from one
-               load of the checkout's foundationdb_tpu_torch/ on the
-               card's host: counts by rule, suppressed, seconds; any
-               unsuppressed finding fails.  Then a planted dispatch->sync
+  2h. source gate  fdblint (tools/lint/local.py, det101.py, waitrules.py,
+               rpy.py, promises.py, races.py: DET001-003, DET101, ACT001,
+               IO001, TRC001, SPN001, ERR001, ENV001, WAIT001/002, RPY001,
+               PRM001-004, TSK001, RACE001-004) and perfcheck
+               (tools/lint/hotpath.py, HOT001-HOT004) from one load of the
+               checkout's foundationdb_tpu_torch/ on the card's host:
+               counts by rule, suppressed, seconds; any unsuppressed
+               finding fails, and so do actor-family counts other than
+               0 flagged with WAIT001 4, RACE001 2, RACE002 2, RACE004 5
+               suppressed (fdblint 24 suppressed).  Then a planted dispatch->sync
                window on a TorchConflictSet(key_words=2, h_cap=1,024),
                with transfer_guard=True for (a)-(f) and without it for
                (g)-(j): a module written to a temporary file calls
@@ -287,7 +291,13 @@ seconds (`phase <name>: ...`):
                virtual and host seconds, the card's bytes before each kill
                and after the dead generations' sets are collected (and
                how many dead sets are still referenced), and the batches
-               by card and mirror a generation
+               by card and mirror a generation.  The cluster's loop runs
+               the runtime twins (state_sanitizer=True,
+               check_orphaned_waits=True, promise tracking on): its end
+               fails on a stale-read->write pair in the audited
+               proxy.server_list or cluster_controller.workers, or on a
+               task parked on a dropped promise; prints the audited
+               names, keyed reads and writes, violations and orphans
   4w. witness-free  phase 4's timed batches through ConflictSet(
                witness=False), its mirror from phase 4's state after the
                warm-up (the device rehydrated from it before the timed
@@ -3311,11 +3321,23 @@ def planted_window(torch, et, tk, T, lint_source, variants):
     return out
 
 
+# fdblint's actor families (ACT001, WAIT001/002, RPY001, PRM001-004,
+# TSK001, RACE001-004) over the port: none unsuppressed, and the
+# reference's reasoned pragmas at the 13 sites it gives; fdblint's
+# suppressions in all.
+ACTOR_RULES = ("ACT001", "WAIT001", "WAIT002", "RPY001", "PRM001", "PRM002", "PRM003",
+               "PRM004", "TSK001", "RACE001", "RACE002", "RACE003", "RACE004")
+ACTOR_SUPPRESSED = {"WAIT001": 4, "RACE001": 2, "RACE002": 2, "RACE004": 5}
+FDBLINT_SUPPRESSED = 24
+
+
 def source_gate_path(torch, et, tk, T):
     """Phase 2h: the whole source gate (fdblint and perfcheck, one load of
     the tree) over the checkout's port, then the planted window
     (planted_window) in all ten variants.  Fails on an unsuppressed
-    finding in the port, on a variant whose findings are not its own
+    finding in the port, on actor-family counts other than ACTOR_RULES'
+    (ACTOR_SUPPRESSED suppressed, FDBLINT_SUPPRESSED in fdblint), on a
+    variant whose findings are not its own
     (plant_caught), and on a planted dispatch that does not launch both
     kernels.  What the
     runtime guard catches is printed, not gated."""
@@ -3334,6 +3356,18 @@ def source_gate_path(torch, et, tk, T):
              for f in fs if not f.suppressed]
     if unsup:
         raise AssertionError(f"source gate: {len(unsup)} unsuppressed finding(s): {unsup[:4]}")
+    counts = runner.count_by_rule(by_tool["fdblint"], ACTOR_RULES)
+    actor = {rule: counts[rule] for rule in ACTOR_RULES}
+    log("source gate: the actor families (flagged+suppressed): " + " ".join(
+        f"{rule}={c['flagged']}+{c['suppressed']}s" for rule, c in actor.items())
+        + f"; fdblint {len(by_tool['fdblint']) - len(unsup)} suppressed, 0 unsuppressed, of "
+        f"{len(by_tool['fdblint'])}; the scan {dt:.3f} s; card {card}")
+    want = {rule: {"flagged": 0, "suppressed": ACTOR_SUPPRESSED.get(rule, 0)}
+            for rule in ACTOR_RULES}
+    if actor != want or len(by_tool["fdblint"]) != FDBLINT_SUPPRESSED:
+        raise AssertionError(f"source gate: the actor families {actor}, fdblint "
+                             f"{len(by_tool['fdblint'])} findings; want {want} and "
+                             f"{FDBLINT_SUPPRESSED} suppressed")
     t0 = time.perf_counter()
     plant = planted_window(torch, et, tk, T, runner.lint_source, PLANT_VARIANTS)
     dt = time.perf_counter() - t0
@@ -6653,6 +6687,25 @@ RECOVER_STALE_ERRORS = ("transaction_too_old", "future_version")
 # The reference rig's twins of phase 4x (tests/test_torch_recovery_phase.py,
 # and tests/test_torch_cuda.py on cuda and cpu).
 RECOVER_VS_CPU_SHAPE = dict(nodes=64, load_txns=8, actors=4, ops=2, pause=0.2, gap=16)
+# Phase 4x's DynamicCluster runs the runtime twins of fdblint's race and
+# promise families (with promise tracking on around the run): its loop
+# audits the production shared dicts and checks for orphaned waits.
+RECOVER_TWINS = dict(state_sanitizer=True, check_orphaned_waits=True)
+
+
+def runtime_twins_report(loop) -> dict:
+    """The runtime twins' shutdown checks on `loop` (each raises on a
+    stale-read->write pair or a task parked on a dropped promise) and what
+    they saw: the audited dicts' names, the keyed reads and writes
+    recorded, the violations and the orphans."""
+    from foundationdb_tpu_torch.flow import sim_validation, state_sanitizer
+
+    state_sanitizer.expect_clean_shared_state(loop, "phase 4x")
+    sim_validation.expect_no_orphaned_waits(loop, "phase 4x")
+    san = loop.state_sanitizer
+    return dict(audited=sorted(san.names), reads=san.n_reads, writes=san.n_writes,
+                violations=len(san.violations),
+                orphans=len(sim_validation.orphaned_waits(loop)))
 
 
 class RecoveryLog:
@@ -7049,7 +7102,9 @@ def recovery_path(torch, api, ecpu, tk, spans, trace, fr, main, smi=""):
     recovery_script at RECOVER_SHAPE (the resolver's process killed, then
     the acting controller's, then a tlog's, the clients committing
     throughout) on SimNetwork(deep_copy=False), with cyclic garbage
-    collected at fixed points only.
+    collected at fixed points only, and the runtime twins on
+    (RECOVER_TWINS, promise tracking): runtime_twins_report raises on a
+    stale-read->write pair in the audited dicts or an orphaned wait.
     Checks: the generation rises at each event, the new resolver's set
     built at its begin version; the stale transactions fail retryably;
     every acknowledged write on every storage of its team and the ring one
@@ -7061,6 +7116,7 @@ def recovery_path(torch, api, ecpu, tk, spans, trace, fr, main, smi=""):
     from foundationdb_tpu_torch import workloads as wl
     from foundationdb_tpu_torch.client import transaction as txmod
     from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.flow import future
     from foundationdb_tpu_torch.server import dynamic_cluster as dcm
     from foundationdb_tpu_torch.server import worker as wmod
 
@@ -7083,16 +7139,21 @@ def recovery_path(torch, api, ecpu, tk, spans, trace, fr, main, smi=""):
     restore_gc = _collect_every(el.EventLoop, RECOVER_GC_EVERY)
     for name in tk.LAUNCHES:
         tk.LAUNCHES[name] = 0
+    future.track_promise_refs(True)
     t0 = time.perf_counter()
     try:
         with fixed_gc():
             c = dcm.DynamicCluster(seed=RECOVER_SEED, resolver_settings=settings,
-                                   **RECOVER_CLUSTER)
+                                   **RECOVER_CLUSTER, **RECOVER_TWINS)
             c.net.deep_copy = False  # before the first request, as 4k's network
             rec = recovery_script(c, wl, txmod, RECOVER_SHAPE, rlog, card_bytes=card_bytes)
         t_script = time.perf_counter() - t0
         launches_seen = dict(tk.LAUNCHES)
+        t_twins = time.perf_counter()
+        twins = runtime_twins_report(c.loop)
+        t_twins = time.perf_counter() - t_twins
     finally:
+        future.track_promise_refs(False)
         restore_gc()
         rlog.remove()
         hubs.restore()
@@ -7145,6 +7206,10 @@ def recovery_path(torch, api, ecpu, tk, spans, trace, fr, main, smi=""):
         f"{launches} = {served} card-served batches, one a card batch and none a mirror "
         f"batch; every batch's verdicts and witnesses equal the host replay; the phase's host "
         f"seconds: the script {t_script:.3f}, the replay and checks {t_checks:.3f}; card {card}")
+    log(f"{label}: runtime twins (DynamicCluster({RECOVER_TWINS}), promise tracking on): "
+        f"audited {twins['audited']}, {twins['reads']} keyed reads and {twins['writes']} "
+        f"keyed writes recorded, {twins['violations']} stale-read->write pairs, "
+        f"{twins['orphans']} orphaned waits; the checks {t_twins:.3f} host s; card {card}")
     del c, rlog
     gc.collect()
     return launches, served, len(per_gen)

@@ -562,7 +562,7 @@ class BTreeKeyValueStore:
             elif self._root is not None:
                 self._root, _changed = self._clear(self._root, a, b)
         if isinstance(self._root, _Node):
-            self._root = await self._flush(self._root)  # _root has one writer in flight: the commit chain gate serializes _commit_locked
+            self._root = await self._flush(self._root)  # fdblint: ignore[RACE001]: _commit_locked is serialized by the commit chain gate — _root has exactly one writer in flight
         await self._file.sync()  # data pages durable before the header
         self._gen += 1
         # Pages freed building this generation go INTO the new header's

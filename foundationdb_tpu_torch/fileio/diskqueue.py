@@ -114,9 +114,7 @@ class DiskQueue:
         self._pending = []
         for w_off, data in writes:
             await self._file.write(w_off, data)
-        # The commit chain gate serializes _commit_locked, and appends land
-        # in _pending, never moving _tail: no other writer races this one.
-        self._tail = off
+        self._tail = off  # fdblint: ignore[RACE001]: _commit_locked is serialized by the commit chain gate; appends land in _pending, never move _tail
         if self._header_dirty:
             # Clear the flag BEFORE the write's await: a pop() landing
             # while the header is in flight re-dirties it and the NEXT

@@ -17,6 +17,16 @@ from (seed, n) draws a tie-break between priority and insertion sequence,
 permuting pick order among equal-(time, priority) entries, the orderings
 the scheduling contract leaves open.  The same (seed, n) replays exactly.
 
+The runtime twins of fdblint's race and promise families, off by default
+as the reference's FDB_TPU_STATE_SANITIZER and FDB_TPU_CHECK_ORPHANED_WAITS
+knobs are: ``state_sanitizer=True`` gives the loop a
+``state_sanitizer.StateSanitizer`` (``loop.state_sanitizer``, else None),
+which ``audited_dict`` binds shared dicts to and
+``expect_clean_shared_state`` reads at shutdown;
+``check_orphaned_waits=True`` arms ``sim_validation.
+expect_no_orphaned_waits``.  Both only observe: a run's events, rng draws
+and end are the same with them on.
+
 The slow-task profiler (``slow_task_threshold``, off by default) times a
 step with ``metrics.wall_now()``; that reading never feeds virtual time.
 """
@@ -31,6 +41,7 @@ from ..metrics import wall_now
 from .error import ActorCancelled, FdbError, SimulationFailure
 from .future import Future, Promise
 from .rng import DeterministicRandom
+from .state_sanitizer import StateSanitizer
 
 
 class TaskPriority:
@@ -199,7 +210,8 @@ class Task(Future):
 class EventLoop:
     """Single-threaded deterministic event loop with virtual time."""
 
-    def __init__(self, seed: int = 1, sched_fuzz: Optional[int] = None):
+    def __init__(self, seed: int = 1, sched_fuzz: Optional[int] = None,
+                 state_sanitizer: bool = False, check_orphaned_waits: bool = False):
         self.rng = DeterministicRandom(seed)
         self._now = 0.0
         self._seq = 0
@@ -223,6 +235,8 @@ class EventLoop:
         # The Task currently being stepped (None between steps / for plain
         # callbacks): audit attribution for the state sanitizer.
         self.current_task: Optional[Task] = None
+        self.state_sanitizer = StateSanitizer(self) if state_sanitizer else None
+        self.check_orphaned_waits = check_orphaned_waits
         self._stopped = False
         self.tasks_run = 0
         # Slow-task profiler threshold in WALL seconds (None = off; the

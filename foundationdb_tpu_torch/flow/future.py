@@ -30,9 +30,14 @@ _TRACK_REFS = False
 def track_promise_refs(on: bool):
     """Enable/disable Promise weakref bookkeeping.  Must be on BEFORE the
     scenario under test creates its promises (sim_validation's
-    orphaned_waits finds nothing without it)."""
+    orphaned_waits finds nothing without it, and expect_no_orphaned_waits
+    refuses to run blind)."""
     global _TRACK_REFS
     _TRACK_REFS = bool(on)
+
+
+def promise_tracking_enabled() -> bool:
+    return _TRACK_REFS
 
 
 class Future:

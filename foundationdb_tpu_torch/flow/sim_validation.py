@@ -6,9 +6,13 @@ promises (``mark_at_least``: "commits through V were acknowledged") that
 the simulation later checks (``expect_at_least``); the state hangs off the
 event loop, so two simulated clusters in one process do not interfere.
 ``orphaned_waits`` names tasks parked on a promise nobody holds any more
-(the event loop calls it when a loop runs dry awaiting a future).  It sees
-promises only while ``future.track_promise_refs(True)`` is on; otherwise
-it finds nothing.
+(the event loop calls it when a loop runs dry awaiting a future), and
+``expect_no_orphaned_waits``, the dynamic twin of fdblint's PRM001/PRM002,
+asserts at teardown that there are none, on a loop built with
+``EventLoop(check_orphaned_waits=True)`` (the reference's
+FDB_TPU_CHECK_ORPHANED_WAITS, off by default).  Both see promises only
+while ``future.track_promise_refs(True)`` is on: the scan finds nothing
+without it, and the assertion refuses to run blind.
 """
 
 from __future__ import annotations
@@ -72,3 +76,28 @@ def orphaned_waits(loop) -> List[Tuple[str, str]]:
             out.append((t.name, "promise dropped; zero remaining senders"))
     out.sort()
     return out
+
+
+def expect_no_orphaned_waits(loop, context: str = ""):
+    """Loop-teardown assertion: no task may still be parked on a future
+    with zero remaining senders.  A no-op unless the loop was built with
+    ``check_orphaned_waits=True``; raises if it was but promise tracking
+    is off, so the check can't silently pass while blind."""
+    if not loop.check_orphaned_waits:
+        return
+    from .future import promise_tracking_enabled
+
+    if not promise_tracking_enabled():
+        raise AssertionError(
+            "sim_validation: the loop checks orphaned waits but "
+            "flow.future.track_promise_refs(True) was not called before "
+            "the scenario — the check would be blind"
+        )
+    orphans = orphaned_waits(loop)
+    if orphans:
+        names = "; ".join(f"{n} ({w})" for n, w in orphans[:8])
+        raise AssertionError(
+            f"sim_validation: {len(orphans)} task(s) parked on futures "
+            f"with zero remaining senders at shutdown: {names}"
+            + (f" ({context})" if context else "")
+        )

@@ -25,6 +25,12 @@ every process, settles each unsynced write by the file system's KillMode,
 reboots, rebuilds the roles from disk at a new epoch and commits the
 recovery transaction.
 
+``sched_fuzz``, ``state_sanitizer`` and ``check_orphaned_waits`` are
+the settings of the EventLoop the cluster builds where no ``loop`` is
+given (flow/eventloop.py; the reference's FDB_TPU_SCHED_FUZZ,
+FDB_TPU_STATE_SANITIZER and FDB_TPU_CHECK_ORPHANED_WAITS knobs, all off
+by default).
+
 ``data_distributor()`` is a DataDistributor on its own client process,
 knowing every storage by id, and ``dd_role(dd=None, **kw)`` a started
 DataDistributionRole over it (``kw`` are the role's settings, the
@@ -70,6 +76,9 @@ class SimCluster:
         # synchronously in the commit ack set (ref: satellite TLogs;
         # the remote region's zero-loss recovery source)
         device=None,
+           sched_fuzz: Optional[int] = None,
+        state_sanitizer: bool = False,
+        check_orphaned_waits: bool = False,
     ):
         if conflict_backend != "cpu" and (conflict_set is None or n_resolvers > 1):
             # A resolver will build its set on `device`: fail before any
@@ -77,7 +86,9 @@ class SimCluster:
             from ..device import resolve_device
 
             resolve_device(device)
-        self.loop = loop or EventLoop(seed=seed)
+        self.loop = loop or EventLoop(seed=seed, sched_fuzz=sched_fuzz,
+                                      state_sanitizer=state_sanitizer,
+                                      check_orphaned_waits=check_orphaned_waits)
         set_event_loop(self.loop)
         # Simulation buggifies by default, like the reference (flow/flow.h
         # :60-67: BUGGIFY only fires under the simulator).

@@ -37,6 +37,7 @@ from typing import Dict, List, Optional
 from ..flow.asyncvar import AsyncVar
 from ..flow.error import ActorCancelled, FdbError
 from ..flow.eventloop import timeout_after
+from ..flow.state_sanitizer import audited_dict
 from ..flow.trace import TraceEvent
 from ..rpc.network import SimProcess
 from ..rpc.stream import RequestStream, RequestStreamRef
@@ -119,11 +120,13 @@ class ClusterController:
         self.storage_team_size = storage_team_size
         # Each generation's DD role's settings (the reference's dd_* knobs).
         self.dd_settings = dict(dd_settings or {})
-        # Written by the register serve loop, the per-worker ping actors
-        # and recruitment: the multi-writer shape racecheck's RACE004
-        # flags statically (the reference audits it as a shared dict; a
-        # plain dict here until the port has the state sanitizer).
-        self.workers: Dict[str, WorkerInterface] = {}
+        # Audited under the loop's state sanitizer: written by the register
+        # serve loop and the liveness sweep, read by recruitment — a
+        # multi-writer map.  fdblint's RACE004 does not flag it, nor does
+        # the reference's fdblint over the port, with or without the
+        # audit: no write of it is await-separated from its read.
+        self.workers: Dict[str, WorkerInterface] = audited_dict(
+            process.network.loop, "cluster_controller.workers")
         # address -> process class (ref: ProcessClass); fed by the config
         # monitor, consulted by the next generation's recruitment.
         self.process_classes: Dict[str, str] = {}

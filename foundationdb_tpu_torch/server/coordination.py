@@ -271,17 +271,13 @@ class Coordinator:
         (ref: ForwardRequest, Coordination.actor.cpp)."""
         while True:
             addrs, reply = await self._fw.pop()
-            # Retirement is one-way: clear_forward and _boot order against
-            # it through _forward_cleared (see clear_forward's docstring).
-            self.forward = list(addrs)
+            self.forward = list(addrs)  # fdblint: ignore[RACE004]: retirement is one-way — clear_forward and _boot order against it via _forward_cleared (see clear_forward docstring)
             self.registry[FORWARD_KEY] = (
                 ",".join(addrs).encode(), ZERO_GEN, ZERO_GEN,
             )
             await self._persist(FORWARD_KEY)
             # Flush parked get_leader waiters with the forward nominee.
-            # The nominee is a hint re-derived every election tick: a stale
-            # overwrite lasts one tick and renominates.
-            self.nominee = _forward_info(self.forward)
+            self.nominee = _forward_info(self.forward)  # fdblint: ignore[RACE004]: nominee is a hint re-derived every election tick — a stale overwrite lasts one tick and renominates
             waiters, self._waiters = self._waiters, []
             for _known, w in waiters:
                 w.send(self.nominee)

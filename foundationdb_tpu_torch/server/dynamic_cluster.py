@@ -15,7 +15,9 @@ twins, and ``conflict_backend="cpu"`` the host engine.
 ``resolver_settings`` (``key_words``, ``h_cap``, ``pipeline_depth``,
 ``witness``, ``mirror_coalesce``, ``bucket_mins``) reach every recruited
 resolver's set through the controllers, and ``controller_settings`` are
-the controllers' knob arguments.
+the controllers' knob arguments.  ``sched_fuzz``, ``state_sanitizer`` and
+``check_orphaned_waits`` are the settings of the EventLoop the cluster
+builds where no ``loop`` is given, as SimCluster's.
 """
 
 from __future__ import annotations
@@ -49,6 +51,9 @@ class DynamicCluster:
         device=None,
         resolver_settings: Optional[dict] = None,
         controller_settings: Optional[dict] = None,
+           sched_fuzz: Optional[int] = None,
+        state_sanitizer: bool = False,
+        check_orphaned_waits: bool = False,
     ):
         if conflict_backend != "cpu":
             # Every recruited resolver builds its set on `device`: fail
@@ -58,7 +63,9 @@ class DynamicCluster:
             resolve_device(device)
         self.resolver_settings = dict(resolver_settings or {}, device=device)
         self.controller_settings = dict(controller_settings or {})
-        self.loop = loop or EventLoop(seed=seed)
+        self.loop = loop or EventLoop(seed=seed, sched_fuzz=sched_fuzz,
+                                      state_sanitizer=state_sanitizer,
+                                      check_orphaned_waits=check_orphaned_waits)
         set_event_loop(self.loop)
         from ..flow.buggify import set_buggify_enabled
 

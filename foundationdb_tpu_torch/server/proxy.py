@@ -25,6 +25,7 @@ from ..conflict.types import COMMITTED, CONFLICT, TOO_OLD, TransactionConflictIn
 from ..flow.asyncvar import NotifiedVersion
 from ..flow.error import ActorCancelled
 from ..flow.eventloop import first_of
+from ..flow.state_sanitizer import audited_dict
 from ..rpc.network import SimProcess
 from ..rpc.stream import RequestStream
 from ..utils import RangeMap
@@ -135,16 +136,16 @@ class Proxy:
         # Non-None while `\xff/dbLocked` holds a UID (ref: databaseLockedKey;
         # learned via the mutation stream or recovery-time map injection).
         self.locked_uid = None
-        # Written by the commit path's metadata intercept and recovery-time
-        # injection, read by the read-routing path: a cross-actor shared
-        # map (a plain dict, as the reference's audited dict is with its
-        # sanitizer off).
-        self.server_list: dict = {}
+        # Audited under the loop's state sanitizer: written by the commit
+        # path's metadata intercept and recovery-time injection, read by
+        # the read-routing path — a cross-actor shared map.
+        self.server_list: dict = audited_dict(process.network.loop, "proxy.server_list")
         if system_map is not None:
             entries, server_list = system_map
             for b, e, team in entries:
                 self.key_servers.set_range(b, e, (tuple(team), tuple(team)))
-            self.server_list = dict(server_list)
+            self.server_list = audited_dict(process.network.loop, "proxy.server_list",
+                                            server_list)
         # Metadata applies in version order across THIS proxy's overlapped
         # batches (the own-version chain); versions granted to other proxies
         # in between are covered by the resolvers' state-mutation replies

@@ -109,9 +109,7 @@ class ResolverBalancer:
             )
         if new_key is None or new_key in (b"",):
             return None
-        # A deliberate snapshot: the commit re-validates the durable
-        # partition against base and drops a stale plan (see docstring).
-        old = base[i]
+        old = base[i]  # fdblint: ignore[WAIT001]: deliberate snapshot — the commit txn re-validates the durable partition against base and drops a stale plan (see docstring)
         if new_key == old:
             return None
         new_splits = list(base)

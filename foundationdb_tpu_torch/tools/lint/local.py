@@ -2,17 +2,17 @@
 
 The port's own copy of the reference package's ``tools/lint/local.py``
 (``ModuleLinter``), cut to the families that apply to the port:
-DET001/DET002/DET003, IO001, TRC001, SPN001, ERR001 and ENV001.  ACT001
-and JAX001 are gone (the port has no coroutines and no traced code), and
-ENV001 has no registry exemption: the port has no knob registry, so any
-``FDB_TPU_*`` read is a finding.  Findings are produced UNFILTERED: the
-allowlist and pragmas are applied by runner.py after every pass has run.
+DET001/DET002/DET003, ACT001, IO001, TRC001, SPN001, ERR001 and ENV001.
+JAX001 is gone (the port has no traced code), and ENV001 has no registry
+exemption: the port has no knob registry, so any ``FDB_TPU_*`` read is a
+finding.  Findings are produced UNFILTERED: the allowlist and pragmas are
+applied by runner.py after every pass has run.
 """
 
 from __future__ import annotations
 
 import ast
-from typing import List, Optional, Tuple
+from typing import List, Optional, Set, Tuple
 
 from .base import (
     Aliases,
@@ -38,6 +38,14 @@ class ModuleLinter(ClockRefVisitorMixin, ast.NodeVisitor):
         # Simple-statement line spans: a pragma anywhere on the physical
         # lines of the statement holding a flagged expression counts.
         self.stmt_spans: List[Tuple[int, int]] = []
+        # ACT001 name scoping: a bare `foo()` statement matches only
+        # module-level async functions; `self.foo()` / `cls.foo()` only
+        # async methods of the ENCLOSING class.  Matching any attribute
+        # call by name alone would cross-fire on generic names (`set`,
+        # `sync`) of unrelated objects and between classes.
+        self.async_funcs: Set[str] = set()
+        # (class start line, class end line, async method names) per class
+        self.class_spans: List[Tuple[int, int, Set[str]]] = []
 
     # -- emit --
     def flag(self, rule: str, node: ast.AST, message: str,
@@ -59,6 +67,28 @@ class ModuleLinter(ClockRefVisitorMixin, ast.NodeVisitor):
                 self.aliases.add_import_from(node)
             if isinstance(node, SIMPLE_STMTS):
                 self.stmt_spans.append((node.lineno, node.end_lineno or node.lineno))
+        self._collect_async_defs(self.tree, in_class=False)
+
+    def _collect_async_defs(self, node: ast.AST, in_class: bool):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.AsyncFunctionDef):
+                if not in_class:
+                    self.async_funcs.add(child.name)
+                self._collect_async_defs(child, in_class=False)
+            elif isinstance(child, ast.ClassDef):
+                names = {m.name for m in child.body if isinstance(m, ast.AsyncFunctionDef)}
+                self.class_spans.append((child.lineno, child.end_lineno or child.lineno, names))
+                self._collect_async_defs(child, in_class=True)
+            else:
+                self._collect_async_defs(child, in_class=in_class)
+
+    def _enclosing_class_async_methods(self, lineno: int) -> Set[str]:
+        """Async method names of the innermost class holding `lineno`."""
+        best = None
+        for start, end, names in self.class_spans:
+            if start <= lineno <= end and (best is None or start > best[0]):
+                best = (start, names)
+        return best[1] if best else set()
 
     # -- imports: DET002, DET003, IO001, DET001 --
     def visit_Import(self, node: ast.Import):
@@ -167,9 +197,23 @@ class ModuleLinter(ClockRefVisitorMixin, ast.NodeVisitor):
                       end_line=node.lineno)
         self.generic_visit(node)
 
-    # -- TRC001 / SPN001: statement-level builder chains --
+    # -- ACT001, TRC001, SPN001: statement-level calls --
     def visit_Expr(self, node: ast.Expr):
-        if isinstance(node.value, ast.Call):
+        v = node.value
+        if isinstance(v, ast.Call):
+            # ACT001: a statement-level call of a local async def whose
+            # coroutine object is dropped on the floor.
+            dropped = None
+            if isinstance(v.func, ast.Name) and v.func.id in self.async_funcs:
+                dropped = v.func.id
+            elif (isinstance(v.func, ast.Attribute) and isinstance(v.func.value, ast.Name)
+                    and v.func.value.id in ("self", "cls")
+                    and v.func.attr in self._enclosing_class_async_methods(node.lineno)):
+                dropped = v.func.attr
+            if dropped is not None:
+                self.flag("ACT001", node,
+                          f"coroutine '{dropped}()' is neither awaited nor spawned "
+                          f"(dropped actor)")
             self._check_dropped_chain(
                 node, node.value, "TraceEvent", "log", "TRC001",
                 "TraceEvent built but never .log()ed nor used as a context "

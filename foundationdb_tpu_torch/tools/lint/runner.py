@@ -6,14 +6,19 @@
 
 The twin of the reference package's ``tools/lint/runner.py``.  The two
 source tools share one load of the tree (each ``.py`` under ``root``, the
-port's package by default, parsed once) and one CallGraph: fdblint
-(``local.py`` and ``det101.py``: DET001-003, DET101, IO001, TRC001,
-SPN001, ERR001, ENV001) and perfcheck (``hotpath.py``, HOT001-HOT004),
-each applying its own pragma namespace.  ``--all`` adds torchcheck
+port's package by default, parsed once) and one CallGraph: fdblint and
+perfcheck (``hotpath.py``, HOT001-HOT004), each applying its own pragma
+namespace.  fdblint runs, in the reference's order, per file
+``local.py`` (DET001-003, ACT001, IO001, TRC001, SPN001, ERR001,
+ENV001), ``rpy.py`` (RPY001), ``races.py``'s collection (RACE001-003
+within a function), ``waitrules.py`` (WAIT001/002) and ``promises.py``'s
+facts, then over the whole scan ``det101.py`` (DET101), the promise
+rules (PRM001-004, TSK001) and the race rules (RACE001 across calls,
+RACE004).  ``--all`` adds torchcheck
 (``torchir.py``, the TGX rules over the registered device programs, run on
 the CPU; its fingerprints stay with its own CLI), in jaxcheck's place.
 The output is per-tool/per-rule counts on stderr (``[fdblint] 0
-finding(s), 5 suppressed; per-rule (flagged+suppressed): DET001=0+2s
+finding(s), 24 suppressed; per-rule (flagged+suppressed): ACT001=0+0s
 ...``, every rule of the two source families shown even at zero), one
 JSON doc, or ONE SARIF document with one run per tool.
 ``--pragma-inventory`` lists every suppression in the fdblint, perfcheck
@@ -47,6 +52,10 @@ from .det101 import run_det101
 from .graphs import CallGraph, collect_summary
 from .hotpath import HOT_RULES, collect_hotpath, run_hotpath_rules
 from .local import ModuleLinter
+from .promises import collect_promise_facts, run_promise_rules
+from .races import collect_race, run_race_rules
+from .rpy import run_rpy001
+from .waitrules import run_wait_rules
 
 # Every pragma namespace the port uses.
 PRAGMA_TOOLS: Tuple[str, ...] = ("fdblint", "perfcheck", "torchcheck")
@@ -62,8 +71,7 @@ SARIF_SCHEMA = (
 # Always shown in the counts line, zero or not: a count that silently
 # vanished from the output is how a burned-down family quietly regrows.
 _ALWAYS_COUNTED = {
-    "fdblint": ("DET001", "DET002", "DET003", "DET101", "IO001", "TRC001",
-                "SPN001", "ERR001", "ENV001"),
+    "fdblint": tuple(r for r in RULES if not r.startswith("PRG")),
     "perfcheck": ("HOT001", "HOT002", "HOT003", "HOT004"),
 }
 
@@ -92,10 +100,17 @@ def _lint(sources: Dict[str, str], root_pkg: Optional[str],
     out: Dict[str, List[Finding]] = {}
     if "fdblint" in tools:
         pragmas = {rp: parse_pragmas(src, tool="fdblint") for rp, src in sources.items()}
-        by_file: Dict[str, List[Finding]] = {
-            rp: ModuleLinter(rp, t).run() for rp, t in trees.items()}
+        by_file: Dict[str, List[Finding]] = {}
+        races, promises = {}, {}
+        for rp, t in trees.items():
+            race_found, races[rp] = collect_race(rp, t)
+            by_file[rp] = (ModuleLinter(rp, t).run() + run_rpy001(rp, t) + race_found
+                           + run_wait_rules(rp, t))
+            promises[rp] = collect_promise_facts(rp, t)
         consumed: Dict[str, set] = {}
-        for f in run_det101(summaries, pragmas, graph, consumed_pragmas=consumed):
+        for f in (run_det101(summaries, pragmas, graph, consumed_pragmas=consumed)
+                  + run_promise_rules(summaries, promises, graph=graph)
+                  + run_race_rules(summaries, races, graph=graph)):
             by_file[f.path].append(f)
         found: List[Finding] = []
         for rp in sorted(sources):
@@ -179,9 +194,10 @@ def rules_of(tool: str) -> Dict[str, str]:
     return {"fdblint": RULES, "perfcheck": HOT_RULES}[tool]
 
 
-def count_by_rule(findings: List[Finding]) -> Dict[str, Dict[str, int]]:
-    """{rule: {"flagged": n, "suppressed": m}} for every rule that fired."""
-    out: Dict[str, Dict[str, int]] = {}
+def count_by_rule(findings: List[Finding], always=()) -> Dict[str, Dict[str, int]]:
+    """{rule: {"flagged": n, "suppressed": m}} for every rule that fired
+    and every rule of `always`, at zero too."""
+    out: Dict[str, Dict[str, int]] = {r: {"flagged": 0, "suppressed": 0} for r in always}
     for f in findings:
         slot = out.setdefault(f.rule, {"flagged": 0, "suppressed": 0})
         slot["suppressed" if f.suppressed else "flagged"] += 1
@@ -189,9 +205,7 @@ def count_by_rule(findings: List[Finding]) -> Dict[str, Dict[str, int]]:
 
 
 def format_counts(findings: List[Finding], always=()) -> str:
-    counts = count_by_rule(findings)
-    for rule in always:
-        counts.setdefault(rule, {"flagged": 0, "suppressed": 0})
+    counts = count_by_rule(findings, always)
     if not counts:
         return "per-rule: (none)"
     return "per-rule (flagged+suppressed): " + " ".join(
@@ -293,7 +307,7 @@ def main(argv: Optional[List[str]] = None, tools: Tuple[str, ...] = SOURCE_TOOLS
                                  if args.show_suppressed or not f.suppressed],
                     "total": len(fs),
                     "unsuppressed": sum(1 for f in fs if not f.suppressed),
-                    "counts": count_by_rule(fs),
+                    "counts": count_by_rule(fs, _ALWAYS_COUNTED.get(tool, ())),
                 }
                 for tool, fs in sorted(by_tool.items())
             },

@@ -314,7 +314,7 @@ class WriteDuringReadWorkload(TestWorkload):
                         )
                 await tr.commit()
                 self.committed_txns += 1
-                self.last_committed = dict(self.memory_db)  # workload model protocol: ops mutate the model only inside the txn window and _drive reconciles at commit/conflict boundaries
+                self.last_committed = dict(self.memory_db)  # fdblint: ignore[RACE004]: workload model protocol — ops mutate the model only inside the txn window and _drive reconciles at commit/conflict boundaries
                 self.history.append(("commit", txn_seq))
             except FdbError as e:
                 if e.name == "not_committed":
@@ -335,7 +335,7 @@ class WriteDuringReadWorkload(TestWorkload):
                         self.last_committed = dict(self.memory_db)
                         self.history.append(("unknown-committed", txn_seq))
                     else:
-                        self.memory_db = dict(self.last_committed)  # workload model protocol: rollback runs only in _drive between op batches, with no op coroutine in flight
+                        self.memory_db = dict(self.last_committed)  # fdblint: ignore[RACE004]: workload model protocol — rollback runs only in _drive between op batches, with no op coroutine in flight
                         self.history.append(("unknown-lost", txn_seq))
                 elif e.is_retryable_in_transaction() or e.name == "broken_promise":
                     self.memory_db = dict(self.last_committed)

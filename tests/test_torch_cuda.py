@@ -1592,3 +1592,42 @@ def test_device_chaos_under_a_resolver_kill_on_the_card(dev, depth):
     cuda, _served = _control_twins(smoke.chaos_recovery_script, depth)
     assert cuda["out"] and any(injected for injected, _walk in cuda["out"])
     assert len(cuda["generations"]) >= 2
+
+
+def _fuzzed_run(device, fuzz):
+    """The reference's commit workload (tests/test_racecheck_dynamic.py's
+    _commit_workload: 4 actors x 3 rounds of conflicting and disjoint
+    commits) through the port's SimCluster(seed=113, n_proxies=2,
+    sched_fuzz=fuzz), its resolver over a ConflictSet on `device`: the
+    run's fingerprint (the committed values, the loop's tasks run, time and
+    next draw) and the batches the set's device engine served."""
+    from foundationdb_tpu_torch.conflict.api import ConflictSet
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import cluster as cm
+
+    smoke = _chip_smoke()
+    twin = smoke.port_test_module("test_racecheck_dynamic")
+    sets = []
+
+    def make_set():
+        sets.append(ConflictSet(device=device, **smoke.CLIENT_SET_KW))
+        return sets[-1]
+
+    try:
+        with smoke.resolver_sets(cm, make_set):
+            c = cm.SimCluster(seed=113, n_proxies=2, sched_fuzz=fuzz, device=device)
+        fp = twin._fingerprint(c, twin._commit_workload(c))
+    finally:
+        el.set_event_loop(None)
+    return fp, sum(s.device_metrics()["counters"]["batches"] for s in sets)
+
+
+@pytest.mark.parametrize("fuzz", [1, 2])
+def test_sched_fuzz_replays_on_the_card(dev, fuzz):
+    """Under the scheduler fuzz, the same (seed, fuzz) replays on the card
+    to the same fingerprint, equal to the CPU run's, the card serving the
+    resolve batches."""
+    first, served = _fuzzed_run("cuda", fuzz)
+    assert _fuzzed_run("cuda", fuzz)[0] == first
+    assert _fuzzed_run("cpu", fuzz)[0] == first
+    assert served > 0

@@ -1,6 +1,7 @@
 """fdblint's families that apply to the port (foundationdb_tpu_torch/
-tools/lint/: base.py, local.py, det101.py, runner.py; tools/fdblint.py),
-held to the reference's fdblint (foundationdb_tpu/tools/lint/).
+tools/lint/: base.py, local.py, det101.py, waitrules.py, rpy.py,
+promises.py, races.py, runner.py; tools/fdblint.py), held to the
+reference's fdblint (foundationdb_tpu/tools/lint/).
 
 The differential: on the reference's own cases, the inline sources of
 tests/test_lint.py's DET001-003, TRC001, ERR001, IO001, SPN001, ENV001
@@ -11,9 +12,11 @@ suppressed) findings and DET101 chains.  The stated exceptions are the
 reference's exemptions by path of modules the port does not have: its
 knob registry (flow/knobs.py, ENV001) and its real network backend
 (rpc/real_network.py, IO001); there the port gives the reference's
-findings at a path it does not exempt.  Then the port's own tree: no
-unsuppressed finding, the 10 reasoned pragmas, and the reference's
-fdblint over it finds nothing either.  Pragma hygiene, one plant of each
+findings at a path it does not exempt.  (The actor families' corpus is
+tests/test_torch_actor_lint.py's.)  Then the port's own tree: no
+unsuppressed finding in any family, the 24 reasoned pragmas, and the
+reference's fdblint over it finds nothing either and suppresses the same
+rows.  Pragma hygiene, one plant of each
 rule in a copy of the port, the gate's CLI, and chip_smoke.py's planted
 window held to the reference.
 """
@@ -39,7 +42,9 @@ REF_CASES = REPO / "tests" / "lint_cases"
 
 # fdblint's families that apply to the port, and its pragma rules.
 APPLICABLE = ("DET001", "DET002", "DET003", "DET101", "IO001", "TRC001", "SPN001",
-              "ERR001", "ENV001")
+              "ERR001", "ENV001", "ACT001", "WAIT001", "WAIT002", "RPY001", "PRM001",
+              "PRM002", "PRM003", "PRM004", "TSK001", "RACE001", "RACE002", "RACE003",
+              "RACE004")
 COMPARED = APPLICABLE + ("PRG001", "PRG002")
 
 # The reference's exemptions by path of modules the port does not have.
@@ -227,8 +232,9 @@ def test_registry_is_the_reference_families():
     assert base.WALL_CLOCK == REF_WALL_CLOCK
     # tools/ is exempt exactly where the reference exempts its tools/.
     ref_tools = {r for r, globs in REF_ALLOW.items() if "tools/*.py" in globs and r in APPLICABLE}
-    assert set(base.DEFAULT_ALLOW) == ref_tools == {"DET001", "DET003", "DET101", "ERR001",
-                                                    "IO001"}
+    assert set(base.DEFAULT_ALLOW) == ref_tools == {
+        "DET001", "DET003", "DET101", "ERR001", "IO001", "WAIT001", "WAIT002", "PRM001",
+        "PRM002", "PRM003", "PRM004", "TSK001", "RACE001", "RACE002", "RACE003", "RACE004"}
     assert all(globs == ("tools/*.py",) for globs in base.DEFAULT_ALLOW.values())
 
 
@@ -237,21 +243,43 @@ def test_registry_is_the_reference_families():
 # ---------------------------------------------------------------------------
 
 PORT_PRAGMAS = [
+    # The GRV lane dicts are per-flag singletons (the reference's three
+    # WAIT001 pragmas and reasons).
+    ("client/transaction.py", 175, ["WAIT001"]),
+    ("client/transaction.py", 176, ["WAIT001"]),
+    ("client/transaction.py", 225, ["WAIT001"]),
+    # The commit chain gate serializes _commit_locked (RACE001, the
+    # reference's).
+    ("fileio/btree.py", 565, ["RACE001"]),
+    ("fileio/diskqueue.py", 117, ["RACE001"]),
     ("flow/rng.py", 11, ["DET002"]),
     ("flow/rng.py", 19, ["DET002"]),
     ("flow/trace.py", 51, ["IO001"]),
     ("flow/trace.py", 139, ["DET001"]),
     ("metrics.py", 41, ["DET001"]),
     ("rpc/stream.py", 77, ["ERR001"]),
+    # A forward's retirement is one-way; the nominee is a hint re-derived
+    # every election tick (RACE004, the reference's).
+    ("server/coordination.py", 274, ["RACE004"]),
+    ("server/coordination.py", 280, ["RACE004"]),
     # DD's storage liveness probe: any failure is the negative verdict (the
     # reference's pragma and reason).
     ("server/dd_role.py", 172, ["ERR001"]),
-    ("server/proxy.py", 458, ["ERR001"]),
-    ("server/resolver_balancer.py", 163, ["ERR001"]),
+    ("server/proxy.py", 459, ["ERR001"]),
+    # The balancer's deliberate snapshot, re-validated by its commit.
+    ("server/resolver_balancer.py", 112, ["WAIT001"]),
+    ("server/resolver_balancer.py", 161, ["ERR001"]),
+    # The spill's trims re-checked by version value (RACE002, RACE004).
+    ("server/tlog.py", 415, ["RACE002"]),
+    ("server/tlog.py", 416, ["RACE002"]),
+    ("server/tlog.py", 417, ["RACE004"]),
     # SlowTask's deliberate burn of real time, which the slow-task
     # profiler must catch: the reference's two pragmas and reason.
     ("workloads/slow_task.py", 41, ["DET001"]),
     ("workloads/slow_task.py", 42, ["DET001"]),
+    # WriteDuringRead's model protocol (RACE004, the reference's).
+    ("workloads/write_during_read.py", 317, ["RACE004"]),
+    ("workloads/write_during_read.py", 338, ["RACE004"]),
 ]
 
 
@@ -262,7 +290,9 @@ def port_findings():
 
 def test_port_tree_is_clean(port_findings):
     assert [f.format() for f in port_findings if not f.suppressed] == []
-    assert Counter(f.rule for f in port_findings) == {"DET001": 4, "DET002": 2, "ERR001": 4, "IO001": 1}
+    assert Counter(f.rule for f in port_findings) == {
+        "DET001": 4, "DET002": 2, "ERR001": 4, "IO001": 1, "WAIT001": 4, "RACE001": 2,
+        "RACE002": 2, "RACE004": 5}
     assert all(f.reason for f in port_findings)
     assert sorted((f.path, f.line) for f in port_findings) == [
         (p, ln) for p, ln, _r in PORT_PRAGMAS]
@@ -305,12 +335,12 @@ def test_pragma_without_reason_is_prg001_and_stale_is_prg002():
            "def g():\n"
            "    return 1  # fdblint: ignore[DET002]: nothing to suppress here\n"
            "def h():\n"
-           "    return 2  # fdblint: ignore[ACT001]: not a rule of the port\n")
+           "    return 2  # fdblint: ignore[ENV002]: not a rule of the port\n")
     found = runner.lint_source(src, "conflict/x.py", tools=("fdblint",))
     got = sorted((f.rule, f.line, f.suppressed) for f in found)
     assert got == [("DET001", 3, True), ("PRG001", 3, False), ("PRG002", 5, False),
                    ("PRG002", 7, False)]
-    assert "unknown rule(s) ['ACT001']" in [f for f in found if f.line == 7][0].message
+    assert "unknown rule(s) ['ENV002']" in [f for f in found if f.line == 7][0].message
 
 
 def test_reasonless_pragma_in_the_port_fails_the_gate(tmp_path, capsys):
@@ -350,36 +380,47 @@ PLANTS = {
     "random": ("conflict/keys.py", None, None,
                "\n\nimport random\n\n\ndef _planted_jitter():\n    return random.random()\n",
                {"DET002"}),
-    "env": ("conflict/keys.py", None, None,
+    "env": ("conflict/types.py", None, None,
             "\n\nimport os as _planted_os\n\n\ndef _planted_flag():\n"
             "    return _planted_os.environ.get(\"FDB_TPU_PLANTED\")\n",
             {"ENV001"}),
-    "trace": ("conflict/api.py", None, None,
+    "trace": ("conflict/engine_cpu.py", None, None,
               "\n\ndef _planted_event(n):\n    TraceEvent(\"PlantedDropped\").detail(\"n\", n)\n",
               {"TRC001"}),
-    "span": ("conflict/api.py", None, None,
+    "span": ("conflict/long_keys.py", None, None,
              "\n\ndef _planted_span():\n    begin_span(\"planted\")\n",
              {"SPN001"}),
-    "except": ("conflict/api.py", None, None,
+    "except": ("conflict/device_faults.py", None, None,
                "\n\ndef _planted_swallow(fn):\n    try:\n        return fn()\n"
                "    except Exception:\n        return None\n",
                {"ERR001"}),
 }
 
 
-@pytest.mark.parametrize("plant", sorted(PLANTS))
-def test_each_plant_gives_exactly_its_rule(plant, tmp_path):
-    rel, old, new, append, rules = PLANTS[plant]
-    copy = _copy_port(tmp_path)
-    _plant(copy, rel, old, new, append)
-    found = [f for f in runner.run_fdblint(str(copy)) if not f.suppressed]
-    assert {f.rule for f in found} == rules, [f.format() for f in found]
-    assert {f.path for f in found} == {rel}
-    # The reference's fdblint agrees on every applicable finding.
+@pytest.fixture(scope="module")
+def planted(tmp_path_factory):
+    """One copy of the port with every plant, each in a module of its own,
+    scanned once by the port's fdblint and once by the reference's."""
+    copy = _copy_port(tmp_path_factory.mktemp("plants"))
+    for rel, old, new, append, _rules in PLANTS.values():
+        _plant(copy, rel, old, new, append)
+    port = [f for f in runner.run_fdblint(str(copy)) if not f.suppressed]
     ref = [f for f in ref_run_source_tools(str(copy), RefLintConfig(), tools=("fdblint",),
                                            use_cache=False)["fdblint"]
            if f.rule in COMPARED and not f.suppressed]
-    assert _rows(found) == _rows(ref)
+    return port, ref
+
+
+@pytest.mark.parametrize("plant", sorted(PLANTS))
+def test_each_plant_gives_exactly_its_rule(plant, planted):
+    rel, _old, _new, _append, rules = PLANTS[plant]
+    port, ref = planted
+    # Nothing outside the plants' modules, and in this one exactly its rules.
+    assert {f.path for f in port} == {r for r, *_rest in PLANTS.values()}
+    found = [f for f in port if f.path == rel]
+    assert {f.rule for f in found} == rules, [f.format() for f in found]
+    # The reference's fdblint agrees on every applicable finding.
+    assert _rows(found) == _rows(f for f in ref if f.path == rel)
     if plant == "clock":
         chains = {_chain(f.message) for f in found if f.rule == "DET101"}
         assert ("ConflictSet.pipeline_complete_oldest -> ConflictSet._apply_to_mirror"
@@ -397,38 +438,41 @@ def test_each_plant_gives_exactly_its_rule(plant, tmp_path):
 def test_gate_counts_every_fdblint_rule(capsys):
     assert runner.main([]) == 0
     err = capsys.readouterr().err
-    assert ("[fdblint] 0 finding(s), 11 suppressed; per-rule (flagged+suppressed): "
-            "DET001=0+4s DET002=0+2s DET003=0+0s DET101=0+0s ENV001=0+0s ERR001=0+4s "
-            "IO001=0+1s SPN001=0+0s TRC001=0+0s") in err
+    assert ("[fdblint] 0 finding(s), 24 suppressed; per-rule (flagged+suppressed): "
+            "ACT001=0+0s DET001=0+4s DET002=0+2s DET003=0+0s DET101=0+0s ENV001=0+0s "
+            "ERR001=0+4s IO001=0+1s PRM001=0+0s PRM002=0+0s PRM003=0+0s PRM004=0+0s "
+            "RACE001=0+2s RACE002=0+2s RACE003=0+0s RACE004=0+5s RPY001=0+0s SPN001=0+0s "
+            "TRC001=0+0s TSK001=0+0s WAIT001=0+4s WAIT002=0+0s") in err
     assert "[perfcheck] 0 finding(s), 8 suppressed;" in err
-    assert "lint: 0 finding(s), 19 suppressed across 2 tool(s)" in err
+    assert "lint: 0 finding(s), 32 suppressed across 2 tool(s)" in err
 
 
 def test_gate_json_sarif_and_list_rules(capsys):
     assert runner.main(["--format=json", "--show-suppressed"]) == 0
     doc = json.loads(capsys.readouterr().out)
     fd = doc["tools"]["fdblint"]
-    assert fd["unsuppressed"] == 0 and fd["total"] == 11
-    assert fd["counts"] == {"DET001": {"flagged": 0, "suppressed": 4},
-                            "DET002": {"flagged": 0, "suppressed": 2},
-                            "ERR001": {"flagged": 0, "suppressed": 4},
-                            "IO001": {"flagged": 0, "suppressed": 1}}
+    assert fd["unsuppressed"] == 0 and fd["total"] == 24
+    # Every rule of the family, at zero too.
+    suppressed = dict(DET001=4, DET002=2, ERR001=4, IO001=1, RACE001=2, RACE002=2, RACE004=5,
+                      WAIT001=4)
+    assert fd["counts"] == {rule: {"flagged": 0, "suppressed": suppressed.get(rule, 0)}
+                            for rule in sorted(APPLICABLE)}
     assert runner.main(["--format=sarif", "--show-suppressed"]) == 0
     runs = json.loads(capsys.readouterr().out)["runs"]
     assert [r["tool"]["driver"]["name"] for r in runs] == ["fdblint", "perfcheck"]
     assert {r["id"] for r in runs[0]["tool"]["driver"]["rules"]} == set(COMPARED)
-    assert len(runs[0]["results"]) == 11
+    assert len(runs[0]["results"]) == 24
     assert runner.main(["--list-rules"]) == 0
     lines = capsys.readouterr().out.splitlines()
     tools = Counter(ln.split()[0] for ln in lines)
-    assert tools == {"fdblint": 11, "perfcheck": 6, "torchcheck": 6}
+    assert tools == {"fdblint": 24, "perfcheck": 6, "torchcheck": 6}
     assert any(ln.split()[1:3] == ["ENV001", "any"] for ln in lines)
 
 
 def test_fdblint_shim_runs_fdblint_alone(capsys):
     assert fdblint.main([]) == 0
     err = capsys.readouterr().err
-    assert "[fdblint] 0 finding(s), 11 suppressed" in err and "[perfcheck]" not in err
+    assert "[fdblint] 0 finding(s), 24 suppressed" in err and "[perfcheck]" not in err
     assert fdblint.RULES is base.RULES and fdblint.lint_source is runner.lint_source
 
 

@@ -315,7 +315,10 @@ def test_runner_json_counts_and_exit_code(capsys):
     pc = doc["tools"]["perfcheck"]
     assert doc["unsuppressed"] == pc["unsuppressed"] == 0
     assert pc["total"] == 8 and pc["findings"] == []
-    assert pc["counts"] == {"HOT003": {"flagged": 0, "suppressed": 7},
+    # Every HOT rule, at zero too.
+    assert pc["counts"] == {"HOT001": {"flagged": 0, "suppressed": 0},
+                            "HOT002": {"flagged": 0, "suppressed": 0},
+                            "HOT003": {"flagged": 0, "suppressed": 7},
                             "HOT004": {"flagged": 0, "suppressed": 1}}
 
 
@@ -324,8 +327,8 @@ def test_runner_text_counts_every_hot_rule(capsys):
     err = capsys.readouterr().err
     assert ("[perfcheck] 0 finding(s), 8 suppressed; per-rule (flagged+suppressed): "
             "HOT001=0+0s HOT002=0+0s HOT003=0+7s HOT004=0+1s") in err
-    # The gate runs fdblint beside perfcheck: its 11 suppressions join the 8.
-    assert "lint: 0 finding(s), 19 suppressed across 2 tool(s)" in err
+    # The gate runs fdblint beside perfcheck: its 24 suppressions join the 8.
+    assert "lint: 0 finding(s), 32 suppressed across 2 tool(s)" in err
 
 
 def test_runner_sarif_and_pragma_inventory(capsys):

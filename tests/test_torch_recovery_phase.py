@@ -49,18 +49,20 @@ F9_SEED = 56
 
 
 def _run(pkg, depth, f9=True, shape=SMOKE.RECOVER_VS_CPU_SHAPE, arm="set",
-         seed=SMOKE.RECOVER_SEED, events=SMOKE.RECOVER_EVENTS):
+         seed=SMOKE.RECOVER_SEED, events=SMOKE.RECOVER_EVENTS, dc_kw=None, made=None):
     """recovery_script at `shape` with `events` through `pkg`'s
-    DynamicCluster at `seed` in twin_run's `arm` (every resolver over the
-    port's set at `depth`, or the host engine): (the record, the
-    RecoveryLog), inside twin_run's record; the script's host seconds
-    (wall time) left out."""
+    DynamicCluster at `seed` (with `dc_kw`) in twin_run's `arm` (every
+    resolver over the port's set at `depth`, or the host engine): (the
+    record, the RecoveryLog), inside twin_run's record; the script's host
+    seconds (wall time) left out.  The cluster is appended to `made`."""
     m = DC.mods(pkg)
     wl = importlib.import_module(f"{m.base}.workloads")
     rlog = SMOKE.RecoveryLog(m.worker, TK)
     try:
-        with DC.twin_run(pkg, arm, depth=depth, f9=f9) as rec:
+        with DC.twin_run(pkg, arm, depth=depth, f9=f9, dc_kw=dc_kw) as rec:
             c = m.dc.DynamicCluster(seed=seed, **SMOKE.RECOVER_CLUSTER)
+            if made is not None:
+                made.append(c)
             c.net.deep_copy = False
             rec["script"] = SMOKE.recovery_script(c, wl, m.tx, shape, rlog, events=events)
     finally:
