@@ -36,8 +36,8 @@ seconds (`phase <name>: ...`):
                checkout's foundationdb_tpu_torch/ on the card's host:
                counts by rule, suppressed, seconds; any unsuppressed
                finding fails, and so do actor-family counts other than
-               0 flagged with WAIT001 4, RACE001 2, RACE002 2, RACE004 5
-               suppressed (fdblint 24 suppressed).  Then a planted dispatch->sync
+               0 flagged with WAIT001 4, RACE001 2, RACE002 2, RACE004 6
+               suppressed (fdblint 28 suppressed).  Then a planted dispatch->sync
                window on a TorchConflictSet(key_words=2, h_cap=1,024),
                with transfer_guard=True for (a)-(f) and without it for
                (g)-(j): a module written to a temporary file calls
@@ -298,6 +298,32 @@ seconds (`phase <name>: ...`):
                proxy.server_list or cluster_controller.workers, or on a
                task parked on a dropped promise; prints the audited
                names, keyed reads and writes, violations and orphans
+  4y. layers   the layers through the client on SimCluster(n_proxies=2,
+               n_tlogs=2, buggify=False) over a card set at key_words=4 and
+               phase 4's h_cap (depth 2), on SimNetwork(deep_copy=False):
+               (1) a directory tree created, moved and listed, 64 actors'
+               HCA allocations all unique, 256 actors x 2 one-push
+               transactions onto one Queue (no not_committed) popped by one
+               actor in each pusher's order; (2) a ContinuousBackupAgent on
+               a SimFileSystem container tailing while 4n's ring, 16,384
+               tuple-packed rows of 100 bytes and 1,024 Cycle actors x 2
+               ops run, restore(target_version=) to a version between two
+               marks byte-equal to the range read there, the ring one
+               cycle, then AtomicRestoreWorkload on the live cluster; (3)
+               the rows through FileBackupAgent to a blobstore:// container
+               on a localhost BlobStoreServer, wiped and restored byte for
+               byte; (4) DRAgent into a second SimCluster on the same loop
+               over its own full-width card set while 256 Cycle actors x 2
+               ops run, the destination's ring one cycle at every sample,
+               then the atomic switchover: destination = source.  Every
+               resolve request of both sets replayed equal on the host,
+               each kernel once a resolve batch, the long-key side table
+               exactly where the replay says and never host-served;
+               mirror_check "ok" on both.  Prints each step's commits,
+               not_committed, retries, batches and sizes, side-table
+               batches, commits/s beside 4n's and phase 4's (no claim), the
+               backup's tail lag, the restores' rows/s, DR's lag and the
+               switchover's virtual and host seconds
   4w. witness-free  phase 4's timed batches through ConflictSet(
                witness=False), its mirror from phase 4's state after the
                warm-up (the device rehydrated from it before the timed
@@ -335,7 +361,7 @@ seconds (`phase <name>: ...`):
                bench's multichip shape (bench.py:547-606) on the one card:
                8 shards split by uniform_int_split_keys(8, 2e7, 4), each
                a history of 1,048,576 rows, driven through detect_packed
-               (synchronous), 8 warm-up (SHARD_WARM: under a sixth of the
+               (synchronous), 4 warm-up (SHARD_WARM: under a tenth of the
                window, so the timed batches evict nothing) and 8 timed
                batches.  Each kernel
                must launch exactly 64 times (once a shard a batch), with
@@ -489,6 +515,13 @@ seconds (`phase <name>: ...`):
                retry, the rate series and transitions, DD's log, each
                storage's rows and the loop's end equal; the sharded rate
                0.8125 x max_tps while the sick shard's breaker is open
+  6y. layers vs cpu  phase 4y's script at a reduced size through
+               SimCluster(n_proxies=2, n_tlogs=2, buggify=False) and its DR
+               destination, every resolver over a ConflictSet at the rig's
+               shape (key_words=4, h_cap=1,024) at depth 2, on cuda and on
+               cpu: every read, commit and retry, each step's versions,
+               counts and digests, the blob store's objects, the sets'
+               batches and the loop's end equal
   6d. determinism  two fresh ConflictSets with phase 4's settings over the
                first 4 batches of phase 4's stream, each under fresh port
                hubs on a clock that counts its own reads: verdicts and
@@ -545,7 +578,8 @@ seconds (`phase <name>: ...`):
                (degraded_batches_admission served by the mirror);
                launches_recovery: phase 4x's, over its batches_recovery
                card-served batches in generations_recovery recruited
-               resolver sets; tiered and
+               resolver sets; launches_layers: phase 4y's over both sets,
+               over its batches_layers resolve batches; tiered and
                sharded: those shapes' times), then {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
@@ -598,10 +632,10 @@ SHARD_H_CAP = 1 << 20
 SHARD_LIVE = LIVE // SHARDS  # steady-state boundaries of one shard
 SHARD_NEW_ROWS = NEW_ROWS // SHARDS  # new boundaries one shard takes a batch
 # Phase 4s's warm-up, cut from WARM to keep the script inside its time
-# limit (12, then 8 to make room for phase 4x): its timed batches meet a
-# history of SHARD_WARM batches' writes (under a sixth of the window's)
-# and evict nothing.
-SHARD_WARM = 8
+# limit (12, then 8 to make room for phase 4x, then 4 for phase 4y): its
+# timed batches meet a history of SHARD_WARM batches' writes (under a
+# tenth of the window's) and evict nothing.
+SHARD_WARM = 4
 
 
 def log(msg: str) -> None:
@@ -2040,7 +2074,8 @@ def profile_batches(torch, cs, batches, label):
 
 
 def versus_cpu(torch, et):
-    n_txn, h_cap, batches, window = 4096, 1 << 16, 12, 4
+    # 8 batches, twice the window (12 until phase 4y needed the room).
+    n_txn, h_cap, batches, window = 4096, 1 << 16, 8, 4
     rng = np.random.default_rng(7)
     stream = [gen_packed(et, rng, n_txn, i, keyspace=200_000) for i in range(batches)]
     gpu = et.TorchConflictSet(key_words=KEY_WORDS, h_cap=h_cap)
@@ -3323,12 +3358,12 @@ def planted_window(torch, et, tk, T, lint_source, variants):
 
 # fdblint's actor families (ACT001, WAIT001/002, RPY001, PRM001-004,
 # TSK001, RACE001-004) over the port: none unsuppressed, and the
-# reference's reasoned pragmas at the 13 sites it gives; fdblint's
+# reference's reasoned pragmas at the 14 sites it gives; fdblint's
 # suppressions in all.
 ACTOR_RULES = ("ACT001", "WAIT001", "WAIT002", "RPY001", "PRM001", "PRM002", "PRM003",
                "PRM004", "TSK001", "RACE001", "RACE002", "RACE003", "RACE004")
-ACTOR_SUPPRESSED = {"WAIT001": 4, "RACE001": 2, "RACE002": 2, "RACE004": 5}
-FDBLINT_SUPPRESSED = 24
+ACTOR_SUPPRESSED = {"WAIT001": 4, "RACE001": 2, "RACE002": 2, "RACE004": 6}
+FDBLINT_SUPPRESSED = 28
 
 
 def source_gate_path(torch, et, tk, T):
@@ -5375,9 +5410,9 @@ ACCEPT_SEED = 29
 ACCEPT_RRW = dict(nodes=400_000, actors=10_240, txns_per_actor=1)
 ACCEPT_LOAD_SETS = 4096
 # Step 2, config 2 (WriteDuringRead, small keyspace, high contention): the
-# acceptance shape with 100 transactions instead of 10.  Step 3: FuzzApi at
-# its test shape.
-ACCEPT_WDR = dict(nodes=25, contention_actors=3, txns=100)
+# acceptance shape with 50 transactions instead of 10 (100 until phase 4y
+# needed the room).  Step 3: FuzzApi at its test shape.
+ACCEPT_WDR = dict(nodes=25, contention_actors=3, txns=50)
 ACCEPT_FUZZ = dict(nodes=20, txns=15)
 # Phase 6m: configs 2 and 3 at the reference's exact acceptance shapes and
 # seeds (tests/test_acceptance_matrix.py), on cuda and cpu at each depth, at
@@ -7340,6 +7375,626 @@ def chaos_recovery_script(cluster_cls, seed=424242):
     return [(inj.injected, cs._breaker.transitions) for cs, inj in device_chaos.installed]
 
 
+# ---------------------------------------------------------------------------
+# phases 4y and 6y: the layers (directory, queue, continuous backup, the
+# blob store, DR) through the client
+# ---------------------------------------------------------------------------
+
+# Phase 4y's clusters: two proxies and two logs (the backup and DR agents
+# tail both through the merge cursor), one resolver over a card set at the
+# Resolver's key width (the directory's \xfe node keys, the queue's stamped
+# keys and the task bucket's \xff\x02 keys run past 8 bytes; at 16 the
+# task keys still pass it and meet the long-key side table), phase 4's
+# presized history, depth 2.
+LAYERS_KEY_WORDS = 4
+LAYERS_SEED = 47
+LAYERS_CLUSTER = dict(n_proxies=2, n_tlogs=2, buggify=False)
+# Step 1: a directory tree and HCA allocations by `hca` actors; `pushers`
+# actors of `pushes` one-push transactions onto one Queue, popped by one
+# actor `pops` at a transaction.  Two pushes an actor, not sixteen: every
+# pop's range read walks the cleared keys still in the storage's window,
+# and 4,096 items took 78 s of pops in a CPU rehearsal (1,024 items 5 s).
+# Step 2: 4n's ring (`nodes` nodes loaded by `load_txns` transactions) and
+# `rows` tuple-packed rows of `value` bytes (`row_txns` transactions) under
+# a continuous backup; `actors` Cycle actors x `ops` ops while it tails,
+# the image read at the version where the `capture` share of their commits
+# is in; then the point-in-time restore to that version and
+# AtomicRestoreWorkload over `atomic_rows` rows.  Step 3: the rows
+# snapshotted to the blob store and restored into their wiped range.  Step
+# 4: DR to a second cluster under `dr_actors` x `dr_ops` Cycle ops, the
+# destination's ring read every `sample` virtual s; then the switchover.
+LAYERS_SHAPE = dict(hca=64, pushers=256, pushes=2, pops=16, nodes=CLIENT_NODES,
+                    load_txns=CLIENT_LOAD_TXNS, rows=16_384, value=100, row_txns=16,
+                    actors=CLIENT_ACTORS, ops=CLIENT_OPS, capture=0.5, atomic_rows=60,
+                    dr_actors=256, dr_ops=2, sample=0.02)
+# Phase 6y: the same script at the rig's set shape (CLIENT_SET_KW) and
+# these sizes, on cuda and on cpu.
+LAYERS_VS_CPU_SHAPE = dict(hca=8, pushers=16, pushes=4, pops=16, nodes=64, load_txns=8, rows=512,
+                           value=100, row_txns=4, actors=16, ops=2, capture=0.5,
+                           atomic_rows=20, dr_actors=8, dr_ops=2, sample=0.02)
+LAYERS_VS_CPU_DEPTH = 2
+LAYERS_ROWS = ("rows",)  # the tuple subspace of step 2's rows
+LAYERS_DIRS = (("app", "users"), ("app", "orders"), ("archive",), ("logs",))
+
+
+def rows_digest(rows) -> str:
+    """A range's rows (key, value pairs) as a hash."""
+    h = hashlib.sha256()
+    for k, v in rows:
+        h.update(len(k).to_bytes(4, "big") + k + len(v).to_bytes(4, "big") + v)
+    return h.hexdigest()
+
+
+def stop_blob_server(server):
+    """Close a BlobStoreServer and end its accept thread, which blocks in
+    accept() past close(): one last connection wakes it to see the stop."""
+    import socket
+
+    server.close()
+    with contextlib.suppress(OSError):
+        socket.create_connection((server.host, server.port), timeout=5).close()
+    server._threads[0].join(timeout=5)
+
+
+def layers_script(c, shape, make_dst, blob_url, step=None) -> dict:
+    """Phase 4y's four steps through the port's SimCluster `c`, each after
+    the last; `make_dst()` builds the DR destination (a second SimCluster
+    on c's loop), `blob_url` is a BlobStoreServer's, `step(name, run)`
+    runs each step's `run()` (the card path counts around it).  Every
+    check fails the script.  (1) the directory creates LAYERS_DIRS, moves
+    app/orders under archive and lists the tree; shape["hca"] actors take
+    HCA allocations, all unique; shape["pushers"] actors push
+    shape["pushes"] items each onto one Queue, one actor pops them all,
+    each pusher's in its order.  (2) a ContinuousBackupAgent on a
+    SimFileSystem container snapshots the user keys and tails while 4n's
+    ring and shape["rows"] tuple-packed rows load and shape["actors"] x
+    shape["ops"] Cycle ops run; the whole user range is read at one
+    version T once shape["capture"] of their commits are in; restore(target_version=T) must give it back
+    byte for byte with the ring one cycle, then AtomicRestoreWorkload
+    runs on the live cluster.  (3) FileBackupAgent snapshots the rows to
+    a blobstore:// container, the range is wiped and restored byte for
+    byte.  (4) a DRAgent snapshots and tails into the destination while
+    shape["dr_actors"] x shape["dr_ops"] Cycle ops run, its ring one
+    cycle at every sample; the switchover leaves the destination equal to
+    the locked source, ring and all.  Returns the record: each step's
+    versions, counts, digests and host seconds (the `wall` entries)."""
+    from foundationdb_tpu_torch import workloads as wl
+    from foundationdb_tpu_torch.fileio import SimFileSystem
+    from foundationdb_tpu_torch.flow.eventloop import all_of
+    from foundationdb_tpu_torch.layers import (DirectoryLayer, FileBackupAgent,
+                                               HighContentionAllocator, Subspace)
+    from foundationdb_tpu_torch.layers.backup import ContinuousBackupAgent, open_container
+    from foundationdb_tpu_torch.layers.dr import DRAgent
+    from foundationdb_tpu_torch.layers.queue import Queue
+    from foundationdb_tpu_torch.metrics import wall_now
+
+    inner = step or (lambda _name, run: run())
+
+    def step(name, run):
+        gc.collect()  # cyclic garbage goes at fixed points (the caller holds fixed_gc)
+        inner(name, run)
+
+    loop = c.loop
+    db = c.database("layers")
+    rec, wall = {}, {}
+
+    def wait(fut, budget=3000.0):
+        return loop.run_until(fut, timeout_vt=loop.now() + budget)
+
+    def run(d, fn, name):
+        return wait(d.process.spawn(d.run(fn), name))
+
+    def read(d, begin=b"", end=b"\xff", lock_aware=False):
+        async def txn(tr):
+            if lock_aware:
+                tr.options["lock_aware"] = True
+            return await tr.get_range(begin, end, limit=1 << 22)
+        return run(d, txn, "read")
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"layers: {what}")
+
+    # 1. directory and queue
+    d = DirectoryLayer()
+
+    def directory():
+        async def tree(tr):
+            return [(await d.create_or_open(tr, p)).raw_prefix for p in LAYERS_DIRS]
+
+        async def move(tr):
+            users = await d.open(tr, ("app", "users"))
+            tr.set(users.pack((b"alice",)), b"1")
+            return (await d.move(tr, ("app", "orders"), ("archive", "orders"))).raw_prefix
+
+        async def listing(tr):
+            return [await d.list(tr, p) for p in ((), ("app",), ("archive",))]
+
+        prefixes = run(db, tree, "dir_tree")
+        moved = run(db, move, "dir_move")
+        lists = run(db, listing, "dir_list")
+        check(lists == [["app", "archive", "logs"], ["users"], ["orders"]]
+              and moved == prefixes[1], f"directory lists {lists}, moved {moved!r}")
+        alloc = HighContentionAllocator(Subspace(("hca",)))
+        got = []
+
+        async def take():
+            got.append(await db.run(alloc.allocate))
+
+        wait(all_of([db.process.spawn(take(), "hca") for _ in range(shape["hca"])]))
+        check(len(set(got)) == shape["hca"], f"HCA allocations {sorted(got)}")
+        rec["directory"] = dict(prefixes=prefixes, lists=lists, hca=sorted(got))
+
+    q = Queue(Subspace(("q",)))
+
+    def push():
+        async def pusher(a):
+            for i in range(shape["pushes"]):
+                async def txn(tr, i=i):
+                    q.push(tr, b"%d:%d" % (a, i))
+                await db.run(txn)
+
+        wait(all_of([db.process.spawn(pusher(a), "push") for a in range(shape["pushers"])]))
+
+    popped = []
+
+    def pop():
+        async def some(tr):
+            out = []
+            for _ in range(shape["pops"]):
+                v = await q.pop(tr)
+                if v is None:
+                    break
+                out.append(v)
+            return out
+
+        while True:
+            got = run(db, some, "pop")
+            popped.extend(got)
+            if len(got) < shape["pops"]:
+                break
+        want = shape["pushers"] * shape["pushes"]
+        check(len(set(popped)) == len(popped) == want, f"{len(popped)} popped of {want}")
+        for a in range(shape["pushers"]):
+            mine = [v for v in popped if v.startswith(b"%d:" % a)]
+            check(mine == [b"%d:%d" % (a, i) for i in range(shape["pushes"])],
+                  f"pusher {a}'s items out of order")
+        rec["queue"] = dict(popped=len(popped), digest=rows_digest((v, b"") for v in popped))
+
+    step("1 directory", directory)
+    step("1 queue push", push)
+    step("1 queue pop", pop)
+
+    # 2. continuous backup under traffic, the point-in-time restore, the
+    # atomic restore on the live cluster
+    fs = SimFileSystem(c.net)
+    container = open_container("4y_backup", fs, c.net.process("backup_store"))
+    agent = ContinuousBackupAgent(db, fs, [t.interface() for t in c.tlogs], container,
+                                  tag="_backup/4y")
+    ring = wl.CycleWorkload(nodes=shape["nodes"], ops=shape["ops"], actors=shape["actors"],
+                            prefix=CLIENT_PREFIX)
+    rows = Subspace(LAYERS_ROWS)
+    r_begin, r_end = rows.range()
+    lags, image = [], {}
+
+    def durable():
+        return max(t.durable.get() for t in c.tlogs)
+
+    def caught_up(v):
+        while agent.logged_through < v:
+            wait(loop.delay(0.01))
+
+    def backup():
+        snap = wait(db.process.spawn(agent.start(), "backup_start"))
+        tail = db.process.spawn(agent.run(), "backup_tail")
+        keys = [ring._key(i) for i in range(shape["nodes"])]
+        chunk = shape["nodes"] // shape["load_txns"]
+
+        def load(part):
+            async def txn(tr):
+                for i in part:
+                    await tr.get(keys[i])  # the read covers the write
+                    tr.set(keys[i], b"%04d" % ((i + 1) % shape["nodes"]))
+            return db.run(txn)
+
+        def fill(lo, hi):
+            async def txn(tr):
+                for i in range(lo, hi):
+                    tr.set(rows.pack((i,)), (b"%05d" % i) * (shape["value"] // 5))
+            return db.run(txn)
+
+        per = shape["rows"] // shape["row_txns"]
+        wait(all_of([db.process.spawn(load(range(j, j + chunk)), "load")
+                     for j in range(0, shape["nodes"], chunk)]
+                    + [db.process.spawn(fill(j, j + per), "fill")
+                       for j in range(0, shape["rows"], per)]))
+        caught_up(durable())
+        mark1 = agent.logged_through
+        done = []
+
+        def committed():
+            return sum(p.stats.counter("committed").value for p in c.proxies)
+
+        half = committed() + int(shape["capture"] * shape["actors"] * shape["ops"])
+
+        async def capture():
+            while committed() < half:
+                await loop.delay(0.001)
+            tr = db.create_transaction()
+            image["version"] = await tr.get_read_version()
+            image["rows"] = await tr.get_range(b"", b"\xff", limit=1 << 22)
+
+        async def sample():
+            while not done:
+                lags.append(durable() - agent.logged_through)
+                await loop.delay(shape["sample"])
+
+        sampler = db.process.spawn(sample(), "backup_lag")
+        wait(all_of([db.process.spawn(ring.start(db, c), "cycle"),
+                     db.process.spawn(capture(), "capture")]))
+        done.append(True)
+        caught_up(durable())
+        mark2 = agent.logged_through
+        agent.stopped = True
+        wait(all_of([tail, sampler]))
+        check(wait(db.process.spawn(ring.check(db, c), "cycle_check")), "ring after traffic")
+        t = image["version"]
+        check(snap <= mark1 < t < mark2, f"snapshot {snap}, marks {mark1} {mark2}, target {t}")
+        rec["backup"] = dict(snapshot=snap, mark1=mark1, target=t, mark2=mark2,
+                             chunks=agent._chunks, files=len(fs._files),
+                             image=(len(image["rows"]), rows_digest(image["rows"])),
+                             lag_max=max(lags), lag_mean=sum(lags) / len(lags), lags=len(lags))
+
+    def restore():
+        t0 = wall_now()
+        v = wait(db.process.spawn(agent.restore(target_version=image["version"]), "restore"))
+        wall["restore"] = wall_now() - t0
+        got = read(db)
+        check(v == image["version"] and got == image["rows"],
+              f"restore at {v}: {len(got)} rows, the image {len(image['rows'])}")
+        check(wait(db.process.spawn(ring.check(db, c), "cycle_check")), "ring after restore")
+        ar = wl.AtomicRestoreWorkload(rows=shape["atomic_rows"])
+        wl.run_workloads(c, [ar])
+        check(not ar.torn and ar.locked_seen > 0, f"atomic restore: torn {ar.torn[:2]}, "
+              f"locked {ar.locked_seen}")
+        rec["restore"] = dict(rows=len(got), atomic_locked_seen=ar.locked_seen,
+                              atomic_scans=getattr(ar, "observed_scans", 0))
+
+    step("2 backup", backup)
+    step("2 restore", restore)
+
+    # 3. the blob store
+    def blob():
+        fa = FileBackupAgent(db, None)
+        bc = fa.container(blob_url + "/4y")
+        before = read(db, r_begin, r_end)
+
+        async def backup_run():
+            await fa.submit_backup(bc, r_begin, r_end)
+            await fa.executor(c.database("blob_agent")).run(until_empty=True)
+            return await bc.read_manifest()
+
+        manifest = wait(db.process.spawn(backup_run(), "blob_backup"))
+
+        async def wipe(tr):
+            tr.clear_range(r_begin, r_end)
+
+        run(db, wipe, "blob_wipe")
+        check(read(db, r_begin, r_end) == [], "the wiped range")
+        t0 = wall_now()
+        n = wait(db.process.spawn(fa.restore(bc), "blob_restore"))
+        wall["blob_restore"] = wall_now() - t0
+        after = read(db, r_begin, r_end)
+        check(n == len(before) == shape["rows"] and after == before,
+              f"blob restore: {n} rows, {len(after)} read, {len(before)} before")
+        rec["blob"] = dict(pages=manifest["pages"], version=manifest["version"], rows=n,
+                           digest=rows_digest(after))
+
+    step("3 blob", blob)
+
+    # 4. DR to a second cluster, then the switchover
+    def dr():
+        dst = make_dst()
+        ddb = dst.database("dr_dst")
+        agent4 = DRAgent(db, ddb, [t.interface() for t in c.tlogs])
+        snap = wait(db.process.spawn(agent4.start(), "dr_start"))
+        tail = db.process.spawn(agent4.run(), "dr_tail")
+        traffic = wl.CycleWorkload(nodes=shape["nodes"], ops=shape["dr_ops"],
+                                   actors=shape["dr_actors"], prefix=CLIENT_PREFIX)
+        done, samples, bad, dr_lags = [], [], [], []
+
+        async def observe():
+            while not done:
+                dr_lags.append(durable() - agent4.applied)
+                got = await ddb.run(lambda tr: tr.get_range(CLIENT_PREFIX, CLIENT_PREFIX + b"\xff"))
+                nodes = [int(v) for _k, v in got]
+                samples.append(agent4.applied)
+                if len(nodes) != shape["nodes"] or not ring_ok(nodes):
+                    bad.append(agent4.applied)
+                await loop.delay(shape["sample"])
+
+        obs = ddb.process.spawn(observe(), "dr_observe")
+        wait(db.process.spawn(traffic.start(db, c), "dr_cycle"))
+        done.append(True)
+        wait(obs)
+        v0, t0 = loop.now(), wall_now()
+        rev = wait(db.process.spawn(agent4.switchover([t.interface() for t in dst.tlogs]),
+                                    "dr_switch"))
+        wall["switch"] = wall_now() - t0
+        switch_vt = loop.now() - v0
+        wait(tail)
+        src_rows = read(db, lock_aware=True)
+        dst_rows = [kv for kv in read(ddb) if not kv[0].startswith(b"\xff")]
+        ring_d = [int(v) for k, v in dst_rows if k.startswith(CLIENT_PREFIX)]
+        check(not bad and samples, f"DR: {len(bad)} torn samples of {len(samples)}")
+        check(src_rows == dst_rows and ring_ok(ring_d), f"DR at the switchover: {len(src_rows)} "
+              f"source rows, {len(dst_rows)} destination rows, ring {ring_ok(ring_d)}")
+        rec["dr"] = dict(snapshot=snap, applied=agent4.applied, reverse=rev.applied,
+                         samples=len(samples), lag_max=max(dr_lags),
+                         lag_mean=sum(dr_lags) / len(dr_lags), switch_vt=switch_vt,
+                         rows=len(dst_rows), digest=rows_digest(dst_rows))
+
+    step("4 dr", dr)
+    rec["end"] = (loop.now(), loop.rng.random_int(0, 1 << 30))
+    rec["wall"] = wall
+    return rec
+
+
+def layers_record(api, device, depth, server, shape=LAYERS_VS_CPU_SHAPE):
+    """Phase 6y's run: layers_script through the port's SimCluster
+    (LAYERS_CLUSTER, seed LAYERS_SEED; the destination seed + 1 on its
+    loop), every resolver of both over a ConflictSet of CLIENT_SET_KW at
+    `depth` on `device`, on a fresh loop, its blob store `server` (a
+    BlobStoreServer emptied first: the runs compared share one, since its
+    URL lands in the database).  Returns the record less its host seconds,
+    with every read, commit and retry (ClientLog), the server's objects
+    and each set's batches and mirror_check, and the sets."""
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import cluster as cluster_mod
+
+    sets = []
+    server.objects.clear()
+
+    def make_set():
+        cs = api.ConflictSet(device=device, pipeline_depth=depth, **CLIENT_SET_KW)
+        sets.append(cs)
+        return cs
+
+    log_ = ClientLog(txmod)
+    try:
+        with resolver_sets(cluster_mod, make_set):
+            c = cluster_mod.SimCluster(seed=LAYERS_SEED, device=device, **LAYERS_CLUSTER)
+            c.net.deep_copy = False
+
+            def make_dst():
+                dst = cluster_mod.SimCluster(seed=LAYERS_SEED + 1, loop=c.loop, device=device,
+                                             **LAYERS_CLUSTER)
+                dst.net.deep_copy = False
+                return dst
+
+            with fixed_gc():
+                rec = layers_script(c, shape, make_dst, server.url)
+    finally:
+        log_.remove()
+        el.set_event_loop(None)
+    rec.pop("wall")
+    rec["events"] = log_.events
+    rec["objects"] = sorted((n, hashlib.sha256(b).hexdigest()) for (_b, n), b in
+                            server.objects.items())
+    rec["sets"] = [(cs.device_metrics()["counters"]["batches"], cs.mirror_check()["status"])
+                   for cs in sets]
+    return rec, sets
+
+
+def layers_path(torch, api, ecpu, tk, spans, trace, fr, main, rates, cluster_kw=None):
+    """Phase 4y: the layers at full width.  SimCluster(LAYERS_CLUSTER) over
+    ConflictSet(key_words=LAYERS_KEY_WORDS, h_cap=H_CAP) on the card at
+    depth 2, on SimNetwork(deep_copy=False) and fresh port hubs;
+    layers_script's four steps at LAYERS_SHAPE, the DR destination a
+    second SimCluster on the same loop over its own fresh full-width card
+    set.  Every resolve request of both sets is replayed on a host
+    CpuConflictSet (verdicts and witnesses equal); in each step each
+    kernel launches once a resolve batch of the two sets, every batch is a
+    device dispatch, no fault, degraded batch, fallback or host-served
+    batch, and the long-key side table takes exactly the batches
+    SideShadow names from the replay; the queue's pushes meet no
+    not_committed; mirror_check "ok" on both sets at the end.  Prints for
+    each step the commits, not_committed and retries, the resolve
+    batches and their sizes, the side-table batches, the launches, the
+    wall and commits/s beside 4n's and phase 4's (no claim); the backup's
+    tail lag, the restores' rows/s, DR's lag and the switchover's virtual
+    and host seconds.  `cluster_kw` goes to both SimClusters.  Returns the
+    launches, the batches over both sets and the record."""
+    import dataclasses
+
+    from foundationdb_tpu_torch.client import transaction as txmod
+    from foundationdb_tpu_torch.fileio.blobstore import BlobStoreServer
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.metrics import wall_now
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    gc.collect()
+    label = "layers"
+    card = torch.cuda.get_device_name(0)
+    width = LAYERS_KEY_WORDS * 4
+    hubs = PortHubs(spans, trace, fr)
+    server = BlobStoreServer()
+    totals = {"launches": {n: 0 for n in tk.LAUNCHES}, "batches": 0, "steps": {}}
+    arms = []  # (set, its engine, Replay, SideShadow), the source first
+    try:
+        def build(seed, loop=None):
+            cs = api.ConflictSet(key_words=LAYERS_KEY_WORDS, h_cap=H_CAP)
+            cl = SimCluster(seed=seed, conflict_set=cs, loop=loop, **LAYERS_CLUSTER,
+                            **(cluster_kw or {}))
+            cl.net.deep_copy = False  # before the first request, as 4k's network
+            rp = Replay(ecpu.CpuConflictSet(key_words=LAYERS_KEY_WORDS),
+                        cl.resolver.max_write_transaction_life_versions)
+            for p in cl.proxies:
+                p.resolvers = [dataclasses.replace(r, resolve=Recorded(r.resolve, rp.log))
+                               for r in p.resolvers]
+            arms.append((cs, cs._dev, rp, SideShadow(width, rp.window)))
+            return cl
+
+        t_build = wall_now()
+        c = build(LAYERS_SEED)
+        build_s = wall_now() - t_build
+        loop = c.loop
+
+        def settle():
+            for _ in range(1000):
+                if all(f.is_ready() for _cs, _e, rp, _s in arms for _q, f in rp.log[rp.done:]):
+                    break
+                loop.run_until(loop.delay(0.001), timeout_vt=loop.now() + 10.0)
+            else:
+                raise AssertionError(f"{label}: resolve requests still unanswered")
+            return [rp.replay(label) for _cs, _e, rp, _s in arms]
+
+        def counters():
+            out = []
+            for cs, eng, _rp, _s in arms:
+                m = cs.device_metrics()["counters"]
+                out.append(dict(dispatches=eng.metrics.counter("pipeline_dispatches").value,
+                                faults=m["device_faults"], degraded=m["degraded_batches"],
+                                fallbacks=eng.cpu_fallbacks, **long_key_counts(cs)))
+            return out
+
+        def step(name, run):
+            log_ = ClientLog(txmod, record=False)
+            before = counters()
+            for n in tk.LAUNCHES:
+                tk.LAUNCHES[n] = 0
+            v0, t0 = loop.now(), wall_now()
+            try:
+                run()
+            finally:
+                log_.remove()
+            wall, vt = wall_now() - t0, loop.now() - v0
+            served = settle()
+            after = counters()
+            before += [dict.fromkeys(after[0], 0)] * (len(after) - len(before))
+            n = sum(len(s) for s in served)
+            launches = dict(tk.LAUNCHES)
+            if any(v != n for v in launches.values()):
+                raise AssertionError(f"{label} {name}: launches {launches} in {n} batches")
+            sides = []
+            for (_cs, _e, _rp, shadow), s, b, a in zip(arms, served, before, after):
+                long_, side = shadow.count(s)
+                delta = {k: a[k] - b[k] for k in a}
+                if delta != dict(dispatches=len(s), faults=0, degraded=0, fallbacks=0,
+                                 side=side, host=0):
+                    raise AssertionError(f"{label} {name}: {len(s)} batches ({long_} with a key "
+                                         f"past {width} bytes, {side} for the side table), "
+                                         f"counters moved {delta}")
+                sides.append((side, long_))
+            for k, v in launches.items():
+                totals["launches"][k] += v
+            totals["batches"] += n
+            counts = log_.counts
+            commits = counts.get(("commit", "ok"), 0)
+            conflicts = counts.get(("commit", "not_committed"), 0)
+            retries = sum(v for (m, o), v in counts.items() if m == "on_error" and o != "raised")
+            sizes = sorted(len(q.transactions) for s in served for q, _f in s)
+            nonempty = [s for s in sizes if s]
+            totals["steps"][name] = dict(commits=commits, not_committed=conflicts,
+                                         retries=retries, batches=[len(s) for s in served],
+                                         side=[sd for sd, _l in sides])
+            log(f"{label} {name}: {commits} commits, {conflicts} not_committed, {retries} "
+                f"retries ({ {o: v for (m, o), v in sorted(counts.items()) if m == 'on_error'} }); "
+                f"{n} resolve batches ({[len(s) for s in served]} by set, {n - len(nonempty)} "
+                f"empty), sizes min {nonempty[0] if nonempty else 0} median "
+                f"{nonempty[len(nonempty) // 2] if nonempty else 0} max "
+                f"{nonempty[-1] if nonempty else 0}, {sum(sizes)} transactions; launches "
+                f"{launches} = device dispatches = batches; every batch's verdicts and "
+                f"witnesses equal the host replay; faults, degraded, fallbacks and host-served "
+                f"batches 0; long-key side-table batches {[sd for sd, _l in sides]} by set = the "
+                f"replay's ({[lg for _s, lg in sides]} with a key past {width} bytes); card "
+                f"{card}")
+            log(f"{label} {name}: wall {wall:.6f} s ({vt:.6f} s virtual): "
+                f"{commits / wall:.1f} commits/s through the client beside 4n's "
+                f"{rates['off']:.1f} / {rates['on']:.1f} and phase 4's {main['tps']:.1f} txn/s "
+                f"(no claim); card {card}")
+
+        def make_dst():
+            return build(LAYERS_SEED + 1, loop=loop)
+
+        t0 = wall_now()
+        with fixed_gc():
+            rec = layers_script(c, LAYERS_SHAPE, make_dst, server.url, step)
+        script_s = wall_now() - t0
+        pushes = totals["steps"]["1 queue push"]["not_committed"]
+        if pushes:
+            raise AssertionError(f"{label}: {pushes} queue pushes not committed")
+        for cs, _e, _rp, _s in arms:
+            report = cs.mirror_check()
+            if report["status"] != "ok":
+                raise AssertionError(f"{label}: mirror_check: {report}")
+        bk, rs, bl, dr, w = rec["backup"], rec["restore"], rec["blob"], rec["dr"], rec["wall"]
+        log(f"{label} backup: snapshot at {bk['snapshot']}, marks {bk['mark1']} and "
+            f"{bk['mark2']}, the image at {bk['target']} ({bk['image'][0]} rows), "
+            f"{bk['chunks']} log chunks, {bk['files']} container files; tail lag max "
+            f"{bk['lag_max']} versions, mean {bk['lag_mean']:.1f} over {bk['lags']} samples")
+        log(f"{label} restore: to version {bk['target']}, {rs['rows']} rows byte-equal to the "
+            f"image, the ring one cycle, in {w['restore']:.6f} s ({rs['rows'] / w['restore']:.1f}"
+            f" rows/s); AtomicRestoreWorkload: database_locked seen {rs['atomic_locked_seen']} "
+            f"times, {rs['atomic_scans']} scans, none torn")
+        log(f"{label} blob: {bl['pages']} pages on a localhost BlobStoreServer "
+            f"({len(server.objects)} objects), {bl['rows']} rows restored into the wiped range "
+            f"byte for byte in {w['blob_restore']:.6f} s ({bl['rows'] / w['blob_restore']:.1f} "
+            f"rows/s)")
+        log(f"{label} dr: snapshot at {dr['snapshot']}, applied {dr['applied']}; "
+            f"{dr['samples']} samples of the destination's ring, every one a cycle; lag max "
+            f"{dr['lag_max']} versions, mean {dr['lag_mean']:.1f}; switchover {dr['switch_vt']:.6f}"
+            f" s virtual, {w['switch']:.6f} s host; destination = source at the switchover "
+            f"({dr['rows']} rows)")
+        log(f"{label}: SimCluster({LAYERS_CLUSTER}) x 2 over ConflictSet(key_words="
+            f"{LAYERS_KEY_WORDS}, h_cap={H_CAP}, depth {arms[0][0].pipeline_depth}) built in "
+            f"{build_s:.3f} s; launches {totals['launches']} = {totals['batches']} resolve "
+            f"batches over both sets; mirror_check ok on both; script {script_s:.3f} s; card "
+            f"{card}")
+    finally:
+        stop_blob_server(server)
+        hubs.restore()
+        el.set_event_loop(None)
+    del c, arms
+    gc.collect()
+    totals["record"] = rec
+    return totals
+
+
+def layers_vs_cpu(torch, api, tk):
+    """Phase 6y: layers_record at LAYERS_VS_CPU_DEPTH on cuda and on cpu:
+    the records equal; on cuda each kernel launched once in every batch
+    of both sets, every one served by the card (card_served)."""
+    from foundationdb_tpu_torch.fileio.blobstore import BlobStoreServer
+
+    label = "layers vs cpu"
+    tot = {"launches": {n: 0 for n in tk.LAUNCHES}, "batches": 0}
+    recs = {}
+    server = BlobStoreServer()
+    try:
+        for device in ("cuda", "cpu"):
+            before = dict(tk.LAUNCHES)
+            recs[device], sets = layers_record(api, device, LAYERS_VS_CPU_DEPTH, server)
+            if device == "cuda":
+                side = card_served(label, sets,
+                                   {k: tk.LAUNCHES[k] - before[k] for k in before}, tot)
+            del sets
+    finally:
+        stop_blob_server(server)
+    if recs["cuda"] != recs["cpu"]:
+        which = [k for k in recs["cpu"] if recs["cuda"][k] != recs["cpu"][k]]
+        raise AssertionError(f"{label}: cuda and cpu differ in {which}")
+    r = recs["cuda"]
+    log(f"{label}: layers_script({LAYERS_VS_CPU_SHAPE}) through SimCluster({LAYERS_CLUSTER}) "
+        f"x 2, every resolver over ConflictSet({CLIENT_SET_KW}) at depth {LAYERS_VS_CPU_DEPTH}: "
+        f"records equal on cuda and cpu ({len(r['events'])} client events, restore at "
+        f"{r['backup']['target']}, DR applied {r['dr']['applied']}, {len(r['objects'])} blob "
+        f"objects); on cuda launches {tot['launches']} = {tot['batches']} batches, side-table "
+        f"{side}, none host-served")
+    return tot
+
+
 def guard_vs_cpu(torch, api, T, faults, hotpath):
     """Phase 6v: the guard at phase 6's reduced shape: ConflictSet(
     transfer_guard=True) at depths 1-3 under phase 6o's dispatch fault, on
@@ -7877,6 +8532,10 @@ def main(argv) -> int:
     launches_recovery, batches_recovery, generations_recovery = recovery_path(
         torch, api, ecpu, tk, spans, trace, fr, main, smi)
     phase_done("4x")
+    # 4y. the layers: directory and queue, continuous backup and the
+    # point-in-time restore, the blob store, DR and its switchover
+    layers = layers_path(torch, api, ecpu, tk, spans, trace, fr, main, client["rates"])
+    phase_done("4y")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
         # Each starts from phase 4's state after its warm-up, rehydrated
@@ -7930,6 +8589,8 @@ def main(argv) -> int:
     phase_done("6m")
     admission_vs_cpu(torch, api, sr, tk, faults, spans, trace, fr)
     phase_done("6b")
+    layers_vs_cpu(torch, api, tk)
+    phase_done("6y")
     # 6d. two runs of one stream on the card give equal records
     determinism_path(torch, api, tk, spans, trace, fr, batches)
     phase_done("6d")
@@ -7978,6 +8639,8 @@ def main(argv) -> int:
              launches_recovery=launches_recovery[r["name"]],
              batches_recovery=batches_recovery,
              generations_recovery=generations_recovery,
+             launches_layers=layers["launches"][r["name"]],
+             batches_layers=layers["batches"],
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

@@ -2,7 +2,7 @@
 phases, run concurrently against a simulated cluster.
 
 The port's own copy of the reference package's ``workloads/`` but the
-soak, the metrics and profiling workloads and the layers': the runner; the correctness workloads that check serializability, atomic
+soak and the metrics and profiling workloads: the runner; the correctness workloads that check serializability, atomic
 operations, versionstamps, read-your-writes, conflict ranges, key
 selectors, unreadable ranges, watches, external consistency and the
 database lock; the acceptance workloads WriteDuringRead and
@@ -12,7 +12,9 @@ slow-task probe; and the data distribution workloads (random shard moves
 under load, DD's balance, the safe removal of a storage server); and the
 control plane's: the chaos injectors (clogging, attrition, device faults),
 the targeted role kill, the rollback, the DD metrics read through status,
-the seeded topology, the status document's shape and the time keeper.
+the seeded topology, the status document's shape and the time keeper;
+and the layers': continuous backup verified by restore under chaos, and
+an atomic restore on a live cluster.
 
 Ref: fdbserver/workloads/workloads.h:55 (TestWorkload's setup/start/check/
 getMetrics contract), tester.actor.cpp:239 (CompoundWorkload running the
@@ -48,6 +50,7 @@ from .fast_watches import FastTriggeredWatchesWorkload
 from .background_selectors import BackgroundSelectorsWorkload
 from .commit_bug import CommitBugWorkload
 from .configure_db import ConfigureDatabaseWorkload
+from .backup_correctness import BackupCorrectnessWorkload
 from .slow_task import SlowTaskWorkload
 from .random_move_keys import RandomMoveKeysWorkload
 from .dd_balance import DDBalanceWorkload
@@ -63,6 +66,7 @@ from .rollback import RollbackWorkload
 from .time_keeper import TimeKeeperWorkload
 from .status_workload import StatusWorkload
 from .dd_metrics import DDMetricsWorkload
+from .atomic_restore import AtomicRestoreWorkload
 
 __all__ = [
     "TestWorkload",
@@ -110,4 +114,6 @@ __all__ = [
     "TimeKeeperWorkload",
     "StatusWorkload",
     "DDMetricsWorkload",
+    "BackupCorrectnessWorkload",
+    "AtomicRestoreWorkload",
 ]

@@ -11,8 +11,8 @@ registers) and status document, and each event loop's end time and its
 rng's next draw.  Twinned: all 5 of tests/test_coordination.py, all 5 of
 test_failure_monitor.py, all 4 of test_peek_cursor.py, all 8 of
 test_coordinators_change.py, and 2 of test_multiregion.py's 3; its third
-(the DR agent, ``layers/dr.py``, which the port has not) is twinned as
-the merge cursor tailing the same two-log source.  Every cluster runs
+(the DR agent) is twinned in tests/test_torch_dr.py, and here also as the
+merge cursor tailing the same two-log source.  Every cluster runs
 each package's host engine.
 """
 

@@ -1631,3 +1631,31 @@ def test_sched_fuzz_replays_on_the_card(dev, fuzz):
     assert _fuzzed_run("cuda", fuzz)[0] == first
     assert _fuzzed_run("cpu", fuzz)[0] == first
     assert served > 0
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_layers_on_the_card_match_the_cpu(dev, depth):
+    """chip_smoke's phase 6y at `depth` (6y itself runs depth 2): the
+    layers' script (directory and queue, continuous backup and the
+    point-in-time restore, the blob store, DR and its switchover) through
+    the port's SimCluster and its DR destination, every resolver over a
+    ConflictSet at the rig's shape: the records equal on cuda and cpu, each
+    kernel launched once in every resolve batch of both sets, the card
+    serving every one."""
+    from foundationdb_tpu_torch.conflict import api
+    from foundationdb_tpu_torch.fileio.blobstore import BlobStoreServer
+
+    smoke = _chip_smoke()
+    server = BlobStoreServer()
+    try:
+        before = dict(tk.LAUNCHES)
+        cuda, sets = smoke.layers_record(api, "cuda", depth, server)
+        launches = {k: tk.LAUNCHES[k] - before[k] for k in before}
+        cpu, _cpu_sets = smoke.layers_record(api, "cpu", depth, server)
+    finally:
+        smoke.stop_blob_server(server)
+    assert cuda == cpu
+    tot = {"launches": dict.fromkeys(launches, 0), "batches": 0}
+    smoke.card_served("layers", sets, launches, tot)
+    assert tot["batches"] == sum(b for b, _ok in cuda["sets"]) > 0
+    assert all(ok == "ok" for _b, ok in cuda["sets"])

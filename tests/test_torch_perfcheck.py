@@ -327,8 +327,8 @@ def test_runner_text_counts_every_hot_rule(capsys):
     err = capsys.readouterr().err
     assert ("[perfcheck] 0 finding(s), 8 suppressed; per-rule (flagged+suppressed): "
             "HOT001=0+0s HOT002=0+0s HOT003=0+7s HOT004=0+1s") in err
-    # The gate runs fdblint beside perfcheck: its 24 suppressions join the 8.
-    assert "lint: 0 finding(s), 32 suppressed across 2 tool(s)" in err
+    # The gate runs fdblint beside perfcheck: its 28 suppressions join the 8.
+    assert "lint: 0 finding(s), 36 suppressed across 2 tool(s)" in err
 
 
 def test_runner_sarif_and_pragma_inventory(capsys):
