@@ -324,6 +324,31 @@ seconds (`phase <name>: ...`):
                batches, commits/s beside 4n's and phase 4's (no claim), the
                backup's tail lag, the restores' rows/s, DR's lag and the
                switchover's virtual and host seconds
+  4z. soak     tests/test_soak.py:336's acceptance soak through the port's
+               run_soak (workloads/soak.py) for SOAK_MINUTES virtual
+               minutes: ramped open-loop Zipf load (80 txn/s at the peak,
+               512 keys, theta 0.9, seed 1) on the port's DynamicCluster
+               with the full fault matrix (tlog0 killed with its machine
+               held down, a one-directional tlog -> storage clog, a
+               dispatch outage on the current resolver's card set), every
+               recruited resolver's set on the card at key_words 16,
+               64-byte keys, h_cap 3,145,728 and depth 2, the first one's
+               mirror phase 4's warm-up state re-encoded at 16 words.
+               That test's checks (the SLO and every phase's goodput floor,
+               the three fault kinds, the ratekeeper limiting in every
+               fault window and back to none, committed over a quarter of
+               arrivals), every breaker walk legal and ending ok, every
+               resolve batch replayed equal on a host CpuConflictSet,
+               every batch outside the outage's window a card dispatch and
+               every one inside it served on the mirror, one launch of
+               each kernel a card batch, mirror_check "ok" after the run,
+               each kernel held against its plain twin on the inputs of
+               its first launch at 17 words a row (the kernels launch at
+               1-9 and 17 words); then `cli soak` at tests/test_soak.py:282's
+               tiny shape on the card.  Prints each phase's goodput and commit-chain
+               p99, each fault's window and recovery in virtual and host
+               seconds, the card's and the mirror's batches, the card's
+               bytes, and the wall beside 4x's and 4y's (no claim)
   4w. witness-free  phase 4's timed batches through ConflictSet(
                witness=False), its mirror from phase 4's state after the
                warm-up (the device rehydrated from it before the timed
@@ -522,6 +547,17 @@ seconds (`phase <name>: ...`):
                cpu: every read, commit and retry, each step's versions,
                counts and digests, the blob store's objects, the sets'
                batches and the loop's end equal
+  6z. soak vs cpu  tests/test_torch_soak.py's device-outage soak (a
+               ConflictSet) and its shard-kill soak (a 4-shard
+               ShardedTorchConflictSet, shard 1's device lost for the
+               middle phase) through the port's run_soak on cuda and on
+               cpu, and the device-outage soak once more on cuda (4z's
+               same-seed replay, at this shape): the reports equal whole
+               but for the device registry's host_allocs and host_syncs
+               (the host's pinned buffers and its waits on the card's
+               progress; a divergence named at its first path); on cuda each kernel
+               launches once a batch the card ran (the sharded search once
+               a shard, its merge once an active shard)
   6d. determinism  two fresh ConflictSets with phase 4's settings over the
                first 4 batches of phase 4's stream, each under fresh port
                hubs on a clock that counts its own reads: verdicts and
@@ -579,8 +615,12 @@ seconds (`phase <name>: ...`):
                launches_recovery: phase 4x's, over its batches_recovery
                card-served batches in generations_recovery recruited
                resolver sets; launches_layers: phase 4y's over both sets,
-               over its batches_layers resolve batches; tiered and
-               sharded: those shapes' times), then {"ok": true, ...}
+               over its batches_layers resolve batches; launches_soak:
+               phase 4z's soak over all its recruited sets, over its
+               batches_soak card-served resolve batches
+               (mirror_batches_soak served by the mirror in the outage's
+               window); tiered and sharded: those shapes' times), then
+               {"ok": true, ...}
 
 Imports nothing of JAX and nothing of the foundationdb_tpu package.
 """
@@ -594,6 +634,7 @@ import gc
 import hashlib
 import importlib
 import importlib.util
+import io
 import itertools
 import json
 import os
@@ -2896,6 +2937,17 @@ SPAN_BLOCK = 2
 SPAN_STAGES = ("encode", "dispatch", "device", "sync", "readback", "apply", "mirror_apply")
 
 
+def cli_at_once(coro):
+    """The lines of a CLI command that completes without waiting on an
+    event loop (the commands that read the process's globals)."""
+    try:
+        coro.send(None)
+    except StopIteration as done:
+        return done.value
+    coro.close()
+    raise AssertionError("the CLI command waited on the event loop")
+
+
 class PortHubs:
     """Fresh port SpanHub, TraceCollector and FlightRecorder installed as
     the port's globals (restored by restore()), all three on `clock` when
@@ -3080,9 +3132,10 @@ def spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr):
             walks = ([b.transitions for b in cs._breakers] if config == "2 shards"
                      else [cs._breaker.transitions])
             arts = [fr.artifact_json(a) for a in hubs.rec.captures]
-            cli = CliProcessor()
-            lines = {cmd: cli.run_command(cmd) for cmd in ("trace-export", "flightrec",
-                                                           "latency")}
+            # The commands of the globals serve a processor on no cluster.
+            cli = CliProcessor(None, None)
+            lines = {cmd: cli_at_once(cli.run_command(cmd)) for cmd in ("trace-export",
+                                                                         "flightrec", "latency")}
             return dict(verdicts=out, per=per, events=json.dumps(hubs.col.events),
                         artifacts=arts, walks=json.loads(json.dumps(walks)),
                         export=trace_export.perfetto_json(hubs.hub), cli=lines,
@@ -6751,10 +6804,11 @@ class RecoveryLog:
     it took as [txns, now, new_oldest_version, entry or outcome] beside
     `turns`: (dispatched to the card, the kernels' launches in its
     submit, the long-key batches the host served whole in it, degraded).
-    `first(cs)` is called on the first set before it serves."""
+    `first(cs)` is called on the first set before it serves.  With `times`,
+    each generation's "times" holds each turn's virtual time."""
 
-    def __init__(self, worker_mod, tk, first=None):
-        self.mod, self.gens = worker_mod, []
+    def __init__(self, worker_mod, tk, first=None, times=False):
+        self.mod, self.gens, self.times = worker_mod, [], times
         base = self.base = worker_mod.Resolver
         log = self
 
@@ -6770,6 +6824,9 @@ class RecoveryLog:
         g = dict(epoch=kw.get("epoch", 0), begin=kw.get("epoch_begin_version", 0),
                  oldest=cs._cpu.oldest_version, ref=weakref.ref(cs), batches=[], turns=[],
                  settled=False)
+        loop = role.process.network.loop
+        if self.times:
+            g["times"] = []
         if first is not None and not self.gens:
             first(cs)
         self.gens.append(g)
@@ -6788,6 +6845,8 @@ class RecoveryLog:
                 nested[0] -= 1
             turns.append((not entry.done, {k: tk.LAUNCHES[k] - before[k] for k in before},
                           long_key_counts(cs)["host"] - host0, entry.degraded))
+            if "times" in g:
+                g["times"].append(loop.now())
             batches.append([txns, now, new_oldest_version, entry])
             return entry
 
@@ -6803,6 +6862,8 @@ class RecoveryLog:
                 degraded = cs._cpu_fallback_txns != fall0
                 turns.append((ran.value != ran0,
                               {k: tk.LAUNCHES[k] - before[k] for k in before}, host, degraded))
+                if "times" in g:
+                    g["times"].append(loop.now())
                 batches.append([txns, now, new_oldest_version,
                                 (list(statuses), list(cs.last_witness))])
             return statuses
@@ -8403,6 +8464,547 @@ def chaos_vs_cpu(torch, api, sr, T, faults, buggify, DR, keylib):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 4z: the acceptance soak at full width; 6z: the soak on cuda and cpu
+# ---------------------------------------------------------------------------
+
+# 4z's length in virtual minutes: the largest of 1.0, 0.5 and 0.25 whose CPU
+# rehearsal predicts no more than ~60 s on the card's host (PERF.md §4).
+SOAK_MINUTES = 0.25
+# tests/test_soak.py:336's soak: the reference's FDB_TPU_SOAK_* defaults on a
+# DynamicCluster with the full fault matrix, and that test's SLO.
+SOAK_CONFIG = dict(peak_tps=80.0, seed=1, cluster="dynamic", backend="torch", keys=512,
+                   zipf_theta=0.9, faults=True)
+SOAK_SLO = dict(slo_commit_p99=5.0, goodput_floor_frac=0.25)
+SOAK_FAULT_KINDS = {"kill", "clog", "device_outage"}
+# tests/test_soak.py:282's `cli soak` at its tiny shape, on the card.
+SOAK_CLI_ARGV = ["--format=json", "--minutes=0.05", "--tps=40", "--seed=3", "--keys=32",
+                 "--backend=torch", "--no-faults"]
+SOAK_ARTIFACT_KEYS = ("phases", "throttle_shed", "fault_timeline", "ratekeeper_transitions",
+                      "breaker_transitions", "slo", "committed", "attempts", "sim_seconds",
+                      "seed")
+
+
+def soak_config(soak, minutes, h_cap, device=None):
+    """Phase 4z's SoakConfig: default_config at SOAK_CONFIG with SOAK_SLO;
+    every recruited resolver's set at key_words 16 and 64-byte keys
+    (default_config's dynamic width), `h_cap`, pipeline depth 2, on
+    `device` (None: the card)."""
+    cfg = soak.default_config(minutes=minutes, **SOAK_CONFIG)
+    cfg.slo_commit_p99 = SOAK_SLO["slo_commit_p99"]
+    cfg.goodput_floor_frac = SOAK_SLO["goodput_floor_frac"]
+    cfg.resolver_settings = dict(h_cap=h_cap, pipeline_depth=2)
+    cfg.device = device
+    return cfg
+
+
+def limiting_within(admission_log, t0, t1):
+    """The admission log's limiting (not "none") entries in [t0, t1]."""
+    return [e for e in admission_log if t0 <= e[0] <= t1 and e[1] != "none"]
+
+
+def soak_report_checks(label, rep):
+    """tests/test_soak.py:336's assertions on a 4z report, and every
+    breaker's walk legal and ending ok."""
+    phases = [(p["name"], p["goodput_tps"], p["goodput_floor_tps"], p["commit_p99_chain"])
+              for p in rep["phases"]]
+    if not rep["slo"]["ok"] or not all(p["slo_ok"] for p in rep["phases"]):
+        raise AssertionError(f"{label}: the SLO {rep['slo']}, phases {phases}")
+    kinds = [f[1] for f in rep["faults"]]
+    if set(kinds) != SOAK_FAULT_KINDS:
+        raise AssertionError(f"{label}: the faults {rep['faults']}")
+    admission = rep["ratekeeper"]["admission_log"]
+    for t0, kind, _detail, t1 in rep["faults"]:
+        if not limiting_within(admission, t0 - 0.1, t1 + 2.0):
+            raise AssertionError(f"{label}: no throttling in the {kind} window [{t0}, {t1}]: "
+                                 f"{admission}")
+    if admission[-1][1] != "none":
+        raise AssertionError(f"{label}: admission still limited at the end: {admission[-3:]}")
+    t = rep["totals"]
+    if not t["committed"] > 0.25 * t["arrivals"]:
+        raise AssertionError(f"{label}: {t['committed']} committed of {t['arrivals']} arrivals")
+    for name, transitions in rep["breakers"].items():
+        if walk_end(f"{label} {name}", transitions) != "ok":
+            raise AssertionError(f"{label}: {name}'s breaker ends {transitions[-1]}")
+
+
+def soak_run(soak, wmod, el, tk, cfg, first=None):
+    """run_soak(cfg) as phase 4x runs its cluster: a RecoveryLog (with
+    turn times) on the workers' resolvers, cyclic garbage collected only at
+    fixed points; each admission-monitor tick's (virtual, host) time is
+    sampled, and each current resolver set's mirror_check runs after the
+    report is made.  Returns the report, the log, the samples, the checks
+    and the host seconds."""
+    samples, checks = [], []
+    cls = soak.SoakRun
+    orig_rk, orig_report = cls.current_ratekeeper, cls.report
+
+    def current_ratekeeper(run):
+        samples.append((run.loop.now(), time.perf_counter()))
+        return orig_rk(run)
+
+    def report(run):
+        rep = orig_report(run)
+        checks.extend((r.process.name, cs.mirror_check())
+                      for r, cs in run._resolver_conflict_sets())
+        return rep
+
+    cls.current_ratekeeper, cls.report = current_ratekeeper, report
+    rlog = RecoveryLog(wmod, tk, first=first, times=True)
+    restore_gc = _collect_every(el.EventLoop, RECOVER_GC_EVERY)
+    t0 = time.perf_counter()
+    try:
+        with fixed_gc():
+            rep = soak.run_soak(cfg)
+    finally:
+        cls.current_ratekeeper, cls.report = orig_rk, orig_report
+        restore_gc()
+        rlog.remove()
+    return dict(report=rep, rlog=rlog, samples=samples, checks=checks,
+                host_s=time.perf_counter() - t0)
+
+
+def host_at(samples, vt) -> float:
+    """The host time of the first sample at or past virtual time `vt`."""
+    for v, h in samples:
+        if v >= vt:
+            return h
+    return samples[-1][1]
+
+
+def soak_set_checks(label, rlog, rep, tk, warm, card=True):
+    """Phase 4z's checks on the recruited sets: at least 2 generations
+    (the kill recovers); every batch of every generation replayed on a
+    host CpuConflictSet from that set's start (`warm(g)`) gives the same
+    verdicts and witnesses; each set built at its generation's begin
+    version; no batch host-served for a long key; every batch the card did
+    not serve is degraded and falls in the device outage's window, from its
+    start to the first card batch after it ends, and every batch outside
+    that window is a card dispatch; each kernel launched once in every card
+    batch and never in a mirror one (unless `card` is False: the plain
+    twins launch nothing).  Returns the launches, the card and mirror
+    batches, the window (virtual start, end, recovered) and, a generation,
+    (its epoch, card, mirror)."""
+    if len(rlog.gens) < 2:
+        raise AssertionError(f"{label}: {len(rlog.gens)} resolver sets recruited")
+    (t0, t1), = [(f[0], f[3]) for f in rep["faults"] if f[1] == "device_outage"]
+    t_ok = min((t for g in rlog.gens for t, turn in zip(g["times"], g["turns"])
+                if turn[0] and t > t1), default=None)
+    if t_ok is None:
+        raise AssertionError(f"{label}: no card batch after the outage ended at {t1}")
+    launches = {n: 0 for n in tk.LAUNCHES}
+    card_n, mirror_n, per_gen = 0, 0, []
+    for g in rlog.gens:
+        if not g["settled"]:
+            rlog.settle(g)
+        if g["oldest"] != g["begin"] or not g["batches"] or g["batches"][0][1] <= g["begin"]:
+            raise AssertionError(f"{label}: generation {g['epoch']}'s set was built at "
+                                 f"{g['oldest']} for begin {g['begin']}")
+        host = warm(g)
+        for i, (txns, now, nov, outcome) in enumerate(g["batches"]):
+            st = host.detect(txns, now, nov)
+            if outcome is not None and digest(*outcome) != digest(st, list(host.last_witness)):
+                raise AssertionError(f"{label}: generation {g['epoch']} batch {i} at version "
+                                     f"{now}: verdicts or witnesses differ from the host's")
+        n_card = n_mirror = 0
+        for t, (dev_, lt, host_only, degraded) in zip(g["times"], g["turns"]):
+            inside = t0 <= t < t_ok
+            if host_only or (not dev_ and not (degraded and inside)) or (dev_ and degraded):
+                raise AssertionError(f"{label}: generation {g['epoch']} batch at {t} (card "
+                                     f"{dev_}, degraded {degraded}, host-served {host_only}) "
+                                     f"outside the outage window [{t0}, {t_ok})")
+            if card and any(v != (1 if dev_ else 0) for v in lt.values()):
+                raise AssertionError(f"{label}: generation {g['epoch']} batch at {t} (card "
+                                     f"{dev_}) launched {lt}")
+            n_card += dev_
+            n_mirror += not dev_
+            for k, v in lt.items():
+                launches[k] += v
+        card_n += n_card
+        mirror_n += n_mirror
+        per_gen.append((g["epoch"], n_card, n_mirror))
+    if not mirror_n:
+        raise AssertionError(f"{label}: no batch served on the mirror during the outage")
+    return launches, card_n, mirror_n, (t0, t1, t_ok), per_gen
+
+
+class WideKernelInputs:
+    """While installed, the inputs of the first CUDA launch of each kernel
+    at `kw1` words a key row on the path, cloned (the search's through
+    the kernels module's phase1_ranks, the merge's through the engine's
+    fused_merge_evict binding); check() then holds each kernel against its
+    plain twin on them and times both.  remove() restores the bindings."""
+
+    def __init__(self, tk, et, kw1):
+        self.tk, self.et, self.kw1 = tk, et, kw1
+        self.search = self.merge = None
+        self.inner = (tk.phase1_ranks, et.fused_merge_evict)
+        search, merge = self.inner
+        me = self
+
+        def phase1_ranks(h, q, side):
+            if me.search is None and h.is_cuda and h.shape[0] == kw1:
+                me.search = tuple(t.clone() for t in (h, q, side))
+            return search(h, q, side)
+
+        def fused_merge_evict(*args, width):
+            if me.merge is None and args[0].is_cuda and args[0].shape[0] == kw1:
+                me.merge = (tuple(t.clone() for t in args), width)
+            return merge(*args, width=width)
+
+        tk.phase1_ranks, et.fused_merge_evict = phase1_ranks, fused_merge_evict
+
+    def remove(self):
+        self.tk.phase1_ranks, self.et.fused_merge_evict = self.inner
+
+    def check(self, torch, label):
+        """Each captured launch again through its kernel and its plain
+        twin: equal outputs, and both CUDA-event times (the L2 flushed).
+        Returns the log lines."""
+        tk = self.tk
+        if self.search is None or self.merge is None:
+            raise AssertionError(f"{label}: no launch at {self.kw1} words a row to hold "
+                                 f"(search {self.search is not None}, merge "
+                                 f"{self.merge is not None})")
+        flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device="cuda")
+        h, q, side = self.search
+        _got, err = phase1_against_plain(torch, tk, h, q, side, f"{label}'s shape")
+        s_ms = cuda_ms(lambda: tk.phase1_ranks(h, q, side), 10, flush)
+        s_plain = cuda_ms(lambda: tk.phase1_ranks_reference(h, q, side), 3, flush)
+        args, width = self.merge
+        got = tk.fused_merge_evict(*args, width=width)
+        want = tk.fused_merge_evict_reference(*args, width=width)
+        torch.cuda.synchronize()
+        n = int(want[2])
+        if int(got[2]) != n or not torch.equal(got[0][:, :n], want[0][:, :n]) or \
+                not torch.equal(got[1][:n], want[1][:n]):
+            raise AssertionError(f"{label}: fused_merge_evict disagrees with its plain twin "
+                                 f"at {self.kw1} words ({int(got[2])} rows against {n})")
+        m_ms = cuda_ms(lambda: tk.fused_merge_evict(*args, width=width), 10, flush)
+        m_plain = cuda_ms(lambda: tk.fused_merge_evict_reference(*args, width=width), 3, flush)
+        del flush
+        return [f"{label} kernel phase1_ranks at the path's shape ({self.kw1} words a row, "
+                f"{h.shape[1]} history rows, {q.shape[1]} queries): max_abs_err {err}, "
+                f"kernel_ms {s_ms:.6f} plain_ms {s_plain:.6f}",
+                f"{label} kernel fused_merge_evict at the path's shape ({self.kw1} words, A "
+                f"{args[0].shape[1]}, B {args[4].shape[1]}, width {width}, {n} rows out): equal "
+                f"to the plain twin, kernel_ms {m_ms:.6f} plain_ms {m_plain:.6f}"]
+
+
+def soak_path(torch, soak, cli, tk, main, walls, smi="", device=None, h_cap=None,
+              minutes=None, replay=False):
+    """Phase 4z: tests/test_soak.py:336's acceptance soak through the port's
+    run_soak at SOAK_MINUTES: soak_config's DynamicCluster on the card (the
+    full fault matrix: tlog0 killed with its machine held down, a
+    one-directional tlog -> storage clog, a dispatch outage on the current
+    resolver's set), every recruited resolver's set at key_words 16,
+    64-byte keys, `h_cap` (H_CAP) and depth 2; the first generation's
+    mirror is phase 4's warm-up state (`main["warm_snapshot"]`, key_words
+    2) re-encoded at 16 words (checked equal boundary for boundary), which
+    the card rehydrates from at its first dispatch.  Checks
+    soak_report_checks, soak_set_checks (the host replay starts from the
+    same re-encoded state), that the first rehydration moved every one of
+    those keys, mirror_check "ok" on the current set after the run, each
+    kernel against its plain twin on the inputs of its first launch at 17
+    words a row (WideKernelInputs), and (with
+    `replay`; on the card phase 6z replays a soak instead) a second
+    same-seed run's byte-identical transition logs; then `cli soak` at
+    SOAK_CLI_ARGV on the card: its artifact has the test's keys.  `device`, `h_cap`, `minutes` and `replay` are the CPU
+    rehearsal's (tests/test_torch_soak_smoke.py).  Prints each phase's
+    goodput and commit-chain p99, each fault's window and recovery in
+    virtual and host seconds, the batches on the card and on the mirror,
+    the launches, the card's bytes before and after, and the wall beside
+    4x's and 4y's (no claim).  Returns the record."""
+    from foundationdb_tpu_torch.conflict import engine_cpu as ecpu
+    from foundationdb_tpu_torch.conflict import engine_torch as et
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.server import worker as wmod
+
+    gc.collect()
+    label = "soak"
+    h_cap = H_CAP if h_cap is None else h_cap
+    minutes = SOAK_MINUTES if minutes is None else minutes
+    on_card = device is None
+    kind = torch.cuda.get_device_name(0)
+    card = f"{kind} ({smi})"
+    snap = main["warm_snapshot"]
+    kw = 16
+    warm_keys, warm_vers = snap.to_flat()
+
+    def warm_at_16():
+        """Phase 4's warm state re-encoded at 16 words (its key_words is
+        KEY_WORDS): a host engine with the same boundaries and versions."""
+        eng = ecpu.CpuConflictSet(snap.oldest_version, key_words=kw)
+        eng._rebuild_from_flat(list(warm_keys), list(warm_vers))
+        return eng
+
+    check = warm_at_16()
+    if check.snapshot().to_flat() != (warm_keys, warm_vers) or check._kw != kw:
+        raise AssertionError(f"{label}: phase 4's state re-encoded at {kw} words differs")
+    del check
+
+    held = []  # the first set, until its rehydration's counters are read
+
+    def first(cs):
+        cs._cpu = warm_at_16()
+        held.append(cs)
+
+    def warm(g):
+        if g is rlog.gens[0]:
+            return warm_at_16()
+        return ecpu.CpuConflictSet(g["begin"], key_words=kw)
+
+    def card_bytes():
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    bytes_before = card_bytes()
+    wide = WideKernelInputs(tk, et, kw + 1) if on_card else None
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    cfg = soak_config(soak, minutes, h_cap, device)
+    try:
+        run = soak_run(soak, wmod, el, tk, cfg, first=first)
+    finally:
+        if wide is not None:
+            wide.remove()
+    launches_seen = dict(tk.LAUNCHES)
+    rep, rlog, samples = run["report"], run["rlog"], run["samples"]
+    t1 = time.perf_counter()
+    soak_report_checks(label, rep)
+    launches, n_card, n_mirror, (w0, w1, w_ok), per_gen = soak_set_checks(
+        label, rlog, rep, tk, warm, card=on_card)
+    if on_card and (launches != launches_seen or any(v != n_card for v in launches.values())):
+        raise AssertionError(f"{label}: launches {launches_seen} against {n_card} card batches "
+                             f"({launches} in the turns)")
+    c = held[0].device_metrics()["counters"]
+    rehydrated = (c["rehydrate_keys_total"], c["rehydrate_keys_encoded"])
+    del held[:]
+    if rehydrated[0] < snap.boundary_count:
+        raise AssertionError(f"{label}: the first rehydration moved {rehydrated} keys of the "
+                             f"{snap.boundary_count} in phase 4's state")
+    if not run["checks"] or any(c["status"] != "ok" for _n, c in run["checks"]):
+        raise AssertionError(f"{label}: mirror_check after the run: {run['checks']}")
+    checks_s = time.perf_counter() - t1
+    # Each kernel against its plain twin at the shapes the path gave it.
+    wide_lines = wide.check(torch, label) if wide is not None else []
+    del wide
+    # Every set settled (no entry holds a ticket), the first released: what
+    # stays on the card is what the run left behind.
+    gc.collect()
+    bytes_after = card_bytes()
+    replay_s = None
+    if replay:
+        t2 = time.perf_counter()
+        again = soak_run(soak, wmod, el, tk, soak_config(soak, minutes, h_cap, device),
+                         first=first)
+        replay_s = time.perf_counter() - t2
+        if soak.transition_logs_json(again["report"]) != soak.transition_logs_json(rep):
+            raise AssertionError(f"{label}: a second same-seed run's transition logs differ")
+        del again
+    # `cli soak` at the tiny shape, on the card.
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    buf = io.StringIO()
+    t3 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.soak_main(SOAK_CLI_ARGV + ([] if on_card else [f"--device={device}"]))
+    cli_s = time.perf_counter() - t3
+    art = json.loads(buf.getvalue())
+    missing = [k for k in SOAK_ARTIFACT_KEYS if k not in art]
+    cli_launches = dict(tk.LAUNCHES)
+    if rc != 0 or missing or art["backend"] != "torch" or not art["slo"]["ok"] or \
+            not art["value"] > 0 or (on_card and (len(set(cli_launches.values())) != 1
+                                                  or not all(cli_launches.values()))):
+        raise AssertionError(f"{label}: cli soak rc {rc}, missing {missing}, backend "
+                             f"{art.get('backend')}, slo {art.get('slo')}, launches "
+                             f"{cli_launches}")
+    log(f"{label}: run_soak(default_config(minutes={minutes}, {SOAK_CONFIG}), {SOAK_SLO}) on "
+        f"the port's DynamicCluster, every recruited resolver over ConflictSet(key_words={kw}, "
+        f"max_device_key_bytes=64, h_cap={h_cap}, depth 2) on {'the card' if on_card else device}"
+        f", the first from phase 4's state after its warm-up ({snap.boundary_count} keys at "
+        f"key_words {KEY_WORDS}, re-encoded at {kw} on the host and equal key for key; the first "
+        f"set's rehydrate keys total/encoded {rehydrated}); {rep['totals']['committed']} committed of "
+        f"{rep['totals']['arrivals']} arrivals ({rep['totals']['attempts']} attempts) in "
+        f"{rep['totals']['sim_seconds']} virtual s, goodput {rep['totals']['goodput_tps']} "
+        f"txn/s; SLO {rep['slo']}; card {card}")
+    for p in rep["phases"]:
+        log(f"{label} phase {p['name']}: goodput {p['goodput_tps']} virtual txn/s (floor "
+            f"{p['goodput_floor_tps']}), commit-chain p99 {p['commit_p99_chain']} s, GRV-chain "
+            f"p99 {p['grv_p99_chain']} s, client p99 {p['commit_p99_client']} s; "
+            f"{p['committed']} committed, {p['conflicted']} conflicted, {p['throttled']} "
+            f"throttled, {p['too_old']} too old")
+    admission = rep["ratekeeper"]["admission_log"]
+    for f0, fkind, detail, f1 in rep["faults"]:
+        back = min((e[0] for e in admission if e[0] >= f1 and e[1] == "none"), default=None)
+        rec_vt = None if back is None else back - f0
+        rec_host = None if back is None else host_at(samples, back) - host_at(samples, f0)
+        log(f"{label} fault {fkind} ({detail}): window [{f0:.4f}, {f1:.4f}] virtual s, "
+            f"{f1 - f0:.4f} virtual s = {host_at(samples, f1) - host_at(samples, f0):.3f} host "
+            f"s; admission back to none {rec_vt if rec_vt is None else round(rec_vt, 4)} "
+            f"virtual s after it began ({rec_host if rec_host is None else round(rec_host, 3)} "
+            f"host s); throttled inside: "
+            f"{sorted({e[1] for e in limiting_within(admission, f0 - 0.1, f1 + 2.0)})}")
+    log(f"{label}: the device outage's mirror window [{w0:.4f}, {w_ok:.4f}) virtual s (the "
+        f"outage ended at {w1:.4f}; {host_at(samples, w_ok) - host_at(samples, w0):.3f} host s); "
+        f"batches a generation (epoch, card, mirror) {per_gen}; {n_card} on the card, "
+        f"{n_mirror} on the mirror inside the window, none outside it; launches "
+        f"{launches_seen} = the card batches; every batch's verdicts and witnesses equal the "
+        f"host replay; breakers {[(n, walk_end(n, t), len(t)) for n, t in rep['breakers'].items()]}"
+        f"; mirror_check {[(n, c['status']) for n, c in run['checks']]}; card {card}")
+    log(f"{label}: card bytes {bytes_before} before, {bytes_after} after the run, its "
+        f"checks and a collection; host s: the soak {run['host_s']:.3f}, the replay and checks "
+        f"{checks_s:.3f}, the second same-seed run "
+        f"{'skipped' if replay_s is None else f'{replay_s:.3f}'} (transition logs "
+        f"byte-identical), cli soak {cli_s:.3f}; beside 4x's {walls.get('4x', 0.0):.1f} s and "
+        f"4y's {walls.get('4y', 0.0):.1f} s (no claim); card {card}")
+    for line in wide_lines:
+        log(f"{line}; card {card}")
+    log(f"{label}: cli soak {' '.join(SOAK_CLI_ARGV)}: rc {rc}, {art['metric']} {art['value']} "
+        f"{art['unit']}, {art['committed']} committed, keys {sorted(art)}; launches "
+        f"{cli_launches}; card {card}")
+    out = dict(launches=launches_seen, batches=n_card, mirror=n_mirror, per_gen=per_gen,
+               phases=[(p["name"], p["committed"], p["arrivals"]) for p in rep["phases"]],
+               faults=rep["faults"], totals=rep["totals"], window=(w0, w1, w_ok),
+               rehydrated=rehydrated, cli=dict(committed=art["committed"], value=art["value"]),
+               transitions=soak.transition_logs_json(rep))
+    del rep, rlog, run
+    gc.collect()
+    return out
+
+
+# Counters of the device engine's registry that count the host's dealings
+# with the card, not the simulation: pinned buffers allocated (CUDA only)
+# and waits for an upload or readback (on CUDA, whether a staging buffer is
+# still in flight depends on the card's progress).  6z compares the soak's
+# reports, whose captures sample that registry, less these two.
+DEVICE_HOST_COUNTERS = ("host_allocs", "host_syncs")
+
+
+def without_device_host_counters(value):
+    """A JSON value with DEVICE_HOST_COUNTERS left out of every "counters"
+    block in it."""
+    if isinstance(value, dict):
+        return {k: ({c: n for c, n in v.items() if c not in DEVICE_HOST_COUNTERS}
+                    if k == "counters" and isinstance(v, dict)
+                    else without_device_host_counters(v))
+                for k, v in value.items()}
+    if isinstance(value, list):
+        return [without_device_host_counters(v) for v in value]
+    return value
+
+
+def soak_vs_cpu_configs(soak):
+    """Phase 6z's configs: tests/test_torch_soak.py's device outage and its
+    shard kill (4 shards, 0.1 minutes at 40 txn/s)."""
+    outage = soak.SoakConfig(
+        seed=9, cluster="sim", backend="torch", mode="open", keys=64,
+        phases=[soak.SoakPhase("peak", 3.0, 60.0)],
+        faults=[soak.FaultEvent(at=1.0, kind="device_outage", duration=1.0)],
+        drain_timeout=5.0, degraded_tps_fraction=0.1)
+    kill = soak.shard_outage_config(minutes=0.1, peak_tps=40.0, seed=17, shard=1, n_shards=4)
+    kill.keys, kill.drain_timeout, kill.max_tps, kill.degraded_tps_fraction = 64, 5.0, 40.0, 0.0
+    return {"device outage": outage, "shard kill": kill}
+
+
+def first_json_difference(want, got, path="report"):
+    """The first path at which two JSON values differ, or None."""
+    if type(want) is not type(got):
+        return f"{path}: {type(want).__name__} against {type(got).__name__}"
+    if isinstance(want, dict):
+        for key in sorted(set(want) | set(got), key=str):
+            if key not in want or key not in got:
+                return f"{path}.{key}: only on {'cuda' if key in want else 'cpu'}"
+            d = first_json_difference(want[key], got[key], f"{path}.{key}")
+            if d:
+                return d
+        return None
+    if isinstance(want, list):
+        for i, (w, g) in enumerate(zip(want, got)):
+            d = first_json_difference(w, g, f"{path}[{i}]")
+            if d:
+                return d
+        return None if len(want) == len(got) else f"{path}: {len(want)} against {len(got)} items"
+    return None if want == got else f"{path}: {want!r} against {got!r}"
+
+
+def soak_vs_cpu(torch, soak, tk, devices=("cuda", "cpu"), replay=("device outage",)):
+    """Phase 6z: soak_vs_cpu_configs through the port's run_soak with the
+    sets on each of `devices`, and the configs in `replay` a second time on
+    the first device (4z's same-seed replay, at this shape): the reports
+    equal whole but for DEVICE_HOST_COUNTERS (json.dumps(sort_keys=True);
+    a divergence is reported at its first path), so the transition logs
+    too.  On cuda, the
+    ConflictSet's kernels launch once in every batch its card ran, and the
+    sharded set's search once a shard and its merge once an active shard
+    in every batch the card ran.  Returns the records by config."""
+    out = {}
+    for name, cfg0 in soak_vs_cpu_configs(soak).items():
+        arms = [(d, d) for d in devices]
+        if name in replay:
+            arms.append((f"{devices[0]} again", devices[0]))
+        runs = {}
+        for arm, device in arms:
+            cfg = copy.deepcopy(cfg0)
+            cfg.device = device
+            built = []
+            inner = soak._build_cluster
+
+            def build(c, inner=inner, built=built):
+                made = inner(c)
+                built.append(made[0].resolvers[0].conflicts)
+                return made
+
+            for n in tk.LAUNCHES:
+                tk.LAUNCHES[n] = 0
+            soak._build_cluster = build
+            t0 = time.perf_counter()
+            try:
+                rep = soak.run_soak(cfg)
+            finally:
+                soak._build_cluster = inner
+            secs = time.perf_counter() - t0
+            (cs,) = built
+            launches = dict(tk.LAUNCHES)
+            if getattr(cs, "n_shards", 0) > 1:
+                m = cs.metrics
+                ran = m.counter("device_batches").value
+                want = {"phase1_ranks": ran * cs.n_shards,
+                        "fused_merge_evict": ran * cs.n_shards
+                        - m.counter("degraded_shard_serves").value}
+            else:
+                ran = cs.device_metrics()["counters"]["batches"]
+                want = dict.fromkeys(launches, ran)
+            if device == "cuda" and (launches != want or not ran):
+                raise AssertionError(f"soak vs cpu {name} ({arm}): launches {launches}, {ran} "
+                                     f"batches on the card want {want}")
+            runs[arm] = dict(report=rep, launches=launches, ran=ran, secs=round(secs, 3))
+            del cs, built
+        same = {arm: without_device_host_counters(r["report"]) for arm, r in runs.items()}
+        blobs = {arm: json.dumps(r, sort_keys=True) for arm, r in same.items()}
+        first = arms[0][0]
+        for arm, blob in blobs.items():
+            if blob != blobs[first]:
+                diff = first_json_difference(same[first], same[arm])
+                raise AssertionError(f"soak vs cpu {name}: {first} and {arm} differ at {diff}")
+        rep = runs[first]["report"]
+        out[name] = dict(bytes=len(blobs[first]), faults=rep["faults"], totals=rep["totals"],
+                         transitions=soak.transition_logs_json(rep),
+                         runs={a: {k: v for k, v in r.items() if k != "report"}
+                               for a, r in runs.items()})
+        log(f"soak vs cpu {name}: run_soak's reports equal on {', '.join(runs)} "
+            f"({len(blobs[first])} bytes of JSON, sorted keys, less the device registry's "
+            f"{DEVICE_HOST_COUNTERS}; the transition logs "
+            f"{len(out[name]['transitions'])} bytes): {rep['totals']['committed']} committed, "
+            f"faults {rep['faults']}, breakers "
+            f"{[(k, len(v)) for k, v in rep['breakers'].items() if v]}; "
+            f"{ {a: (r['launches'], r['ran'], r['secs']) for a, r in runs.items()} } "
+            f"(launches, batches the device ran, host s)")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -8431,10 +9033,12 @@ def main(argv) -> int:
     profile = "--profile" in argv
     stamps = "--stamps" in argv
     clock = [time.perf_counter()] * 2
+    walls = {}
 
     def phase_done(name):
         """Log a phase's host seconds and the script's so far."""
         now = time.perf_counter()
+        walls[name] = now - clock[1]
         log(f"phase {name}: {now - clock[1]:.1f} s ({now - clock[0]:.1f} s in all)")
         clock[1] = now
 
@@ -8536,6 +9140,13 @@ def main(argv) -> int:
     # point-in-time restore, the blob store, DR and its switchover
     layers = layers_path(torch, api, ecpu, tk, spans, trace, fr, main, client["rates"])
     phase_done("4y")
+    # 4z. the acceptance soak: a full-width DynamicCluster under the fault
+    # matrix (a tlog killed, a link clogged, the card's dispatch out), and
+    # `cli soak`
+    from foundationdb_tpu_torch.tools import cli
+    from foundationdb_tpu_torch.workloads import soak
+    soaked = soak_path(torch, soak, cli, tk, main, walls, smi)
+    phase_done("4z")
     others, stats = {}, {"main": main["stats"]}
     for mode in ("witness_free", "coalesced", "amortized", "tiered"):
         # Each starts from phase 4's state after its warm-up, rehydrated
@@ -8563,15 +9174,18 @@ def main(argv) -> int:
     launches_resharded = resharded_path(torch, tk, et, sharded_set, rng, obs)
     del sharded_set
     phase_done("4r")
-    # 5-6. held against the CPU
-    versus_cpu(torch, et)
-    conflictset_vs_cpu(torch, api, T, faults)
-    lost_card_codes(torch)
-    tiered_conflictset_vs_cpu(torch, api, T, faults)
-    ablation_vs_cpu(torch, api, et, pa, T, faults)
-    settings_vs_cpu(torch, api, et, sr, tk, T, keylib)
-    sharded_vs_cpu(torch, sr, faults, keylib)
-    resharded_vs_cpu(torch, sr, faults, keylib)
+    # 5-6. held against the CPU, each part's host seconds logged
+    for check, args in ((versus_cpu, (torch, et)),
+                        (conflictset_vs_cpu, (torch, api, T, faults)),
+                        (lost_card_codes, (torch,)),
+                        (tiered_conflictset_vs_cpu, (torch, api, T, faults)),
+                        (ablation_vs_cpu, (torch, api, et, pa, T, faults)),
+                        (settings_vs_cpu, (torch, api, et, sr, tk, T, keylib)),
+                        (sharded_vs_cpu, (torch, sr, faults, keylib)),
+                        (resharded_vs_cpu, (torch, sr, faults, keylib))):
+        t0 = time.perf_counter()
+        check(*args)
+        log(f"part {check.__name__}: {time.perf_counter() - t0:.1f} s")
     phase_done("5-6r")
     spans_vs_cpu(torch, api, sr, T, faults, keylib, spans, trace, fr)
     phase_done("6o")
@@ -8591,6 +9205,9 @@ def main(argv) -> int:
     phase_done("6b")
     layers_vs_cpu(torch, api, tk)
     phase_done("6y")
+    # 6z. the soak on cuda and cpu: a device outage and a shard kill
+    soak_vs_cpu(torch, soak, tk)
+    phase_done("6z")
     # 6d. two runs of one stream on the card give equal records
     determinism_path(torch, api, tk, spans, trace, fr, batches)
     phase_done("6d")
@@ -8641,6 +9258,9 @@ def main(argv) -> int:
              generations_recovery=generations_recovery,
              launches_layers=layers["launches"][r["name"]],
              batches_layers=layers["batches"],
+             launches_soak=soaked["launches"][r["name"]],
+             batches_soak=soaked["batches"],
+             mirror_batches_soak=soaked["mirror"],
              tiered=[{k: t[k] for k in shape_keys} for t in r["tiered"]],
              sharded=[{k: t[k] for k in shape_keys} for t in r["sharded"]])
         for r in rows]}))

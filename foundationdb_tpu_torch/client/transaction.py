@@ -2,11 +2,13 @@
 
 The port's own copy of the reference package's ``client/transaction.py``.
 The reference's client knobs are module constants at the reference's
-defaults (``LATENCY_SAMPLE_RATE``, ``KEY_SIZE_LIMIT``,
-``VALUE_SIZE_LIMIT``, ``INITIAL_RETRY_DELAY``, ``MAX_RETRY_DELAY``,
-``DUMMY_COMMIT_MAX_RETRIES``), and its FDB_TPU_WITNESS_RETRY switch (on
-by default) is ``Database(witness_retry=True)``; ``witness_retry=False``
-is the blind retry.  The dynamic mode (``info_var``, fed by the cluster
+defaults (``KEY_SIZE_LIMIT``, ``VALUE_SIZE_LIMIT``,
+``INITIAL_RETRY_DELAY``, ``MAX_RETRY_DELAY``,
+``DUMMY_COMMIT_MAX_RETRIES``), its latency_sample_rate knob is
+``Database(latency_sample_rate=LATENCY_SAMPLE_RATE)``, and its
+FDB_TPU_WITNESS_RETRY switch (on by default) is
+``Database(witness_retry=True)``; ``witness_retry=False`` is the blind
+retry.  The dynamic mode (``info_var``, fed by the cluster
 controller's ``ClientDBInfo`` long-poll) follows recoveries, with the
 failure monitor's client feeding ``failure_states``.
 
@@ -93,9 +95,13 @@ class Database:
         info_var=None,
         proxies: Optional[List[ProxyInterface]] = None,
         witness_retry: bool = True,
+        latency_sample_rate: float = LATENCY_SAMPLE_RATE,
     ):
         self.process = process
         self.witness_retry = witness_retry
+        # The share of transactions whose stages the latency trace chain
+        # records (the reference's client.latency_sample_rate knob).
+        self.latency_sample_rate = latency_sample_rate
         self._proxy = proxy
         self._proxies = list(proxies) if proxies else ([proxy] if proxy else [])
         self._proxy_rr: dict = {}
@@ -143,7 +149,7 @@ class Database:
         """A fresh debug id for the latency trace chain, or None when the
         transaction is not sampled (ref: debugTransaction sampling)."""
         rng = self.process.network.loop.rng
-        if rng.random01() >= LATENCY_SAMPLE_RATE:
+        if rng.random01() >= self.latency_sample_rate:
             return None
         return f"{rng.random_int(0, 1 << 62):015x}"
 

@@ -54,8 +54,9 @@ FDB_TPU_MIRROR_COALESCE (coalesce_window): the mirror queues the committed
 writes of up to that many device-served batches and folds them together,
 at the window's end or at the next mirror read, whichever comes first; the
 device's synced point is recorded only when no fold is pending.  The
-device takes keys of at most ``min(MAX_DEVICE_KEY_BYTES, key_words * 4)``
-bytes, the reference knob's default.
+device takes keys of at most ``min(max_device_key_bytes, key_words * 4)``
+bytes (``max_device_key_bytes`` is the reference's
+conflict_max_device_key_bytes knob, default ``MAX_DEVICE_KEY_BYTES``).
 
 Which real errors reach the breaker, as in the reference: out-of-memory
 errors (``DeviceOOM``), and a lost or reset card (``device.is_lost_device``:
@@ -235,6 +236,7 @@ class ConflictSet:
         search: str = "",
         search_stride: int = 512,
         transfer_guard: bool = False,
+        max_device_key_bytes: int = MAX_DEVICE_KEY_BYTES,
     ):
         if backend not in ("cpu", "torch", "hybrid"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -285,7 +287,7 @@ class ConflictSet:
         # mirror holds every key itself.
         self._long: Optional[SideTable] = None
         if self._dev is not None:
-            self._long = SideTable(min(MAX_DEVICE_KEY_BYTES, key_words * 4), oldest_version)
+            self._long = SideTable(min(max_device_key_bytes, key_words * 4), oldest_version)
         # The device is stale whenever the mirror absorbed a batch the
         # device did not run; the next device attempt rehydrates first.
         self._device_stale = True

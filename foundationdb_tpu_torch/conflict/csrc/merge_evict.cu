@@ -99,7 +99,7 @@ constexpr int kSeg = 8192;                // A rows per index-pass block
 constexpr int kSegSlabs = kSeg / kThreads;
 constexpr int kBSeg = 1024;               // B rows per index-pass block
 constexpr int kBSegSlabs = kBSeg / kThreads;
-constexpr int kMaxWords = 8;
+constexpr int kMaxWords = 17;             // key_words 16 (widths 1-9 and 17 built)
 constexpr int kLookDepth = 4;             // status words a lane reads per look-back round
 constexpr unsigned kPauseMin = 64;        // polling pause, ns, doubling
 constexpr unsigned kPauseMax = 1024;
@@ -679,6 +679,10 @@ extern "C" int fused_merge_evict_launch(
     case 6: return static_cast<int>(launch<6>(x, a, l.tiles, s));
     case 7: return static_cast<int>(launch<7>(x, a, l.tiles, s));
     case 8: return static_cast<int>(launch<8>(x, a, l.tiles, s));
+    // The soak's widths: the sharded soak's key_words 8 and a
+    // DynamicCluster's 16 (its system keys).  Others are not built.
+    case 9: return static_cast<int>(launch<9>(x, a, l.tiles, s));
+    case 17: return static_cast<int>(launch<17>(x, a, l.tiles, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -603,6 +603,10 @@ extern "C" int phase1_ranks_launch(const void* h_keys, long long n,
     case 6: return static_cast<int>(launch<6>(h_keys, n, q_keys, q_side, ranks, m, st));
     case 7: return static_cast<int>(launch<7>(h_keys, n, q_keys, q_side, ranks, m, st));
     case 8: return static_cast<int>(launch<8>(h_keys, n, q_keys, q_side, ranks, m, st));
+    // The soak's widths: the sharded soak's key_words 8 and a
+    // DynamicCluster's 16 (its system keys).  Others are not built.
+    case 9: return static_cast<int>(launch<9>(h_keys, n, q_keys, q_side, ranks, m, st));
+    case 17: return static_cast<int>(launch<17>(h_keys, n, q_keys, q_side, ranks, m, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -17,7 +17,10 @@ the structural check.  ``LAUNCHES`` counts kernel launches only;
 ``merge_contract_faults`` reads the merge kernel's count of inputs that
 broke the order it relies on.
 
-Key words are int32 in the device encoding of conflict/keys.py.
+Key words are int32 in the device encoding of conflict/keys.py.  The
+kernels launch at 1-9 and 17 words a key row (key_words up to 8, and 16,
+the soak's DynamicCluster width); at another width a CUDA tensor's launch
+fails with cudaErrorInvalidValue.
 """
 
 from __future__ import annotations

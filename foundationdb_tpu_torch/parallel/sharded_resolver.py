@@ -53,10 +53,11 @@ defaults: ``history`` (FDB_TPU_HISTORY), ``delta_cap`` (FDB_TPU_DELTA_CAP),
 ``evict_every`` (FDB_TPU_EVICT_EVERY), ``witness`` (FDB_TPU_WITNESS), and
 ``search`` and ``search_stride`` (FDB_TPU_SEARCH, FDB_TPU_SEARCH_STRIDE;
 see engine_torch.TorchConflictSet).
-The device takes keys of at most ``min(MAX_DEVICE_KEY_BYTES, 4 *
-key_words)`` bytes; a batch with a longer key runs on the mirrors, and a
-long-key write pins authority there until the mirrors fit again and a
-hysteresis streak of short batches passes.
+The device takes keys of at most ``min(max_device_key_bytes, 4 *
+key_words)`` bytes (the reference's conflict_max_device_key_bytes knob,
+default ``MAX_DEVICE_KEY_BYTES``); a batch with a longer key runs on the
+mirrors, and a long-key write pins authority there until the mirrors fit
+again and a hysteresis streak of short batches passes.
 
 Live resharding (``reshard``, with ``balance_split_keys`` for quantile
 split points) re-partitions the shards between two batches: a shard whose
@@ -301,6 +302,7 @@ class ShardedTorchConflictSet:
         witness: bool = True,
         search: str = "",
         search_stride: int = 512,
+        max_device_key_bytes: int = MAX_DEVICE_KEY_BYTES,
     ):
         if devices is not None:
             distinct = {str(resolve_device(d)) for d in devices}
@@ -322,6 +324,7 @@ class ShardedTorchConflictSet:
         self.n_shards = len(split_keys) + 1
         self.max_shards = max(self.n_shards, int(max_shards or self.n_shards))
         self.key_words = key_words
+        self.max_device_key_bytes = max_device_key_bytes
         self.h_cap = h_cap
         self._base = oldest_version
         self.bucket_mins = bucket_mins
@@ -749,7 +752,7 @@ class ShardedTorchConflictSet:
 
     def detect(self, transactions: List[TransactionConflictInfo], now: int,
                new_oldest_version: int) -> List[int]:
-        width = min(MAX_DEVICE_KEY_BYTES, self.key_words * 4)
+        width = min(self.max_device_key_bytes, self.key_words * 4)
         batch_long = any(
             len(b) > width
             for t in transactions
@@ -759,6 +762,9 @@ class ShardedTorchConflictSet:
         )
         if batch_long or self._pinned:
             if batch_long:
+                from ..flow.testprobe import test_probe
+
+                test_probe("sharded_long_key_fallback")
                 if not self._pinned:
                     self.metrics.counter("long_key_pins").add()
                 self._pinned = True

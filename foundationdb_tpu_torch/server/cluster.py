@@ -11,7 +11,11 @@ The resolvers' conflict sets are on the card: ``SimCluster()`` builds
 every resolver's set with ``ConflictSet(backend="torch")`` and raises
 where no card is visible.  ``device="cpu"`` runs the same engine with the
 kernels' plain twins, and ``conflict_backend="cpu"`` the host engine.
-``conflict_set`` is resolver 0's set; the others build their own.
+``conflict_set`` is resolver 0's set; the others build their own, with
+``resolver_settings`` as further ``ConflictSet`` arguments (the
+reference's ``conflict_*`` knobs: ``key_words``, ``h_cap``,
+``max_device_key_bytes``, ...).  ``grv_queue_max`` is every proxy's GRV
+queue bound (the reference's ratekeeper_grv_queue_max knob).
 
 Clients come from ``database(name, **kw)`` (a ``client.transaction.
 Database`` on its own process; ``kw`` are its settings, such as
@@ -46,7 +50,7 @@ from typing import Optional
 
 from ..flow.eventloop import EventLoop, set_event_loop
 from ..rpc.network import SimNetwork
-from .proxy import Proxy
+from .proxy import RATEKEEPER_GRV_QUEUE_MAX, Proxy
 from .resolver import Resolver
 from .sequencer import Sequencer
 from .storage import StorageServer
@@ -79,6 +83,8 @@ class SimCluster:
            sched_fuzz: Optional[int] = None,
         state_sanitizer: bool = False,
         check_orphaned_waits: bool = False,
+        resolver_settings: Optional[dict] = None,
+        grv_queue_max: int = RATEKEEPER_GRV_QUEUE_MAX,
     ):
         if conflict_backend != "cpu" and (conflict_set is None or n_resolvers > 1):
             # A resolver will build its set on `device`: fail before any
@@ -99,6 +105,8 @@ class SimCluster:
         self.conflict_backend = conflict_backend
         self._conflict_set = conflict_set
         self.device = device
+        self.resolver_settings = dict(resolver_settings or {})
+        self.grv_queue_max = grv_queue_max
         self.durable = durable
         self.fs = None
         self.master_proc = self.net.process("master")
@@ -149,6 +157,7 @@ class SimCluster:
                     conflict_set=conflict_set if i == 0 else None,
                     n_proxies=n_proxies,
                     device=device,
+                    set_settings=self.resolver_settings,
                 )
                 for i, p in enumerate(self.resolver_procs)
             ]
@@ -179,6 +188,7 @@ class SimCluster:
                     proxy_id=f"proxy{i}",
                     n_proxies=n_proxies,
                     n_satellites=n_satellite_tlogs,
+                    grv_queue_max=grv_queue_max,
                 )
                 for i, p in enumerate(self.proxy_procs)
             ]
@@ -241,6 +251,7 @@ class SimCluster:
                 conflict_set=self._conflict_set,
                 epoch_begin_version=epoch_begin,
                 device=self.device,
+                set_settings=self.resolver_settings,
             )
             self.proxy = Proxy(
                 self.proxy_proc,
@@ -248,6 +259,7 @@ class SimCluster:
                 [self.resolver.interface()],
                 [self.tlog.interface()],
                 epoch_begin_version=epoch_begin,
+                grv_queue_max=self.grv_queue_max,
             )
             self.proxies = [self.proxy]
 

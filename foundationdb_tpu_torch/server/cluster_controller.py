@@ -20,13 +20,17 @@ constructor arguments at the reference's defaults
 (``max_versions_in_flight``, ``time_keeper_delay``,
 ``time_keeper_max_entries``, ``recovery_missing_machine_grace``,
 ``log_replication_factor``, ``recruitment_stabilize_window``,
-``storage_team_size``), and ``dd_settings`` are each generation's
-``DataDistributionRole`` arguments (the reference's ``dd_*`` knobs).
+``storage_team_size``, ``grv_queue_max``, which each recruited proxy
+takes, and the client's ``latency_sample_rate``, which the controller's
+own Databases take; None is the client's ``LATENCY_SAMPLE_RATE``), ``ratekeeper_settings`` are each generation's
+``Ratekeeper`` arguments (the reference's ``ratekeeper_*`` knobs), and
+``dd_settings`` its ``DataDistributionRole``'s (the ``dd_*`` knobs).
 Every generation recruits its resolver with
 ``conflict_backend`` (on the card by default) and ``resolver_settings``,
 the fields of ``worker.InitResolver`` that stand for the reference's
 environment (``key_words``, ``h_cap``, ``pipeline_depth``, ``witness``,
-``mirror_coalesce``, ``bucket_mins``, ``device``).
+``mirror_coalesce``, ``bucket_mins``, ``max_device_key_bytes``,
+``device``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from .coordination import (
     try_become_leader,
 )
 from .interfaces import CommitTransactionRequest
+from .proxy import RATEKEEPER_GRV_QUEUE_MAX
 from .worker import (
     FastForwardTLog,
     InitCoordinator,
@@ -101,8 +106,17 @@ class ClusterController:
         recruitment_stabilize_window: float = 0.75,
         storage_team_size: int = 2,
         dd_settings: Optional[dict] = None,
+        ratekeeper_settings: Optional[dict] = None,
+        grv_queue_max: int = RATEKEEPER_GRV_QUEUE_MAX,
+        latency_sample_rate: Optional[float] = None,
     ):
         self.process = process
+        self.ratekeeper_settings = dict(ratekeeper_settings or {})
+        self.grv_queue_max = grv_queue_max
+        if latency_sample_rate is None:
+            # Imported here: the client's module imports the server's.
+            from ..client.transaction import LATENCY_SAMPLE_RATE as latency_sample_rate
+        self.latency_sample_rate = latency_sample_rate
         self.coordinators = coordinators
         self.fs = fs
         self.conflict_backend = conflict_backend
@@ -454,6 +468,7 @@ class ClusterController:
             # Resolver-path springs: queue depth, resolve p99,
             # and the device backend_state over the cheap `signals` probe.
             resolver_ifaces=[res_if],
+            **self.ratekeeper_settings,
         )
         rk_if = self.ratekeeper.interface()
 
@@ -470,6 +485,7 @@ class ClusterController:
                         proxy_id=f"proxy{i}",
                         n_proxies=len(proxy_ws),
                         ratekeeper=rk_if,
+                        grv_queue_max=self.grv_queue_max,
                     ),
                 )
                 for i, proxy_w in enumerate(proxy_ws)
@@ -746,7 +762,8 @@ class ClusterController:
         from .dd_role import DataDistributionRole
 
         db = Database(
-            self.process, proxy_ifs[0], storage_ifs[0], proxies=list(proxy_ifs)
+            self.process, proxy_ifs[0], storage_ifs[0], proxies=list(proxy_ifs),
+            latency_sample_rate=self.latency_sample_rate,
         )
 
         async def seed(tr):
@@ -798,7 +815,8 @@ class ClusterController:
         )
 
         db = Database(
-            self.process, proxy_ifs[0], storage_if, proxies=list(proxy_ifs)
+            self.process, proxy_ifs[0], storage_if, proxies=list(proxy_ifs),
+            latency_sample_rate=self.latency_sample_rate,
         )
         loop = self.process.network.loop
         delay = self.time_keeper_delay
@@ -841,6 +859,7 @@ class ClusterController:
             proxy_ifs[0],
             storage_if,
             proxies=list(proxy_ifs),
+            latency_sample_rate=self.latency_sample_rate,
         )
         loop = self.process.network.loop
         while self.generation == generation and self.is_leader.get():

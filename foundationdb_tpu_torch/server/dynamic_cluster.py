@@ -165,7 +165,9 @@ class DynamicCluster:
         self._build_server_side()
 
     # --- clients ---
-    def database(self, name: str = ""):
+    def database(self, name: str = "", **kw):
+        """A client Database following the elected controller; `kw` are
+        the Database's settings."""
         from ..client.transaction import Database
 
         from .coordination import CoordinatorSet
@@ -185,7 +187,7 @@ class DynamicCluster:
         proc.spawn(
             self._monitor_client_info(proc, leader_var, info_var), "info_mon"
         )
-        return Database(proc, info_var=info_var)
+        return Database(proc, info_var=info_var, **kw)
 
     async def _monitor_client_info(self, proc, leader_var, info_var):
         """Long-poll the elected CC for ClientDBInfo (ref: monitorProxies)."""

@@ -92,8 +92,12 @@ class Proxy:
         n_satellites: int = 0,  # trailing logs that receive EVERY tag (ref:
         # satellite TLogs in the primary region — synchronous, in the ack
         # set, carrying the full stream for remote-region recovery)
+        grv_queue_max: int = RATEKEEPER_GRV_QUEUE_MAX,
     ):
         self.process = process
+        # Bound of the GRV admission queue (the reference's
+        # ratekeeper_grv_queue_max knob): beyond it the proxy sheds.
+        self.grv_queue_max = grv_queue_max
         self.epoch = epoch
         self.proxy_id = proxy_id
         self.n_proxies = n_proxies
@@ -411,7 +415,7 @@ class Proxy:
             # shed too.  Both errors are retryable: clients re-enter with
             # exponential backoff + DeterministicRandom jitter (ref: the
             # proxy memory-limit rejection in transactionStarter).
-            qmax = RATEKEEPER_GRV_QUEUE_MAX
+            qmax = self.grv_queue_max
             if len(batch) + len(lane) > qmax:
                 from ..flow.testprobe import test_probe
 

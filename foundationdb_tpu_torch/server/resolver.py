@@ -30,7 +30,10 @@ idle flush of a parked batch, virtual seconds), ``pipeline_stall_batches``,
 ``contention_spike_batches``, ``witness`` (FDB_TPU_WITNESS),
 ``mirror_check_seconds`` (FDB_TPU_MIRROR_CHECK_SECONDS),
 and ``shard_balance_seconds`` (FDB_TPU_SHARD_BALANCE_SECONDS).  Its
-samplers run at ``flow/timeseries.py``'s defaults.
+samplers run at ``flow/timeseries.py``'s defaults.  ``set_settings`` are
+further ``ConflictSet`` arguments of the set the role builds itself (the
+reference's ``conflict_*`` knobs: ``key_words``, ``h_cap``,
+``max_device_key_bytes``, ...).
 
 Virtual time is the simulator's: host work takes none, so
 ``resolve_seconds`` and the idle flush are measured on the event loop's
@@ -40,7 +43,7 @@ clock, never the card's.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 from ..conflict.api import ConflictSet
 from ..conflict.types import COMMITTED
@@ -132,6 +135,7 @@ class Resolver:
         witness: bool = True,
         mirror_check_seconds: float = 10.0,
         shard_balance_seconds: float = 0.0,
+        set_settings: Optional[dict] = None,
     ):
         self.process = process
         self.epoch = epoch
@@ -146,7 +150,7 @@ class Resolver:
         # caller names the CPU or the host backend.
         self.conflicts = conflict_set or ConflictSet(
             backend=backend, oldest_version=epoch_begin_version,
-            device=device, witness=witness,
+            device=device, witness=witness, **(set_settings or {}),
         )
         self.version = NotifiedVersion(epoch_begin_version)
         self.total_resolved = 0

@@ -11,11 +11,13 @@ The port's own copy of the reference package's ``server/worker.py``.
 ``InitResolver`` carries, beside ``backend``, the settings the reference's
 recruited set reads from its environment and knobs (FDB_TPU_H_CAP,
 FDB_TPU_PIPELINE_DEPTH, FDB_TPU_WITNESS, FDB_TPU_MIRROR_COALESCE,
-``conflict_device_key_words``) and ``device``, each at the port's
-``ConflictSet`` default: the recruited resolver's set is on the card
-unless the request names the CPU.  The reference's ``ProfilerRequest``
-waits for ``flow/profiler``, which the port has not; a worker answers an
-unknown request with client_invalid_operation.
+``conflict_device_key_words``, ``conflict_max_device_key_bytes``) and
+``device``, each at the port's ``ConflictSet`` default: the recruited
+resolver's set is on the card unless the request names the CPU.
+``InitProxy`` carries the reference's ratekeeper_grv_queue_max knob as
+``grv_queue_max``.  ``ProfilerRequest`` toggles the process's sampling
+profiler (flow/profiler.py); a worker answers an unknown request with
+client_invalid_operation.
 """
 
 from __future__ import annotations
@@ -23,11 +25,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from ..conflict.api import ConflictSet
+from ..conflict.api import MAX_DEVICE_KEY_BYTES, ConflictSet
 from ..rpc.network import SimProcess
 from ..rpc.stream import RequestStream, RequestStreamRef
 from .interfaces import ResolverInterface, SequencerInterface, TLogInterface
-from .proxy import Proxy
+from .proxy import RATEKEEPER_GRV_QUEUE_MAX, Proxy
 from .resolver import Resolver
 from .sequencer import Sequencer
 from .storage import StorageServer
@@ -63,6 +65,7 @@ class InitResolver:
     witness: bool = True
     mirror_coalesce: object = 1
     bucket_mins: tuple = (8, 8, 8)
+    max_device_key_bytes: int = MAX_DEVICE_KEY_BYTES
     device: object = None  # None: the card
 
 
@@ -138,6 +141,17 @@ class InitProxy:
     proxy_id: str = "proxy0"
     n_proxies: int = 1
     ratekeeper: object = None  # RatekeeperInterface
+    grv_queue_max: int = RATEKEEPER_GRV_QUEUE_MAX
+
+
+@dataclass
+class ProfilerRequest:
+    """Runtime CPU-profiler toggle (ref: ProfilerRequest in
+    fdbclient/ClientWorkerInterface.h, handled by worker.actor.cpp; the
+    CpuProfiler workload drives it)."""
+
+    enabled: bool = True
+    interval: float = 0.005
 
 
 class WorkerServer:
@@ -372,9 +386,14 @@ class WorkerServer:
                     proxy_id=req.proxy_id,
                     n_proxies=req.n_proxies,
                     ratekeeper=req.ratekeeper,
+                    grv_queue_max=req.grv_queue_max,
                 )
                 self._replace_role("proxy", role, new_tasks())
                 reply.send(role.interface())
+            elif isinstance(req, ProfilerRequest):
+                from ..flow.profiler import profiler_toggle
+
+                reply.send(profiler_toggle(req.enabled, req.interval))
             else:
                 reply.send_error("client_invalid_operation")
         except Exception:  # noqa: BLE001 - recruitment failed; CC retries
@@ -394,6 +413,7 @@ def resolver_set(req: InitResolver) -> ConflictSet:
         pipeline_depth=req.pipeline_depth,
         witness=req.witness,
         mirror_coalesce=req.mirror_coalesce,
+        max_device_key_bytes=req.max_device_key_bytes,
     )
 
 

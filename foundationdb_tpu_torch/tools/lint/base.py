@@ -128,9 +128,10 @@ RPY_MODULE_GLOBS = ("server/*.py", "rpc/*.py")
 # linters), which never run under a simulator: exempt where the
 # reference exempts its own tools/.  fileio/blobstore.py is the port's one
 # real-mode backend (a threaded blocking-socket client and server on the
-# wall clock): exempt where the reference exempts it, and nowhere else.
-# The reference's other real-mode modules are not ported.
-_REAL_MODE_MODULES = ("fileio/blobstore.py", "tools/*.py")
+# wall clock): exempt where the reference exempts it, and nowhere else;
+# so is flow/profiler.py, whose sampling thread is the reference's SIGPROF
+# analog.  The reference's other real-mode modules are not ported.
+_REAL_MODE_MODULES = ("fileio/blobstore.py", "flow/profiler.py", "tools/*.py")
 
 DEFAULT_ALLOW: Dict[str, Tuple[str, ...]] = {
     "DET001": ("tools/*.py",),
@@ -140,7 +141,7 @@ DEFAULT_ALLOW: Dict[str, Tuple[str, ...]] = {
     "DET101": _REAL_MODE_MODULES,
     "ERR001": ("tools/*.py",),
     # tools/cli.py's trace-export writes a file; the blob store's sockets.
-    "IO001": _REAL_MODE_MODULES,
+    "IO001": ("fileio/blobstore.py", "tools/*.py"),
     # The actor families police cooperative actors under the simulator;
     # the blob store's OS threads hand work across locks, not awaits.
     "WAIT001": ("tools/*.py",),

@@ -2,7 +2,7 @@
 phases, run concurrently against a simulated cluster.
 
 The port's own copy of the reference package's ``workloads/`` but the
-soak and the metrics and profiling workloads: the runner; the correctness workloads that check serializability, atomic
+metrics and profiling workloads: the runner; the correctness workloads that check serializability, atomic
 operations, versionstamps, read-your-writes, conflict ranges, key
 selectors, unreadable ranges, watches, external consistency and the
 database lock; the acceptance workloads WriteDuringRead and
@@ -14,7 +14,8 @@ control plane's: the chaos injectors (clogging, attrition, device faults),
 the targeted role kill, the rollback, the DD metrics read through status,
 the seeded topology, the status document's shape and the time keeper;
 and the layers': continuous backup verified by restore under chaos, and
-an atomic restore on a live cluster.
+an atomic restore on a live cluster; and the chaos soak (``soak``:
+ramped Zipf load through a rated cluster under a scripted fault matrix).
 
 Ref: fdbserver/workloads/workloads.h:55 (TestWorkload's setup/start/check/
 getMetrics contract), tester.actor.cpp:239 (CompoundWorkload running the
@@ -67,6 +68,13 @@ from .time_keeper import TimeKeeperWorkload
 from .status_workload import StatusWorkload
 from .dd_metrics import DDMetricsWorkload
 from .atomic_restore import AtomicRestoreWorkload
+from .soak import (
+    FaultEvent,
+    SoakConfig,
+    SoakPhase,
+    default_config as default_soak_config,
+    run_soak,
+)
 
 __all__ = [
     "TestWorkload",
@@ -116,4 +124,9 @@ __all__ = [
     "DDMetricsWorkload",
     "BackupCorrectnessWorkload",
     "AtomicRestoreWorkload",
+    "FaultEvent",
+    "SoakConfig",
+    "SoakPhase",
+    "default_soak_config",
+    "run_soak",
 ]

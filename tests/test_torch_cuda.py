@@ -7,8 +7,8 @@ PyTorch is installed; the repository's conftest imports jax, so there run
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Shapes are chosen to hit the kernels' edges: widths that are not a
-multiple of the merge tile, empty streams, one to eight key words, INF
-queries, long runs of dropped rows.
+multiple of the merge tile, empty streams, one to nine key words and
+seventeen (key_words 16), INF queries, long runs of dropped rows.
 """
 
 import json
@@ -63,6 +63,9 @@ def _p(kw1, N, live, M, mode="random"):
     _p(3, 50_001, 40_000, 20_000, "hot"),    # 90% of queries on 10 keys
     _p(4, 40_000, 40_000, 6000, "prefix"),   # long runs of a two-word prefix
     _p(3, 30_001, 25_000, 5000, "unaligned"),  # history not 16-byte aligned
+    _p(9, 30_001, 25_000, 5000),             # key_words 8 (the sharded soak's)
+    _p(17, 50_001, 40_000, 5000),            # key_words 16 (the soak's width)
+    _p(17, 20_000, 20_000, 3000, "tie"),     # ... every compare ties on word 0
 ])
 def test_phase1_ranks_kernel_matches_plain(dev, kw1, N, live, M, mode):
     r = np.random.default_rng(N + M)
@@ -130,7 +133,9 @@ def _m(kw1, width, NA, NB, liveA, liveB, window, mode="random"):
     _m(5, 5000, 4000, 512, 3500, 500, -(2**30)),  # floor window keeps all
     _m(3, 300_000, 300_000, 8192, 250_000, 8000, 10),
     _m(1, 20_000, 20_000, 1000, 18_000, 900, 10),    # one key word
-    _m(8, 20_000, 20_000, 1000, 18_000, 900, 10),    # kMaxWords
+    _m(8, 20_000, 20_000, 1000, 18_000, 900, 10),    # 8 words
+    _m(9, 20_000, 20_000, 1000, 18_000, 900, 10),    # key_words 8 (the sharded soak's)
+    _m(17, 20_000, 20_000, 1000, 18_000, 900, 10),   # kMaxWords: key_words 16
     _m(3, 20_000, 20_000, 0, 19_000, 0, 10),         # NB = 0
     _m(3, 1000, 1, 64, 1, 40, 10),                   # NA = 1
     _m(3, 50_000, 10_000, 1000, 9000, 900, 10),      # width > NA + NB
@@ -1659,3 +1664,133 @@ def test_layers_on_the_card_match_the_cpu(dev, depth):
     smoke.card_served("layers", sets, launches, tot)
     assert tot["batches"] == sum(b for b, _ok in cuda["sets"]) > 0
     assert all(ok == "ok" for _b, ok in cuda["sets"])
+
+
+def _soak_warm_snapshot():
+    """tests/test_torch_soak_smoke.py's small key_words=2 state."""
+    from foundationdb_tpu_torch.conflict import api
+
+    smoke = _chip_smoke()
+    cs = api.ConflictSet(device="cpu", key_words=2, h_cap=1 << 12)
+    rng = np.random.default_rng(1)
+    for i in range(6):
+        cs._detect(smoke.gen_txns(TT, rng, 256, i, keyspace=100_000), i + 4, i)
+    return cs._cpu.snapshot()
+
+
+def test_acceptance_soak_on_the_card_matches_the_cpu(dev):
+    """chip_smoke's phase 4z (soak_path) at the rig's history (h_cap
+    16,384) from tests/test_torch_soak_smoke.py's small warm state, on the
+    card and on the CPU: phase 4z's checks hold on both (on the card each
+    kernel launches once in every card batch, none outside the outage's
+    window on the mirror), and the batches a generation, each phase's
+    counts, the totals, the fault timeline, the outage's window, the
+    transition logs and `cli soak`'s artifact are equal."""
+    from foundationdb_tpu_torch.tools import cli
+    from foundationdb_tpu_torch.workloads import soak
+
+    smoke = _chip_smoke()
+    snap = _soak_warm_snapshot()
+    runs = {}
+    for device in (None, "cpu"):
+        runs[device] = smoke.soak_path(torch, soak, cli, tk, {"warm_snapshot": snap}, {},
+                                       device=device, h_cap=1 << 14)
+    keys = ("batches", "mirror", "per_gen", "phases", "faults", "totals", "window",
+            "transitions", "cli")
+    assert {k: runs[None][k] for k in keys} == {k: runs["cpu"][k] for k in keys}
+    assert runs[None]["launches"] == dict.fromkeys(tk.LAUNCHES, runs[None]["batches"])
+
+
+def _cli_record(device, sharded):
+    """The CLI over the port's SimCluster(n_resolvers=2) with every set on
+    `device` at the rig's shape: with `sharded`, resolver 0 a 2-shard
+    ShardedTorchConflictSet, else both ConflictSets; a hot key fought over
+    by 12 actors from a client sampling every transaction, then the
+    commands.  Text mirror-check is left out over the sharded set: its
+    report has no top-level boundary count, and the CLI's text form raises
+    KeyError there, the reference's too.  Returns each command's lines,
+    the device-program tables, the sharded set's card-only "kernels" block
+    and the device registry's counters of the host's dealings with the
+    card (chip_smoke's DEVICE_HOST_COUNTERS) left out."""
+    from foundationdb_tpu_torch.flow import eventloop as el
+    from foundationdb_tpu_torch.flow import flight_recorder as fr
+    from foundationdb_tpu_torch.flow import spans, timeseries, trace
+    from foundationdb_tpu_torch.flow.error import FdbError
+    from foundationdb_tpu_torch.parallel.sharded_resolver import ShardedTorchConflictSet
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+    from foundationdb_tpu_torch.tools.cli import CliProcessor
+
+    smoke = _chip_smoke()
+    shape = dict(key_words=3, h_cap=1 << 10, bucket_mins=(32, 128, 64))
+    hubs = smoke.PortHubs(spans, trace, fr)
+    saved = timeseries.global_timeseries()
+    timeseries.set_global_timeseries(timeseries.TimeSeriesHub())
+    try:
+        cs = ShardedTorchConflictSet([b"h"], device=device, **shape) if sharded else None
+        c = SimCluster(seed=4240, n_resolvers=2, conflict_set=cs, device=device,
+                       resolver_settings=shape, buggify=False)
+        db = c.database("cli", latency_sample_rate=1.0)
+
+        async def one(i):
+            tr = db.create_transaction()
+            while True:
+                try:
+                    await tr.get(b"hot")
+                    tr.set(b"hot", b"%d" % i)
+                    tr.set(b"\x90cold%02d" % i, b"v")
+                    await tr.commit()
+                    return
+                except FdbError as e:
+                    await tr.on_error(e)
+
+        c.run_all([(db, one(i)) for i in range(12)], timeout_vt=500.0)
+        cli = CliProcessor(c, db)
+        out = {}
+        for line in ("status", "status json", "metrics", "metrics --format=json", "latency",
+                     "latency --chains", "contention", "contention --format=json", "shards",
+                     "shards --format=json", "mirror-check", "mirror-check --format=json"):
+            if sharded and line == "mirror-check":
+                continue
+            lines = c.run_until(db.process.spawn(cli.run_command(line)), timeout_vt=600.0)
+            if lines and lines[0] == "{":
+                doc = smoke.without_device_host_counters(json.loads("\n".join(lines)))
+                tpus = [doc.get("tpu") or {},
+                        doc.get("cluster", {}).get("resolver", {}).get("tpu") or {}]
+                for tpu in tpus:
+                    for snap in tpu.values():
+                        snap.pop("programs", None)
+                        snap.pop("kernels", None)
+                lines = json.dumps(doc, indent=2, sort_keys=True).splitlines()
+            out[line] = [ln for ln in lines if not ln.lstrip().startswith(
+                ("programs.", "kernels.",
+                 *(f"counters.{c} =" for c in smoke.DEVICE_HOST_COUNTERS)))]
+        return out
+    finally:
+        hubs.restore()
+        timeseries.set_global_timeseries(saved)
+        el.set_event_loop(None)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_cli_over_a_card_served_cluster_matches_the_cpu(dev, sharded):
+    """CliProcessor over a SimCluster whose resolvers' sets are on the card
+    (two ConflictSets, or a sharded set and a ConflictSet): status, status
+    json, metrics, latency and latency --chains, contention, shards and
+    mirror-check print the same lines on cuda as on cpu (less the device
+    registry's host_allocs and host_syncs), both kernels launching on the
+    card."""
+    before = dict(tk.LAUNCHES)
+    cuda = _cli_record("cuda", sharded)
+    launches = {k: tk.LAUNCHES[k] - before[k] for k in before}
+    cpu = _cli_record("cpu", sharded)
+    for line in cpu:
+        diff = next(((i, a, b) for i, (a, b) in enumerate(zip(cuda[line], cpu[line])) if a != b),
+                    None)
+        assert cuda[line] == cpu[line], (line, diff, len(cuda[line]), len(cpu[line]))
+    assert all(launches.values()), launches
+    assert cuda["latency --chains"][0] == "commit pipeline (seconds):"
+    if sharded:
+        assert cuda["shards"][0].startswith("resolver: 2/2 shards")
+    else:
+        assert cuda["shards"] == ["(no mesh-sharded resolvers live)"]
+        assert len(cuda["mirror-check"]) == 2 and all("OK" in ln for ln in cuda["mirror-check"])

@@ -233,7 +233,8 @@ def test_registry_is_the_reference_families():
     assert base.RULES["ENV001"] == "any FDB_TPU_* environment read: the port has no flags"
     assert base.WALL_CLOCK == REF_WALL_CLOCK
     # tools/ is exempt exactly where the reference exempts its tools/, and
-    # fileio/blobstore.py exactly where the reference exempts it.
+    # fileio/blobstore.py and flow/profiler.py exactly where the reference
+    # exempts them.
     ref_tools = {r for r, globs in REF_ALLOW.items() if "tools/*.py" in globs and r in APPLICABLE}
     assert set(base.DEFAULT_ALLOW) == ref_tools == {
         "DET001", "DET003", "DET101", "ERR001", "IO001", "WAIT001", "WAIT002", "PRM001",
@@ -242,8 +243,12 @@ def test_registry_is_the_reference_families():
                 if "fileio/blobstore.py" in globs and r in APPLICABLE}
     assert ref_blob == {"DET003", "DET101", "IO001", "PRM001", "PRM002", "PRM003", "PRM004",
                         "TSK001", "RACE001", "RACE002", "RACE003", "RACE004"}
-    assert all(globs == (("fileio/blobstore.py", "tools/*.py") if rule in ref_blob
-                         else ("tools/*.py",))
+    ref_profiler = {r for r, globs in REF_ALLOW.items()
+                    if "flow/profiler.py" in globs and r in APPLICABLE}
+    assert ref_profiler == ref_blob - {"IO001"}
+    assert all(globs == tuple(m for m, rules in (("fileio/blobstore.py", ref_blob),
+                                                 ("flow/profiler.py", ref_profiler))
+                              if rule in rules) + ("tools/*.py",)
                for rule, globs in base.DEFAULT_ALLOW.items())
 
 
@@ -254,9 +259,9 @@ def test_registry_is_the_reference_families():
 PORT_PRAGMAS = [
     # The GRV lane dicts are per-flag singletons (the reference's three
     # WAIT001 pragmas and reasons).
-    ("client/transaction.py", 175, ["WAIT001"]),
-    ("client/transaction.py", 176, ["WAIT001"]),
-    ("client/transaction.py", 225, ["WAIT001"]),
+    ("client/transaction.py", 181, ["WAIT001"]),
+    ("client/transaction.py", 182, ["WAIT001"]),
+    ("client/transaction.py", 231, ["WAIT001"]),
     # The commit chain gate serializes _commit_locked (RACE001, the
     # reference's).
     # The blob store's rate control and retry backoff meter the real
@@ -282,7 +287,7 @@ PORT_PRAGMAS = [
     # DD's storage liveness probe: any failure is the negative verdict (the
     # reference's pragma and reason).
     ("server/dd_role.py", 172, ["ERR001"]),
-    ("server/proxy.py", 459, ["ERR001"]),
+    ("server/proxy.py", 463, ["ERR001"]),
     # The balancer's deliberate snapshot, re-validated by its commit.
     ("server/resolver_balancer.py", 112, ["WAIT001"]),
     ("server/resolver_balancer.py", 161, ["ERR001"]),

@@ -4,8 +4,8 @@ Twins of every test of tests/test_ratekeeper.py (17), each at the
 reference test's seed and shape: the reference's ``SimCluster`` and
 ``Ratekeeper`` (its knobs set in its arm and restored) and the port's
 (the same values passed to the port's constructor) run one script.  The
-port reads no knob: ``ratekeeper_grv_queue_max`` is the port proxy's
-``RATEKEEPER_GRV_QUEUE_MAX``, patched in the port's arm.  Held equal:
+port reads no knob: ``ratekeeper_grv_queue_max`` is the port's
+``SimCluster(grv_queue_max=)``, every proxy's GRV queue bound.  Held equal:
 every ``RateInfo`` the ratekeeper sets, with its virtual time; the
 transitions log byte for byte (``transition_log_json``); every read
 version a client asked for, with its virtual time and outcome; every
@@ -58,8 +58,8 @@ def ref_knob(name):
 @contextlib.contextmanager
 def knobs(pkg, settings, monkeypatch=None):
     """In the reference's arm, its knobs set to `settings` (port names)
-    while open; the port's arm takes them as constructor arguments.
-    ``grv_queue_max`` is the port proxy's module constant."""
+    while open; the port's arm takes them as constructor arguments
+    (``grv_queue_max`` the cluster's)."""
     if pkg == "ref":
         saved = {k: getattr(g_knobs.server, ref_knob(k)) for k in settings}
         for k, v in settings.items():
@@ -70,9 +70,6 @@ def knobs(pkg, settings, monkeypatch=None):
             for k, v in saved.items():
                 setattr(g_knobs.server, ref_knob(k), v)
     else:
-        if "grv_queue_max" in settings:
-            proxy = importlib.import_module("foundationdb_tpu_torch.server.proxy")
-            monkeypatch.setattr(proxy, "RATEKEEPER_GRV_QUEUE_MAX", settings["grv_queue_max"])
         yield
 
 
@@ -131,7 +128,9 @@ def rated(pkg, seed, script, settings=(), arm="cpu", monkeypatch=None):
     TWINS._install_hubs(pkg)
     Rk = SMOKE.recorded_ratekeeper(rk_mod(pkg))
     with knobs(pkg, settings, monkeypatch):
-        c = TWINS.cluster(m, arm, seed)
+        grv = ({"grv_queue_max": settings["grv_queue_max"]}
+               if pkg == "port" and "grv_queue_max" in settings else {})
+        c = TWINS.cluster(m, arm, seed, **grv)
         kw = {k: v for k, v in settings.items() if k != "grv_queue_max"} if pkg == "port" else {}
         rk = Rk(c.master_proc, [c.tlog], [c.storage], **kw)
         c.proxy.ratekeeper = rk.interface()

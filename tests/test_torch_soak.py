@@ -28,6 +28,18 @@ sort_keys=True)``, whole: spans, trace events, captures and the engine
 registry's time series included (EXCLUDED is empty).  Twins of
 tests/test_soak.py:133 (device outage), :192 (shard kill, 4 shards) and
 :243 (same seed, same report), and one soak with a ``shard_move`` fault.
+
+The third arm is the port's own soak: ``foundationdb_tpu_torch.workloads.
+soak.run_soak`` of the same configs (backend "torch" for the reference's
+"jax", ``device="cpu"``), on the port's own cluster, Ratekeeper, client
+and hubs; its report equals the same reference report less
+tests/test_torch_soak_twins.py's NAME_MAP (the backend's name and the
+device registry's) and EXCLUDED (that registry's host_syncs and
+host_allocs), and two same-seed runs of it are byte-identical.
+Then the port's own soak against the reference's on two more configs
+whose JAX programs this file has compiled by then: tests/test_soak.py:234
+(the shard-kill replay) and tests/test_witness.py:663 (the contention
+soak).
 """
 
 import copy
@@ -49,6 +61,7 @@ from foundationdb_tpu_torch.conflict.api import ConflictSet
 from foundationdb_tpu_torch.conflict.device_faults import DeviceFaultInjector
 from foundationdb_tpu_torch.parallel.sharded_resolver import ShardedTorchConflictSet
 
+import foundationdb_tpu_torch.workloads.soak as port_soak
 from test_soak import _limiting_within
 
 
@@ -56,6 +69,19 @@ from test_soak import _limiting_within
 def _clean_loop():
     yield
     set_event_loop(None)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the simulated clusters' tensors are small, and
+    a thread per core costs several times the CPU when test processes
+    share the cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 # Report parts the port cannot produce, each with its reason: none.  The
@@ -315,3 +341,175 @@ def test_soak_shard_move_through_the_port(reference_reports, port_runs):
     assert [e["action"] for e in block["move_log"]] == ["live", "live"]
     assert block["reshards"] == 2
     assert rep["slo"]["ok"], rep["slo"]
+
+
+# ---------------------------------------------------------------------------
+# the third arm: the port's own run_soak
+# ---------------------------------------------------------------------------
+
+
+def to_port(config):
+    """The port's SoakConfig of a reference config: the same fields, the
+    device backend "torch" for "jax", on the CPU."""
+    out = port_soak.SoakConfig(**{
+        f: getattr(config, f) for f in config.__dataclass_fields__
+        if f not in ("phases", "faults")})
+    out.phases = [port_soak.SoakPhase(**vars(p)) for p in config.phases]
+    out.faults = [port_soak.FaultEvent(**vars(f)) for f in config.faults]
+    out.backend = {"jax": "torch"}.get(config.backend, config.backend)
+    out.device = "cpu"
+    return out
+
+
+def _name_map():
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "_soak_twins_soak", pathlib.Path(__file__).resolve().parent / "test_torch_soak_twins.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def own_runs():
+    """The port's own report of each config, made once and shared."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = port_soak.run_soak(to_port(CONFIGS[name]()))
+        return cache[name]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def twins():
+    return _name_map()
+
+
+def test_soak_device_outage_through_the_ports_own_soak(reference_reports, own_runs, twins):
+    """Twin of tests/test_soak.py:133 through the port's own soak: its
+    report equals the reference's (less NAME_MAP and EXCLUDED), the
+    breaker walk is legal and ends ok, the ratekeeper contracts to the
+    degraded cap inside the
+    window and releases after, and the breaker_open capture holds the
+    device registry's samples under the port's name."""
+    rep = own_runs("device_outage")
+    twins.assert_reports_equal(rep, reference_reports("device_outage"))
+    assert rep["slo"]["ok"] and rep["config"]["backend"] == "torch"
+    (t0, kind, _detail, t1), = rep["faults"]
+    log = rep["ratekeeper"]["admission_log"]
+    assert any(e[1] == "backend_degraded" for e in _limiting_within(log, t0, t1 + 0.5)), log
+    assert log[-1][1] == "none", log
+    (transitions,) = rep["breakers"].values()
+    assert transitions and _legal_walk(transitions) == "ok"
+    cap = next(c for c in rep["flight_recorder"]["captures"] if c["trigger"] == "breaker_open")
+    series = cap["timeseries"]
+    dev = next(v for k, v in series.items() if k.startswith("TorchConflict"))
+    assert sum(s["counters"].get("batches", 0) for s in dev) > 0
+    assert "Ratekeeper" in series and "Resolver.resolver" in series
+    assert rep["pipeline"]["resolver"]["dispatches"] > 0
+
+
+def test_soak_shard_kill_through_the_ports_own_soak(reference_reports, own_runs, twins):
+    """Twin of tests/test_soak.py:192 through the port's own soak: equal to
+    the reference's report; only shard 1's breaker walks, and recovers."""
+    rep = own_runs("shard_kill")
+    twins.assert_reports_equal(rep, reference_reports("shard_kill"))
+    (t0, kind, detail, t1), = rep["faults"]
+    rname = detail.split(":")[0]
+    assert kind == "shard_kill" and rep["slo"]["ok"]
+    walked = {k for k, tr in rep["breakers"].items() if tr}
+    assert walked == {f"{rname}.shard1"}
+    assert rep["shards"][rname]["states"] == ["ok"] * 4
+
+
+def test_soak_shard_move_through_the_ports_own_soak(reference_reports, own_runs, twins):
+    """The two scripted reshards through the port's own soak: equal to the
+    reference's report; 4 -> 6 shards, both moves live."""
+    rep = own_runs("shard_move")
+    twins.assert_reports_equal(rep, reference_reports("shard_move"))
+    (block,) = rep["resharding"]["resolvers"].values()
+    assert block["shards"] == 6 and [e["action"] for e in block["move_log"]] == ["live", "live"]
+
+
+def test_the_ports_own_soak_same_seed_same_report(reference_reports, own_runs, twins):
+    """Two same-seed runs of the port's own device-outage soak: byte-identical
+    reports and transition logs, the latter equal to the reference's."""
+    a = own_runs("device_outage")
+    b = port_soak.run_soak(to_port(CONFIGS["device_outage"]()))
+    assert json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+    assert port_soak.transition_logs_json(a) == port_soak.transition_logs_json(b)
+    assert port_soak.transition_logs_json(a) == soak.transition_logs_json(
+        reference_reports("device_outage"))
+
+
+def test_soak_shard_kill_same_seed_byte_identical(reference_reports, twins):
+    """Twin of tests/test_soak.py:234 (after the shard-kill soak above, so
+    the reference's sharded programs are compiled): the shard-outage soak
+    at 4 shards, shard 2's device lost for the middle phase, seed 23, 32
+    keys, twice through the port's own soak, byte for byte, and equal to
+    the reference's report."""
+    def cfg(mod):
+        c = mod.shard_outage_config(minutes=0.1, peak_tps=40.0, seed=23, shard=2, n_shards=4)
+        c.keys = 32
+        c.drain_timeout = 5.0
+        return c
+
+    want = soak.run_soak(cfg(soak))
+    runs = []
+    for _ in range(2):
+        c = cfg(port_soak)
+        c.device = "cpu"
+        runs.append(port_soak.run_soak(c))
+    a, b = runs
+    assert json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+    assert port_soak.transition_logs_json(a) == port_soak.transition_logs_json(b)
+    assert port_soak.transition_logs_json(a) == soak.transition_logs_json(want)
+    twins.assert_reports_equal(a, want)
+    assert any(a["breakers"].values()), a["breakers"]
+
+
+def test_soak_contention_block_spike_capture_and_replay(twins):
+    """Twin of tests/test_witness.py:663 (after the device-outage soak
+    above, so the reference's programs are compiled):
+    ``contention_config(minutes=0.05, peak_tps=100.0, seed=3,
+    witness_retry=True)`` on the device backend with the contention spike
+    threshold at 3 batches (the reference's
+    resolver_contention_spike_batches knob; the port's Resolver argument
+    ``contention_spike_batches``, set for the run as
+    tests/test_torch_cli.py's KnobShim sets it).  The reference's soak
+    runs once, the port's twice on the CPU: the contention block (witness
+    batches, the per-range timeline, the decayed top-K, hint-guided
+    retries), exactly one contention_spike capture, the same report
+    twice, equal to the reference's less NAME_MAP and EXCLUDED."""
+    from foundationdb_tpu.flow.knobs import g_knobs
+
+    kw = dict(minutes=0.05, peak_tps=100.0, seed=3, witness_retry=True)
+    old = g_knobs.server.resolver_contention_spike_batches
+    g_knobs.server.resolver_contention_spike_batches = 3
+    try:
+        want = soak.run_soak(soak.contention_config(**kw))
+    finally:
+        g_knobs.server.resolver_contention_spike_batches = old
+    runs = []
+    with twins.CLI.port_defaults():
+        twins.CLI.KnobShim().server.resolver_contention_spike_batches = 3
+        for _ in range(2):
+            cfg = port_soak.contention_config(**kw)
+            cfg.device = "cpu"
+            runs.append(port_soak.run_soak(cfg))
+    rep = runs[0]
+    assert json.dumps(runs[1], sort_keys=True) == json.dumps(rep, sort_keys=True)
+    twins.assert_reports_equal(rep, want)
+    ct = rep["contention"]
+    assert ct["witness_retry"] is True and ct["hint_retries"] > 0
+    (res,) = [r for r in ct["resolvers"].values() if r["aborts"] > 0]
+    assert res["witness_batches"] > 0 and res["topk"] and res["timeline"]
+    assert ct["spike_captures"] == 1 and res["spikes"] == 1
+    caps = [c for c in rep["flight_recorder"]["captures"] if c["trigger"] == "contention_spike"]
+    assert len(caps) == 1 and caps[0]["detail"]["streak"] >= 3
+    assert rep["config"]["backend"] == "torch"

@@ -12,13 +12,15 @@ typing, so it is the oracle: the port's ``perfetto_json`` and
 ``perfetto_trace`` equal it on the same hub, with and without wall times
 and a ``last_n``.
 
-The CLI: ``CliProcessor().run_command`` of ``trace-export``, ``latency``
-and ``flightrec`` prints the reference ``CliProcessor``'s lines on the same
-hubs and recorder (test_spans.py:522 and test_flight_recorder.py:365-380),
-with the reference's ``SimCluster(conflict_set=<the port's set>)`` and the
-hub, collector and recorder installed into both packages as
-tests/test_torch_spans.py does; the reference's ``latency`` adds the
-Resolver's host_fraction line, which the port leaves out.
+The CLI: ``await CliProcessor(cluster, db).run_command(line)`` of
+``trace-export``, ``latency`` and ``flightrec`` prints the reference
+``CliProcessor``'s lines on the same hubs and recorder (test_spans.py:522
+and test_flight_recorder.py:365-380), with the reference's
+``SimCluster(conflict_set=<the port's set>)`` behind both processors and
+the hub, collector and recorder installed into both packages as
+tests/test_torch_spans.py does: ``latency``'s host_fraction line too.  The
+commands that read only the globals also serve a processor on no cluster
+(``CliProcessor(None, None)``).
 
 Shapes: key_words=3, bucket_mins=(32, 128, 64), h_cap=1<<10.  The
 tolerance is zero: bytes are compared.
@@ -172,6 +174,16 @@ def _ref_lines(c, db, cli, line):
     return c.loop.run_until(db.process.spawn(cli.run_command(line)), timeout_vt=60.0)
 
 
+def _at_once(coro):
+    """The lines of a command that completes without waiting."""
+    try:
+        coro.send(None)
+    except StopIteration as done:
+        return done.value
+    coro.close()
+    raise AssertionError("the command waited on the event loop")
+
+
 def _cluster_run(seed, n_commits=6):
     """The reference's SimCluster over the port's ConflictSet at depth 2 on
     fresh reference hubs installed into both packages: commits, then each
@@ -184,7 +196,7 @@ def _cluster_run(seed, n_commits=6):
     cs = ConflictSet(key_words=4, h_cap=1 << 10, device="cpu", pipeline_depth=2)
     c = SimCluster(seed=seed, conflict_set=cs)
     db = c.database("sp")
-    ref_cli, port_cli = RefCli(c, db), CliProcessor()
+    ref_cli, port_cli = RefCli(c, db), CliProcessor(c, db)
 
     async def load():
         for i in range(n_commits):
@@ -197,7 +209,7 @@ def _cluster_run(seed, n_commits=6):
     out = {}
     for line in ("trace-export", "latency", "latency --format=json", "flightrec",
                  "flightrec --format=json"):
-        out[line] = (_ref_lines(c, db, ref_cli, line), port_cli.run_command(line))
+        out[line] = (_ref_lines(c, db, ref_cli, line), _ref_lines(c, db, port_cli, line))
     set_event_loop(None)
     return out
 
@@ -206,13 +218,11 @@ def test_cli_trace_export_and_latency_equal_the_reference():
     """tests/test_spans.py:522 with the port's set behind the cluster:
     trace-export is one line, valid, byte-identical to the reference CLI's
     and across runs of one seed, different for another; latency's lines
-    are the reference's less its host_fraction line."""
+    are the reference's, the Resolver's host_fraction line with them."""
     run1, run2, run3 = _cluster_run(4242), _cluster_run(4242), _cluster_run(4243)
     for line, (want, got) in run1.items():
-        if line == "latency":
-            assert want[-1].startswith("host_fraction: ")
-            want = want[:-1]
         assert got == want, line
+    assert run1["latency"][1][-1].startswith("host_fraction: ")
     (blob,) = run1["trace-export"][1]
     assert blob == run2["trace-export"][1][0] != run3["trace-export"][1][0]
     doc = json.loads(blob)
@@ -238,7 +248,7 @@ def test_cli_flightrec_equals_the_reference():
         cs = ConflictSet(key_words=4, h_cap=1 << 10, device="cpu", pipeline_depth=1)
         c = SimCluster(seed=5150, conflict_set=cs)
         db = c.database("fr")
-        ref_cli, port_cli = RefCli(c, db), CliProcessor()
+        ref_cli, port_cli = RefCli(c, db), CliProcessor(c, db)
 
         async def load():
             for i in range(4):
@@ -250,7 +260,7 @@ def test_cli_flightrec_equals_the_reference():
         c.run_until(db.process.spawn(load(), "load"), timeout_vt=1000.0)
 
         def both(line):
-            want, got = _ref_lines(c, db, ref_cli, line), port_cli.run_command(line)
+            want, got = _ref_lines(c, db, ref_cli, line), _ref_lines(c, db, port_cli, line)
             assert got == want, line
             return got
 
@@ -264,25 +274,33 @@ def test_cli_flightrec_equals_the_reference():
 
 
 def test_cli_surface(tmp_path):
-    """help lists the four commands; --out writes the export and reports
-    it; --include-wall adds wall times; an empty hub, an unknown command,
-    latency's left-out --chains and a bad quote each give their line."""
-    cli = CliProcessor()
-    assert [ln.split(" ")[0] for ln in cli.run_command("help")] == [
-        "flightrec", "help", "latency", "trace-export"]
-    assert cli.run_command("latency") == ["latency: no spans recorded"]
+    """help lists the reference's commands; on no cluster, the commands of
+    the globals print the reference CLI's lines (latency on an empty hub
+    falls back to the chains, an explorer finds no resolver); --out writes
+    the export and reports it; --include-wall adds wall times; an unknown
+    command and a bad quote each give their line."""
+    from foundationdb_tpu.tools.cli import CliProcessor as RefCli
+
+    _install(port_spans.SpanHub(), port_trace.TraceCollector(), port_fr.FlightRecorder())
+    cli, ref = CliProcessor(None, None), RefCli(None, None)
+    assert [ln.split(" ")[0] for ln in _at_once(cli.run_command("help"))] == sorted(RefCli.HELP)
+    for line in ("latency", "latency --chains", "latency --format=json", "flightrec",
+                 "shards", "contention", "mirror-check", "frobnicate", "latency 'x", ""):
+        assert _at_once(cli.run_command(line)) == _at_once(ref.run_command(line)), line
+    assert _at_once(cli.run_command("latency"))[0] == "commit pipeline (seconds):"
     _pipelined_hub(3)
-    (blob,) = cli.run_command("trace-export")
+    (blob,) = _at_once(cli.run_command("trace-export"))
     assert blob == perfetto_json()
-    (walled,) = cli.run_command("trace-export --include-wall")
+    (walled,) = _at_once(cli.run_command("trace-export --include-wall"))
     assert '"wall_ms"' in walled and '"wall_ms"' not in blob
     path = tmp_path / "trace.json"
-    (line,) = cli.run_command(f"trace-export --out={path}")
+    (line,) = _at_once(cli.run_command(f"trace-export --out={path}"))
     hub = global_span_hub()
     assert line == (f"wrote {path} ({sum(len(r) for r in hub.rings.values())} spans, "
                     f"{len(hub.rings)} role tracks)")
     assert path.read_text() == blob + "\n"
-    assert cli.run_command("latency --chains")[0].startswith("ERROR: latency takes only")
-    assert cli.run_command("shards") == ["ERROR: unknown command `shards'; type `help' for help"]
-    assert cli.run_command("latency 'x")[0].startswith("ERROR: ")
-    assert cli.run_command("") == []
+    assert _at_once(cli.run_command("soak"))[0].startswith(
+        "ERROR: soak runs its own rated cluster")
+    assert _at_once(cli.run_command("frobnicate")) == [
+        "ERROR: unknown command `frobnicate'; type `help' for help"]
+    assert _at_once(cli.run_command("latency 'x"))[0].startswith("ERROR: ")

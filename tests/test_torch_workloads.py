@@ -169,7 +169,8 @@ def test_port_exports_only_the_client_workloads():
         "ConfigureDatabaseWorkload", "SlowTaskWorkload", "RandomMoveKeysWorkload",
         "DDBalanceWorkload", "RemoveServersSafelyWorkload", "TargetedKillWorkload",
         "AttritionWorkload", "DeviceChaosWorkload", "RandomCloggingWorkload", "SimulationConfig", "RollbackWorkload", "TimeKeeperWorkload", "StatusWorkload",
-        "DDMetricsWorkload", "BackupCorrectnessWorkload", "AtomicRestoreWorkload"])
+        "DDMetricsWorkload", "BackupCorrectnessWorkload", "AtomicRestoreWorkload",
+        "FaultEvent", "SoakConfig", "SoakPhase", "default_soak_config", "run_soak"])
     ref = TWINS.mods("ref").wl
     assert set(port.__all__) < set(ref.__all__)
 
